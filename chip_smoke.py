@@ -16,7 +16,19 @@
    distributions, bridged with ``bridge.from_flax``): a few requests of 256
    crops in bfloat16 and float32 through ``serve.Server``, counting kernel
    launches, then the same batch forced through the plain versions on the
-   card for comparison.
+   card for comparison;
+5. holds the two training attention kernels (full and banded) against their
+   plain versions at the four attention shapes of the SVTR training forward
+   (f32 and bf16, forward, and f32 gradients through the autograd
+   Functions), timed beside the plain version, one
+   ``F.scaled_dot_product_attention`` call (timed only) and the bound;
+6. trains task 5 of the 6-task SVTR-MRN sequence at full width through
+   ``MRN.incremental_train`` (5 frozen random experts plus the new one,
+   batch 256 of synthetic crops from a uint8 bank on the card): step 0
+   (the new expert) and step 1 (the router over 6 experts), bf16 then f32,
+   printing each step's loss, time and images/s and counting kernel
+   launches; then, in bf16 and f32, one step-0 step on the kernel path
+   against the same step on the plain versions (loss, grad norm, fc grad).
 
 Any failed check raises (exit code != 0).  The line before the last is the
 per-kernel JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -25,6 +37,7 @@ Exits non-zero without printing a result when no CUDA card is present.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -40,9 +53,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from mrn_tpu_torch.config import load_config  # noqa: E402
-from mrn_tpu_torch.models.svtr import Block, configure_blocks  # noqa: E402
-from mrn_tpu_torch.ops import _build, svtr_block  # noqa: E402
+from mrn_tpu_torch.data.synthetic import SyntheticTaskLoader, alphabet_of_size  # noqa: E402
+from mrn_tpu_torch.models.init import (random_block, random_mrn,  # noqa: E402
+                                       random_recognizer, random_router)
+from mrn_tpu_torch.models.svtr import (Block, configure_blocks,  # noqa: E402
+                                       local_attention_mask_col_major)
+from mrn_tpu_torch.ops import _build, svtr_attention, svtr_block  # noqa: E402
 from mrn_tpu_torch.serve import Server  # noqa: E402
+from mrn_tpu_torch.train.learners.mrn import MRN  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the full 700 W limit.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -66,111 +84,34 @@ CLASS_COUNTS = (2000, 2500, 3000, 3500, 4000, 4500)
 REQUESTS = {"bfloat16": 3, "float32": 2}
 SEED = 0
 
-
-# ------------------------------------------------------------ random weights
-def _trunc02(rng, shape):
-    """truncated_normal(stddev=.02, lower=-2, upper=2), as flax initialises
-    SVTR kernels."""
-    z = rng.standard_normal(shape)
-    bad = np.abs(z) > 2.0
-    while bad.any():
-        z[bad] = rng.standard_normal(int(bad.sum()))
-        bad = np.abs(z) > 2.0
-    return (0.02 * z).astype(np.float32)
-
-
-def _torch_dense(rng, fan_in, fan_out):
-    bound = 1.0 / np.sqrt(fan_in)
-    return {"kernel": rng.uniform(-bound, bound, (fan_in, fan_out)).astype(np.float32),
-            "bias": rng.uniform(-bound, bound, (fan_out,)).astype(np.float32)}
-
-
-def _conv(rng, cin, cout):
-    std = np.sqrt(2.0 / (cin * 9))  # kaiming normal, fan_in
-    return {"kernel": (std * rng.standard_normal((3, 3, cin, cout))).astype(np.float32),
-            "bias": np.zeros((cout,), np.float32)}
-
-
-def _affine(c, bias):
-    """LayerNorm/BatchNorm scale 1 and a constant bias."""
-    return {"scale": np.ones((c,), np.float32),
-            "bias": np.full((c,), bias, np.float32)}
-
-
-def random_block(rng, c, hidden=None):
-    hidden = hidden or 4 * c
-    ones, zeros = np.ones((c,), np.float32), np.zeros
-    return dict(norm1_scale=ones.copy(), norm1_bias=ones.copy(),
-                qkv_kernel=_trunc02(rng, (c, 3 * c)), qkv_bias=zeros((3 * c,), np.float32),
-                proj_kernel=_trunc02(rng, (c, c)), proj_bias=zeros((c,), np.float32),
-                norm2_scale=ones.copy(), norm2_bias=ones.copy(),
-                fc1_kernel=_trunc02(rng, (c, hidden)), fc1_bias=zeros((hidden,), np.float32),
-                fc2_kernel=_trunc02(rng, (hidden, c)), fc2_bias=zeros((c,), np.float32))
-
-
-def random_recognizer(rng, opt, num_classes, embed=(64, 128, 256), depth=(3, 6, 3)):
-    """One SVTR Recognizer's flax (params, batch_stats) trees, numpy, in the
-    JAX package's init distributions."""
-    e0, e1, e2 = embed
-    h0, w0 = opt.imgH // 4, opt.imgW // 4
-    ln = lambda c: _affine(c, 1.0)  # noqa: E731  (SVTR quirk: LN bias 1)
-    bn = lambda c: _affine(c, 0.0)  # noqa: E731
-    feature = {
-        "patch_embed": {"conv1": _conv(rng, opt.input_channel, e0 // 2), "bn1": bn(e0 // 2),
-                        "conv2": _conv(rng, e0 // 2, e0), "bn2": bn(e0)},
-        "pos_embed": _trunc02(rng, (1, h0 * w0, e0)),
-        "sub_sample1": {"conv": _conv(rng, e0, e1), "norm": ln(e1)},
-        "sub_sample2": {"conv": _conv(rng, e1, e2), "norm": ln(e2)},
-        "sub_sample3": {"conv": _conv(rng, e2, opt.output_channel),
-                        "norm": ln(opt.output_channel)},
-    }
-    for stage, (dim, n) in enumerate(zip(embed, depth), start=1):
-        for i in range(n):
-            feature[f"blocks{stage}_{i}"] = random_block(rng, dim)
-    params = {"extractor": {"feature": feature,
-                            "seq_linear": _torch_dense(rng, opt.output_channel,
-                                                       opt.hidden_size)},
-              "fc": _torch_dense(rng, opt.hidden_size, num_classes)}
-    stats = {"extractor": {"feature": {"patch_embed": {
-        "bn1": {"mean": np.zeros((e0 // 2,), np.float32),
-                "var": np.ones((e0 // 2,), np.float32)},
-        "bn2": {"mean": np.zeros((e0,), np.float32),
-                "var": np.ones((e0,), np.float32)}}}}}
-    return params, stats
-
-
-def random_mrn(rng, opt, class_counts, **kw):
-    """MRNNet trees: experts stacked on axis 0 (each fc zero-padded from its
-    own class count to the total, as the JAX learner stacks them) plus a
-    fresh router stack."""
-    num_classes = max(class_counts)
-    trees = []
-    for count in class_counts:
-        p, s = random_recognizer(rng, opt, count, **kw)
-        for leaf, axis in (("kernel", 1), ("bias", 0)):
-            pad = [(0, 0)] * p["fc"][leaf].ndim
-            pad[axis] = (0, num_classes - count)
-            p["fc"][leaf] = np.pad(p["fc"][leaf], pad)
-        trees.append((p, s))
-
-    def stack(*xs):
-        if isinstance(xs[0], dict):
-            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
-        return np.stack(xs)
-
-    h, i, t = opt.hidden_size, len(class_counts), opt.imgW // 4
-    ln = lambda c: _affine(c, 0.0)  # noqa: E731
-    params = {
-        "experts": stack(*(p for p, _ in trees)),
-        "dm_router": {"norm": ln(h), "proj_1": _torch_dense(rng, h, 2 * h),
-                      "spatial_norm": ln(h), "spatial_proj": _torch_dense(rng, i * t, i * t),
-                      "proj_2": _torch_dense(rng, h, h), "channel_norm": ln(t),
-                      "channel_proj": _torch_dense(rng, i * h, i * h),
-                      "proj_3": _torch_dense(rng, h, h)},
-        "channel_route": _torch_dense(rng, i * h, i),
-        "route": _torch_dense(rng, t, 1),
-    }
-    return params, {"experts": stack(*(s for _, s in trees))}
+# Attention of the SVTR training path at batch 256: (name, grid (h, w),
+# heads, kernel, Blocks of this shape per expert forward); head_dim 32.
+ATTN_SHAPES = (("stage1-local", (8, 64), 2, "banded", 3),
+               ("stage2-local", (4, 64), 4, "banded", 3),
+               ("stage2-global", (4, 64), 4, "full", 3),
+               ("stage3-global", (2, 64), 8, "full", 3))
+# kernel vs plain forward: float32 summation order and exp ulps; bfloat16 a P
+# rounding flipped by a float32 ulp plus one output ulp at |o| < 4
+ATTN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
+# dq/dk/dv of the Function (kernel forward, plain backward) against autograd
+# through the kernel's plain arithmetic, float32: the same math, another
+# summation order in the backward's products
+ATTN_GRAD_TOL = (1e-4, 1e-3)
+# SVTR-MRN training: task 5 of 6 (5 frozen experts + the new one)
+TRAIN_TASK = 5
+TRAIN_ITERS = 4          # step-0 updates; step 1 runs TRAIN_ITERS // 2
+CROPS_PER_TASK = 256
+TRAIN_DTYPES = ("bf16", "f32")
+# kernel path vs the same step-0 step forced through the plain versions:
+# (loss rtol, grad-norm rtol, fc-grad atol as a share of the leaf's largest
+# |grad|).  float32: the forwards differ in summation order and exp ulps
+# (ATTN_TOL), which 12 Blocks and the backward carry to ~1e-6 relative.
+# bfloat16: a kernel output may round one bf16 ulp (2^-8) away from the
+# plain one, and each such flip feeds the next Block, so the loss and the
+# grads agree to a few ulps of the bf16 activations, not to float32 noise.
+# The first Adam update moves every weight by about lr * sign(g) whatever
+# |g| is, so the updated weights are not compared: the fc grads are.
+TRAIN_STEP_TOL = {"f32": (1e-4, 1e-4, 1e-4), "bf16": (1e-2, 3e-2, 3e-2)}
 
 
 # ------------------------------------------------------------------- timing
@@ -343,6 +284,8 @@ def phase_serve(rng):
           f"{N_EXPERTS} experts x 12 Blocks)")
     if launches != expected or launches == 0:
         raise RuntimeError("the served path did not run through the kernel as expected")
+    if any(svtr_attention.launches.values()):
+        raise RuntimeError("serving launched a training attention kernel")
     for dtype, ts in timings.items():
         print(f"  {dtype}: request seconds {[round(t, 4) for t in ts]}, crops/s "
               f"{[round(BATCH / t, 1) for t in ts]} (first request includes warm-up)")
@@ -382,6 +325,238 @@ def phase_serve(rng):
     return launches, timings
 
 
+def attention_bound_ms(b, heads, n, d, dt, pairs, mask_bytes):
+    """The two halves of the least time (ms) of one attention forward on an
+    H100: q, k, v and out once plus the mask the kernel reads, over HBM
+    bandwidth; QK^T and PV over the (query, key) pairs the mask leaves
+    visible, at the peak rate of the type."""
+    isz = torch.tensor([], dtype=dt).element_size()
+    nbytes = 4 * b * heads * n * d * isz + mask_bytes
+    ops = 2 * 2 * b * heads * pairs * d
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_FLOPS[dt]
+
+
+def phase_attention(device, rng):
+    """Each attention kernel vs its plain version at the four attention
+    shapes of the SVTR training forward, f32 and bf16; timed beside the
+    plain version, ``F.scaled_dot_product_attention`` (timed only) and the
+    bound.  Returns per-kernel, per-dtype sums over one expert forward."""
+    d = 32
+    totals = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, hw, heads, kind, count in ATTN_SHAPES:
+            n = hw[0] * hw[1]
+            qkv = [torch.from_numpy(rng.standard_normal((BATCH, heads, n, d))
+                                    .astype(np.float32)).to(device, dt) for _ in range(3)]
+            qkv[0] = qkv[0] * d ** -0.5
+            q, k, v = qkv
+            band = (hw[0], hw[1], 7, 11) if kind == "banded" else None
+            full_mask = (torch.from_numpy(local_attention_mask_col_major(*band)).to(device)
+                         if band else None)
+            with torch.no_grad():
+                if band:
+                    kernel = lambda: svtr_attention.banded_attention_forward(q, k, v, band)  # noqa: E731
+                    plain = lambda: svtr_attention.banded_attention_reference(q, k, v, band)  # noqa: E731
+                    plan = svtr_block._band_spec(*band)
+                    mask_bytes = 4 * n * plan[1]
+                    what = f"qb {plan[0]} width {plan[1]}"
+                else:
+                    kernel = lambda: svtr_attention.attention_forward(q, k, v)  # noqa: E731
+                    plain = lambda: svtr_attention.attention_reference(q, k, v)  # noqa: E731
+                    mask_bytes, what = 0, "unmasked"
+                out_k = kernel()
+                torch.cuda.synchronize()
+                out_p = plain()
+                ms = cuda_ms(kernel, 5)
+                plain_ms = cuda_ms(plain, 3)
+                lib_mask = None if full_mask is None else full_mask.to(dt)
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=lib_mask, scale=1.0), 5)
+            pairs = n * n if full_mask is None else int((full_mask == 0).sum())
+            bytes_ms, ops_ms = attention_bound_ms(BATCH, heads, n, d, dt, pairs, mask_bytes)
+            bound = max(bytes_ms, ops_ms)
+            atol, rtol = ATTN_TOL[dt]
+            err = check_close(f"{kind} {name} {str(dt)[6:]} [{BATCH},{heads},{n},{d}] {what}",
+                              out_k, out_p, atol, rtol)
+            print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f}  "
+                  f"bound_ms {bound:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'})"
+                  f"  ({bound / ms:.1%} of bound)")
+            if dt == torch.float32:   # gradients through the autograd Function
+                g = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(device)
+                grads = []
+                for fn in (lambda a, b, c: svtr_attention.mha_small_n(a, b, c, band=band),
+                           (lambda a, b, c: svtr_attention.banded_attention_reference(a, b, c, band))
+                           if band else svtr_attention.attention_reference):
+                    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                    grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+                for label, a, b in zip("qkv", *grads):
+                    check_close(f"  d{label} through the Function", a, b, *ATTN_GRAD_TOL)
+            tot = totals.setdefault((kind, dt), dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                                     bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                                                     max_abs_err=0.0))
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                             ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                tot[key] += count * val
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    for (kind, dt), tot in totals.items():
+        print(f"  {kind} attention, one expert forward (6 Blocks), {str(dt)[6:]}: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in tot.items()))
+    return totals
+
+
+def _task_alphabets():
+    """Per-task alphabets whose cumulative sizes give CLASS_COUNTS (4
+    special tokens in front)."""
+    sizes = [CLASS_COUNTS[0] - 4] + [b - a for a, b in zip(CLASS_COUNTS, CLASS_COUNTS[1:])]
+    starts = np.cumsum([0] + sizes[:-1])
+    return [alphabet_of_size(n, 0x4E00 + int(s)) for n, s in zip(sizes, starts)]
+
+
+def _train_learner(base, rng, loader, dtype):
+    opt = base.replace(num_iter=TRAIN_ITERS, train_dtype=dtype, image_bank=loader.bank,
+                       manual_seed=SEED)
+    learner = MRN(opt)
+    for count in CLASS_COUNTS[:TRAIN_TASK]:
+        params, stats = random_recognizer(rng, opt, count)
+        learner.add_expert(params, stats, count)
+    return learner
+
+
+def _kernel_vs_plain_step(base, loader, character, dtype):
+    """One step-0 step of a fresh expert from the same weights, batch and
+    DropPath masks on the kernel path and forced through the plain
+    versions: loss, global grad norm and the fc grad must agree within
+    ``TRAIN_STEP_TOL[dtype]``."""
+    learner = MRN(base.replace(num_iter=TRAIN_ITERS, train_dtype=dtype,
+                               image_bank=loader.bank, manual_seed=SEED))
+    learner.character = list(character)
+    learner.converter = learner.build_converter()
+    learner.change_model()
+    start = copy.deepcopy(learner.model.state_dict())
+    batch = loader.get_batch()
+    gen_state = learner.generator.get_state()
+    captured = {}
+
+    def keep_fc_grad(grads):
+        captured["fc"] = grads["fc.kernel"].detach().clone()
+        return grads
+
+    learner.grad_transform = lambda: keep_fc_grad
+    results = []
+    for plain in (False, True):
+        learner.model.load_state_dict(start)
+        learner.generator.set_state(gen_state)
+        configure_blocks(learner.model, plain=plain)
+        learner.build_optimizer()
+        metrics = learner.train_step(batch)
+        results.append((float(metrics["loss"]), float(metrics["grad_norm"]), captured["fc"]))
+    (lk, gk, fk), (lp, gp, fp) = results
+    loss_rtol, norm_rtol, fc_share = TRAIN_STEP_TOL[dtype]
+    largest = float(fp.abs().max())
+    dfc = float((fk - fp).abs().max())
+    print(f"  {dtype} step-0 step, kernel vs plain: loss {lk:.7f} vs {lp:.7f} "
+          f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {loss_rtol:g}), grad_norm {gk:.6f} vs "
+          f"{gp:.6f} (rel {abs(gk - gp) / gp:.2e}, tol {norm_rtol:g}), fc grad max |diff| "
+          f"{dfc:.3e} of max |grad| {largest:.3e} (tol {fc_share:g} of it)")
+    if abs(lk - lp) > loss_rtol * abs(lp) or abs(gk - gp) > norm_rtol * gp \
+            or dfc > fc_share * largest:
+        raise RuntimeError(f"{dtype}: the kernel and plain training steps disagree")
+
+
+def phase_train(rng):
+    """This slice's main path: SVTR-MRN training of task 5 at full width
+    (step 0, the new expert alone; step 1, the router over 6 frozen
+    experts) through ``MRN.incremental_train``, bf16 then f32; then, in
+    each dtype, one step-0 step on the kernel path against the same step on
+    the plain versions."""
+    base = load_config(os.path.join(ROOT, "configs", "svtr_mrn.py"))
+    alphabets = _task_alphabets()
+    character = "".join(alphabets)
+    t0 = time.perf_counter()
+    loader = SyntheticTaskLoader(alphabets, TRAIN_TASK, BATCH, CROPS_PER_TASK,
+                                 img_h=base.imgH, img_w=base.imgW, seed=SEED)
+    print(f"  rendered {len(loader.labels)} crops {loader.bank.shape[1:]} into the bank "
+          f"in {time.perf_counter() - t0:.1f} s")
+    learners = {dtype: _train_learner(base, rng, loader, dtype) for dtype in TRAIN_DTYPES}
+    n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
+
+    # ---- counted run: the main path, through the entry point
+    svtr_attention.launches.update(full=0, banded=0)
+    svtr_block.launches = 0
+    for dtype, learner in learners.items():
+        init_rng = copy.deepcopy(learner.np_rng)
+        learner.incremental_train(TRAIN_TASK, character, loader)
+        init_fc = random_recognizer(init_rng, learner.opt, CLASS_COUNTS[-1])[0]["fc"]["kernel"]
+        init_route = random_router(init_rng, learner.opt, N_EXPERTS)["route"]["kernel"]
+        moved = (float((learner.expert_states[-1]["fc.kernel"].cpu()
+                        - torch.from_numpy(init_fc)).abs().max()),
+                 float((learner.router_state["route.kernel"].cpu()
+                        - torch.from_numpy(init_route)).abs().max()))
+        for rec in learner.history:
+            print(f"  {dtype} task {rec['task']} step {rec['step']} iter {rec['iteration']}: "
+                  f"loss {rec['loss']:.5f}"
+                  + (f" (clf {rec['clf']:.5f}, router {rec['router']:.5f})" if "clf" in rec else "")
+                  + f", grad_norm {rec['grad_norm']:.4g}, lr {rec['lr']:.4g}, "
+                  f"{1e3 * rec['seconds']:.1f} ms, {BATCH / rec['seconds']:.1f} images/s")
+        print(f"  {dtype}: max |change| of the new expert's fc {moved[0]:.3e}, "
+              f"of the router's route kernel {moved[1]:.3e}")
+        if not all(np.isfinite(rec["loss"]) for rec in learner.history):
+            raise RuntimeError(f"{dtype}: non-finite training loss")
+        if len(learner.history) != n0 + n1 or min(moved) <= 0.0:
+            raise RuntimeError(f"{dtype}: the trained parameters did not move")
+    launches = dict(svtr_attention.launches, fused=svtr_block.launches)
+    steps = len(learners)
+    expected = dict(full=6 * n0 * steps, banded=6 * n0 * steps, fused=72 * n1 * steps)
+    print(f"  launches in the training runs: {launches} (expected {expected}: "
+          f"per step-0 step 6 full + 6 banded attention, per step-1 step 72 fused "
+          f"Blocks = {N_EXPERTS} experts x 12)")
+    if launches != expected:
+        raise RuntimeError("the training path did not run through the kernels as expected")
+
+    for dtype in TRAIN_DTYPES:
+        _kernel_vs_plain_step(base, loader, character, dtype)
+    return launches, learners, loader
+
+
+def phase_profile(learner, loader):
+    """Where one step's device time goes: ``torch.profiler`` over one step-1
+    and one step-0 step of the bf16 learner after its counted run (the
+    router phase as it ended, then its standalone expert again).  Prints
+    the kernels with the most device time, the device-busy time and the
+    host-clock step time (the profiler's own overhead is inside the
+    latter)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = (("step 1", loader.get_batch2), ("step 0", loader.get_batch))
+    for label, get_batch in steps:
+        if label == "step 0":
+            learner._phase = "standalone"
+            learner.build_optimizer()
+        batch = get_batch()
+        learner.train_step(batch)     # warm-up outside the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            learner.train_step(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device-side events only (the operators' own rows repeat their kernels' time)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        if busy == 0:
+            print(f"  bf16 {label}: the profiler recorded no device time "
+                  f"({1e3 * wall:.1f} ms traced step)")
+            continue
+        print(f"  bf16 {label}: device busy {busy:.1f} ms of a {1e3 * wall:.1f} ms traced "
+              f"step ({1 - busy / (1e3 * wall):.1%} idle); top kernels by device time:")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            ms = e.self_device_time_total / 1e3
+            print(f"    {ms:8.2f} ms {ms / busy:6.1%} x{e.count:<4d} {e.key[:90]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -398,24 +573,38 @@ def main():
     print("== kernel vs plain, SVTR Block shapes")
     totals = phase_blocks(device, rng)
     print("== SVTR-MRN serving, 6 experts, full width")
-    launches, _ = phase_serve(rng)
+    served, _ = phase_serve(rng)
+    print("== attention kernels vs plain, SVTR training shapes")
+    attn = phase_attention(device, rng)
+    print("== SVTR-MRN training, full width")
+    trained, learners, loader = phase_train(rng)
+    print("== profile of one bf16 training step of each kind")
+    phase_profile(learners["bf16"], loader)
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
-    bf = totals[torch.bfloat16]
+    fused = totals[torch.bfloat16]
+    rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
+             served + trained["fused"], fused),
+            ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
+             trained["full"], attn[("full", torch.bfloat16)]),
+            ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
+             trained["banded"], attn[("banded", torch.bfloat16)])]
     record = {"kernels": [{
-        "name": "svtr_fused_block",
+        "name": name,
         "route": "cuda",
-        "source": "mrn_tpu_torch/ops/csrc/svtr_block.cu",
-        "replaces": "mrn_tpu/ops/svtr_block.py:166",
+        "source": f"mrn_tpu_torch/ops/csrc/{source}",
+        "replaces": replaces,
         "launches": launches,
-        "max_abs_err": bf["max_abs_err"],
-        "ms": bf["ms"],
-        "plain_ms": bf["plain_ms"],
-        "bound_ms": bf["bound_ms"],
-        "bound_by": "operations" if bf["ops_ms"] >= bf["bytes_ms"] else "bytes",
-        "library_ms": bf["library_ms"],
-    }]}
-    print(f"kernel record: times are one expert's 12 Blocks at batch {BATCH}, "
-          f"bfloat16, on {smi}")
+        "max_abs_err": tot["max_abs_err"],
+        "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
+        "library_ms": tot["library_ms"],
+    } for name, source, replaces, launches, tot in rows]}
+    print(f"kernel record: bfloat16 at batch {BATCH}; svtr_fused_block times are one "
+          f"expert's 12 Blocks, its launches the served requests ({served}) plus the "
+          f"router steps ({trained['fused']}); attention times are one expert forward's "
+          f"6 Blocks of each kind; on {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's flax variable trees (as numpy arrays, or
-anything ``np.asarray`` takes) -> the port's ``state_dict``.
+"""Weight bridge between the JAX package's flax variable trees (as numpy
+arrays, or anything ``np.asarray`` takes) and the port's ``state_dict``s,
+both ways.
 
 The port's modules carry the flax names, so the bridge only flattens the
 tree to dotted paths and applies three rules:
@@ -12,20 +13,31 @@ tree to dotted paths and applies three rules:
 Dense kernels stay ``[in, out]`` and LayerNorm/Block leaves keep their
 names.  An MRN tree (``params["experts"]`` stacked on a leading expert axis,
 plus the router subtrees ``dm_router``, ``channel_route`` and ``route``) is
-unstacked into ``experts.<i>.``.
+unstacked into ``experts.<i>.``; ``routed_state`` assembles the same layout
+from an expert list (each fc zero-padded to the current class count) plus a
+router tree, as the JAX learner's ``_routed_variables`` does.
+
+``to_flax`` goes back: a port module's parameters and buffers as numpy
+``(params, batch_stats)`` trees in the JAX layout (MRN experts stacked), so
+tests can hold updated weights and statistics against the JAX package's
+leaf by leaf.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import (Any, Dict, Iterable, Iterator, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["from_flax", "mrn_state", "recognizer_state"]
+__all__ = ["flax_tree", "from_flax", "mrn_state", "pad_expert_state",
+           "recognizer_state", "routed_state", "to_flax"]
 
 _BLOCK_RE = re.compile(r"\bblocks(\d)_(\d+)\b")
+_PORT_BLOCK_RE = re.compile(r"\bblocks(\d)\.(\d+)\b")
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -86,3 +98,73 @@ def from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
     if "experts" in params:
         return mrn_state(params, batch_stats)
     return recognizer_state(params, batch_stats)
+
+
+def pad_expert_state(state: Mapping[str, torch.Tensor], num_classes: int
+                     ) -> Dict[str, torch.Tensor]:
+    """One expert's state with its ``fc`` zero-padded to ``num_classes``
+    (the JAX package's ``pad_expert_tree``; padded columns are later
+    overwritten by MRNNet's ones-padding)."""
+    out = dict(state)
+    kernel, bias = state["fc.kernel"], state["fc.bias"]
+    pad = num_classes - kernel.shape[1]
+    if pad > 0:
+        out["fc.kernel"] = torch.nn.functional.pad(kernel, (0, pad))
+        out["fc.bias"] = torch.nn.functional.pad(bias, (0, pad))
+    return out
+
+
+def routed_state(expert_states: Sequence[Mapping[str, torch.Tensor]],
+                 router: Mapping, num_classes: int) -> Dict[str, torch.Tensor]:
+    """State dict of a port ``MRNNet`` from per-expert Recognizer states
+    (unpadded) and a flax router tree (``dm_router``, ``channel_route``,
+    ``route``)."""
+    state = {}
+    for i, expert in enumerate(expert_states):
+        for key, value in pad_expert_state(expert, num_classes).items():
+            state[f"experts.{i}.{key}"] = value
+    for key in ("dm_router", "channel_route", "route"):
+        state.update(recognizer_state({key: router[key]}))
+    return state
+
+
+def _nest(tree: Dict, path: str, value: np.ndarray) -> None:
+    *heads, last = path.split(".")
+    for key in heads:
+        tree = tree.setdefault(key, {})
+    tree[last] = value
+
+
+def _flax_leaf(name: str, tensor: torch.Tensor) -> Tuple[str, np.ndarray]:
+    arr = tensor.detach().float().cpu().numpy().copy()  # never a view of the tensor
+    name = _PORT_BLOCK_RE.sub(r"blocks\1_\2", name)
+    if name.endswith(".weight") and arr.ndim == 4:
+        name = name[:-len("weight")] + "kernel"
+        arr = arr.transpose(2, 3, 1, 0)
+    return name, arr
+
+
+def flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
+    """Port-named tensors (``named_parameters()``, ``named_buffers()``, or a
+    dict's items, e.g. gradients) -> one numpy tree (float32) in the JAX
+    layout; ``experts.<i>.`` entries are stacked on axis 0 under
+    ``experts``."""
+    tree: Dict = {}
+    experts: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, tensor in named:
+        path, arr = _flax_leaf(name, tensor)
+        if path.startswith("experts."):
+            _, index, rest = path.split(".", 2)
+            experts.setdefault(rest, {})[int(index)] = arr
+        else:
+            _nest(tree, path, arr)
+    for rest, per_expert in experts.items():
+        _nest(tree, "experts." + rest,
+              np.stack([per_expert[i] for i in sorted(per_expert)]))
+    return tree
+
+
+def to_flax(module: nn.Module) -> Tuple[Dict, Dict]:
+    """``(params, batch_stats)`` numpy trees of a port Recognizer or MRNNet
+    in the JAX layout."""
+    return flax_tree(module.named_parameters()), flax_tree(module.named_buffers())

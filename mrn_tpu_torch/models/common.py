@@ -5,10 +5,12 @@
 - ``Conv2d`` holds its weight as ``[out, in, kh, kw]`` (the bridge transposes
   flax's HWIO) and runs ``F.conv2d`` on NCHW tensors; ``to_nchw``/``to_nhwc``
   convert at the boundaries, since public functions take NHWC images.
-- ``BatchNorm`` (eval, eps 1e-5) and ``LayerNorm`` follow flax's arithmetic:
-  statistics in float32, LayerNorm's variance as ``E[x^2] - E[x]^2`` clipped
-  at 0, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, result cast back
-  to the input dtype.
+- ``BatchNorm`` (eps 1e-5) and ``LayerNorm`` follow flax's arithmetic:
+  statistics in float32, the variance as ``E[x^2] - E[x]^2`` clipped at 0
+  (biased), ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, result cast
+  back to the input dtype.  In train mode BatchNorm normalises with the batch
+  statistics and moves its running stats as flax does (momentum 0.9, with
+  the biased variance, so not ``F.batch_norm``); the update is in place.
 """
 
 from __future__ import annotations
@@ -57,7 +59,10 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over axis 1 of an NCHW tensor (running stats)."""
+    """BatchNorm over axis 1 of an NCHW tensor: running stats in eval mode,
+    batch stats (and a running-stat update) in train mode."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -67,11 +72,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.var.float() + self.eps) * self.scale.float()
-        y = ((x.float() - self.mean.float().view(shape)) * mul.view(shape)
-             + self.bias.float().view(shape))
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean.float(), self.var.float()
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.float().view(shape)
         return y.to(x.dtype)
 
 

@@ -1,13 +1,17 @@
-"""Model composition for serving (mirrors ``mrn_tpu/models/composer.py``):
-FeatureExtraction -> mean over height -> SequenceModeling -> CTC head.
+"""Model composition (mirrors ``mrn_tpu/models/composer.py``):
+FeatureExtraction -> mean over height -> SequenceModeling -> CTC head, in
+eval or train mode (``forward(image, train=...)``).
 
-This slice of the port covers None/SVTR/None/CTC only; every other stage
-combination raises ``NotImplementedError``.
+The port covers None/SVTR/None/CTC so far; every other stage combination
+raises ``NotImplementedError``.  ``svtr`` (keyword arguments of
+``SVTRExtractor``: ``embed_dim``, ``depth``, ``num_heads``,
+``drop_path_rate``) narrows the backbone for tests; the configs leave it
+unset, which is the reference SVTR.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -47,14 +51,16 @@ class Extractor(nn.Module):
                  feature_extraction: str = "SVTR",
                  sequence_modeling: str = "None", input_channel: int = 4,
                  output_channel: int = 512, hidden_size: int = 256,
-                 img_size: Tuple[int, int] = (32, 256)):
+                 img_size: Tuple[int, int] = (32, 256),
+                 svtr: Optional[Mapping] = None):
         super().__init__()
         _check_supported(transformation, feature_extraction, sequence_modeling)
-        self.feature = SVTRExtractor(input_channel, output_channel, img_size)
+        self.feature = SVTRExtractor(input_channel, output_channel, img_size,
+                                     **dict(svtr or {}))
         self.seq_linear = Dense(output_channel, hidden_size)
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
-        return self.seq_linear(self.feature(image).mean(dim=1))
+    def forward(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.seq_linear(self.feature(image, train).mean(dim=1))
 
 
 class Recognizer(nn.Module):
@@ -64,17 +70,19 @@ class Recognizer(nn.Module):
                  transformation: str = "None", feature_extraction: str = "SVTR",
                  sequence_modeling: str = "None", input_channel: int = 4,
                  output_channel: int = 512, hidden_size: int = 256,
-                 img_size: Tuple[int, int] = (32, 256)):
+                 img_size: Tuple[int, int] = (32, 256),
+                 svtr: Optional[Mapping] = None):
         super().__init__()
         _check_supported(transformation, feature_extraction, sequence_modeling,
                          prediction)
         self.extractor = Extractor(transformation, feature_extraction,
                                    sequence_modeling, input_channel,
-                                   output_channel, hidden_size, img_size)
+                                   output_channel, hidden_size, img_size, svtr)
         self.fc = Dense(hidden_size, num_classes)
 
-    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        feature = self.extractor(image)
+    def forward(self, image: torch.Tensor,
+                train: bool = False) -> Dict[str, torch.Tensor]:
+        feature = self.extractor(image, train)
         return {"predict": self.fc(feature), "feature": feature}
 
 
@@ -86,4 +94,5 @@ def build_recognizer(opt, num_classes: int) -> Recognizer:
         feature_extraction=opt.FeatureExtraction,
         sequence_modeling=opt.SequenceModeling,
         input_channel=opt.input_channel, output_channel=opt.output_channel,
-        hidden_size=opt.hidden_size, img_size=(opt.imgH, opt.imgW))
+        hidden_size=opt.hidden_size, img_size=(opt.imgH, opt.imgW),
+        svtr=opt.get("svtr"))

@@ -1,0 +1,132 @@
+"""Random weights in the JAX package's init distributions, as numpy trees in
+the flax layout (bridged into the port with ``bridge.from_flax``).
+
+- SVTR: Block and Dense kernels ``truncated_normal(0.02)`` with zero biases,
+  convs kaiming-normal (fan in) with zero biases, LayerNorm scale 1 and bias
+  1 (the reference SVTR quirk), BatchNorm scale 1 / bias 0 / mean 0 / var 1;
+- ``seq_linear``, ``fc`` and the router's Dense layers the torch default
+  ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, the router's LayerNorms 1 / 0.
+
+A new expert is drawn this way (the JAX learner's ``change_model``); the
+task-0 ``apply_reference_init`` pass is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+__all__ = ["random_block", "random_mrn", "random_recognizer", "random_router"]
+
+_SVTR = dict(embed_dim=(64, 128, 256), depth=(3, 6, 3))
+
+
+def _trunc02(rng, shape):
+    """truncated_normal(stddev=.02, lower=-2, upper=2)."""
+    z = rng.standard_normal(shape)
+    bad = np.abs(z) > 2.0
+    while bad.any():
+        z[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(z) > 2.0
+    return (0.02 * z).astype(np.float32)
+
+
+def _torch_dense(rng, fan_in, fan_out):
+    bound = 1.0 / np.sqrt(fan_in)
+    return {"kernel": rng.uniform(-bound, bound, (fan_in, fan_out)).astype(np.float32),
+            "bias": rng.uniform(-bound, bound, (fan_out,)).astype(np.float32)}
+
+
+def _conv(rng, cin, cout):
+    std = np.sqrt(2.0 / (cin * 9))  # kaiming normal, fan_in
+    return {"kernel": (std * rng.standard_normal((3, 3, cin, cout))).astype(np.float32),
+            "bias": np.zeros((cout,), np.float32)}
+
+
+def _affine(c, bias):
+    """LayerNorm/BatchNorm scale 1 and a constant bias."""
+    return {"scale": np.ones((c,), np.float32),
+            "bias": np.full((c,), bias, np.float32)}
+
+
+def random_block(rng, c, hidden=None):
+    hidden = hidden or 4 * c
+    ones, zeros = np.ones((c,), np.float32), np.zeros
+    return dict(norm1_scale=ones.copy(), norm1_bias=ones.copy(),
+                qkv_kernel=_trunc02(rng, (c, 3 * c)), qkv_bias=zeros((3 * c,), np.float32),
+                proj_kernel=_trunc02(rng, (c, c)), proj_bias=zeros((c,), np.float32),
+                norm2_scale=ones.copy(), norm2_bias=ones.copy(),
+                fc1_kernel=_trunc02(rng, (c, hidden)), fc1_bias=zeros((hidden,), np.float32),
+                fc2_kernel=_trunc02(rng, (hidden, c)), fc2_bias=zeros((c,), np.float32))
+
+
+def random_recognizer(rng, opt, num_classes):
+    """One SVTR Recognizer's (params, batch_stats) trees; ``opt.svtr`` may
+    narrow the backbone (``embed_dim``, ``depth``)."""
+    arch = dict(_SVTR, **(opt.get("svtr") or {}))
+    e0, e1, e2 = arch["embed_dim"]
+    h0, w0 = opt.imgH // 4, opt.imgW // 4
+    ln = lambda c: _affine(c, 1.0)  # noqa: E731  (SVTR quirk: LN bias 1)
+    bn = lambda c: _affine(c, 0.0)  # noqa: E731
+    feature = {
+        "patch_embed": {"conv1": _conv(rng, opt.input_channel, e0 // 2), "bn1": bn(e0 // 2),
+                        "conv2": _conv(rng, e0 // 2, e0), "bn2": bn(e0)},
+        "pos_embed": _trunc02(rng, (1, h0 * w0, e0)),
+        "sub_sample1": {"conv": _conv(rng, e0, e1), "norm": ln(e1)},
+        "sub_sample2": {"conv": _conv(rng, e1, e2), "norm": ln(e2)},
+        "sub_sample3": {"conv": _conv(rng, e2, opt.output_channel),
+                        "norm": ln(opt.output_channel)},
+    }
+    for stage, (dim, n) in enumerate(zip((e0, e1, e2), arch["depth"]), start=1):
+        for i in range(n):
+            feature[f"blocks{stage}_{i}"] = random_block(rng, dim)
+    params = {"extractor": {"feature": feature,
+                            "seq_linear": _torch_dense(rng, opt.output_channel,
+                                                       opt.hidden_size)},
+              "fc": _torch_dense(rng, opt.hidden_size, num_classes)}
+    stats = {"extractor": {"feature": {"patch_embed": {
+        "bn1": {"mean": np.zeros((e0 // 2,), np.float32),
+                "var": np.ones((e0 // 2,), np.float32)},
+        "bn2": {"mean": np.zeros((e0,), np.float32),
+                "var": np.ones((e0,), np.float32)}}}}}
+    return params, stats
+
+
+def random_router(rng, opt, n_experts):
+    """A fresh router stack (``dm_router``, ``channel_route``, ``route``)."""
+    h, i, t = opt.hidden_size, n_experts, opt.imgW // 4
+    ln = lambda c: _affine(c, 0.0)  # noqa: E731
+    return {
+        "dm_router": {"norm": ln(h), "proj_1": _torch_dense(rng, h, 2 * h),
+                      "spatial_norm": ln(h), "spatial_proj": _torch_dense(rng, i * t, i * t),
+                      "proj_2": _torch_dense(rng, h, h), "channel_norm": ln(t),
+                      "channel_proj": _torch_dense(rng, i * h, i * h),
+                      "proj_3": _torch_dense(rng, h, h)},
+        "channel_route": _torch_dense(rng, i * h, i),
+        "route": _torch_dense(rng, t, 1),
+    }
+
+
+def random_mrn(rng, opt, class_counts: Sequence[int]):
+    """MRNNet trees: experts stacked on axis 0 (each fc zero-padded from its
+    own class count to the total, as the JAX learner stacks them) plus a
+    fresh router stack."""
+    num_classes = max(class_counts)
+    trees = []
+    for count in class_counts:
+        p, s = random_recognizer(rng, opt, count)
+        for leaf, axis in (("kernel", 1), ("bias", 0)):
+            pad = [(0, 0)] * p["fc"][leaf].ndim
+            pad[axis] = (0, num_classes - count)
+            p["fc"][leaf] = np.pad(p["fc"][leaf], pad)
+        trees.append((p, s))
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+
+    params = dict(random_router(rng, opt, len(class_counts)),
+                  experts=stack(*(p for p, _ in trees)))
+    return params, {"experts": stack(*(s for _, s in trees))}

@@ -1,6 +1,7 @@
-"""MRNNet for serving: per-task expert recognizers + DM-Router with the hard
-per-sample expert pick (mirrors the ``is_train=False`` path of
-``mrn_tpu/models/mrn.py``).
+"""MRNNet: per-task expert recognizers + DM-Router (mirrors
+``mrn_tpu/models/mrn.py``), with the hard per-sample expert pick for serving
+(``is_train=False``) and the soft combination for router training
+(``is_train=True``).
 
 The experts are an ``nn.ModuleList`` run one after another (the JAX package
 stacks them on a leading axis under ``vmap``); each expert's SVTR Blocks are
@@ -10,14 +11,19 @@ launches.  Load-bearing details kept from the reference:
 - old experts' logits are padded to the current class count WITH ONES
   (columns ``c >= class_counts[i]`` become 1.0), not zeros;
 - each sample takes the expert with the largest route score (argmax, first
-  index on ties).
+  index on ties);
+- in router training the combination is ``index = softmax(scores)`` (the
+  reference's ``beta`` is 1) and the returned ``index`` IS that softmax
+  (the learner's router CE is taken on it); the logits are
+  ``einsum("ibtc,bi->btc")`` in float32 over the ones-padded expert logits.
 
-The soft combination and the router loss are training, a later slice.
+The experts always run in eval mode and without gradients: every expert is
+frozen while the router trains.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -38,7 +44,8 @@ class MRNNet(nn.Module):
                  transformation: str = "None", feature_extraction: str = "SVTR",
                  sequence_modeling: str = "None", input_channel: int = 4,
                  output_channel: int = 512, hidden_size: int = 256,
-                 img_size: Tuple[int, int] = (32, 256)):
+                 img_size: Tuple[int, int] = (32, 256),
+                 svtr: Optional[Mapping] = None):
         super().__init__()
         if len(class_counts) != n_experts:
             raise ValueError(f"{len(class_counts)} class counts for {n_experts} experts")
@@ -48,7 +55,7 @@ class MRNNet(nn.Module):
         self.experts = nn.ModuleList(
             Recognizer(num_classes, prediction, transformation,
                        feature_extraction, sequence_modeling, input_channel,
-                       output_channel, hidden_size, img_size)
+                       output_channel, hidden_size, img_size, svtr)
             for _ in range(n_experts))
         self.patch = sequence_length(feature_extraction, img_size[1])
         self.dm_router = DMRouter(hidden_size, hidden_size * 2, self.patch,
@@ -74,12 +81,21 @@ class MRNNet(nn.Module):
         return torch.where(keep, logits, torch.ones((), dtype=logits.dtype,
                                                     device=logits.device))
 
-    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Returns {"logits" [B, T, C], "index" [B], "aux_logits": None}."""
-        outs = [expert(image) for expert in self.experts]
-        preds = torch.stack([o["predict"] for o in outs])      # [I, B, T, C]
-        features = torch.stack([o["feature"] for o in outs])   # [I, B, T, H]
-        index = torch.argmax(self._route_scores(features), dim=-1)
+    def forward(self, image: torch.Tensor,
+                is_train: bool = False) -> Dict[str, torch.Tensor]:
+        """Returns {"logits" [B, T, C], "index", "aux_logits": None}: the
+        expert pick [B] (``is_train=False``) or the routing weights [B, I]
+        (``is_train=True``)."""
+        with torch.no_grad():  # frozen experts: the JAX learner's stop_gradient
+            outs = [expert(image) for expert in self.experts]
+            preds = torch.stack([o["predict"] for o in outs])      # [I, B, T, C]
+            features = torch.stack([o["feature"] for o in outs])   # [I, B, T, H]
+        scores = self._route_scores(features)
         padded = self._ones_pad(preds)
+        if is_train:
+            index = torch.softmax(scores, dim=-1)  # [B, I]
+            logits = torch.einsum("ibtc,bi->btc", padded.float(), index.float())
+            return {"logits": logits, "index": index, "aux_logits": None}
+        index = torch.argmax(scores, dim=-1)
         logits = padded[index, torch.arange(image.shape[0], device=index.device)]
         return {"logits": logits, "index": index, "aux_logits": None}

@@ -1,11 +1,20 @@
-"""SVTR backbone for serving (mirrors ``mrn_tpu/models/svtr.py`` in eval
-mode): embed (64, 128, 256), depth (3, 6, 3), heads (2, 4, 8), mixers Local
-x6 then Global x6, Conv patch merging.
+"""SVTR backbone (mirrors ``mrn_tpu/models/svtr.py``): embed (64, 128, 256),
+depth (3, 6, 3), heads (2, 4, 8), mixers Local x6 then Global x6, Conv patch
+merging, drop-path rates ``linspace(0, 0.1, 12)``.
 
-Every Block runs through the fused inference Block
-(``mrn_tpu_torch.ops.svtr_block``): its CUDA kernel for tensors on the card,
-its plain version on the CPU.  Stages 1-2 run on column-major tokens, so the
-Local 7x11 window is a diagonal band the kernel computes banded.
+Every module takes ``train``:
+
+- eval: each Block is one fused inference Block
+  (``mrn_tpu_torch.ops.svtr_block``), its CUDA kernel for tensors on the
+  card, its plain version on the CPU;
+- train: each Block runs the JAX package's composed path (``svtr.py:412-448``)
+  with the attention core ``ops.svtr_attention.mha_small_n`` (CUDA forwards,
+  plain backward), ``DropPath`` on both residual branches and BatchNorm on
+  batch statistics in ``PatchEmbed``.
+
+Stages 1-2 run on column-major tokens, so the Local 7x11 window is a
+diagonal band both kernels compute banded.  The training GELU (PatchEmbed
+and the Block MLP) is the exact erf, the reference's own.
 """
 
 from __future__ import annotations
@@ -19,11 +28,22 @@ from torch import nn
 
 from mrn_tpu_torch.models.common import (BatchNorm, Conv2d, LayerNorm,
                                          to_nchw, to_nhwc)
+from mrn_tpu_torch.ops.svtr_attention import mha_small_n
 from mrn_tpu_torch.ops.svtr_block import fused_block, fused_block_reference
 
-__all__ = ["Block", "PatchEmbed", "SVTRExtractor", "SubSampleConv",
-           "configure_blocks", "local_attention_mask",
-           "local_attention_mask_col_major"]
+__all__ = ["Block", "DropPath", "PatchEmbed", "SVTRExtractor",
+           "SubSampleConv", "configure_blocks", "local_attention_mask",
+           "local_attention_mask_col_major", "set_droppath_generator"]
+
+
+def _manual_layer_norm(x, scale, bias, eps=1e-6):
+    """The composed Block's LayerNorm (``svtr.py:270-276``): float32
+    statistics, ``E[x^2] - mean^2`` without a clamp, affine, cast back."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
 
 
 def local_attention_mask(h: int, w: int, hk: int = 7, wk: int = 11) -> np.ndarray:
@@ -65,18 +85,48 @@ _BLOCK_LEAVES = ("norm1_scale", "norm1_bias", "qkv_kernel", "qkv_bias",
                  "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias")
 
 
+class DropPath(nn.Module):
+    """Stochastic depth: in train mode each image's branch is kept with
+    probability ``1 - rate`` and scaled by ``1 / keep``.  The keep mask is
+    drawn from ``generator`` (a ``torch.Generator`` on the tensor's device;
+    None takes PyTorch's default one)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if self.rate == 0.0 or not train:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.bernoulli(torch.full(shape, keep, device=x.device),
+                               generator=self.generator)
+        return x * mask.to(x.dtype) / keep
+
+
+def set_droppath_generator(model: nn.Module,
+                           generator: Optional[torch.Generator]) -> None:
+    """Draw every DropPath mask of ``model`` from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = generator
+
+
 class Block(nn.Module):
     """Pre-norm transformer Block (LN -> [masked] multi-head attention ->
-    LN -> MLP), inference only.  Parameters carry the JAX names and
-    layouts (kernels ``[in, out]``).
+    LN -> MLP).  Parameters carry the JAX names and layouts (kernels
+    ``[in, out]``).
 
-    ``plain`` runs the plain version on any device (the card's reference in
-    checks) and ``gelu_degree`` picks the erf fit; both are set for a whole
-    model with ``configure_blocks``."""
+    ``plain`` runs the kernels' plain versions on any device (the card's
+    reference in checks) and ``gelu_degree`` picks the inference kernel's
+    erf fit; both are set for a whole model with ``configure_blocks``."""
 
     def __init__(self, dim: int, num_heads: int, mixer: str,
                  hw: Tuple[int, int], mlp_ratio: float = 4.0,
-                 local_k: Tuple[int, int] = (7, 11), col_major: bool = False):
+                 drop_path: float = 0.0, local_k: Tuple[int, int] = (7, 11),
+                 col_major: bool = False):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         shapes = dict(norm1_scale=(dim,), norm1_bias=(dim,),
@@ -99,16 +149,35 @@ class Block(nn.Module):
                 self.band = (hw[0], hw[1], local_k[0], local_k[1])
         elif mixer != "Global":
             raise ValueError(mixer)
+        self.drop_path = DropPath(drop_path)
         self.plain = False
         self.gelu_degree = 9
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.mask is not None and self.mask.device != x.device:
             self.mask = self.mask.to(x.device)
+        if train:
+            return self._forward_train(x)
         params = {name: getattr(self, name) for name in _BLOCK_LEAVES}
         fn = fused_block_reference if self.plain else fused_block
         return fn(x, params, self.mask, self.num_heads, self.scale,
                   band=self.band, gelu_degree=self.gelu_degree)
+
+    def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The composed training path (``svtr.py:412-448``)."""
+        b, n, c = x.shape
+        heads = self.num_heads
+        h = _manual_layer_norm(x, self.norm1_scale, self.norm1_bias)
+        qkv = (h @ self.qkv_kernel + self.qkv_bias).view(b, n, 3, heads, c // heads)
+        qkv = qkv.permute(2, 0, 3, 1, 4)
+        q = (qkv[0] * self.scale).contiguous()
+        attn = mha_small_n(q, qkv[1].contiguous(), qkv[2].contiguous(), self.mask,
+                           band=self.band, plain=self.plain)
+        attn = attn.transpose(1, 2).reshape(b, n, c) @ self.proj_kernel + self.proj_bias
+        x = x + self.drop_path(attn, True)
+        h = _manual_layer_norm(x, self.norm2_scale, self.norm2_bias)
+        h = F.gelu(h @ self.fc1_kernel + self.fc1_bias) @ self.fc2_kernel + self.fc2_bias
+        return x + self.drop_path(h, True)
 
 
 def configure_blocks(model: nn.Module, plain: Optional[bool] = None,
@@ -123,8 +192,8 @@ def configure_blocks(model: nn.Module, plain: Optional[bool] = None,
 
 
 class PatchEmbed(nn.Module):
-    """Two stride-2 3x3 convs, each with BatchNorm and exact-erf GELU;
-    NHWC image -> [B, H/4 * W/4, C] tokens."""
+    """Two stride-2 3x3 convs, each with BatchNorm and exact-erf GELU; NHWC image -> [B, H/4 * W/4, C]
+    tokens."""
 
     def __init__(self, in_ch: int, embed_dim: int):
         super().__init__()
@@ -133,16 +202,17 @@ class PatchEmbed(nn.Module):
         self.conv2 = Conv2d(embed_dim // 2, embed_dim, (3, 3), (2, 2), (1, 1))
         self.bn2 = BatchNorm(embed_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = to_nchw(x)
-        x = F.gelu(self.bn1(self.conv1(x)))
-        x = F.gelu(self.bn2(self.conv2(x)))
+        x = F.gelu(self.bn1(self.conv1(x), train))
+        x = F.gelu(self.bn2(self.conv2(x), train))
         b, c, h, w = x.shape
         return to_nhwc(x).reshape(b, h * w, c)
 
 
 class SubSampleConv(nn.Module):
-    """Conv patch merging, stride (2, 1), then LayerNorm (eps 1e-6)."""
+    """Conv patch merging, stride (2, 1), then LayerNorm (eps 1e-6); the
+    same in train and eval mode."""
 
     def __init__(self, in_dim: int, out_dim: int, hw: Tuple[int, int]):
         super().__init__()
@@ -164,40 +234,44 @@ class SVTRExtractor(nn.Module):
                  img_size: Tuple[int, int] = (32, 256),
                  embed_dim: Sequence[int] = (64, 128, 256),
                  depth: Sequence[int] = (3, 6, 3),
-                 num_heads: Sequence[int] = (2, 4, 8)):
+                 num_heads: Sequence[int] = (2, 4, 8),
+                 drop_path_rate: float = 0.1):
         super().__init__()
         h0, w0 = img_size[0] // 4, img_size[1] // 4
         self.h0, self.w0 = h0, w0
         mixers = ["Local"] * 6 + ["Global"] * 6
         d0, d1, d2 = depth
+        dpr = np.linspace(0, drop_path_rate, sum(depth))
         self.patch_embed = PatchEmbed(in_channels, embed_dim[0])
         self.pos_embed = nn.Parameter(torch.zeros(1, h0 * w0, embed_dim[0]))
         self.blocks1 = nn.ModuleList(
-            Block(embed_dim[0], num_heads[0], mixers[i], (h0, w0), col_major=True)
+            Block(embed_dim[0], num_heads[0], mixers[i], (h0, w0),
+                  drop_path=dpr[i], col_major=True)
             for i in range(d0))
         self.sub_sample1 = SubSampleConv(embed_dim[0], embed_dim[1], (h0, w0))
         self.blocks2 = nn.ModuleList(
             Block(embed_dim[1], num_heads[1], mixers[d0 + i], (h0 // 2, w0),
-                  col_major=True) for i in range(d1))
+                  drop_path=dpr[d0 + i], col_major=True) for i in range(d1))
         self.sub_sample2 = SubSampleConv(embed_dim[1], embed_dim[2], (h0 // 2, w0))
         self.blocks3 = nn.ModuleList(
-            Block(embed_dim[2], num_heads[2], mixers[d0 + d1 + i], (h0 // 4, w0))
+            Block(embed_dim[2], num_heads[2], mixers[d0 + d1 + i], (h0 // 4, w0),
+                  drop_path=dpr[d0 + d1 + i])
             for i in range(d2))
         self.sub_sample3 = SubSampleConv(embed_dim[2], out_channels, (h0 // 4, w0))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h0, w0 = self.h0, self.w0
-        x = self.patch_embed(x) + self.pos_embed
+        x = self.patch_embed(x, train) + self.pos_embed
         x = _to_col_major(x, h0, w0)
         for blk in self.blocks1:
-            x = blk(x)
+            x = blk(x, train)
         x = self.sub_sample1(_to_row_major(x, h0, w0))
         x = _to_col_major(x, h0 // 2, w0)
         for blk in self.blocks2:
-            x = blk(x)
+            x = blk(x, train)
         x = self.sub_sample2(_to_row_major(x, h0 // 2, w0))
         for blk in self.blocks3:
-            x = blk(x)
+            x = blk(x, train)
         x = self.sub_sample3(x)
         b, n, c = x.shape
         return x.reshape(b, 1, n, c)

@@ -24,6 +24,13 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py"]
 
 
+def test_scan_covers_every_subpackage():
+    parts = {p.relative_to(ROOT / "mrn_tpu_torch").parts[0] for p in _port_files()[:-1]}
+    assert {"models", "ops", "train", "data"} <= parts
+    learners = ROOT / "mrn_tpu_torch" / "train" / "learners"
+    assert set(learners.glob("*.py")) <= set(_port_files())
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

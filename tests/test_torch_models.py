@@ -17,7 +17,7 @@ from mrn_tpu.models.svtr import SVTRExtractor as JaxSVTRExtractor
 from mrn_tpu_torch.bridge import from_flax, recognizer_state
 from mrn_tpu_torch.models.composer import Recognizer
 from mrn_tpu_torch.models.router import DMRouter
-from mrn_tpu_torch.models.svtr import SVTRExtractor, configure_blocks
+from mrn_tpu_torch.models.svtr import DropPath, SVTRExtractor, configure_blocks
 
 # 12 pre-norm Blocks deep: float32 summation order plus the residual
 # erf-fit error (degree 15) and the clamp-exp vs max-subtract softmax.
@@ -125,3 +125,25 @@ def test_bridge_layouts(rng):
 def test_unsupported_stage_combination_raises():
     with pytest.raises(NotImplementedError):
         Recognizer(10, feature_extraction="VGG", sequence_modeling="BiLSTM")
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_droppath_keeps_one_minus_rate_and_rescales(rate):
+    """Per-image keep masks from a seeded generator: about 1 - rate of the
+    images kept, each scaled by 1 / keep, the rest zero; the same seed gives
+    the same masks; eval mode and rate 0 are the identity."""
+    n = 4000
+    x = torch.ones((n, 3, 2))
+    dp = DropPath(rate)
+    dp.generator = torch.Generator().manual_seed(5)
+    y = dp(x, train=True)
+    per_image = y[:, 0, 0]
+    kept = per_image != 0
+    keep = 1.0 - rate
+    assert abs(float(kept.float().mean()) - keep) < 4 * np.sqrt(keep * rate / n)
+    torch.testing.assert_close(per_image[kept], torch.full((int(kept.sum()),), 1.0 / keep))
+    assert bool((y == y[:, :1, :1]).all())          # one decision per image
+    dp.generator = torch.Generator().manual_seed(5)
+    torch.testing.assert_close(dp(x, train=True), y, atol=0, rtol=0)
+    assert dp(x, train=False) is x
+    assert DropPath(0.0)(x, train=True) is x
