@@ -28,7 +28,22 @@
    (the new expert) and step 1 (the router over 6 experts), bf16 then f32,
    printing each step's loss, time and images/s and counting kernel
    launches; then, in bf16 and f32, one step-0 step on the kernel path
-   against the same step on the plain versions (loss, grad norm, fc grad).
+   against the same step on the plain versions (loss, grad norm, fc grad);
+7. holds the three fused training Block kernels (forward, backward tail,
+   backward head) against their plain versions at the four Block shapes at
+   batch 256, f32 and bf16, with a non-trivial LN affine and droppath masks
+   with zeros: forward output and residuals, dy/dattn and 8 grads, dx and 4
+   grads, the whole autograd Function's grads, and bitwise-repeatable weight
+   grads; timed beside the plain versions, the bound and a library
+   yardstick (the composed library Block's forward with grad enabled, and
+   autograd's backward of it);
+8. trains task 5 again with ``MRN_FUSED_TRAIN=1`` (set, then restored): every
+   train-mode Block runs the fused training Block, counting 12 + 12 + 12
+   launches per step-0 step; then one step-0 step on the fused kernels
+   against the fused plain versions (bf16 and f32), and one f32 step-0 step
+   fused against composed with the same masks;
+9. profiles one step of each kind: the composed step 1 and step 0, and the
+   fused step 0.
 
 Any failed check raises (exit code != 0).  The line before the last is the
 per-kernel JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -37,6 +52,7 @@ Exits non-zero without printing a result when no CUDA card is present.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -59,6 +75,7 @@ from mrn_tpu_torch.models.init import (random_block, random_mrn,  # noqa: E402
 from mrn_tpu_torch.models.svtr import (Block, configure_blocks,  # noqa: E402
                                        local_attention_mask_col_major)
 from mrn_tpu_torch.ops import _build, svtr_attention, svtr_block  # noqa: E402
+from mrn_tpu_torch.ops import svtr_train_block  # noqa: E402
 from mrn_tpu_torch.serve import Server  # noqa: E402
 from mrn_tpu_torch.train.learners.mrn import MRN  # noqa: E402
 
@@ -112,6 +129,38 @@ TRAIN_DTYPES = ("bf16", "f32")
 # The first Adam update moves every weight by about lr * sign(g) whatever
 # |g| is, so the updated weights are not compared: the fc grads are.
 TRAIN_STEP_TOL = {"f32": (1e-4, 1e-4, 1e-4), "bf16": (1e-2, 3e-2, 3e-2)}
+# Fused training Block kernels (rows 5-7) against their plain versions on the
+# same inputs, per tensor as |k - p| <= the bound below of its largest |p|.
+# float32: summation order (the weight grads sum 32768..131072 rows) and CUDA
+# exp/rsqrt ulps, 2e-5 of the largest value.  bfloat16: the order can flip the
+# rounding of an intermediate or of the result by one bf16 ulp; two ulps of
+# the largest value (2^-7 of it rounded down to a power of two), the CPU
+# tests' bound against the Pallas bodies, so a missed rounding point (one
+# ulp everywhere, and more where it feeds a product) does not pass.
+TRAIN_BLOCK_F32_SHARE = 2e-5
+TRAIN_BLOCK_BF16_ULPS = 2
+
+
+def train_block_bound(dt, top):
+    """The largest |kernel - plain| allowed for a tensor whose largest |plain|
+    is ``top`` (see TRAIN_BLOCK_F32_SHARE / TRAIN_BLOCK_BF16_ULPS)."""
+    top = max(top, 1e-12)
+    if dt == torch.float32:
+        return TRAIN_BLOCK_F32_SHARE * top
+    return TRAIN_BLOCK_BF16_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+# The fused step-0 step on the kernels against the same step on the fused
+# plain versions: the reasons of TRAIN_STEP_TOL hold unchanged (float32
+# summation order carried through 12 Blocks; bf16 flips of one ulp feeding
+# the next Block), so its values do too.
+FUSED_STEP_TOL = TRAIN_STEP_TOL
+# One f32 step-0 step, fused against composed, same weights, batch and
+# masks: the GELU differs (degree-15 erf polynomial, |erf error| < 1.9e-7,
+# |gelu' error| < 1.6e-5, against the exact erf) and so does the softmax's
+# rounding (normalise after PV against before): the loss to 1e-4 relative,
+# the grad norm and the fc grad to 1e-3.
+FUSED_VS_COMPOSED_TOL = (1e-4, 1e-3, 1e-3)
 
 
 # ------------------------------------------------------------------- timing
@@ -404,6 +453,167 @@ def phase_attention(device, rng):
     return totals
 
 
+def train_block_bounds_ms(b, n, c, heads, hidden, dt, pairs, mask_bytes):
+    """(bytes_ms, ops_ms) of the least time of each fused training kernel on
+    an H100 -- forward, tail, head -- from its inputs read once and its
+    outputs written once over HBM bandwidth, and its products over the peak
+    rate of the type (attention over the visible (query, key) pairs)."""
+    isz = torch.tensor([], dtype=dt).element_size()
+    m = b * n
+    d = c // heads
+    ms = lambda nbytes, ops: (1e3 * nbytes / HBM_BYTES_PER_S,  # noqa: E731
+                              1e3 * ops / PEAK_FLOPS[dt])
+    fwd = ms(isz * (m * c * 4 + m * 3 * c + m * hidden + c * (4 * c + 2 * hidden))
+             + 4 * (9 * c + hidden + 2 * b) + mask_bytes,
+             2 * m * c * (4 * c + 2 * hidden) + 4 * b * heads * pairs * d)
+    tail = ms(isz * (m * c * 5 + m * hidden + c * (c + 2 * hidden))
+              + 4 * (2 * c + 2 * b) + 4 * (2 * c * hidden + c * c + hidden + 4 * c),
+              2 * m * (4 * c * hidden + 2 * c * c))
+    head = ms(isz * (m * c * 6 + 3 * c * c) + 4 * 2 * c + 4 * (3 * c * c + 5 * c),
+              12 * m * c * c)
+    return fwd, tail, head
+
+
+def _train_block_check(what, got, ref, dt):
+    """|got - ref| <= train_block_bound(dt, max|ref|), finite; returns
+    (max |difference|, that difference over the bound)."""
+    got, ref = got.float(), ref.float()
+    err = float((got - ref).abs().max())
+    top = float(ref.abs().max())
+    bound = train_block_bound(dt, top)
+    if not (bool(torch.isfinite(got).all()) and err <= bound):
+        print(f"  {what}: max_abs_err {err:.3e} of max |ref| {top:.3e} (bound {bound:.3e}) FAILED")
+        raise RuntimeError(f"{what}: kernel disagrees with its plain version")
+    return err, err / bound
+
+
+def phase_train_blocks(device, rng):
+    """The fused training Block's three kernels against their plain
+    versions at the four Block shapes, f32 and bf16; returns per-kernel,
+    per-dtype sums over one expert's 12 Blocks."""
+    tb = svtr_train_block
+    totals = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for name, hw, c, heads, mixer, count in BLOCK_SHAPES:
+            n = hw[0] * hw[1]
+            hidden = 4 * c
+            params = {k: torch.from_numpy(v) for k, v in random_block(rng, c).items()}
+            for key in ("norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias"):
+                params[key] = params[key] + 0.1 * torch.from_numpy(
+                    rng.standard_normal(c).astype(np.float32))
+            params = {k: v.to(device, dt) for k, v in params.items()}
+            keep = 0.9
+            dm = (rng.random((2, BATCH, 1)) < keep).astype(np.float32) / keep
+            dm[:, :2] = [[[0.0], [1 / keep]], [[1 / keep], [0.0]]]   # zeros on both
+            dm_a, dm_b = (torch.from_numpy(v).to(device) for v in dm)
+            x = torch.from_numpy(rng.standard_normal((BATCH, n, c)).astype(np.float32)
+                                 ).to(device, dt)
+            band = (hw[0], hw[1], 7, 11) if mixer == "Local" else None
+            scale = (c // heads) ** -0.5
+            g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(device, dt)
+            errs = {"fwd": 0.0, "tail": 0.0, "head": 0.0, "Function": 0.0}
+            worst = 0.0    # largest difference as a share of its bound
+
+            def check(kind, what, a, b):
+                nonlocal worst
+                err, share = _train_block_check(f"{label} {kind} {what}", a, b, dt)
+                errs[kind] = max(errs[kind], err)
+                worst = max(worst, share)
+
+            label = f"{name} {str(dt)[6:]} [{BATCH},{n},{c}]"
+            with torch.no_grad():
+                out, res = tb.forward(x, params, dm_a, dm_b, heads, scale, band)
+                torch.cuda.synchronize()
+                ref_out, ref_res = tb.forward_reference(x, params, dm_a, dm_b, heads, scale, band)
+                for what, a, b in zip(("out", "qkv", "attn_cat", "y", "h1"),
+                                      (out,) + res, (ref_out,) + ref_res):
+                    check("fwd", what, a, b)
+                qkv, attn, y, h1 = res
+                dy, dattn, tail = tb.bwd_tail(g, y, h1, attn, params, dm_a, dm_b)
+                torch.cuda.synchronize()
+                rdy, rdattn, rtail = tb.bwd_tail_reference(g, y, h1, attn, params, dm_a, dm_b)
+                for what, a, b in [("dy", dy, rdy), ("dattn", dattn, rdattn)] + [
+                        (k, tail[k], rtail[k]) for k in rtail]:
+                    check("tail", what, a, b)
+                dqkv = tb._attn_bwd(qkv, dattn, heads, scale, band, dt).to(dt)
+                dx, head = tb.bwd_head(x, dy, dqkv, params)
+                torch.cuda.synchronize()
+                rdx, rhead = tb.bwd_head_reference(x, dy, dqkv, params)
+                for what, a, b in [("dx", dx, rdx)] + [(k, head[k], rhead[k]) for k in rhead]:
+                    check("head", what, a, b)
+                # the same inputs twice: bitwise-equal weight grads
+                _, _, tail2 = tb.bwd_tail(g, y, h1, attn, params, dm_a, dm_b)
+                _, head2 = tb.bwd_head(x, dy, dqkv, params)
+                if not all(torch.equal(tail[k], tail2[k]) for k in tail) or \
+                        not all(torch.equal(head[k], head2[k]) for k in head):
+                    raise RuntimeError(f"{label}: weight grads differ between two kernel calls")
+                ms = {"fwd": cuda_ms(lambda: tb.forward(x, params, dm_a, dm_b, heads, scale,
+                                                        band), 5),
+                      "tail": cuda_ms(lambda: tb.bwd_tail(g, y, h1, attn, params, dm_a, dm_b), 5),
+                      "head": cuda_ms(lambda: tb.bwd_head(x, dy, dqkv, params), 5)}
+                plain_ms = {
+                    "fwd": cuda_ms(lambda: tb.forward_reference(x, params, dm_a, dm_b, heads,
+                                                                scale, band), 3),
+                    "tail": cuda_ms(lambda: tb.bwd_tail_reference(g, y, h1, attn, params,
+                                                                  dm_a, dm_b), 3),
+                    "head": cuda_ms(lambda: tb.bwd_head_reference(x, dy, dqkv, params), 3)}
+            # the whole autograd Function, kernels against plain versions
+            grads = []
+            for plain in (False, True):
+                leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+                xl = x.clone().requires_grad_()
+                o = tb.fused_block_train(xl, leaves, dm_a, dm_b, num_heads=heads, scale=scale,
+                                         band=band, plain=plain)
+                grads.append(torch.autograd.grad(o, [xl] + [leaves[k] for k in tb.PARAM_KEYS], g))
+            for k, a, b in zip(("x",) + tb.PARAM_KEYS, *grads):
+                check("Function", f"d{k}", a, b)
+            # library yardstick (timed only): the composed library Block
+            leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+            xl = x.clone().requires_grad_()
+            mask = (None if band is None else torch.from_numpy(
+                local_attention_mask_col_major(*band)).to(device, dt))
+            lib_fwd = cuda_ms(lambda: library_block(xl, leaves, mask, heads, scale), 5)
+            lib_out = library_block(xl, leaves, mask, heads, scale)
+            lib_in = [xl] + list(leaves.values())
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, g, retain_graph=True), 5)
+            del lib_out
+            plan = svtr_block._band_spec(*band) if band else None
+            pairs = n * n if band is None else int((mask == 0).sum())
+            mask_bytes = 0 if band is None else 4 * n * plan[1]
+            bounds = dict(zip(("fwd", "tail", "head"),
+                              train_block_bounds_ms(BATCH, n, c, heads, hidden, dt, pairs,
+                                                    mask_bytes)))
+            library = {"fwd": lib_fwd, "tail": lib_bwd, "head": None}
+            print(f"  {label} {'banded qb %d width %d' % plan[:2] if plan else 'full'}: "
+                  f"max |err| fwd {errs['fwd']:.3e} tail {errs['tail']:.3e} head "
+                  f"{errs['head']:.3e} Function {errs['Function']:.3e}, at most {worst:.3f} of "
+                  f"each tensor's bound; weight grads bitwise repeatable")
+            for kind in ("fwd", "tail", "head"):
+                b_ms, o_ms = bounds[kind]
+                bound = max(b_ms, o_ms)
+                lib = library[kind]
+                print(f"    {kind}: ms {ms[kind]:.4f}  plain_ms {plain_ms[kind]:.4f}  "
+                      f"bound_ms {bound:.4f} ({'operations' if o_ms >= b_ms else 'bytes'}, "
+                      f"{bound / ms[kind]:.1%} of bound)  library_ms "
+                      + ("n/a" if lib is None else f"{lib:.4f}"
+                         + (" (whole Block backward)" if kind == "tail" else "")))
+                tot = totals.setdefault((kind, dt), dict(
+                    ms=0.0, plain_ms=0.0, library_ms=0.0 if lib is not None else None,
+                    bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0))
+                tot["ms"] += count * ms[kind]
+                tot["plain_ms"] += count * plain_ms[kind]
+                if lib is not None:
+                    tot["library_ms"] += count * lib
+                tot["bound_ms"] += count * bound
+                tot["bytes_ms"] += count * b_ms
+                tot["ops_ms"] += count * o_ms
+                tot["max_abs_err"] = max(tot["max_abs_err"], errs[kind])
+    for (kind, dt), tot in totals.items():
+        print(f"  train {kind}, one expert's 12 Blocks, {str(dt)[6:]}: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in tot.items() if v is not None))
+    return totals
+
+
 def _task_alphabets():
     """Per-task alphabets whose cumulative sizes give CLASS_COUNTS (4
     special tokens in front)."""
@@ -422,11 +632,27 @@ def _train_learner(base, rng, loader, dtype):
     return learner
 
 
-def _kernel_vs_plain_step(base, loader, character, dtype):
+@contextlib.contextmanager
+def fused_train_env(flag):
+    """``MRN_FUSED_TRAIN`` set to ``flag`` inside the block and restored
+    after it, as ``bench.py`` does around its fused training rows."""
+    saved = os.environ.get("MRN_FUSED_TRAIN")
+    os.environ["MRN_FUSED_TRAIN"] = "1" if flag else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("MRN_FUSED_TRAIN", None)
+        else:
+            os.environ["MRN_FUSED_TRAIN"] = saved
+
+
+def _step_pair(base, loader, character, dtype, variants, tol, what):
     """One step-0 step of a fresh expert from the same weights, batch and
-    DropPath masks on the kernel path and forced through the plain
-    versions: loss, global grad norm and the fc grad must agree within
-    ``TRAIN_STEP_TOL[dtype]``."""
+    DropPath masks under each of two ``variants`` ((label, plain, fused)):
+    loss, global grad norm and the fc grad must agree within ``tol``
+    ((loss rtol, grad-norm rtol, fc-grad atol as a share of its largest
+    |grad|))."""
     learner = MRN(base.replace(num_iter=TRAIN_ITERS, train_dtype=dtype,
                                image_bank=loader.bank, manual_seed=SEED))
     learner.character = list(character)
@@ -443,46 +669,36 @@ def _kernel_vs_plain_step(base, loader, character, dtype):
 
     learner.grad_transform = lambda: keep_fc_grad
     results = []
-    for plain in (False, True):
+    for _, plain, fused in variants:
         learner.model.load_state_dict(start)
         learner.generator.set_state(gen_state)
         configure_blocks(learner.model, plain=plain)
         learner.build_optimizer()
-        metrics = learner.train_step(batch)
+        with fused_train_env(fused):
+            metrics = learner.train_step(batch)
         results.append((float(metrics["loss"]), float(metrics["grad_norm"]), captured["fc"]))
+    configure_blocks(learner.model, plain=False)
     (lk, gk, fk), (lp, gp, fp) = results
-    loss_rtol, norm_rtol, fc_share = TRAIN_STEP_TOL[dtype]
+    loss_rtol, norm_rtol, fc_share = tol
     largest = float(fp.abs().max())
     dfc = float((fk - fp).abs().max())
-    print(f"  {dtype} step-0 step, kernel vs plain: loss {lk:.7f} vs {lp:.7f} "
+    print(f"  {dtype} step-0 step, {what}: loss {lk:.7f} vs {lp:.7f} "
           f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {loss_rtol:g}), grad_norm {gk:.6f} vs "
           f"{gp:.6f} (rel {abs(gk - gp) / gp:.2e}, tol {norm_rtol:g}), fc grad max |diff| "
           f"{dfc:.3e} of max |grad| {largest:.3e} (tol {fc_share:g} of it)")
     if abs(lk - lp) > loss_rtol * abs(lp) or abs(gk - gp) > norm_rtol * gp \
             or dfc > fc_share * largest:
-        raise RuntimeError(f"{dtype}: the kernel and plain training steps disagree")
+        raise RuntimeError(f"{dtype}: the {what} training steps disagree")
 
 
-def phase_train(rng):
-    """This slice's main path: SVTR-MRN training of task 5 at full width
-    (step 0, the new expert alone; step 1, the router over 6 frozen
-    experts) through ``MRN.incremental_train``, bf16 then f32; then, in
-    each dtype, one step-0 step on the kernel path against the same step on
-    the plain versions."""
-    base = load_config(os.path.join(ROOT, "configs", "svtr_mrn.py"))
-    alphabets = _task_alphabets()
-    character = "".join(alphabets)
-    t0 = time.perf_counter()
-    loader = SyntheticTaskLoader(alphabets, TRAIN_TASK, BATCH, CROPS_PER_TASK,
-                                 img_h=base.imgH, img_w=base.imgW, seed=SEED)
-    print(f"  rendered {len(loader.labels)} crops {loader.bank.shape[1:]} into the bank "
-          f"in {time.perf_counter() - t0:.1f} s")
+def _train_runs(base, rng, loader, character, tag):
+    """``MRN.incremental_train`` of task 5 for each dtype of TRAIN_DTYPES,
+    from fresh learners; prints each step and checks that it moved."""
     learners = {dtype: _train_learner(base, rng, loader, dtype) for dtype in TRAIN_DTYPES}
     n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
-
-    # ---- counted run: the main path, through the entry point
     svtr_attention.launches.update(full=0, banded=0)
     svtr_block.launches = 0
+    svtr_train_block.launches.update(train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
     for dtype, learner in learners.items():
         init_rng = copy.deepcopy(learner.np_rng)
         learner.incremental_train(TRAIN_TASK, character, loader)
@@ -493,55 +709,113 @@ def phase_train(rng):
                  float((learner.router_state["route.kernel"].cpu()
                         - torch.from_numpy(init_route)).abs().max()))
         for rec in learner.history:
-            print(f"  {dtype} task {rec['task']} step {rec['step']} iter {rec['iteration']}: "
-                  f"loss {rec['loss']:.5f}"
+            print(f"  {tag} {dtype} task {rec['task']} step {rec['step']} iter "
+                  f"{rec['iteration']}: loss {rec['loss']:.5f}"
                   + (f" (clf {rec['clf']:.5f}, router {rec['router']:.5f})" if "clf" in rec else "")
                   + f", grad_norm {rec['grad_norm']:.4g}, lr {rec['lr']:.4g}, "
                   f"{1e3 * rec['seconds']:.1f} ms, {BATCH / rec['seconds']:.1f} images/s")
-        print(f"  {dtype}: max |change| of the new expert's fc {moved[0]:.3e}, "
+        print(f"  {tag} {dtype}: max |change| of the new expert's fc {moved[0]:.3e}, "
               f"of the router's route kernel {moved[1]:.3e}")
         if not all(np.isfinite(rec["loss"]) for rec in learner.history):
-            raise RuntimeError(f"{dtype}: non-finite training loss")
+            raise RuntimeError(f"{tag} {dtype}: non-finite training loss")
         if len(learner.history) != n0 + n1 or min(moved) <= 0.0:
-            raise RuntimeError(f"{dtype}: the trained parameters did not move")
-    launches = dict(svtr_attention.launches, fused=svtr_block.launches)
-    steps = len(learners)
-    expected = dict(full=6 * n0 * steps, banded=6 * n0 * steps, fused=72 * n1 * steps)
-    print(f"  launches in the training runs: {launches} (expected {expected}: "
+            raise RuntimeError(f"{tag} {dtype}: the trained parameters did not move")
+    launches = dict(svtr_attention.launches, fused=svtr_block.launches,
+                    **svtr_train_block.launches)
+    return launches, learners
+
+
+def _train_setup(base):
+    alphabets = _task_alphabets()
+    t0 = time.perf_counter()
+    loader = SyntheticTaskLoader(alphabets, TRAIN_TASK, BATCH, CROPS_PER_TASK,
+                                 img_h=base.imgH, img_w=base.imgW, seed=SEED)
+    print(f"  rendered {len(loader.labels)} crops {loader.bank.shape[1:]} into the bank "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return "".join(alphabets), loader
+
+
+def phase_train(rng, base, character, loader):
+    """Slice 2's path: SVTR-MRN training of task 5 at full width on the
+    composed route (step 0, the new expert alone; step 1, the router over 6
+    frozen experts) through ``MRN.incremental_train``, bf16 then f32; then,
+    in each dtype, one step-0 step on the kernel path against the same step
+    on the plain versions."""
+    n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
+    steps = len(TRAIN_DTYPES)
+    with fused_train_env(False):
+        # ---- counted run: the main path, through the entry point
+        launches, learners = _train_runs(base, rng, loader, character, "composed")
+    expected = dict(full=6 * n0 * steps, banded=6 * n0 * steps, fused=72 * n1 * steps,
+                    train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
+    print(f"  launches in the composed training runs: {launches} (expected {expected}: "
           f"per step-0 step 6 full + 6 banded attention, per step-1 step 72 fused "
           f"Blocks = {N_EXPERTS} experts x 12)")
     if launches != expected:
         raise RuntimeError("the training path did not run through the kernels as expected")
-
     for dtype in TRAIN_DTYPES:
-        _kernel_vs_plain_step(base, loader, character, dtype)
-    return launches, learners, loader
+        _step_pair(base, loader, character, dtype,
+                   (("kernel", False, False), ("plain", True, False)),
+                   TRAIN_STEP_TOL[dtype], "kernel vs plain")
+    return launches, learners
 
 
-def phase_profile(learner, loader):
-    """Where one step's device time goes: ``torch.profiler`` over one step-1
-    and one step-0 step of the bf16 learner after its counted run (the
-    router phase as it ended, then its standalone expert again).  Prints
-    the kernels with the most device time, the device-busy time and the
-    host-clock step time (the profiler's own overhead is inside the
+def phase_train_fused(rng, base, character, loader):
+    """This slice's path: the same task-5 training with ``MRN_FUSED_TRAIN=1``
+    (every train-mode Block is the fused training Block: 12 forward, 12 tail
+    and 12 head launches per step-0 step, no attention-kernel launch), bf16
+    then f32; then one step-0 step on the fused kernels against the fused
+    plain versions in each dtype, and one f32 step-0 step fused against
+    composed with the same masks."""
+    n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
+    steps = len(TRAIN_DTYPES)
+    with fused_train_env(True):
+        # ---- counted run: the main path, through the entry point
+        launches, learners = _train_runs(base, rng, loader, character, "fused")
+    expected = dict(full=0, banded=0, fused=72 * n1 * steps, train_fwd=12 * n0 * steps,
+                    train_bwd_tail=12 * n0 * steps, train_bwd_head=12 * n0 * steps)
+    print(f"  launches in the fused training runs: {launches} (expected {expected}: "
+          f"per step-0 step 12 forward + 12 tail + 12 head fused training Blocks and no "
+          f"attention kernel, per step-1 step 72 fused inference Blocks)")
+    if launches != expected:
+        raise RuntimeError("the fused training path did not run through the kernels as expected")
+    for dtype in TRAIN_DTYPES:
+        _step_pair(base, loader, character, dtype,
+                   (("kernel", False, True), ("plain", True, True)),
+                   FUSED_STEP_TOL[dtype], "fused kernels vs fused plain")
+    _step_pair(base, loader, character, "f32",
+               (("fused", False, True), ("composed", False, False)),
+               FUSED_VS_COMPOSED_TOL, "fused vs composed")
+    return launches, learners
+
+
+def phase_profile(runs, loader):
+    """Where one step's device time goes: ``torch.profiler`` over one step
+    of each (label, learner, fused) of ``runs`` -- step 1 as the router
+    phase ended, or the learner's standalone expert again for step 0.
+    Prints the kernels with the most device time, the device-busy time and
+    the host-clock step time (the profiler's own overhead is inside the
     latter)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    steps = (("step 1", loader.get_batch2), ("step 0", loader.get_batch))
-    for label, get_batch in steps:
-        if label == "step 0":
+    for label, learner, fused in runs:
+        if label.endswith("step 0"):
             learner._phase = "standalone"
             learner.build_optimizer()
+            get_batch = loader.get_batch
+        else:
+            get_batch = loader.get_batch2
         batch = get_batch()
-        learner.train_step(batch)     # warm-up outside the trace
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            learner.train_step(batch)
+        with fused_train_env(fused):
+            learner.train_step(batch)     # warm-up outside the trace
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t0 = time.perf_counter()
+                learner.train_step(batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
         # device-side events only (the operators' own rows repeat their kernels' time)
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -552,7 +826,7 @@ def phase_profile(learner, loader):
             continue
         print(f"  bf16 {label}: device busy {busy:.1f} ms of a {1e3 * wall:.1f} ms traced "
               f"step ({1 - busy / (1e3 * wall):.1%} idle); top kernels by device time:")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
             ms = e.self_device_time_total / 1e3
             print(f"    {ms:8.2f} ms {ms / busy:6.1%} x{e.count:<4d} {e.key[:90]}")
 
@@ -576,18 +850,35 @@ def main():
     served, _ = phase_serve(rng)
     print("== attention kernels vs plain, SVTR training shapes")
     attn = phase_attention(device, rng)
-    print("== SVTR-MRN training, full width")
-    trained, learners, loader = phase_train(rng)
+    base = load_config(os.path.join(ROOT, "configs", "svtr_mrn.py"))
+    character, loader = _train_setup(base)
+    print("== SVTR-MRN training, full width, composed Blocks")
+    trained, learners = phase_train(rng, base, character, loader)
+    print("== fused training Block kernels vs plain, SVTR Block shapes")
+    train_blocks = phase_train_blocks(device, rng)
+    print("== SVTR-MRN training, full width, MRN_FUSED_TRAIN=1")
+    fused_trained, fused_learners = phase_train_fused(rng, base, character, loader)
     print("== profile of one bf16 training step of each kind")
-    phase_profile(learners["bf16"], loader)
+    phase_profile((("composed step 1", learners["bf16"], False),
+                   ("composed step 0", learners["bf16"], False),
+                   ("fused step 0", fused_learners["bf16"], True)), loader)
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
-    fused = totals[torch.bfloat16]
+    bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
-             served + trained["fused"], fused),
+             served + trained["fused"] + fused_trained["fused"], totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
-             trained["full"], attn[("full", torch.bfloat16)]),
+             trained["full"], attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
-             trained["banded"], attn[("banded", torch.bfloat16)])]
+             trained["banded"], attn[("banded", bf16)]),
+            ("svtr_train_block_forward", "svtr_train_block.cu",
+             "mrn_tpu/ops/svtr_train_block.py:124", fused_trained["train_fwd"],
+             train_blocks[("fwd", bf16)]),
+            ("svtr_train_block_bwd_tail", "svtr_train_block.cu",
+             "mrn_tpu/ops/svtr_train_block.py:436", fused_trained["train_bwd_tail"],
+             train_blocks[("tail", bf16)]),
+            ("svtr_train_block_bwd_head", "svtr_train_block.cu",
+             "mrn_tpu/ops/svtr_train_block.py:497", fused_trained["train_bwd_head"],
+             train_blocks[("head", bf16)])]
     record = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -603,8 +894,11 @@ def main():
     } for name, source, replaces, launches, tot in rows]}
     print(f"kernel record: bfloat16 at batch {BATCH}; svtr_fused_block times are one "
           f"expert's 12 Blocks, its launches the served requests ({served}) plus the "
-          f"router steps ({trained['fused']}); attention times are one expert forward's "
-          f"6 Blocks of each kind; on {smi}")
+          f"router steps ({trained['fused']} composed, {fused_trained['fused']} fused runs); "
+          f"attention times are one expert forward's 6 Blocks of each kind; "
+          f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms is "
+          f"autograd's whole library-Block backward (tail, attention and head), the "
+          f"head has none of its own; on {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

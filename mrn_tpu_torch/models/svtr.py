@@ -10,15 +10,20 @@ Every module takes ``train``:
 - train: each Block runs the JAX package's composed path (``svtr.py:412-448``)
   with the attention core ``ops.svtr_attention.mha_small_n`` (CUDA forwards,
   plain backward), ``DropPath`` on both residual branches and BatchNorm on
-  batch statistics in ``PatchEmbed``.
+  batch statistics in ``PatchEmbed``.  With ``MRN_FUSED_TRAIN=1`` a Global
+  Block, or a Local Block with a band plan, runs the fused training Block
+  instead (``ops.svtr_train_block.fused_block_train``, ``svtr.py:373-410``),
+  its droppath masks drawn as the composed path draws them.
 
 Stages 1-2 run on column-major tokens, so the Local 7x11 window is a
-diagonal band both kernels compute banded.  The training GELU (PatchEmbed
-and the Block MLP) is the exact erf, the reference's own.
+diagonal band all kernels compute banded.  The composed path's GELU
+(PatchEmbed and the Block MLP) is the exact erf, the reference's own; the
+fused training Block's is the degree-15 erf polynomial, as in JAX.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,7 +34,8 @@ from torch import nn
 from mrn_tpu_torch.models.common import (BatchNorm, Conv2d, LayerNorm,
                                          to_nchw, to_nhwc)
 from mrn_tpu_torch.ops.svtr_attention import mha_small_n
-from mrn_tpu_torch.ops.svtr_block import fused_block, fused_block_reference
+from mrn_tpu_torch.ops.svtr_block import _band_spec, fused_block, fused_block_reference
+from mrn_tpu_torch.ops.svtr_train_block import PARAM_KEYS, fused_block_train
 
 __all__ = ["Block", "DropPath", "PatchEmbed", "SVTRExtractor",
            "SubSampleConv", "configure_blocks", "local_attention_mask",
@@ -80,11 +86,6 @@ def _to_row_major(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x.reshape(b, w, h, c).transpose(1, 2).reshape(b, n, c)
 
 
-_BLOCK_LEAVES = ("norm1_scale", "norm1_bias", "qkv_kernel", "qkv_bias",
-                 "proj_kernel", "proj_bias", "norm2_scale", "norm2_bias",
-                 "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias")
-
-
 class DropPath(nn.Module):
     """Stochastic depth: in train mode each image's branch is kept with
     probability ``1 - rate`` and scaled by ``1 / keep``.  The keep mask is
@@ -96,14 +97,24 @@ class DropPath(nn.Module):
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
 
+    def _draw(self, batch: int, device) -> torch.Tensor:
+        """One keep decision per image, [B, 1] float32 of 0 and 1."""
+        return torch.bernoulli(torch.full((batch, 1), 1.0 - self.rate, device=device),
+                               generator=self.generator)
+
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if self.rate == 0.0 or not train:
             return x
-        keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.bernoulli(torch.full(shape, keep, device=x.device),
-                               generator=self.generator)
-        return x * mask.to(x.dtype) / keep
+        mask = self._draw(x.shape[0], x.device).view(shape)
+        return x * mask.to(x.dtype) / (1.0 - self.rate)
+
+    def keep_scale(self, batch: int, device) -> torch.Tensor:
+        """The fused training Block's form of the same draw: the [B, 1]
+        float32 keep mask divided by keep; ones, drawing nothing, at rate 0."""
+        if self.rate == 0.0:
+            return torch.ones((batch, 1), device=device)
+        return self._draw(batch, device) / (1.0 - self.rate)
 
 
 def set_droppath_generator(model: nn.Module,
@@ -120,8 +131,9 @@ class Block(nn.Module):
     ``[in, out]``).
 
     ``plain`` runs the kernels' plain versions on any device (the card's
-    reference in checks) and ``gelu_degree`` picks the inference kernel's
-    erf fit; both are set for a whole model with ``configure_blocks``."""
+    reference in checks; the fused training Block's too) and
+    ``gelu_degree`` picks the inference kernel's erf fit; both are set for
+    a whole model with ``configure_blocks``."""
 
     def __init__(self, dim: int, num_heads: int, mixer: str,
                  hw: Tuple[int, int], mlp_ratio: float = 4.0,
@@ -135,7 +147,7 @@ class Block(nn.Module):
                       norm2_scale=(dim,), norm2_bias=(dim,),
                       fc1_kernel=(dim, hidden), fc1_bias=(hidden,),
                       fc2_kernel=(hidden, dim), fc2_bias=(dim,))
-        for name in _BLOCK_LEAVES:
+        for name in PARAM_KEYS:
             self.register_parameter(name, nn.Parameter(torch.zeros(shapes[name])))
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
@@ -158,13 +170,30 @@ class Block(nn.Module):
             self.mask = self.mask.to(x.device)
         if train:
             return self._forward_train(x)
-        params = {name: getattr(self, name) for name in _BLOCK_LEAVES}
+        params = {name: getattr(self, name) for name in PARAM_KEYS}
         fn = fused_block_reference if self.plain else fused_block
         return fn(x, params, self.mask, self.num_heads, self.scale,
                   band=self.band, gelu_degree=self.gelu_degree)
 
+    def fused_train_ok(self, n: int) -> bool:
+        """Whether ``MRN_FUSED_TRAIN=1`` sends this Block to the fused
+        training Block (``svtr.py:393-395``): Global, or Local with a band
+        plan over ``n`` tokens."""
+        band = self.band
+        return self.mask is None or (band is not None and _band_spec(*band) is not None
+                                     and band[0] * band[1] == n)
+
     def _forward_train(self, x: torch.Tensor) -> torch.Tensor:
-        """The composed training path (``svtr.py:412-448``)."""
+        """The composed training path (``svtr.py:412-448``), or with
+        ``MRN_FUSED_TRAIN=1`` the fused training Block where it applies
+        (``svtr.py:373-410``)."""
+        if os.environ.get("MRN_FUSED_TRAIN", "0") == "1" and self.fused_train_ok(x.shape[1]):
+            b = x.shape[0]
+            dm_a = self.drop_path.keep_scale(b, x.device)
+            dm_b = self.drop_path.keep_scale(b, x.device)
+            params = {name: getattr(self, name) for name in PARAM_KEYS}
+            return fused_block_train(x, params, dm_a, dm_b, num_heads=self.num_heads,
+                                     scale=self.scale, band=self.band, plain=self.plain)
         b, n, c = x.shape
         heads = self.num_heads
         h = _manual_layer_norm(x, self.norm1_scale, self.norm1_bias)

@@ -2,8 +2,9 @@
 with ctypes.
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, named by a hash of the source so an edited source is
-never served by a stale build.  The build directory is ``build/mrn_tpu_torch``
+a plain C interface, named by a hash of the source and of the shared headers
+(``csrc/*.cuh``) so an edited source or header is never served by a stale
+build.  The build directory is ``build/mrn_tpu_torch``
 at the root of the checkout (listed in ``.gitignore``).  A failed build
 raises with the compiler's output; nothing falls back.
 """
@@ -41,8 +42,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: List[str] = None) -> Dict[str, Path]:

@@ -1,0 +1,317 @@
+// Device code shared by the port's CUDA sources (svtr_block.cu,
+// svtr_attention.cu, svtr_train_block.cu).  Each source is its own shared
+// library, so everything here sits in an anonymous namespace.
+//
+//   - float <-> working type T (float or bfloat16) and rounding to T;
+//   - warp reductions;
+//   - the degree-15 minimax erf polynomial of the GELU (the JAX package's
+//     _ERF_COEFS; |erf error| < 1.9e-7);
+//   - the SIMT GEMM main loop: one 64x64 output tile per block of 256
+//     threads, 4x4 accumulators per thread, A and B tiles of 16 along the
+//     reduction staged in shared memory, every operand rounded to T, float32
+//     accumulation.  Operands come through loader functors (value of element
+//     (i, k) of A, (k, j) of B), so each caller fuses its own LayerNorm,
+//     droppath or GELU into the loads;
+//   - attention over one (image, head, 32-query tile) per block with the
+//     [32, width] float32 score tile in shared memory and 64-key K/V chunks,
+//     banded (query block a of qb rows attends to keys [starts[a], starts[a]
+//     + width)) or full, in the three softmax forms the Pallas kernels use.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may opt into
+constexpr float kErfZ0Sq = (float)(3.7 * 3.7);
+constexpr float kTwoOverZ0Sq = (float)(2.0 / (3.7 * 3.7));
+constexpr float kRsqrt2 = 0.70710678118654752f;
+
+__constant__ float kErf15[16] = {
+    0.3821374773979187f, -0.1904679834842682f, 0.14079536497592926f,
+    -0.11263926327228546f, 0.09052307158708572f, -0.07047279179096222f,
+    0.0521380715072155f, -0.03618001565337181f, 0.023104503750801086f,
+    -0.013829714618623257f, 0.008435077033936977f, -0.004555193707346916f,
+    0.0014333085855469108f, -0.0005751904682256281f, 0.0007578228251077235f,
+    -0.0003343276330269873f};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// value rounded to T and back (identity for float)
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// 0.5 x (1 + erf(x / sqrt 2)) with erf(z) = clip(z P(u), -1, 1), u = (2/Z0)
+// min(z^2, Z0) - 1 and P the NC coefficients c (Horner from the top)
+template <int NC>
+__device__ __forceinline__ float gelu_erf(float x, const float* c) {
+  const float z = x * kRsqrt2;
+  const float u = kTwoOverZ0Sq * fminf(z * z, kErfZ0Sq) - 1.0f;
+  float p = c[NC - 1];
+#pragma unroll
+  for (int i = NC - 2; i >= 0; --i) p = p * u + c[i];
+  const float e = fminf(fmaxf(z * p, -1.0f), 1.0f);
+  return 0.5f * x * (1.0f + e);
+}
+
+__device__ __forceinline__ float gelu15(float x) { return gelu_erf<16>(x, kErf15); }
+
+// ---------------------------------------------------------------------- GEMM
+constexpr int BM = 64, BN = 64, BK = 16, kGemmThreads = 256;
+
+template <typename S>
+struct Mat {  // row-major [rows, ld]
+  const S* p;
+  int ld;
+  __device__ float operator()(int r, int c) const { return to_f(p[(size_t)r * ld + c]); }
+};
+
+// acc[i][j] (thread (tx, ty) = (tid % 16, tid / 16) holds rows m0 + ty + 16 i,
+// columns n0 + tx + 16 j) += sum over k in [kbeg, kend) of round_T(a(i, k)) *
+// round_T(b(k, j)).  A_KFAST / B_JFAST: which index of A / B runs along
+// memory, so the tile loads are coalesced.
+template <typename T, bool A_KFAST, bool B_JFAST, class A, class B>
+__device__ __forceinline__ void gemm_mainloop(const A& a, const B& b, int M, int Nn,
+                                              int kbeg, int kend, float (&acc)[4][4]) {
+  __shared__ float As[BK][BM + 1];
+  __shared__ float Bs[BK][BN + 1];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
+    for (int idx = tid; idx < BM * BK; idx += kGemmThreads) {
+      const int r = A_KFAST ? idx / BK : idx % BM;
+      const int kk = A_KFAST ? idx % BK : idx / BM;
+      const int i = m0 + r, k = k0 + kk;
+      As[kk][r] = (i < M && k < kend) ? round_to<T>(a(i, k)) : 0.f;
+    }
+    for (int idx = tid; idx < BK * BN; idx += kGemmThreads) {
+      const int cc = B_JFAST ? idx % BN : idx / BK;
+      const int kk = B_JFAST ? idx / BN : idx % BK;
+      const int j = n0 + cc, k = k0 + kk;
+      Bs[kk][cc] = (j < Nn && k < kend) ? round_to<T>(b(k, j)) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+    }
+    __syncthreads();
+  }
+}
+
+// e(m, n, acc) for every in-range element of the block's output tile
+template <class E>
+__device__ __forceinline__ void gemm_store(const float (&acc)[4][4], int M, int Nn, E e) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < Nn) e(m, n, acc[i][j]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- attention
+constexpr int QT = 32;   // query rows per block (wrappers: _QUERY_TILE)
+constexpr int KC = 64;   // keys per shared-memory chunk
+constexpr int kAttnThreads = 256;
+
+// The softmax forms of the Pallas kernels:
+//   kClampExp:   p = round_T(exp(min(s, 60))), no max (inference Block),
+//                normalised after PV by the row sum of the rounded p;
+//   kMaxSubLate: p = round_T(exp(s - max)) (training Block), normalised
+//                after PV by the row sum of the rounded p;
+//   kMaxSubEarly: p = round_T(exp(s - max) / sum) before PV (the training
+//                attention forwards of the composed path).
+enum Softmax { kClampExp = 0, kMaxSubLate = 1, kMaxSubEarly = 2 };
+constexpr float kScoreClamp = 60.0f;
+
+size_t attention_smem_bytes(int d, int width) {
+  return sizeof(float) * ((size_t)QT * d + (size_t)KC * (d + 1) + (size_t)QT * width);
+}
+
+// grid B * heads * ceil(N / QT), query tiles fastest (the tiles of one head
+// share its keys in L2).  Row r of image b, head h: q at q[(b N +
+// r) q_ld + h D], k / v at k / v[(b N + r) kv_ld + h D], out at out[(b N +
+// r) out_ld + h D]; q pre-scaled.  mask [N, width] float32 or NULL; starts
+// int32 [N / qb] or NULL (one window [0, width) for every query).
+template <typename T, int D, int SOFTMAX>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_kernel(const T* __restrict__ q, int q_ld, const T* __restrict__ k,
+                 const T* __restrict__ v, int kv_ld, T* __restrict__ out, int out_ld,
+                 const float* __restrict__ mask, const int* __restrict__ starts, int heads,
+                 int N, int qb, int width) {
+  static_assert(kAttnThreads % D == 0 && QT * D % kAttnThreads == 0, "tile");
+  constexpr int kRowsPerPass = kAttnThreads / D;
+  constexpr int kPasses = QT / kRowsPerPass;
+  extern __shared__ float smem[];
+  float* Qs = smem;                      // [QT][D]
+  float* KVs = Qs + QT * D;              // [KC][D + 1]
+  float* Ps = KVs + KC * (D + 1);        // [QT][width]
+  __shared__ float s_inv[QT];
+
+  const int tiles = (N + QT - 1) / QT, bh = blockIdx.x / tiles;
+  const int b = bh / heads, h = bh % heads, q0 = (blockIdx.x % tiles) * QT;
+  const int rows = min(QT, N - q0);
+  const int kbase = starts ? starts[q0 / qb] : 0;
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)b * N;
+  const T* kp = k + (row0 + kbase) * kv_ld + h * D;
+  const T* vp = v + (row0 + kbase) * kv_ld + h * D;
+
+  for (int i = tid; i < QT * D; i += kAttnThreads) {
+    const int r = i / D, d = i % D;
+    Qs[i] = r < rows ? to_f(q[(row0 + q0 + r) * q_ld + h * D + d]) : 0.f;
+  }
+
+  // scores for the whole key window, float32 (+ mask); kClampExp takes its
+  // rounded exp here
+  for (int kc = 0; kc < width; kc += KC) {
+    const int kn = min(KC, width - kc);
+    __syncthreads();
+    for (int i = tid; i < KC * D; i += kAttnThreads) {
+      const int j = i / D, d = i % D;
+      KVs[j * (D + 1) + d] = j < kn ? to_f(kp[(size_t)(kc + j) * kv_ld + d]) : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < QT * KC; i += kAttnThreads) {
+      const int r = i / KC, j = i % KC;
+      if (r >= rows || j >= kn) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) s += Qs[r * D + d] * KVs[j * (D + 1) + d];
+      if (mask) s += mask[(size_t)(q0 + r) * width + kc + j];
+      Ps[r * width + kc + j] = SOFTMAX == kClampExp ? round_to<T>(expf(fminf(s, kScoreClamp))) : s;
+    }
+  }
+  __syncthreads();
+
+  // one warp per row: max-subtract (not kClampExp), exp, row sum
+  {
+    const int warp = tid / 32, lane = tid % 32;
+    for (int r = warp; r < rows; r += kAttnThreads / 32) {
+      float* prow = Ps + r * width;
+      float m = 0.f;
+      if (SOFTMAX != kClampExp) {
+        m = -INFINITY;
+        for (int j = lane; j < width; j += 32) m = fmaxf(m, prow[j]);
+        m = warp_max(m);
+      }
+      float s = 0.f;
+      for (int j = lane; j < width; j += 32) {
+        float p = prow[j];
+        if (SOFTMAX == kMaxSubLate) p = round_to<T>(expf(p - m));
+        if (SOFTMAX == kMaxSubEarly) p = expf(p - m);
+        prow[j] = p;
+        s += p;
+      }
+      s = warp_sum(s);
+      if (SOFTMAX == kMaxSubEarly) {
+        for (int j = lane; j < width; j += 32) prow[j] = round_to<T>(prow[j] / s);
+      } else if (lane == 0) {
+        s_inv[r] = 1.0f / (s + 1e-30f);
+      }
+    }
+  }
+
+  // PV, float32 accumulation; normalised after unless kMaxSubEarly
+  const int d = tid % D, r0 = tid / D;
+  float acc[kPasses] = {};
+  for (int kc = 0; kc < width; kc += KC) {
+    const int kn = min(KC, width - kc);
+    __syncthreads();
+    for (int i = tid; i < KC * D; i += kAttnThreads) {
+      const int j = i / D, dd = i % D;
+      KVs[j * (D + 1) + dd] = j < kn ? to_f(vp[(size_t)(kc + j) * kv_ld + dd]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const int r = r0 + p * kRowsPerPass;
+      if (r >= rows) continue;
+      const float* prow = Ps + r * width + kc;
+      for (int j = 0; j < kn; ++j) acc[p] += prow[j] * KVs[j * (D + 1) + d];
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    const int r = r0 + p * kRowsPerPass;
+    if (r >= rows) continue;
+    const float o = SOFTMAX == kMaxSubEarly ? acc[p] : acc[p] * s_inv[r];
+    out[(row0 + q0 + r) * out_ld + h * D + d] = from_f<T>(o);
+  }
+}
+
+template <typename T, int D, int SOFTMAX>
+cudaError_t launch_attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, T* out,
+                             int out_ld, const float* mask, const int* starts, int B,
+                             int heads, int N, int qb, int width, cudaStream_t stream) {
+  const size_t smem = attention_smem_bytes(D, width);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, D, SOFTMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)B * heads * ((N + QT - 1) / QT);
+  attention_kernel<T, D, SOFTMAX><<<grid, kAttnThreads, smem, stream>>>(
+      q, q_ld, k, v, kv_ld, out, out_ld, mask, starts, heads, N, qb, width);
+  return cudaGetLastError();
+}
+
+// attention_kernel for head dim D in {8, 16, 32, 64}
+template <typename T, int SOFTMAX>
+cudaError_t attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, T* out,
+                      int out_ld, const float* mask, const int* starts, int B, int heads,
+                      int N, int D, int qb, int width, cudaStream_t s) {
+#define ATTN_CASE(DD)                                                                       \
+  case DD:                                                                                  \
+    return launch_attention<T, DD, SOFTMAX>(q, q_ld, k, v, kv_ld, out, out_ld, mask, starts, \
+                                            B, heads, N, qb, width, s)
+  switch (D) {
+    ATTN_CASE(8);
+    ATTN_CASE(16);
+    ATTN_CASE(32);
+    ATTN_CASE(64);
+    default: return cudaErrorInvalidValue;
+  }
+#undef ATTN_CASE
+}
+
+}  // namespace
