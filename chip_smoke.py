@@ -43,7 +43,24 @@
    against the fused plain versions (bf16 and f32), and one f32 step-0 step
    fused against composed with the same masks;
 9. profiles one step of each kind: the composed step 1 and step 0, and the
-   fused step 0.
+   fused step 0;
+10. holds the w8a8 Block kernel against its plain version at the four Block
+   shapes at batch 256, float32 and bfloat16, float and int8 attention, each
+   Block calibrated on its input and quantized first; two launches must be
+   bitwise equal, and the plain version with float products (the control)
+   must fail the check the kernel passes; timed beside the plain version,
+   the bound and a library yardstick (the w8a8 Block from ``torch._int_mm``,
+   ``F.layer_norm`` and ``F.scaled_dot_product_attention``, which the port
+   never calls), whose kernels are then profiled;
+11. serves one full-width SVTR recognizer of ``configs/svtr_mrn.py`` (task 0,
+   2000 classes, random weights) int8 as ``evaluate_cli --int8 --taski 0``
+   does: prints the float server's score envelope, calibrates on 4 synthetic
+   batches and quantizes (``serve.quantize_int8``), serves 5 requests of
+   256 crops in float32 and bfloat16 counting 12 int8 Block launches per
+   request, holds each served Block against the plain version on its own
+   served input and the logits and greedy picks against the plain versions
+   (each beside the control), and prints word agreement and mean NED
+   against the float server.
 
 Any failed check raises (exit code != 0).  The line before the last is the
 per-kernel JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -60,6 +77,7 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -68,19 +86,21 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from mrn_tpu_torch.bridge import quant_tree  # noqa: E402
 from mrn_tpu_torch.config import load_config  # noqa: E402
 from mrn_tpu_torch.data.synthetic import SyntheticTaskLoader, alphabet_of_size  # noqa: E402
 from mrn_tpu_torch.models.init import (random_block, random_mrn,  # noqa: E402
                                        random_recognizer, random_router)
 from mrn_tpu_torch.models.svtr import (Block, configure_blocks,  # noqa: E402
                                        local_attention_mask_col_major)
-from mrn_tpu_torch.ops import _build, svtr_attention, svtr_block  # noqa: E402
+from mrn_tpu_torch.ops import _build, int8, metrics, svtr_attention, svtr_block  # noqa: E402
 from mrn_tpu_torch.ops import svtr_train_block  # noqa: E402
-from mrn_tpu_torch.serve import Server  # noqa: E402
+from mrn_tpu_torch.serve import Server, quantize_int8  # noqa: E402
 from mrn_tpu_torch.train.learners.mrn import MRN  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the full 700 W limit.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
 BATCH = 256
@@ -161,6 +181,46 @@ FUSED_STEP_TOL = TRAIN_STEP_TOL
 # rounding (normalise after PV against before): the loss to 1e-4 relative,
 # the grad norm and the fc grad to 1e-3.
 FUSED_VS_COMPOSED_TOL = (1e-4, 1e-3, 1e-3)
+
+# w8a8 Block kernel (row 3) against its plain version on the same inputs.
+# The integer products are exact, so the two agree bit for bit wherever
+# their int8 inputs agree.  But the LayerNorm statistics and the softmax sums
+# are float32 sums taken in another order, and an activation within a
+# float32 ulp of a .5 boundary can round to the neighbouring int8 value on
+# one side only.  Such a flip moves one projection input by a quantization
+# step, and through the attention it moves its image's later activations,
+# some across further boundaries (never beyond its image).  So at batch 256
+# at most INT8_FLIP_SHARE of the elements may differ by more than the float
+# noise INT8_NOISE (|k - p| <= atol + rtol |p|: float32 as BLOCK_TOL; in
+# bfloat16 none, since both round the same float32 value to bf16 unless it
+# sits within a float32 ulp of a rounding boundary), and no element by more
+# than INT8_FLIP_MAX of the largest |output| (three bf16 ulps of it).  The
+# control -- the plain version with float products in place of the int8
+# ones (activations scaled, not rounded) -- must fail the check.  Measured
+# on an H100 at batch 256: at most 0.22% of the elements on random inputs
+# and 0.70% on a served recognizer's (its last Block), 0.65% of the largest
+# |output|; the control moved 78-96% (float32) and 22-57% (bfloat16).  The
+# bound: 2.8x the largest reading.
+INT8_NOISE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (0.0, 0.0)}
+INT8_FLIP_SHARE = 0.02
+INT8_FLIP_MAX = 0.02
+# Served int8 logits, kernel against plain, after 12 Blocks: a flip carries
+# into every later Block of its image and moves its later activations
+# across further boundaries, so the logits of two correct implementations
+# differ by a share of the int8 noise itself.  Each served Block is held to
+# the INT8_FLIP_SHARE check on its own served input (no cascade).  The
+# logits: their mean |k - p| at most INT8_LOGIT_MEAN_SHARE of the
+# float-products control's mean |c - p|, and the greedy picks agree at every
+# step whose plain top-2 margin exceeds INT8_TIE.  Measured on an H100: the
+# mean 0.41 (float32) and 0.55 (bfloat16) of the control's, 65% and 48% of
+# the logits beyond float noise (control 91% and 72%), max |k - p| 5.0e-3
+# and 1.6e-2, so a top-2 margin moved by at most 1.0e-2 and 3.1e-2: INT8_TIE
+# is 2x and 1.6x that.  A kernel that skipped the activation rounding would
+# be the control, at 1.0.
+INT8_LOGIT_MEAN_SHARE = 0.75
+INT8_TIE = {"float32": 2e-2, "bfloat16": 5e-2}
+INT8_REQUESTS = {"float32": 5, "bfloat16": 5}
+INT8_CALIB_BATCHES = 4
 
 
 # ------------------------------------------------------------------- timing
@@ -831,6 +891,300 @@ def phase_profile(runs, loader):
             print(f"    {ms:8.2f} ms {ms / busy:6.1%} x{e.count:<4d} {e.key[:90]}")
 
 
+def int8_block(rng, c, heads, mixer, hw, x32, device, dt):
+    """A random Block (JAX init distributions, non-trivial LN affine)
+    calibrated on float32 ``x32`` with ``quant="calib"`` and quantized
+    (``ops.int8.quantize_variables``), as the JAX package's int8 Block test
+    does; on ``device`` in ``dt``."""
+    params = random_block(rng, c)
+    for key in ("norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias"):
+        params[key] = params[key] + 0.1 * rng.standard_normal(c).astype(np.float32)
+    kw = dict(col_major=mixer == "Local")
+    calib = Block(c, heads, mixer, hw, quant="calib", **kw)
+    calib.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()}, strict=True)
+    with torch.inference_mode():
+        calib.to(device).eval()(x32)
+    qv = int8.quantize_variables({"params": params, "quant": quant_tree(calib)})
+    blk = Block(c, heads, mixer, hw, quant="int8", **kw)
+    blk.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in
+                         {**qv["params"], **qv["quant"]}.items()}, strict=True)
+    return blk.to(device=device, dtype=dt).eval()
+
+
+def library_block_int8(x, blk):
+    """Yardstick: the w8a8 Block from library calls in x's dtype --
+    ``torch._int_mm`` (cuBLASLt int8, B column-major as its int8 path takes
+    it) for the four projections with the activation quantization and
+    dequant as PyTorch ops, ``F.layer_norm``, SDPA held to its fused
+    backends (flash, or memory-efficient with the full mask in x's dtype),
+    exact GELU.  Timed only.  Returns a function of no arguments."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, n, c = x.shape
+    heads = blk.num_heads
+    w = blk.int8_weights
+    kernels = [k.t().contiguous().t() for k in w.kernels]
+    mask = None if blk.mask is None else blk.mask.to(x.dtype)
+
+    def proj(i, h):
+        hq = torch.clamp(torch.round(h.float() * w.inv[i]), -127, 127).to(torch.int8)
+        acc = torch._int_mm(hq.view(b * n, -1), kernels[i])
+        return (acc.float() * w.deqs[i] + w.biases[i]).view(b, n, -1)
+
+    def run():
+        h = F.layer_norm(x, (c,), blk.norm1_scale, blk.norm1_bias, 1e-6)
+        qkv = proj(0, h).to(x.dtype).view(b, n, 3, heads, c // heads)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=blk.scale)
+        x1 = x.float() + proj(1, o.transpose(1, 2).reshape(b, n, c))
+        h = F.layer_norm(x1, (c,), blk.norm2_scale.float(), blk.norm2_bias.float(), 1e-6)
+        return (x1 + proj(3, F.gelu(proj(2, h)))).to(x.dtype)
+    return run
+
+
+def profile_int8_yardstick(runs):
+    """Where the ``torch._int_mm`` yardstick's time goes: ``torch.profiler``
+    over one call of each of ``runs`` (one expert's Block shapes, bf16,
+    float attention), the device time per kernel summed over them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in runs:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in runs:
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"  torch._int_mm yardstick, one call per Block shape, bf16: device busy {busy:.3f} ms;"
+          f" top kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        ms = e.self_device_time_total / 1e3
+        print(f"    {ms:8.3f} ms {ms / max(busy, 1e-9):6.1%} x{e.count:<4d} {e.key[:100]}")
+
+
+def int8_block_bound_ms(b, n, c, heads, hidden, dt, pairs, attn_int8):
+    """(bytes_ms, ops_ms) of the least time of one w8a8 Block call on an
+    H100: x in and out in dt, the int8 kernels, the float32 LN, bias and
+    dequant rows and the full mask, each once, over HBM bandwidth; the four
+    projections at the int8 tensor peak plus QK^T and PV over the visible
+    (query, key) pairs at x's type's peak (or int8's with ``attn_int8``)."""
+    isz = torch.tensor([], dtype=dt).element_size()
+    m = b * n
+    nbytes = (2 * m * c * isz + c * (4 * c + 2 * hidden) + 4 * (4 * c + 2 * (5 * c + hidden))
+              + 4 * 8 + (0 if pairs == n * n else 4 * n * n))
+    attn_ops = 2 * 2 * b * heads * pairs * (c // heads)
+    ops_ms = 1e3 * (2 * m * c * (4 * c + 2 * hidden) / PEAK_INT8_OPS
+                    + attn_ops / (PEAK_INT8_OPS if attn_int8 else PEAK_FLOPS[dt]))
+    return 1e3 * nbytes / HBM_BYTES_PER_S, ops_ms
+
+
+def flip_share(got, ref, dt):
+    """(share of elements beyond the float noise INT8_NOISE, max |got -
+    ref|, max |ref|)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    atol, rtol = INT8_NOISE[dt]
+    return (float((err > atol + rtol * ref.abs()).float().mean()), float(err.max()),
+            float(ref.abs().max()))
+
+
+def float_products_q8(h, inv):
+    """Control for the int8 checks: activations scaled into the int8 range
+    but not rounded, so the plain version's products run on float values."""
+    return torch.clamp(h * inv, -127.0, 127.0)
+
+
+def check_int8(what, got, ref, control, dt):
+    """The INT8_NOISE / INT8_FLIP_SHARE / INT8_FLIP_MAX check of the kernel's
+    output ``got`` against the plain ``ref``; the ``control`` output must
+    fail it.  Returns max |got - ref|."""
+    share, mx, top = flip_share(got, ref, dt)
+    c_share, c_mx, _ = flip_share(control, ref, dt)
+    ok = bool(torch.isfinite(got).all()) and share <= INT8_FLIP_SHARE \
+        and mx <= INT8_FLIP_MAX * top
+    control_fails = c_share > INT8_FLIP_SHARE or c_mx > INT8_FLIP_MAX * top
+    print(f"  {what}: max_abs_err {mx:.3e} ({mx / top:.2e} of max |ref| {top:.3g}, tol "
+          f"{INT8_FLIP_MAX:g}), {share:.3%} beyond float noise (tol {INT8_FLIP_SHARE:.0%}) "
+          f"{'ok' if ok else 'FAILED'}; control (float products) {c_share:.2%} beyond, max "
+          f"{c_mx:.2e}: {'fails, as it must' if control_fails else 'PASSES'}")
+    if not ok:
+        raise RuntimeError(f"{what}: kernel disagrees with its plain version")
+    if not control_fails:
+        raise RuntimeError(f"{what}: the float-products control passes the int8 check")
+    return mx
+
+
+def phase_int8_blocks(device, rng):
+    """The w8a8 Block kernel vs its plain version at the four Block shapes,
+    f32 and bf16, float and int8 attention, with the float-products control;
+    profiles the library yardstick once; returns sums over one expert's 12
+    Blocks per (dtype, attn_int8)."""
+    totals, yardsticks = {}, []
+    for dt in (torch.float32, torch.bfloat16):
+        for attn_int8 in (False, True):
+            tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                       ops_ms=0.0, max_abs_err=0.0)
+            for name, hw, c, heads, mixer, count in BLOCK_SHAPES:
+                n = hw[0] * hw[1]
+                x32 = torch.from_numpy(rng.standard_normal((BATCH, n, c)).astype(np.float32)
+                                       ).to(device)
+                blk = int8_block(rng, c, heads, mixer, hw, x32, device, dt)
+                blk.attn_int8 = attn_int8
+                x = x32.to(dt)
+                with torch.inference_mode():
+                    out_k = blk(x)
+                    again = blk(x)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out_k, again):
+                        raise RuntimeError(f"int8 {name}: two kernel launches differ")
+                    ms = cuda_ms(lambda: blk(x), 5)
+                    blk.plain = True
+                    out_p = blk(x)
+                    plain_ms = cuda_ms(lambda: blk(x), 3)
+                    with mock.patch.object(svtr_block, "_q8", float_products_q8):
+                        out_c = blk(x)
+                    blk.plain = False
+                    yardstick = library_block_int8(x, blk)
+                    lib_ms = cuda_ms(yardstick, 5)
+                    if dt == torch.bfloat16 and not attn_int8:
+                        yardsticks.append(yardstick)
+                pairs = n * n if blk.mask is None else int((blk.mask == 0).sum())
+                bytes_ms, ops_ms = int8_block_bound_ms(BATCH, n, c, heads, 4 * c, dt, pairs,
+                                                       attn_int8)
+                bound = max(bytes_ms, ops_ms)
+                err = check_int8(f"int8 {name} {str(dt)[6:]} attn_int8={attn_int8} "
+                                 f"[{BATCH},{n},{c}]", out_k, out_p, out_c, dt)
+                print(f"    ms {ms:.3f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.3f}  "
+                      f"bound_ms {bound:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}, "
+                      f"{bound / ms:.1%} of bound); two launches bitwise equal")
+                for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                                 ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                    tot[key] += count * val
+                tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            print(f"  int8 Blocks, one expert's 12, {str(dt)[6:]} attn_int8={attn_int8}, batch "
+                  f"{BATCH}: " + ", ".join(f"{k} {v:.4g}" for k, v in tot.items()))
+            totals[(dt, attn_int8)] = tot
+    with torch.inference_mode():
+        profile_int8_yardstick(yardsticks)
+    return totals
+
+
+def phase_int8_serve(rng, base):
+    """This slice's path: ``evaluate_cli --int8 --taski 0`` on one
+    full-width SVTR recognizer (task 0, CLASS_COUNTS[0] classes): the float
+    server's score envelope, calibration on INT8_CALIB_BATCHES synthetic
+    batches, quantization, INT8_REQUESTS requests per dtype counted, then
+    the same batch on the plain versions, and agreement with the float
+    server."""
+    alphabet = _task_alphabets()[0]
+    params, stats = random_recognizer(rng, base, CLASS_COUNTS[0])
+    t0 = time.perf_counter()
+    loader = SyntheticTaskLoader([alphabet], 0, BATCH, BATCH * INT8_CALIB_BATCHES,
+                                 img_h=base.imgH, img_w=base.imgW, seed=SEED)
+    calib = [loader.bank[loader.get_batch()[0]] for _ in range(INT8_CALIB_BATCHES)]
+    images = loader.bank[loader.get_batch()[0]]
+    print(f"  rendered {len(loader.labels)} crops in {time.perf_counter() - t0:.1f} s")
+    floats, servers = {}, {}
+    for dtype in INT8_REQUESTS:
+        opt = base.replace(compute_dtype=dtype)
+        floats[dtype] = Server(opt, params, stats, alphabet)
+        svtr_attention.launches.update(full=0, banded=0)
+        t0 = time.perf_counter()
+        servers[dtype] = quantize_int8(Server(opt, params, stats, alphabet), iter(calib),
+                                       n_batches=INT8_CALIB_BATCHES)
+        torch.cuda.synchronize()
+        n_blocks = sum(isinstance(m, Block) for m in servers[dtype].model.modules())
+        print(f"  {dtype}: calibrated on {INT8_CALIB_BATCHES} batches of {BATCH} and quantized "
+              f"in {time.perf_counter() - t0:.2f} s ({svtr_attention.launches['full']} full "
+              f"attention launches, expected {n_blocks * INT8_CALIB_BATCHES})")
+        if svtr_attention.launches["full"] != n_blocks * INT8_CALIB_BATCHES:
+            raise RuntimeError("calibration did not run the composed Blocks' attention kernel")
+    floats["float32"].check_score_envelope(images)
+
+    # ---- counted run: the main path, through the entry points
+    svtr_block.int8_launches = 0
+    svtr_block.launches = 0
+    svtr_attention.launches.update(full=0, banded=0)
+    results = {}
+    for dtype, n_req in INT8_REQUESTS.items():
+        ts = []
+        for _ in range(n_req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[dtype] = servers[dtype].recognize(images)
+            ts.append(time.perf_counter() - t0)
+            if len(results[dtype]) != BATCH or not all(np.isfinite(c) for _, c in results[dtype]):
+                raise RuntimeError("int8 recognize returned a malformed batch")
+        print(f"  int8 {dtype}: request seconds {[round(t, 4) for t in ts]}, crops/s "
+              f"{[round(BATCH / t, 1) for t in ts]} (first request includes warm-up)")
+    launches = svtr_block.int8_launches
+    expected = n_blocks * sum(INT8_REQUESTS.values())
+    print(f"  int8 Block launches in the served requests: {launches} (expected {expected} = "
+          f"{sum(INT8_REQUESTS.values())} requests x {n_blocks} Blocks)")
+    if launches != expected or svtr_block.launches or any(svtr_attention.launches.values()):
+        raise RuntimeError("the int8 served path did not run through the int8 kernel as expected")
+
+    # ---- the same batch on the plain versions, and against the float server
+    failed = []
+    for dtype, srv in servers.items():
+        dt = getattr(torch, dtype)
+        served = []
+        hooks = [m.register_forward_hook(lambda m, a, o: served.append((m, a[0], o)))
+                 for m in srv.model.modules() if isinstance(m, Block)]
+        out_k = srv.forward(images)["logits"].float()
+        for h in hooks:
+            h.remove()
+        with torch.inference_mode():
+            for i, (blk, x, out) in enumerate(served):
+                blk.plain = True
+                ref = blk(x)
+                with mock.patch.object(svtr_block, "_q8", float_products_q8):
+                    control = blk(x)
+                blk.plain = False
+                check_int8(f"int8 {dtype} served Block {i} [{','.join(map(str, x.shape))}]",
+                           out, ref, control, dt)
+        configure_blocks(srv.model, plain=True)
+        out_p = srv.forward(images)["logits"].float()
+        with mock.patch.object(svtr_block, "_q8", float_products_q8):
+            out_c = srv.forward(images)["logits"].float()
+        configure_blocks(srv.model, plain=False)
+        out_f = floats[dtype].forward(images)["logits"].float()
+        shape = (BATCH, base.imgW // 4, CLASS_COUNTS[0])
+        if tuple(out_k.shape) != shape or not bool(torch.isfinite(out_k).all()):
+            raise RuntimeError(f"int8 logits {tuple(out_k.shape)} != {shape} or not finite")
+        share, delta, _ = flip_share(out_k, out_p, dt)
+        c_share, c_delta, _ = flip_share(out_c, out_p, dt)
+        mean, c_mean = float((out_k - out_p).abs().mean()), float((out_c - out_p).abs().mean())
+        top2 = out_p.topk(2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) > INT8_TIE[dtype]
+        agree = out_k.argmax(-1) == out_p.argmax(-1)
+        ok = mean <= INT8_LOGIT_MEAN_SHARE * c_mean and bool(agree[decided].all())
+        print(f"  int8 {dtype} logits, kernel vs plain: mean |diff| {mean:.3e}, "
+              f"{mean / c_mean:.3f} of the float-products control's {c_mean:.3e} (tol "
+              f"{INT8_LOGIT_MEAN_SHARE:g}); {share:.2%} beyond float noise (control {c_share:.2%}), "
+              f"max |diff| {delta:.3e} (control {c_delta:.3e}, int8 vs float {dtype} "
+              f"{float((out_p - out_f).abs().max()):.3e}); greedy picks agree on "
+              f"{int(agree.sum())}/{agree.numel()} steps, all {int(decided.sum())} with a top-2 "
+              f"margin above {INT8_TIE[dtype]:g} "
+              f"{'agree' if bool(agree[decided].all()) else 'DISAGREE'} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(dtype)
+        words = [w for w, _ in results[dtype]]
+        float_words = [w for w, _ in floats[dtype].recognize(images)]
+        ned = float(np.mean([metrics.ned_score(w, f) for w, f in zip(words, float_words)]))
+        print(f"  int8 {dtype} vs float {dtype} on the same weights (random: information, not "
+              f"accuracy): word agreement {metrics.word_accuracy(words, float_words):.2f}%, "
+              f"mean NED {ned:.4f}")
+    if failed:
+        raise RuntimeError(f"int8 {failed}: served logits disagree with the plain path")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -862,6 +1216,10 @@ def main():
     phase_profile((("composed step 1", learners["bf16"], False),
                    ("composed step 0", learners["bf16"], False),
                    ("fused step 0", fused_learners["bf16"], True)), loader)
+    print("== w8a8 Block kernel vs plain, SVTR Block shapes")
+    int8_totals = phase_int8_blocks(device, rng)
+    print("== int8 serving, one SVTR recognizer (task 0), full width")
+    int8_served = phase_int8_serve(rng, base)
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
@@ -878,7 +1236,9 @@ def main():
              train_blocks[("tail", bf16)]),
             ("svtr_train_block_bwd_head", "svtr_train_block.cu",
              "mrn_tpu/ops/svtr_train_block.py:497", fused_trained["train_bwd_head"],
-             train_blocks[("head", bf16)])]
+             train_blocks[("head", bf16)]),
+            ("svtr_fused_block_int8", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:303",
+             int8_served, int8_totals[(bf16, False)])]
     record = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -898,7 +1258,9 @@ def main():
           f"attention times are one expert forward's 6 Blocks of each kind; "
           f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms is "
           f"autograd's whole library-Block backward (tail, attention and head), the "
-          f"head has none of its own; on {smi}")
+          f"head has none of its own; svtr_fused_block_int8 times are one recognizer's 12 "
+          f"Blocks with float attention, its launches the int8 served requests, its "
+          f"library_ms the torch._int_mm Block; on {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

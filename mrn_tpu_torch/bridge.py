@@ -21,6 +21,13 @@ router tree, as the JAX learner's ``_routed_variables`` does.
 ``(params, batch_stats)`` trees in the JAX layout (MRN experts stacked), so
 tests can hold updated weights and statistics against the JAX package's
 leaf by leaf.
+
+A w8a8 recognizer (``quant="int8"``) also has the JAX ``quant`` collection:
+per Block ``act_amax_*`` and ``w_scale_*`` (float32), with its projection
+kernels int8 in ``params``.  ``from_flax(params, batch_stats, quant)`` loads
+it; ``to_flax`` puts the int8 kernels back into ``params`` and
+``quant_tree`` gives the collection (a ``quant="calib"`` model's recorded
+amaxes too).
 """
 
 from __future__ import annotations
@@ -33,7 +40,9 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["flax_tree", "from_flax", "mrn_state", "pad_expert_state",
+from mrn_tpu_torch.models.svtr import is_quant_scale
+
+__all__ = ["flax_tree", "from_flax", "mrn_state", "pad_expert_state", "quant_tree",
            "recognizer_state", "routed_state", "to_flax"]
 
 _BLOCK_RE = re.compile(r"\bblocks(\d)_(\d+)\b")
@@ -91,13 +100,19 @@ def mrn_state(params: Mapping, batch_stats: Optional[Mapping] = None
     return state
 
 
-def from_flax(params: Mapping, batch_stats: Optional[Mapping] = None
-              ) -> Dict[str, torch.Tensor]:
+def from_flax(params: Mapping, batch_stats: Optional[Mapping] = None,
+              quant: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
     """``mrn_state`` for an MRN tree (has ``experts``), else
-    ``recognizer_state``."""
+    ``recognizer_state``; ``quant`` (a w8a8 recognizer's ``quant``
+    collection) lands beside the params."""
     if "experts" in params:
+        if quant:
+            raise ValueError("a quant collection belongs to a single recognizer; "
+                             "the MRN ensemble serves float only")
         return mrn_state(params, batch_stats)
-    return recognizer_state(params, batch_stats)
+    state = recognizer_state(params, batch_stats)
+    state.update(recognizer_state(quant or {}))
+    return state
 
 
 def pad_expert_state(state: Mapping[str, torch.Tensor], num_classes: int
@@ -136,7 +151,10 @@ def _nest(tree: Dict, path: str, value: np.ndarray) -> None:
 
 
 def _flax_leaf(name: str, tensor: torch.Tensor) -> Tuple[str, np.ndarray]:
-    arr = tensor.detach().float().cpu().numpy().copy()  # never a view of the tensor
+    t = tensor.detach()
+    if t.is_floating_point():
+        t = t.float()
+    arr = t.cpu().numpy().copy()  # never a view of the tensor
     name = _PORT_BLOCK_RE.sub(r"blocks\1_\2", name)
     if name.endswith(".weight") and arr.ndim == 4:
         name = name[:-len("weight")] + "kernel"
@@ -146,9 +164,9 @@ def _flax_leaf(name: str, tensor: torch.Tensor) -> Tuple[str, np.ndarray]:
 
 def flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
     """Port-named tensors (``named_parameters()``, ``named_buffers()``, or a
-    dict's items, e.g. gradients) -> one numpy tree (float32) in the JAX
-    layout; ``experts.<i>.`` entries are stacked on axis 0 under
-    ``experts``."""
+    dict's items, e.g. gradients) -> one numpy tree (floats as float32,
+    int8 kernels as int8) in the JAX layout; ``experts.<i>.`` entries are
+    stacked on axis 0 under ``experts``."""
     tree: Dict = {}
     experts: Dict[str, Dict[int, np.ndarray]] = {}
     for name, tensor in named:
@@ -166,5 +184,16 @@ def flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
 
 def to_flax(module: nn.Module) -> Tuple[Dict, Dict]:
     """``(params, batch_stats)`` numpy trees of a port Recognizer or MRNNet
-    in the JAX layout."""
-    return flax_tree(module.named_parameters()), flax_tree(module.named_buffers())
+    in the JAX layout (a w8a8 model's int8 kernels in ``params``; its quant
+    scales are ``quant_tree``'s)."""
+    buffers = [(k, t) for k, t in module.named_buffers() if not is_quant_scale(k)]
+    params = list(module.named_parameters()) + [(k, t) for k, t in buffers
+                                                if t.dtype == torch.int8]
+    stats = [(k, t) for k, t in buffers if t.dtype != torch.int8]
+    return flax_tree(params), flax_tree(stats)
+
+
+def quant_tree(module: nn.Module) -> Dict:
+    """The JAX ``quant`` collection of a ``quant="calib"`` or ``"int8"``
+    model (numpy float32; empty for a float model)."""
+    return flax_tree((k, t) for k, t in module.named_buffers() if is_quant_scale(k))

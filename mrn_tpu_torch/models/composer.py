@@ -6,7 +6,8 @@ The port covers None/SVTR/None/CTC so far; every other stage combination
 raises ``NotImplementedError``.  ``svtr`` (keyword arguments of
 ``SVTRExtractor``: ``embed_dim``, ``depth``, ``num_heads``,
 ``drop_path_rate``) narrows the backbone for tests; the configs leave it
-unset, which is the reference SVTR.
+unset, which is the reference SVTR.  ``quant`` ("none", "calib", "int8") is
+the SVTR Blocks' w8a8 mode (``models.svtr.Block``).
 """
 
 from __future__ import annotations
@@ -52,11 +53,11 @@ class Extractor(nn.Module):
                  sequence_modeling: str = "None", input_channel: int = 4,
                  output_channel: int = 512, hidden_size: int = 256,
                  img_size: Tuple[int, int] = (32, 256),
-                 svtr: Optional[Mapping] = None):
+                 svtr: Optional[Mapping] = None, quant: str = "none"):
         super().__init__()
         _check_supported(transformation, feature_extraction, sequence_modeling)
         self.feature = SVTRExtractor(input_channel, output_channel, img_size,
-                                     **dict(svtr or {}))
+                                     **dict(svtr or {}), quant=quant)
         self.seq_linear = Dense(output_channel, hidden_size)
 
     def forward(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -71,13 +72,13 @@ class Recognizer(nn.Module):
                  sequence_modeling: str = "None", input_channel: int = 4,
                  output_channel: int = 512, hidden_size: int = 256,
                  img_size: Tuple[int, int] = (32, 256),
-                 svtr: Optional[Mapping] = None):
+                 svtr: Optional[Mapping] = None, quant: str = "none"):
         super().__init__()
         _check_supported(transformation, feature_extraction, sequence_modeling,
                          prediction)
         self.extractor = Extractor(transformation, feature_extraction,
                                    sequence_modeling, input_channel,
-                                   output_channel, hidden_size, img_size, svtr)
+                                   output_channel, hidden_size, img_size, svtr, quant)
         self.fc = Dense(hidden_size, num_classes)
 
     def forward(self, image: torch.Tensor,
@@ -86,8 +87,9 @@ class Recognizer(nn.Module):
         return {"predict": self.fc(feature), "feature": feature}
 
 
-def build_recognizer(opt, num_classes: int) -> Recognizer:
-    """Recognizer from a flat options namespace (``configs/*.py``)."""
+def build_recognizer(opt, num_classes: int, quant: str = "none") -> Recognizer:
+    """Recognizer from a flat options namespace (``configs/*.py``), its SVTR
+    Blocks in w8a8 mode ``quant``."""
     return Recognizer(
         num_classes=num_classes, prediction=opt.Prediction,
         transformation=opt.Transformation,
@@ -95,4 +97,4 @@ def build_recognizer(opt, num_classes: int) -> Recognizer:
         sequence_modeling=opt.SequenceModeling,
         input_channel=opt.input_channel, output_channel=opt.output_channel,
         hidden_size=opt.hidden_size, img_size=(opt.imgH, opt.imgW),
-        svtr=opt.get("svtr"))
+        svtr=opt.get("svtr"), quant=quant)

@@ -6,7 +6,12 @@ Every module takes ``train``:
 
 - eval: each Block is one fused inference Block
   (``mrn_tpu_torch.ops.svtr_block``), its CUDA kernel for tensors on the
-  card, its plain version on the CPU;
+  card, its plain version on the CPU; a Block built with ``quant="int8"``
+  is the w8a8 Block (``fused_block_int8``), one built with
+  ``quant="calib"`` runs the composed path in eval mode and records each
+  projection's input absmax (``svtr.py:347-360,421-426``), and
+  ``score_envelope`` runs the same composed path to measure the largest
+  attention score (``svtr.py:166-191``);
 - train: each Block runs the JAX package's composed path (``svtr.py:412-448``)
   with the attention core ``ops.svtr_attention.mha_small_n`` (CUDA forwards,
   plain backward), ``DropPath`` on both residual branches and BatchNorm on
@@ -24,6 +29,7 @@ fused training Block's is the degree-15 erf polynomial, as in JAX.
 from __future__ import annotations
 
 import os
+import sys
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,13 +39,28 @@ from torch import nn
 
 from mrn_tpu_torch.models.common import (BatchNorm, Conv2d, LayerNorm,
                                          to_nchw, to_nhwc)
-from mrn_tpu_torch.ops.svtr_attention import mha_small_n
-from mrn_tpu_torch.ops.svtr_block import _band_spec, fused_block, fused_block_reference
+from mrn_tpu_torch.ops.svtr_attention import attention_forward, attention_reference, mha_small_n
+from mrn_tpu_torch.ops.svtr_block import (SCORE_CLAMP, Int8Weights, _band_spec,
+                                          fused_block, fused_block_int8,
+                                          fused_block_int8_reference, fused_block_reference,
+                                          prepare_int8)
 from mrn_tpu_torch.ops.svtr_train_block import PARAM_KEYS, fused_block_train
 
-__all__ = ["Block", "DropPath", "PatchEmbed", "SVTRExtractor",
-           "SubSampleConv", "configure_blocks", "local_attention_mask",
-           "local_attention_mask_col_major", "set_droppath_generator"]
+__all__ = ["Block", "DropPath", "PatchEmbed", "QUANT_MODES", "SVTRExtractor",
+           "SubSampleConv", "configure_blocks", "is_quant_scale", "local_attention_mask",
+           "local_attention_mask_col_major", "score_envelope", "set_droppath_generator"]
+
+QUANT_MODES = ("none", "calib", "int8")
+_PROJ = ("qkv", "proj", "fc1", "fc2")
+# calibrated activation absmax per projection input, plus the post-scale q
+# and k and v for the int8-attention mode
+_AMAX_NAMES = _PROJ + ("q", "k", "v")
+
+
+def is_quant_scale(name: str) -> bool:
+    """Whether a buffer name (dotted or bare) is an ``act_amax_*`` or
+    ``w_scale_*`` of the quant collection."""
+    return name.rsplit(".", 1)[-1].startswith(("act_amax_", "w_scale_"))
 
 
 def _manual_layer_norm(x, scale, bias, eps=1e-6):
@@ -130,16 +151,36 @@ class Block(nn.Module):
     LN -> MLP).  Parameters carry the JAX names and layouts (kernels
     ``[in, out]``).
 
+    ``quant`` (the w8a8 PTQ of the four projections, ``ops.int8``):
+
+    - ``"none"``: float weights; eval runs the fused inference Block;
+    - ``"calib"``: eval runs the composed path and keeps the running
+      maximum of each projection input's absmax, and of the post-scale q,
+      k and v, in float32 buffers ``act_amax_*`` (not saved in the state
+      dict: they are the calibration's output);
+    - ``"int8"``: the four projection kernels are int8 buffers, beside
+      float32 buffers ``act_amax_*`` and ``w_scale_*``; eval runs the w8a8
+      Block.  Moving or casting the Block (``Module.to``) keeps those scales
+      float32, as the JAX package's ``quant`` collection is.  The kernel's
+      operands (``int8_weights``, ``ops.svtr_block.prepare_int8``) are
+      derived once, and again after each ``load_state_dict`` and each move
+      or cast.
+
     ``plain`` runs the kernels' plain versions on any device (the card's
-    reference in checks; the fused training Block's too) and
-    ``gelu_degree`` picks the inference kernel's erf fit; both are set for
-    a whole model with ``configure_blocks``."""
+    reference in checks; the fused training Block's too),
+    ``gelu_degree`` picks the inference kernels' erf fit and ``attn_int8``
+    also runs the w8a8 Block's QK^T and PV int8 (the JAX package's
+    ``set_attention_int8``); all three are set for a whole model with
+    ``configure_blocks``.  ``score_max`` is set only while
+    ``score_envelope`` records."""
 
     def __init__(self, dim: int, num_heads: int, mixer: str,
                  hw: Tuple[int, int], mlp_ratio: float = 4.0,
                  drop_path: float = 0.0, local_k: Tuple[int, int] = (7, 11),
-                 col_major: bool = False):
+                 col_major: bool = False, quant: str = "none"):
         super().__init__()
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, not {quant!r}")
         hidden = int(dim * mlp_ratio)
         shapes = dict(norm1_scale=(dim,), norm1_bias=(dim,),
                       qkv_kernel=(dim, 3 * dim), qkv_bias=(3 * dim,),
@@ -148,7 +189,19 @@ class Block(nn.Module):
                       fc1_kernel=(dim, hidden), fc1_bias=(hidden,),
                       fc2_kernel=(hidden, dim), fc2_bias=(dim,))
         for name in PARAM_KEYS:
-            self.register_parameter(name, nn.Parameter(torch.zeros(shapes[name])))
+            if quant == "int8" and name.endswith("_kernel"):
+                self.register_buffer(name, torch.zeros(shapes[name], dtype=torch.int8))
+            else:
+                self.register_parameter(name, nn.Parameter(torch.zeros(shapes[name])))
+        if quant != "none":
+            for name in _AMAX_NAMES:
+                self.register_buffer(f"act_amax_{name}", torch.zeros(()),
+                                     persistent=quant == "int8")
+        if quant == "int8":
+            for name in _PROJ:
+                self.register_buffer(f"w_scale_{name}",
+                                     torch.ones(shapes[f"{name}_kernel"][1]))
+        self.quant = quant
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
         self.mask: Optional[torch.Tensor] = None  # plain attribute: stays f32
@@ -164,12 +217,46 @@ class Block(nn.Module):
         self.drop_path = DropPath(drop_path)
         self.plain = False
         self.gelu_degree = 9
+        self.attn_int8 = False
+        self.score_max: Optional[torch.Tensor] = None
+        self.int8_weights: Optional[Int8Weights] = None
+        self._prepare_int8()
+
+    def _prepare_int8(self) -> None:
+        if self.quant == "int8":
+            self.int8_weights = prepare_int8(
+                {name: getattr(self, name) for name in PARAM_KEYS},
+                {k: v for k, v in self._buffers.items() if is_quant_scale(k)})
+
+    def _apply(self, fn, recurse=True):
+        """``Module.to`` and friends: the quant scales follow the device but
+        stay float32."""
+        scales = {k: self._buffers.pop(k) for k in list(self._buffers) if is_quant_scale(k)}
+        try:
+            super()._apply(fn, recurse)
+        finally:
+            for key, t in scales.items():
+                self._buffers[key] = t.to(fn(t).device)
+        self._prepare_int8()
+        return self
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._prepare_int8()
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.mask is not None and self.mask.device != x.device:
             self.mask = self.mask.to(x.device)
         if train:
+            if self.quant != "none":
+                raise ValueError(f"a quant={self.quant!r} Block serves only (train=False)")
             return self._forward_train(x)
+        if self.quant == "calib" or self.score_max is not None:
+            return self._composed(x, train=False)
+        if self.quant == "int8":
+            fn = fused_block_int8_reference if self.plain else fused_block_int8
+            return fn(x, self.int8_weights, self.mask, self.num_heads, self.scale,
+                      attn_int8=self.attn_int8, gelu_degree=self.gelu_degree)
         params = {name: getattr(self, name) for name in PARAM_KEYS}
         fn = fused_block_reference if self.plain else fused_block
         return fn(x, params, self.mask, self.num_heads, self.scale,
@@ -194,30 +281,86 @@ class Block(nn.Module):
             params = {name: getattr(self, name) for name in PARAM_KEYS}
             return fused_block_train(x, params, dm_a, dm_b, num_heads=self.num_heads,
                                      scale=self.scale, band=self.band, plain=self.plain)
+        return self._composed(x, train=True)
+
+    def _record(self, name: str, h: torch.Tensor) -> None:
+        """``quant="calib"``: raise ``act_amax_<name>`` to ``max |h|``."""
+        if self.quant == "calib":
+            key = f"act_amax_{name}"
+            setattr(self, key, torch.maximum(getattr(self, key), h.abs().amax().float()))
+
+    def _composed(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """The composed path (``svtr.py:412-448``).  Training: DropPath on
+        both branches and the training attention (banded where a plan
+        exists).  Eval (calibration, score envelope): no DropPath, the full
+        mask through the attention forward (kernel 1 on the card), and the
+        calibration's absmax records."""
         b, n, c = x.shape
         heads = self.num_heads
         h = _manual_layer_norm(x, self.norm1_scale, self.norm1_bias)
+        self._record("qkv", h)
         qkv = (h @ self.qkv_kernel + self.qkv_bias).view(b, n, 3, heads, c // heads)
         qkv = qkv.permute(2, 0, 3, 1, 4)
-        q = (qkv[0] * self.scale).contiguous()
-        attn = mha_small_n(q, qkv[1].contiguous(), qkv[2].contiguous(), self.mask,
-                           band=self.band, plain=self.plain)
-        attn = attn.transpose(1, 2).reshape(b, n, c) @ self.proj_kernel + self.proj_bias
-        x = x + self.drop_path(attn, True)
+        q, k, v = (qkv[0] * self.scale).contiguous(), qkv[1].contiguous(), qkv[2].contiguous()
+        if train:
+            attn = mha_small_n(q, k, v, self.mask, band=self.band, plain=self.plain)
+        else:
+            for name, t in zip("qkv", (q, k, v)):
+                self._record(name, t)
+            if self.score_max is not None:
+                self.score_max = torch.maximum(
+                    self.score_max.to(x.device), (q @ k.transpose(-1, -2)).abs().amax().float())
+            attn = (attention_reference if self.plain else attention_forward)(q, k, v, self.mask)
+        attn = attn.transpose(1, 2).reshape(b, n, c)
+        self._record("proj", attn)
+        x = x + self.drop_path(attn @ self.proj_kernel + self.proj_bias, train)
         h = _manual_layer_norm(x, self.norm2_scale, self.norm2_bias)
-        h = F.gelu(h @ self.fc1_kernel + self.fc1_bias) @ self.fc2_kernel + self.fc2_bias
-        return x + self.drop_path(h, True)
+        self._record("fc1", h)
+        h = F.gelu(h @ self.fc1_kernel + self.fc1_bias)
+        self._record("fc2", h)
+        return x + self.drop_path(h @ self.fc2_kernel + self.fc2_bias, train)
 
 
 def configure_blocks(model: nn.Module, plain: Optional[bool] = None,
-                     gelu_degree: Optional[int] = None) -> None:
-    """Set ``plain`` and/or ``gelu_degree`` on every Block of ``model``."""
+                     gelu_degree: Optional[int] = None,
+                     attn_int8: Optional[bool] = None) -> None:
+    """Set ``plain``, ``gelu_degree`` and/or ``attn_int8`` on every Block of
+    ``model``."""
     for m in model.modules():
         if isinstance(m, Block):
             if plain is not None:
                 m.plain = plain
             if gelu_degree is not None:
                 m.gelu_degree = gelu_degree
+            if attn_int8 is not None:
+                m.attn_int8 = attn_int8
+
+
+def score_envelope(model: nn.Module, x: torch.Tensor) -> float:
+    """Max |attention score| over one sample batch (``svtr.py:166-191``):
+    ``model(x)`` runs once in eval mode with every Block on the composed
+    path, each recording the largest |q k^T| (q post-scale, before the
+    mask).  The fused inference Block's softmax takes exp without the
+    max-subtract, clamped at ``SCORE_CLAMP``; a value at or above it means
+    that kernel would flatten attention for these weights, which is
+    reported loudly on stderr.  Returns the maximum (0.0 for a model
+    without Blocks)."""
+    blocks = [m for m in model.modules() if isinstance(m, Block)]
+    for blk in blocks:
+        blk.score_max = torch.zeros(())
+    try:
+        with torch.inference_mode():
+            model(x)
+        maxima = [float(blk.score_max) for blk in blocks]
+    finally:
+        for blk in blocks:
+            blk.score_max = None
+    mx = max(maxima, default=0.0)
+    if mx >= SCORE_CLAMP:
+        print(f"*** SVTR score envelope VIOLATED: max |attention score| {mx:.1f} >= clamp "
+              f"{SCORE_CLAMP} -- the fused inference kernel would silently flatten "
+              "attention for these weights ***", file=sys.stderr, flush=True)
+    return mx
 
 
 class PatchEmbed(nn.Module):
@@ -257,14 +400,15 @@ class SubSampleConv(nn.Module):
 
 
 class SVTRExtractor(nn.Module):
-    """NHWC image [B, H, W, in_ch] -> [B, 1, W/4, out_channels]."""
+    """NHWC image [B, H, W, in_ch] -> [B, 1, W/4, out_channels]; ``quant``
+    is every Block's (the convs stay float, as in JAX)."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 512,
                  img_size: Tuple[int, int] = (32, 256),
                  embed_dim: Sequence[int] = (64, 128, 256),
                  depth: Sequence[int] = (3, 6, 3),
                  num_heads: Sequence[int] = (2, 4, 8),
-                 drop_path_rate: float = 0.1):
+                 drop_path_rate: float = 0.1, quant: str = "none"):
         super().__init__()
         h0, w0 = img_size[0] // 4, img_size[1] // 4
         self.h0, self.w0 = h0, w0
@@ -275,16 +419,16 @@ class SVTRExtractor(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, h0 * w0, embed_dim[0]))
         self.blocks1 = nn.ModuleList(
             Block(embed_dim[0], num_heads[0], mixers[i], (h0, w0),
-                  drop_path=dpr[i], col_major=True)
+                  drop_path=dpr[i], col_major=True, quant=quant)
             for i in range(d0))
         self.sub_sample1 = SubSampleConv(embed_dim[0], embed_dim[1], (h0, w0))
         self.blocks2 = nn.ModuleList(
             Block(embed_dim[1], num_heads[1], mixers[d0 + i], (h0 // 2, w0),
-                  drop_path=dpr[d0 + i], col_major=True) for i in range(d1))
+                  drop_path=dpr[d0 + i], col_major=True, quant=quant) for i in range(d1))
         self.sub_sample2 = SubSampleConv(embed_dim[1], embed_dim[2], (h0 // 2, w0))
         self.blocks3 = nn.ModuleList(
             Block(embed_dim[2], num_heads[2], mixers[d0 + d1 + i], (h0 // 4, w0),
-                  drop_path=dpr[d0 + d1 + i])
+                  drop_path=dpr[d0 + d1 + i], quant=quant)
             for i in range(d2))
         self.sub_sample3 = SubSampleConv(embed_dim[2], out_channels, (h0 // 4, w0))
 

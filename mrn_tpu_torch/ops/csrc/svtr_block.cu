@@ -42,16 +42,6 @@
 
 namespace {
 
-__constant__ float kErf9[10] = {
-    0.3821687211819126f, -0.1906354404948208f, 0.13926991905032793f,
-    -0.10986806700502608f, 0.102285918252448f, -0.08351699887774686f,
-    0.021168399249059538f, -0.011215921240360423f, 0.05439620276621701f,
-    -0.03381804338264774f};
-
-__device__ __forceinline__ float gelu_poly(float x, int degree) {
-  return degree == 15 ? gelu15(x) : gelu_erf<10>(x, kErf9);
-}
-
 // ---------------------------------------------------------------- projections
 enum Mode { kQkv = 0, kProj = 1, kFc1 = 2, kFc2 = 3 };
 

@@ -1,11 +1,12 @@
 // Device code shared by the port's CUDA sources (svtr_block.cu,
-// svtr_attention.cu, svtr_train_block.cu).  Each source is its own shared
+// svtr_block_int8.cu, svtr_attention.cu, svtr_train_block.cu).  Each source is its own shared
 // library, so everything here sits in an anonymous namespace.
 //
 //   - float <-> working type T (float or bfloat16) and rounding to T;
 //   - warp reductions;
-//   - the degree-15 minimax erf polynomial of the GELU (the JAX package's
-//     _ERF_COEFS; |erf error| < 1.9e-7);
+//   - the minimax erf polynomials of the GELU, degree 15 (the JAX package's
+//     _ERF_COEFS; |erf error| < 1.9e-7) and degree 9 (_ERF9_COEFS, the
+//     inference Blocks' default; |erf error| < 1.4e-4);
 //   - the SIMT GEMM main loop: one 64x64 output tile per block of 256
 //     threads, 4x4 accumulators per thread, A and B tiles of 16 along the
 //     reduction staged in shared memory, every operand rounded to T, float32
@@ -15,7 +16,8 @@
 //   - attention over one (image, head, 32-query tile) per block with the
 //     [32, width] float32 score tile in shared memory and 64-key K/V chunks,
 //     banded (query block a of qb rows attends to keys [starts[a], starts[a]
-//     + width)) or full, in the three softmax forms the Pallas kernels use.
+//     + width)) or full, in the three softmax forms the Pallas kernels use,
+//     writing its output in the working type or in float32.
 
 #pragma once
 
@@ -79,6 +81,17 @@ __device__ __forceinline__ float gelu_erf(float x, const float* c) {
 }
 
 __device__ __forceinline__ float gelu15(float x) { return gelu_erf<16>(x, kErf15); }
+
+__constant__ float kErf9[10] = {
+    0.3821687211819126f, -0.1906354404948208f, 0.13926991905032793f,
+    -0.10986806700502608f, 0.102285918252448f, -0.08351699887774686f,
+    0.021168399249059538f, -0.011215921240360423f, 0.05439620276621701f,
+    -0.03381804338264774f};
+
+// the inference Blocks' GELU: degree 9 (default) or 15
+__device__ __forceinline__ float gelu_poly(float x, int degree) {
+  return degree == 15 ? gelu15(x) : gelu_erf<10>(x, kErf9);
+}
 
 // ---------------------------------------------------------------------- GEMM
 constexpr int BM = 64, BN = 64, BK = 16, kGemmThreads = 256;
@@ -170,12 +183,13 @@ size_t attention_smem_bytes(int d, int width) {
 // grid B * heads * ceil(N / QT), query tiles fastest (the tiles of one head
 // share its keys in L2).  Row r of image b, head h: q at q[(b N +
 // r) q_ld + h D], k / v at k / v[(b N + r) kv_ld + h D], out at out[(b N +
-// r) out_ld + h D]; q pre-scaled.  mask [N, width] float32 or NULL; starts
-// int32 [N / qb] or NULL (one window [0, width) for every query).
-template <typename T, int D, int SOFTMAX>
+// r) out_ld + h D] in TO (T, or float for an unrounded output); q pre-scaled.
+// mask [N, width] float32 or NULL; starts int32 [N / qb] or NULL (one window
+// [0, width) for every query).
+template <typename T, int D, int SOFTMAX, typename TO>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_kernel(const T* __restrict__ q, int q_ld, const T* __restrict__ k,
-                 const T* __restrict__ v, int kv_ld, T* __restrict__ out, int out_ld,
+                 const T* __restrict__ v, int kv_ld, TO* __restrict__ out, int out_ld,
                  const float* __restrict__ mask, const int* __restrict__ starts, int heads,
                  int N, int qb, int width) {
   static_assert(kAttnThreads % D == 0 && QT * D % kAttnThreads == 0, "tile");
@@ -275,35 +289,35 @@ attention_kernel(const T* __restrict__ q, int q_ld, const T* __restrict__ k,
     const int r = r0 + p * kRowsPerPass;
     if (r >= rows) continue;
     const float o = SOFTMAX == kMaxSubEarly ? acc[p] : acc[p] * s_inv[r];
-    out[(row0 + q0 + r) * out_ld + h * D + d] = from_f<T>(o);
+    out[(row0 + q0 + r) * out_ld + h * D + d] = from_f<TO>(o);
   }
 }
 
-template <typename T, int D, int SOFTMAX>
-cudaError_t launch_attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, T* out,
+template <typename T, int D, int SOFTMAX, typename TO>
+cudaError_t launch_attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, TO* out,
                              int out_ld, const float* mask, const int* starts, int B,
                              int heads, int N, int qb, int width, cudaStream_t stream) {
   const size_t smem = attention_smem_bytes(D, width);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, D, SOFTMAX>,
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, D, SOFTMAX, TO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned grid = (unsigned)B * heads * ((N + QT - 1) / QT);
-  attention_kernel<T, D, SOFTMAX><<<grid, kAttnThreads, smem, stream>>>(
+  attention_kernel<T, D, SOFTMAX, TO><<<grid, kAttnThreads, smem, stream>>>(
       q, q_ld, k, v, kv_ld, out, out_ld, mask, starts, heads, N, qb, width);
   return cudaGetLastError();
 }
 
-// attention_kernel for head dim D in {8, 16, 32, 64}
-template <typename T, int SOFTMAX>
-cudaError_t attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, T* out,
+// attention_kernel for head dim D in {8, 16, 32, 64}; out in T or float
+template <typename T, int SOFTMAX, typename TO>
+cudaError_t attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, TO* out,
                       int out_ld, const float* mask, const int* starts, int B, int heads,
                       int N, int D, int qb, int width, cudaStream_t s) {
-#define ATTN_CASE(DD)                                                                       \
-  case DD:                                                                                  \
-    return launch_attention<T, DD, SOFTMAX>(q, q_ld, k, v, kv_ld, out, out_ld, mask, starts, \
-                                            B, heads, N, qb, width, s)
+#define ATTN_CASE(DD)                                                                 \
+  case DD:                                                                            \
+    return launch_attention<T, DD, SOFTMAX, TO>(q, q_ld, k, v, kv_ld, out, out_ld, mask, \
+                                                starts, B, heads, N, qb, width, s)
   switch (D) {
     ATTN_CASE(8);
     ATTN_CASE(16);

@@ -25,18 +25,30 @@ _make_kernel`` does:
 ``fused_block`` takes the plain version for a tensor on the CPU and launches
 the CUDA kernel (``csrc/svtr_block.cu``) for a CUDA tensor; there is no
 fallback between the two.
+
+``fused_block_int8`` is the w8a8 Block (``_make_kernel_int8``): LN1/LN2 keep
+their affine (no folding), each projection quantizes its input per tensor
+(``clip(round(h * inv), -127, 127)``) and runs int8 x int8 -> int32 against a
+per-channel int8 kernel, then ``acc * deq + bias`` in float32; the attention
+takes the max-subtract softmax normalised before PV over the full mask, with
+operands in x's dtype (or int8 with ``attn_int8``) and a float32 output;
+the residual stream stays float32.  Its scales, dequant rows and float32
+rows come from ``prepare_int8``, once per set of weights.  Its kernel is ``csrc/svtr_block_int8.cu``,
+with the same CPU / CUDA rule.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["SCORE_CLAMP", "fused_block", "fused_block_reference", "launches"]
+__all__ = ["Int8Weights", "SCORE_CLAMP", "fused_block", "fused_block_int8",
+           "fused_block_int8_reference", "fused_block_reference", "int8_launches", "launches",
+           "prepare_int8"]
 
 # erf(z) = z * P(u), u an affine map of clamp(z^2): odd minimax polynomial in
 # the shifted monomial basis, coefficients low -> high (copied from the JAX
@@ -65,8 +77,10 @@ _GELU_COEFS = {9: _ERF9_COEFS, 15: _ERF_COEFS}
 SCORE_CLAMP = 60.0
 
 # Count of CUDA launches of the fused Block (one per fused_block call on a
-# CUDA tensor; the plain version never counts).
+# CUDA tensor; the plain version never counts), and of the w8a8 Block (one
+# per fused_block_int8 call on a CUDA tensor).
 launches = 0
+int8_launches = 0
 
 
 def _erf_poly(z: torch.Tensor, coefs=_ERF9_COEFS) -> torch.Tensor:
@@ -312,3 +326,192 @@ def fused_block(x: torch.Tensor, params: Dict[str, torch.Tensor], mask,
     if x.device.type == "cpu":
         return _block_plain(x, weights, plan, num_heads, gelu_degree)
     return _block_cuda(x, weights, plan, num_heads, gelu_degree)
+
+
+# ------------------------------------------------------------ w8a8 int8 Block
+_PROJ_NAMES = ("qkv", "proj", "fc1", "fc2")
+
+
+class Int8Weights(NamedTuple):
+    """A w8a8 Block's operands as its kernel takes them (``prepare_int8``)."""
+    norms: Tuple[torch.Tensor, ...]    # LN1 scale, bias, LN2 scale, bias: float32
+    kernels: Tuple[torch.Tensor, ...]  # qkv, proj, fc1, fc2: int8 [in, out]
+    biases: Tuple[torch.Tensor, ...]   # float32
+    deqs: Tuple[torch.Tensor, ...]     # float32 dequant rows s * w_scale[out]
+    inv: torch.Tensor                  # float32 [8]: 0-3 projections, 4-6 q, k, v
+
+
+def prepare_int8(params: Dict[str, torch.Tensor],
+                 quant: Dict[str, torch.Tensor]) -> Int8Weights:
+    """Host prep of a w8a8 Block (``svtr_block.py:446-478``), done once per
+    set of weights: per projection the activation scale ``s = max(amax,
+    1e-12) / 127``, its multiplier ``1 / s`` and the dequant row ``s *
+    w_scale[out]``; the q, k, v multipliers for the int8-attention mode; LN
+    rows and biases as float32 copies of their values (in x's dtype).
+    ``params``: the Block's leaves under the JAX names, the four projection
+    kernels int8 ``[in, out]``; ``quant``: its ``act_amax_*`` and
+    ``w_scale_*``."""
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=params["qkv_bias"].device)
+    with torch.no_grad():
+        inv, deqs = [], []
+        for name in _PROJ_NAMES:
+            s = torch.clamp(quant[f"act_amax_{name}"].to(f32), min=1e-12) / 127.0
+            inv.append(1.0 / s)
+            deqs.append((s * quant[f"w_scale_{name}"].to(f32)).contiguous())
+        for name in ("q", "k", "v"):
+            amax = quant.get(f"act_amax_{name}", zero).to(f32)
+            inv.append(1.0 / (torch.clamp(amax, min=1e-12) / 127.0))
+        inv.append(zero)
+        norms = tuple(params[k].to(f32).contiguous()
+                      for k in ("norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias"))
+        kernels = tuple(params[f"{n}_kernel"].contiguous() for n in _PROJ_NAMES)
+        biases = tuple(params[f"{n}_bias"].to(f32).contiguous() for n in _PROJ_NAMES)
+        return Int8Weights(norms, kernels, biases, tuple(deqs), torch.stack(inv))
+
+
+def _q8(h: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """``clip(round(h * inv), -127, 127)``: the Pallas kernel's activation
+    quantization (a multiply by the reciprocal, rounding half to even), the
+    int8 values held in float32."""
+    return torch.clamp(torch.round(h * inv), -127.0, 127.0)
+
+
+def _block_int8_plain(x, w: Int8Weights, mask, num_heads: int, scale: float,
+                      attn_int8: bool, gelu_degree: int):
+    """The w8a8 kernel's arithmetic in plain PyTorch (``_make_kernel_int8``):
+    LN with affine, int8 products exact in float32, ``acc * deq + bias``,
+    max-subtract softmax normalised before PV, float32 attention output."""
+    from mrn_tpu_torch.ops.int8 import int_matmul
+
+    (n1s, n1b, n2s, n2b), kernels, biases, deqs, inv = w
+    dt = x.dtype
+    b, n, c = x.shape
+    d = c // num_heads
+
+    def proj(i, h):
+        return int_matmul(_q8(h, inv[i]), kernels[i]) * deqs[i] + biases[i]
+
+    xf = x.float()
+    qkv = proj(0, _ln_bare(xf) * n1s + n1b)
+    heads = qkv.view(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    q, k, v = heads[0] * scale, heads[1], heads[2]             # [B, H, N, d]
+    if attn_int8:
+        s = int_matmul(_q8(q, inv[4]), _q8(k, inv[5]).transpose(-1, -2)) \
+            * (1.0 / (inv[4] * inv[5]))
+    else:
+        s = q.to(dt).float() @ k.to(dt).float().transpose(-1, -2)
+    if mask is not None:
+        s = s + mask
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)
+    if attn_int8:
+        o = int_matmul(torch.round(p * 127.0), _q8(v, inv[6])) * (1.0 / (inv[6] * 127.0))
+    else:
+        o = p.to(dt).float() @ v.to(dt).float()
+    x1 = xf + proj(1, o.transpose(1, 2).reshape(b, n, c))
+    h = _gelu_poly(proj(2, _ln_bare(x1) * n2s + n2b), gelu_degree)
+    return (x1 + proj(3, h)).to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_int8():
+    from mrn_tpu_torch.ops import _build
+
+    lib = _build.load("svtr_block_int8")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # dtype attn_int8; x, 4 norms, 4 x (kernel, bias, deq), inv, mask, 5
+    # buffers; B N C heads hidden gelu_degree; scale; stream
+    lib.svtr_block_int8_forward.argtypes = [i, i] + [p] * 24 + [i] * 6 + [ctypes.c_float, p]
+    lib.svtr_block_int8_forward.restype = i
+    lib.svtr_block_int8_error_string.argtypes = [i]
+    lib.svtr_block_int8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _block_int8_cuda(x, w: Int8Weights, mask, num_heads: int, scale: float,
+                     attn_int8: bool, gelu_degree: int):
+    global int8_launches
+    from mrn_tpu_torch.ops.int8 import MAX_EXACT_K
+
+    norms, kernels, biases, deqs, inv = w
+    b, n, c = x.shape
+    d = c // num_heads
+    hidden = kernels[2].shape[1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"svtr_block_int8 kernel takes float32/bfloat16, not {x.dtype}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"svtr_block_int8 kernel: head_dim {d} not in {_KERNEL_HEAD_DIMS}")
+    if attn_int8 and n % 4:
+        raise ValueError(f"svtr_block_int8 kernel: int8 attention needs N % 4 == 0, N={n}")
+    if hidden > MAX_EXACT_K:
+        raise ValueError(f"svtr_block_int8 kernel: hidden {hidden} > {MAX_EXACT_K}")
+    if gelu_degree not in _GELU_COEFS:
+        raise ValueError(f"gelu_degree must be 9 or 15, not {gelu_degree}")
+    for w, shape in zip(kernels, ((c, 3 * c), (c, c), (c, hidden), (hidden, c))):
+        if w.dtype != torch.int8 or tuple(w.shape) != shape:
+            raise ValueError(f"svtr_block_int8 kernel: projection kernel {w.dtype} "
+                             f"{tuple(w.shape)}, expected int8 {shape}")
+    for t in (*norms, *kernels, *biases, *deqs, inv, mask):
+        if t is not None and t.device != x.device:
+            raise ValueError("svtr_block_int8 kernel: tensors on different devices")
+    if mask is not None and (mask.dtype != torch.float32 or tuple(mask.shape) != (n, n)
+                             or not mask.is_contiguous()):
+        raise ValueError("svtr_block_int8 kernel: the mask must be a contiguous "
+                         "float32 [N, N]")
+    x = x.contiguous()
+    dt, dev = x.dtype, x.device
+    qkv = torch.empty((b, n, 3 * c), dtype=torch.int8 if attn_int8 else dt, device=dev)
+    attn = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+    x1 = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+    g = torch.empty((b, n, hidden), dtype=torch.int8, device=dev)
+    out = torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    per_proj = [ptr(t) for trio in zip(kernels, biases, deqs) for t in trio]
+    lib = _lib_int8()
+    with torch.cuda.device(dev):
+        rc = lib.svtr_block_int8_forward(
+            1 if dt == torch.bfloat16 else 0, int(attn_int8), ptr(x),
+            *(ptr(t) for t in norms), *per_proj, ptr(inv), ptr(mask),
+            ptr(qkv), ptr(attn), ptr(x1), ptr(g), ptr(out),
+            b, n, c, num_heads, hidden, gelu_degree, scale,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("svtr_block_int8 kernel launch failed: "
+                           + lib.svtr_block_int8_error_string(rc).decode())
+    int8_launches += 1
+    return out
+
+
+def _int8_mask(x, mask, num_heads):
+    if x.shape[2] % num_heads:
+        raise ValueError(f"dim {x.shape[2]} not divisible by {num_heads} heads")
+    return None if mask is None else torch.as_tensor(mask, dtype=torch.float32,
+                                                     device=x.device)
+
+
+def fused_block_int8_reference(x: torch.Tensor, weights: Int8Weights, mask,
+                               num_heads: int, scale: float, attn_int8: bool = False,
+                               gelu_degree: int = 9) -> torch.Tensor:
+    """Plain PyTorch version of the w8a8 kernel, on any device.  Same
+    arguments as ``fused_block_int8``."""
+    mask = _int8_mask(x, mask, num_heads)
+    return _block_int8_plain(x, weights, mask, num_heads, scale, attn_int8, gelu_degree)
+
+
+def fused_block_int8(x: torch.Tensor, weights: Int8Weights, mask, num_heads: int,
+                     scale: float, attn_int8: bool = False,
+                     gelu_degree: int = 9) -> torch.Tensor:
+    """w8a8 inference Block (``_make_kernel_int8``).  x: [B, N, C] float32 or
+    bfloat16; weights: the Block's ``prepare_int8`` operands; mask: the
+    additive ``[N, N]`` mask or None (a Local Block's mask is full here: the
+    int8 path does not band); ``attn_int8`` also runs QK^T and PV int8
+    (``set_attention_int8``).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (``csrc/svtr_block_int8.cu``) or raises.  Other devices raise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_block_int8: unsupported device {x.device}")
+    mask = _int8_mask(x, mask, num_heads)
+    fn = _block_int8_plain if x.device.type == "cpu" else _block_int8_cuda
+    return fn(x, weights, mask, num_heads, scale, attn_int8, gelu_degree)

@@ -15,22 +15,34 @@ indices, ``max softmax`` per step, the decoded word and the confidence
 Runs on the CUDA card unless ``device="cpu"`` is passed, in
 ``opt.compute_dtype`` (float32 or bfloat16; bfloat16 casts every weight and
 the images, as the JAX serving path does).
+
+w8a8 serving (``evaluate_cli.py --int8``) of a single SVTR recognizer::
+
+    quantize_int8(server, calibration_batches)   # calibrate, quantize, rebuild
+    server.recognize(images)                     # 12 int8 Blocks per request
+
+``server.check_score_envelope(images)`` is the float path's check of the
+fused Block's score clamp (``evaluate_cli.check_svtr_envelope``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+import itertools
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from mrn_tpu_torch import resolve_device
-from mrn_tpu_torch.bridge import from_flax
+from mrn_tpu_torch.bridge import from_flax, quant_tree
 from mrn_tpu_torch.codec import CTCLabelConverter
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.mrn import MRNNet
+from mrn_tpu_torch.models.svtr import Block, score_envelope
+from mrn_tpu_torch.ops.int8 import quantize_variables
+from mrn_tpu_torch.ops.svtr_block import SCORE_CLAMP
 
-__all__ = ["Server"]
+__all__ = ["Server", "quantize_int8"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -46,6 +58,8 @@ class Server:
         self.dtype = _DTYPES[opt.compute_dtype]
         self.opt = opt
         self.converter = CTCLabelConverter(character)
+        # the float32 trees as given: int8 quantization starts from them
+        self.params, self.batch_stats = params, batch_stats
         num_classes = self.converter.num_classes
         if "experts" in params:
             n = len(np.asarray(params["experts"]["fc"]["kernel"]))
@@ -58,13 +72,30 @@ class Server:
                 sequence_modeling=opt.SequenceModeling,
                 input_channel=opt.input_channel,
                 output_channel=opt.output_channel, hidden_size=opt.hidden_size,
-                img_size=(opt.imgH, opt.imgW))
+                img_size=(opt.imgH, opt.imgW), svtr=opt.get("svtr"))
+            self.model.load_state_dict(from_flax(params, batch_stats), strict=True)
+            self.model.to(device=self.device, dtype=self.dtype).eval()
         else:
-            self.model = build_recognizer(opt, num_classes)
-        self.model.load_state_dict(from_flax(params, batch_stats), strict=True)
-        self.model.to(device=self.device, dtype=self.dtype).eval()
+            self.model = self.build(params, batch_stats)
 
-    def _images(self, images) -> torch.Tensor:
+    def build(self, params: Mapping, batch_stats: Optional[Mapping],
+              quant: Optional[Mapping] = None, mode: str = "none",
+              dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
+        """A single recognizer with these trees, its Blocks in ``mode``
+        ("none", "calib", "int8" with ``quant``), on the server's device in
+        ``dtype`` (the server's by default), in eval mode."""
+        model = build_recognizer(self.opt, self.converter.num_classes, quant=mode)
+        model.load_state_dict(from_flax(params, batch_stats, quant), strict=True)
+        return model.to(device=self.device, dtype=dtype or self.dtype).eval()
+
+    @property
+    def quantized(self) -> bool:
+        """Whether the model serves w8a8 int8 Blocks."""
+        return any(isinstance(m, Block) and m.quant == "int8" for m in self.model.modules())
+
+    def images(self, images, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """NHWC images (float already normalised, or uint8) on the device in
+        ``dtype`` (the server's by default)."""
         x = torch.as_tensor(images).to(self.device)
         if x.dtype == torch.uint8:
             x = (x.float() / 255.0 - 0.5) / 0.5
@@ -72,13 +103,25 @@ class Server:
         if x.ndim != 4 or tuple(x.shape[1:]) != expect:
             raise ValueError(f"images must be NHWC [B, {expect[0]}, {expect[1]}, "
                              f"{expect[2]}], got {tuple(x.shape)}")
-        return x.to(self.dtype)
+        return x.to(dtype or self.dtype)
+
+    def check_score_envelope(self, images) -> Optional[float]:
+        """``evaluate_cli.check_svtr_envelope``: the largest |attention
+        score| of this batch on the composed path (``models.svtr.
+        score_envelope``, loud on stderr at or above the fused Block's
+        ``SCORE_CLAMP``), printed; None on the int8 path, whose softmax
+        subtracts the max."""
+        if self.quantized:
+            return None
+        mx = score_envelope(self.model, self.images(images))
+        print(f"# svtr score envelope: max |score| {mx:.1f} (fused-kernel clamp {SCORE_CLAMP:g})")
+        return mx
 
     @torch.inference_mode()
     def forward(self, images) -> Dict[str, torch.Tensor]:
         """{"logits" [B, T, C], "index" [B] (MRN expert pick, else None)} on
         the device."""
-        out = self.model(self._images(images))
+        out = self.model(self.images(images))
         if "logits" in out:
             return {"logits": out["logits"], "index": out["index"]}
         return {"logits": out["predict"], "index": None}
@@ -104,3 +147,30 @@ class Server:
                                                      preds.shape[1]))
         return [(w, float(np.prod(p)) if len(p) else 0.0)
                 for w, p in zip(words, max_probs)]
+
+
+def quantize_int8(server: Server, batches: Iterable, n_batches: int = 4) -> Server:
+    """w8a8 post-training quantization of a single-recognizer server
+    (``evaluate_cli.quantize_learner_int8``): the float32 recognizer runs in
+    eval mode with ``quant="calib"`` on up to ``n_batches`` image batches of
+    ``batches`` (NHWC, uint8 or normalised float) and records each Block
+    projection's input range; its float32 weights are quantized
+    (``ops.int8.quantize_variables``) and the server's model is rebuilt with
+    ``quant="int8"`` in its own dtype.  An MRN ensemble is refused, as the
+    JAX CLI refuses it.  Returns the server."""
+    if "experts" in server.params:
+        raise ValueError("int8 serving supports single-recognizer models (the "
+                         "composite MRN/DER eval paths stay float)")
+    calib = server.build(server.params, server.batch_stats, mode="calib", dtype=torch.float32)
+    seen = 0
+    with torch.inference_mode():
+        for images in itertools.islice(batches, n_batches):
+            calib(server.images(images, torch.float32))
+            seen += 1
+    if seen == 0:
+        raise ValueError("int8 calibration saw no batches -- the calibration "
+                         "loader is empty; quantizing without activation "
+                         "ranges would produce garbage")
+    qv = quantize_variables({"params": server.params, "quant": quant_tree(calib)})
+    server.model = server.build(qv["params"], server.batch_stats, qv["quant"], mode="int8")
+    return server
