@@ -60,7 +60,24 @@
    request, holds each served Block against the plain version on its own
    served input and the logits and greedy picks against the plain versions
    (each beside the control), and prints word agreement and mean NED
-   against the float server.
+   against the float server;
+12. serves ``configs/trba_mrn.py`` at full width as a 6-expert TRBA-MRN
+   ensemble (TPS with 20 fiducials, ResNet (1, 2, 5, 3) at 512 channels,
+   two BiLSTMs of 256, a 26-step greedy Attn decoder; the SVTR phase's
+   class counts; random weights from the seed in the JAX init
+   distributions, ``localization_fc2`` perturbed and the BatchNorm
+   statistics and router biases set on the batch, see
+   ``calibrate_random_trba``) and as one recognizer: requests of 256 crops
+   in bfloat16 and float32 through ``serve.Server``, counting 6 TPS warp
+   launches per ensemble request and 1 per single-recognizer request, then
+   the same batch with the warp forced through its plain version on the
+   card (route scores, picks, logits and words, near-ties reported) and a
+   profile of one request per dtype;
+13. holds the TPS warp kernel against its plain version at batch 256,
+   32x256x4 -> 32x256, on random grids in [-1.3, 1.3], the identity grid
+   and the served batch's TPS grids, float32 and bfloat16 images (float32
+   grids), timed beside the plain version, ``F.grid_sample`` on NCHW
+   (timed only) and the bound.
 
 Any failed check raises (exit code != 0).  The line before the last is the
 per-kernel JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -86,15 +103,17 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from mrn_tpu_torch.bridge import quant_tree  # noqa: E402
+from mrn_tpu_torch.bridge import quant_tree, to_flax  # noqa: E402
 from mrn_tpu_torch.config import load_config  # noqa: E402
 from mrn_tpu_torch.data.synthetic import SyntheticTaskLoader, alphabet_of_size  # noqa: E402
 from mrn_tpu_torch.models.init import (random_block, random_mrn,  # noqa: E402
                                        random_recognizer, random_router)
+from mrn_tpu_torch.models import tps  # noqa: E402
+from mrn_tpu_torch.models.common import BatchNorm  # noqa: E402
 from mrn_tpu_torch.models.svtr import (Block, configure_blocks,  # noqa: E402
                                        local_attention_mask_col_major)
 from mrn_tpu_torch.ops import _build, int8, metrics, svtr_attention, svtr_block  # noqa: E402
-from mrn_tpu_torch.ops import svtr_train_block  # noqa: E402
+from mrn_tpu_torch.ops import grid_sample, svtr_train_block  # noqa: E402
 from mrn_tpu_torch.serve import Server, quantize_int8  # noqa: E402
 from mrn_tpu_torch.train.learners.mrn import MRN  # noqa: E402
 
@@ -221,6 +240,23 @@ INT8_LOGIT_MEAN_SHARE = 0.75
 INT8_TIE = {"float32": 2e-2, "bfloat16": 5e-2}
 INT8_REQUESTS = {"float32": 5, "bfloat16": 5}
 INT8_CALIB_BATCHES = 4
+
+# TRBA-MRN serving (configs/trba_mrn.py), 6 experts, the SVTR phase's
+# class counts; 6 TPS warp launches per request (one per expert)
+TRBA_REQUESTS = {"bfloat16": 3, "float32": 2}
+# localization_fc2's kernel starts at zero (tps.py:91-93), which gives every
+# crop the same grid; a small seeded kernel gives each crop its own, with
+# fractional taps and clamped borders
+TRBA_FC2_SCALE = 0.05
+# TPS warp kernel vs plain: the same IEEE float32 operations in the same
+# order (the kernel's are rounded, never contracted), so equal up to float32
+# ulps; a bfloat16 image rounds the same float32 value once, one bf16 ulp
+GRID_SAMPLE_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (0.0, 2.0 ** -7)}
+# served TRBA logits and route scores, kernel warp vs plain warp: the
+# warps agree to GRID_SAMPLE_TOL, which the ResNet, the BiLSTMs and 26
+# decode steps carry to the logits (bfloat16: a flipped rounding feeds the
+# next layer)
+TRBA_LOGIT_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-1, 5e-2)}
 
 
 # ------------------------------------------------------------------- timing
@@ -856,7 +892,6 @@ def phase_profile(runs, loader):
     Prints the kernels with the most device time, the device-busy time and
     the host-clock step time (the profiler's own overhead is inside the
     latter)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for label, learner, fused in runs:
@@ -876,19 +911,7 @@ def phase_profile(runs, loader):
                 learner.train_step(batch)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-        # device-side events only (the operators' own rows repeat their kernels' time)
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        if busy == 0:
-            print(f"  bf16 {label}: the profiler recorded no device time "
-                  f"({1e3 * wall:.1f} ms traced step)")
-            continue
-        print(f"  bf16 {label}: device busy {busy:.1f} ms of a {1e3 * wall:.1f} ms traced "
-              f"step ({1 - busy / (1e3 * wall):.1%} idle); top kernels by device time:")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-            ms = e.self_device_time_total / 1e3
-            print(f"    {ms:8.2f} ms {ms / busy:6.1%} x{e.count:<4d} {e.key[:90]}")
+        print_device_profile(f"bf16 {label}, one step", prof, wall)
 
 
 def int8_block(rng, c, heads, mixer, hw, x32, device, dt):
@@ -1185,6 +1208,318 @@ def phase_int8_serve(rng, base):
     return launches
 
 
+def cuda_ms_queued(fn, reps):
+    """Mean device time of one call of a short kernel: the calls are queued
+    behind a ~50 ms device spin, so the device runs them back to back and
+    the time is not the host's per-call overhead, which for a kernel of
+    tens of microseconds would be as long as the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def calibrate_random_trba(model, images, text):
+    """Random TRBA weights in the JAX init distributions hardly tell crops
+    apart: each U(+-1/sqrt(fan_in)) conv shrinks its input's second moment
+    about threefold and BatchNorm's initial statistics (0, 1) do not undo
+    it, so after the localization net's 4 and the ResNet's 29 convs every
+    crop's features are about the biases', every crop takes one expert and
+    one word.  On one batch, in place: every BatchNorm's running mean and
+    variance become its input's batch statistics (flax's arithmetic; what a
+    trained model's running statistics estimate), and for an MRNNet each
+    expert's ``channel_route`` bias moves so that all experts have the same
+    mean route score over the batch, so that the per-crop part of the
+    scores picks the expert.  Returns the model."""
+    def set_stats(bn, args):
+        x = args[0].float()
+        mean = x.mean(dim=(0, 2, 3))
+        bn.mean.copy_(mean)
+        bn.var.copy_(torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    scores = []
+    if hasattr(model, "route"):
+        hooks.append(model.route.register_forward_hook(
+            lambda m, args, out: scores.append(out[..., 0].float())))
+    try:
+        with torch.no_grad():
+            model(images, text)
+    finally:
+        for h in hooks:
+            h.remove()
+    if scores:
+        mean = scores[0].mean(dim=0)                       # [I]
+        bias = model.channel_route.bias
+        with torch.no_grad():
+            bias -= ((mean - mean.mean()) / model.route.kernel.float().sum()).to(bias.dtype)
+    return model
+
+
+def check_greedy(what, got, ref, counts, atol, rtol):
+    """Greedy Attn logits [B, S, C] against the reference path's.  Each
+    step feeds its pick back, so a pick may differ only where the
+    reference's top-2 margin over the crop's ``counts`` admissible classes
+    is within twice the tolerance (a near-tie), and the crop's later steps
+    are then not compared.  Every other step's logits must agree.  Returns
+    (max_abs_err over the compared steps, a [B] mask of the crops whose pick
+    flipped at a near-tie)."""
+    got, ref = got.float(), ref.float()
+    steps = ref.shape[1]
+    col = torch.arange(ref.shape[-1], device=ref.device)
+    outside = col[None, None, :] >= counts[:, None, None]
+    masked = ref.masked_fill(outside, float("-inf"))
+    top2 = masked.topk(2, dim=-1)
+    # argmax on both sides: the first of equal maxima, as the decoder picks
+    # (topk's index among exact bf16 ties is not the first)
+    flip = got.masked_fill(outside, float("-inf")).argmax(-1) != masked.argmax(-1)
+    first = torch.where(flip.any(1), flip.float().argmax(1), torch.full_like(counts, steps))
+    step = torch.arange(steps, device=ref.device)[None, :]
+    upto = step <= first[:, None]                      # a flip step's logits precede it
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    tie = margin <= 2 * (atol + rtol * top2.values[..., 0].abs())
+    flipped = first < steps
+    at_tie = tie.gather(1, first.clamp(max=steps - 1)[:, None])[:, 0]
+    err = (got - ref).abs()
+    ok = (bool(torch.isfinite(got).all()) and bool((err <= atol + rtol * ref.abs())[upto].all())
+          and bool(at_tie[flipped].all()))
+    mx = float(err[upto].max())
+    print(f"  {what}: max_abs_err {mx:.3e} over {int(upto.sum())} of {upto.numel()} decode "
+          f"steps (tol atol {atol:g} + rtol {rtol:g}*|ref|); {int(flipped.sum())} crops' picks "
+          f"flipped, {int((flipped & at_tie).sum())} of them at a near-tie "
+          f"({int(tie.any(1).sum())} crops have a near-tie) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError(f"{what}: served logits disagree with the reference path")
+    return mx, flipped
+
+
+def print_device_profile(label, prof, wall):
+    """Device-busy time of a ``torch.profiler`` trace against the host
+    clock ``wall`` (s), and the kernels with the most device time."""
+    from torch.autograd import DeviceType
+
+    # device-side events only (the operators' own rows repeat their kernels' time)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        print(f"  {label}: the profiler recorded no device time ({1e3 * wall:.1f} ms traced)")
+        return
+    print(f"  {label}: device busy {busy:.1f} ms of {1e3 * wall:.1f} ms traced "
+          f"({1 - busy / (1e3 * wall):.1%} idle); top kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        ms = e.self_device_time_total / 1e3
+        print(f"    {ms:8.2f} ms {ms / busy:6.1%} x{e.count:<4d} {e.key[:90]}")
+
+
+def _trba_trees(rng, base, images, class_counts=None):
+    """Random full-width TRBA trees in the JAX init distributions: an MRN
+    ensemble over ``class_counts``, else one recognizer of
+    ``CLASS_COUNTS[0]`` classes; ``localization_fc2`` perturbed
+    (TRBA_FC2_SCALE) and the model calibrated on ``images`` in float32
+    (``calibrate_random_trba``).  Returns (params, batch_stats, characters)."""
+    n_classes = max(class_counts or CLASS_COUNTS[:1])
+    chars = [chr(0x4E00 + i) for i in range(n_classes - 5)]   # 5 Attn specials
+    if class_counts:
+        params, stats = random_mrn(rng, base, class_counts)
+        expert = params["experts"]
+    else:
+        params, stats = random_recognizer(rng, base, n_classes)
+        expert = params
+    fc2 = expert["extractor"]["transformation"]["localization"]["localization_fc2"]
+    fc2["kernel"] = (TRBA_FC2_SCALE * rng.standard_normal(fc2["kernel"].shape)).astype(np.float32)
+    calib = Server(base.replace(compute_dtype="float32"), params, stats, chars,
+                   class_counts=class_counts)
+    calibrate_random_trba(calib.model, calib.images(images),
+                          torch.full((len(images), 1), calib.converter.sos_id,
+                                     device=calib.device))
+    params, stats = to_flax(calib.model)
+    return params, stats, chars
+
+
+def phase_trba_serve(rng):
+    """This slice's path: TRBA serving at full width of
+    ``configs/trba_mrn.py``, the 6-expert TRBA-MRN ensemble in bf16 and f32
+    and one TRBA recognizer (no ``experts``) in bf16.  Returns the warp
+    launches of the counted requests, the request times, the served batch's
+    TPS grids (expert 0, per dtype) and the batch on the card."""
+    t0 = time.perf_counter()
+    base = load_config(os.path.join(ROOT, "configs", "trba_mrn.py"))
+    images = rng.integers(0, 256, (BATCH, base.imgH, base.imgW, base.input_channel),
+                          dtype=np.uint8)
+    params, stats, chars = _trba_trees(rng, base, images, CLASS_COUNTS)
+    servers = {dtype: Server(base.replace(compute_dtype=dtype), params, stats, chars,
+                             class_counts=CLASS_COUNTS) for dtype in TRBA_REQUESTS}
+    params, stats, chars = _trba_trees(rng, base, images)
+    single = Server(base.replace(compute_dtype="bfloat16"), params, stats, chars)
+    torch.cuda.synchronize()
+    print(f"  weights drawn, calibrated on the batch and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- counted run: the main path, through the entry points
+    grid_sample.launches = 0
+    timings, results = {}, {}
+    for dtype, n_req in TRBA_REQUESTS.items():
+        timings[dtype] = []
+        for _ in range(n_req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[dtype] = servers[dtype].recognize(images)
+            timings[dtype].append(time.perf_counter() - t0)
+            if len(results[dtype]) != BATCH or not all(np.isfinite(c)
+                                                       for _, c in results[dtype]):
+                raise RuntimeError("TRBA recognize returned a malformed batch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single_result = single.recognize(images)
+    single_s = time.perf_counter() - t0
+    if len(single_result) != BATCH or not all(np.isfinite(c) for _, c in single_result):
+        raise RuntimeError("single TRBA recognize returned a malformed batch")
+    launches = grid_sample.launches
+    expected = sum(TRBA_REQUESTS.values()) * N_EXPERTS + 1
+    print(f"  TPS warp launches in the served requests: {launches} (expected {expected} = "
+          f"{sum(TRBA_REQUESTS.values())} ensemble requests x {N_EXPERTS} experts + 1 "
+          f"single-recognizer request)")
+    if launches != expected:
+        raise RuntimeError("the TRBA served path did not run through the warp kernel as expected")
+    for dtype, ts in timings.items():
+        print(f"  {dtype}: request seconds {[round(t, 4) for t in ts]}, crops/s "
+              f"{[round(BATCH / t, 1) for t in ts]} (first request includes warm-up)")
+        print(f"  {dtype}: sample words {[w for w, _ in results[dtype][:3]]}, "
+              f"{len(set(w for w, _ in results[dtype]))} distinct words in {BATCH}")
+    print(f"  one TRBA recognizer, bfloat16: first request {single_s:.4f} s "
+          f"({BATCH / single_s:.1f} crops/s), {len(set(w for w, _ in single_result))} "
+          f"distinct words in {BATCH}")
+    with torch.inference_mode():
+        out_k = single.forward(images)["logits"]
+        with mock.patch.object(tps, "grid_sample", grid_sample.grid_sample_reference):
+            out_p = single.forward(images)["logits"]
+    check_greedy("one TRBA recognizer, bfloat16 logits, kernel vs plain warp", out_k, out_p,
+                 torch.full((BATCH,), out_p.shape[-1], device=out_p.device),
+                 *TRBA_LOGIT_TOL[torch.bfloat16])
+
+    # ---- the same batch with the warp forced through its plain version
+    grids = {}
+    for dtype, srv in servers.items():
+        atol, rtol = TRBA_LOGIT_TOL[srv.dtype]
+        scores = []
+        hook = srv.model.route.register_forward_hook(
+            lambda mod, inp, out: scores.append(out[..., 0].float()))
+        out_k = srv.forward(images)
+        words_k = [w for w, _ in srv.recognize(images)]
+        with mock.patch.object(tps, "grid_sample", grid_sample.grid_sample_reference):
+            out_p = srv.forward(images)
+            words_p = [w for w, _ in srv.recognize(images)]
+        hook.remove()
+        shape = (BATCH, base.batch_max_length + 1, max(CLASS_COUNTS))
+        if tuple(out_k["logits"].shape) != shape:
+            raise RuntimeError(f"logits shape {tuple(out_k['logits'].shape)} != {shape}")
+        check_close(f"TRBA {dtype} route scores", scores[0], scores[2], atol, rtol)
+        delta = float((scores[0] - scores[2]).abs().max())
+        top2 = scores[2].topk(2, dim=1).values
+        near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * delta
+        agree = out_k["index"] == out_p["index"]
+        print(f"  TRBA {dtype}: expert picks agree on {int(agree.sum())}/{BATCH} samples, "
+              f"{int(near_tie.sum())} near-ties (picks per expert "
+              f"{torch.bincount(out_k['index'], minlength=N_EXPERTS).tolist()})")
+        if bool((~agree & ~near_tie).any()):
+            raise RuntimeError("TRBA expert picks disagree between the kernel and plain "
+                               "warps beyond score near-ties")
+        counts = torch.tensor(CLASS_COUNTS, device=out_p["index"].device)[out_p["index"]]
+        _, flipped = check_greedy(f"TRBA {dtype} served logits (samples with the same pick)",
+                                  out_k["logits"][agree], out_p["logits"][agree],
+                                  counts[agree], atol, rtol)
+        flips = int(flipped.sum())
+        same = [words_k[i] == words_p[i] for i in range(BATCH) if bool(agree[i])]
+        print(f"  TRBA {dtype}: words agree on {sum(same)}/{len(same)} samples with the same "
+              f"pick ({flips} with a pick flipped at a decode near-tie)")
+        if len(same) - sum(same) > flips:
+            raise RuntimeError("TRBA words disagree beyond decode near-ties")
+        with torch.inference_mode():
+            grids[srv.dtype] = srv.model.experts[0].extractor.transformation.grid(
+                srv.images(images))
+
+    # ---- where a request's time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype, srv in servers.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            srv.recognize(images)
+            wall = time.perf_counter() - t0
+        print_device_profile(f"TRBA {dtype}, one request", prof, wall)
+        print(f"    peak device memory of the request {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB (weights of both servers included)")
+    return launches, timings, grids, torch.from_numpy(images).cuda()
+
+
+def grid_sample_bound_ms(image, grid):
+    """The two halves of the least time (ms) of one warp on an H100: the
+    image and the grid read once and the output written once, over HBM
+    bandwidth; the kernel's float32 operations (16 per output pixel for the
+    coordinates and weights, 9 per output value for the two interpolations)
+    at the float32 peak."""
+    isz = image.element_size()
+    pixels = grid.numel() // 2
+    values = pixels * image.shape[-1]
+    nbytes = image.numel() * isz + grid.numel() * 4 + values * isz
+    ops = 16 * pixels + 9 * values
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_FLOPS[torch.float32]
+
+
+def phase_grid_sample(device, rng, tps_grids, images):
+    """The TPS warp kernel vs its plain version at the TRBA shape (batch 256,
+    32x256x4 -> 32x256) on random grids in [-1.3, 1.3], the identity grid and
+    the served batch's TPS grids, float32 and bfloat16 images (the served
+    crops, normalised), float32 grids; timed beside the plain version,
+    ``F.grid_sample`` on NCHW (timed only) and the bound."""
+    b, h, w, _ = images.shape
+    ys, xs = torch.linspace(-1, 1, h, device=device), torch.linspace(-1, 1, w, device=device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    grids = {"random": torch.from_numpy(rng.uniform(-1.3, 1.3, (b, h, w, 2))
+                                        .astype(np.float32)).to(device),
+             "identity": torch.stack([gx, gy], -1).expand(b, h, w, 2).contiguous()}
+    totals = {}
+    for dt in (torch.float32, torch.bfloat16):
+        img = ((images.float() / 255.0 - 0.5) / 0.5).to(dt)
+        nchw = img.permute(0, 3, 1, 2).contiguous()
+        for name, grid in (*grids.items(), ("tps", tps_grids[dt])):
+            grid = grid.contiguous()
+            with torch.inference_mode():
+                out_k = grid_sample.grid_sample(img, grid)
+                torch.cuda.synchronize()
+                out_p = grid_sample.grid_sample_reference(img, grid)
+                g_lib = grid.to(dt)  # F.grid_sample takes the grid in the image's dtype
+                lib = lambda: F.grid_sample(nchw, g_lib, mode="bilinear",  # noqa: E731
+                                            padding_mode="border", align_corners=True)
+                lib_err = float((lib().permute(0, 2, 3, 1).float() - out_p.float()).abs().max())
+                ms = cuda_ms_queued(lambda: grid_sample.grid_sample(img, grid), 50)
+                plain_ms = cuda_ms_queued(lambda: grid_sample.grid_sample_reference(img, grid), 10)
+                lib_ms = cuda_ms_queued(lib, 50)
+            bytes_ms, ops_ms = grid_sample_bound_ms(img, grid)
+            bound = max(bytes_ms, ops_ms)
+            atol, rtol = GRID_SAMPLE_TOL[dt]
+            err = check_close(f"warp {name} grid {str(dt)[6:]} [{b},{h},{w},4]", out_k, out_p,
+                              atol, rtol)
+            print(f"    ms {ms:.5f}  plain_ms {plain_ms:.5f}  library_ms {lib_ms:.5f}  "
+                  f"bound_ms {bound:.5f} ({'operations' if ops_ms >= bytes_ms else 'bytes'})  "
+                  f"({bound / ms:.1%} of bound); F.grid_sample vs plain max |diff| {lib_err:.3e}")
+            totals[(name, dt)] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                      bound_ms=bound, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                                      max_abs_err=err)
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -1220,6 +1555,10 @@ def main():
     int8_totals = phase_int8_blocks(device, rng)
     print("== int8 serving, one SVTR recognizer (task 0), full width")
     int8_served = phase_int8_serve(rng, base)
+    print("== TRBA-MRN serving, 6 experts, full width")
+    trba_served, _, tps_grids, trba_images = phase_trba_serve(rng)
+    print("== TPS warp kernel vs plain, TRBA shape")
+    warp = phase_grid_sample(device, rng, tps_grids, trba_images)
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
@@ -1238,7 +1577,9 @@ def main():
              "mrn_tpu/ops/svtr_train_block.py:497", fused_trained["train_bwd_head"],
              train_blocks[("head", bf16)]),
             ("svtr_fused_block_int8", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:303",
-             int8_served, int8_totals[(bf16, False)])]
+             int8_served, int8_totals[(bf16, False)]),
+            ("grid_sample", "grid_sample.cu", "mrn_tpu/ops/grid_sample.py:140", trba_served,
+             warp[("tps", bf16)])]
     record = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1260,7 +1601,9 @@ def main():
           f"autograd's whole library-Block backward (tail, attention and head), the "
           f"head has none of its own; svtr_fused_block_int8 times are one recognizer's 12 "
           f"Blocks with float attention, its launches the int8 served requests, its "
-          f"library_ms the torch._int_mm Block; on {smi}")
+          f"library_ms the torch._int_mm Block; grid_sample times are one warp of the "
+          f"served batch's TPS grid (bf16 image, f32 grid), its launches the TRBA served "
+          f"requests, its library_ms F.grid_sample on NCHW; on {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,20 @@ tree to dotted paths and applies three rules:
   ``scale``/``bias`` params.
 
 Dense kernels stay ``[in, out]`` and LayerNorm/Block leaves keep their
-names.  An MRN tree (``params["experts"]`` stacked on a leading expert axis,
-plus the router subtrees ``dm_router``, ``channel_route`` and ``route``) is
+names.  A TRBA tree needs no further rule: its convs are the JAX package's
+``TorchConv``, whose flax child ``Conv_0`` the port names alike
+(``conv0.Conv_0.kernel`` -> ``conv0.Conv_0.weight``); the LSTM leaves
+(``rnn.fwd``/``rnn.bwd`` and the attention cell's ``w_ih``, ``w_hh``,
+``b_ih``, ``b_hh``) are in torch's layout already; ``localization_fc2``
+(a flax ``nn.Dense``), the cell's ``i2h``/``h2h``/``score`` and
+``prediction.char_embeddings`` keep their layouts.
+
+An MRN tree (``params["experts"]`` stacked on a leading expert axis, plus
+the router subtrees ``dm_router``, ``channel_route`` and ``route``) is
 unstacked into ``experts.<i>.``; ``routed_state`` assembles the same layout
-from an expert list (each fc zero-padded to the current class count) plus a
-router tree, as the JAX learner's ``_routed_variables`` does.
+from an expert list (each fc, and an Attn expert's char_embeddings,
+zero-padded to the current class count) plus a router tree, as the JAX
+learner's ``_routed_variables`` does.
 
 ``to_flax`` goes back: a port module's parameters and buffers as numpy
 ``(params, batch_stats)`` trees in the JAX layout (MRN experts stacked), so
@@ -117,15 +126,21 @@ def from_flax(params: Mapping, batch_stats: Optional[Mapping] = None,
 
 def pad_expert_state(state: Mapping[str, torch.Tensor], num_classes: int
                      ) -> Dict[str, torch.Tensor]:
-    """One expert's state with its ``fc`` zero-padded to ``num_classes``
-    (the JAX package's ``pad_expert_tree``; padded columns are later
-    overwritten by MRNNet's ones-padding)."""
+    """One expert's state with its ``fc`` and, for an Attn expert, its
+    ``prediction.char_embeddings`` rows zero-padded to ``num_classes`` (the
+    JAX package's ``pad_expert_tree``; padded logit columns are later
+    overwritten by MRNNet's ones-padding, and the decoder never embeds an
+    id at or past its class count)."""
     out = dict(state)
     kernel, bias = state["fc.kernel"], state["fc.bias"]
     pad = num_classes - kernel.shape[1]
     if pad > 0:
         out["fc.kernel"] = torch.nn.functional.pad(kernel, (0, pad))
         out["fc.bias"] = torch.nn.functional.pad(bias, (0, pad))
+    emb = state.get("prediction.char_embeddings")
+    if emb is not None and num_classes > emb.shape[0]:
+        out["prediction.char_embeddings"] = torch.nn.functional.pad(
+            emb, (0, 0, 0, num_classes - emb.shape[0]))
     return out
 
 

@@ -5,7 +5,13 @@ the flax layout (bridged into the port with ``bridge.from_flax``).
   convs kaiming-normal (fan in) with zero biases, LayerNorm scale 1 and bias
   1 (the reference SVTR quirk), BatchNorm scale 1 / bias 0 / mean 0 / var 1;
 - ``seq_linear``, ``fc`` and the router's Dense layers the torch default
-  ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, the router's LayerNorms 1 / 0.
+  ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, the router's LayerNorms 1 / 0;
+- TRBA (``FeatureExtraction="ResNet"``): every conv kernel and Dense layer
+  ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` (convs bias-free), the BiLSTMs'
+  and the attention cell's LSTM weights and biases ``U(-1/sqrt(H),
+  1/sqrt(H))``, ``char_embeddings`` ``N(0, 1)``, BatchNorm 1 / 0 / 0 / 1,
+  and ``localization_fc2`` a zero kernel with the RARE fiducial bias (so
+  every crop starts from the same near-identity grid).
 
 A new expert is drawn this way (the JAX learner's ``change_model``); the
 task-0 ``apply_reference_init`` pass is not ported.
@@ -16,6 +22,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+
+from mrn_tpu_torch.models.composer import sequence_length
+from mrn_tpu_torch.models.tps import _fc2_bias
 
 __all__ = ["random_block", "random_mrn", "random_recognizer", "random_router"]
 
@@ -62,8 +71,10 @@ def random_block(rng, c, hidden=None):
 
 
 def random_recognizer(rng, opt, num_classes):
-    """One SVTR Recognizer's (params, batch_stats) trees; ``opt.svtr`` may
-    narrow the backbone (``embed_dim``, ``depth``)."""
+    """One Recognizer's (params, batch_stats) trees: SVTR (``opt.svtr`` may
+    narrow the backbone: ``embed_dim``, ``depth``) or TRBA."""
+    if opt.FeatureExtraction == "ResNet":
+        return _random_trba(rng, opt, num_classes)
     arch = dict(_SVTR, **(opt.get("svtr") or {}))
     e0, e1, e2 = arch["embed_dim"]
     h0, w0 = opt.imgH // 4, opt.imgW // 4
@@ -93,9 +104,90 @@ def random_recognizer(rng, opt, num_classes):
     return params, stats
 
 
+def _uniform(rng, shape, fan_in):
+    bound = 1.0 / np.sqrt(fan_in)
+    return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+
+class _Trees:
+    """Builds a params tree and its batch_stats tree side by side."""
+
+    def __init__(self, rng):
+        self.rng, self.params, self.stats = rng, {}, {}
+
+    @staticmethod
+    def _at(tree, path):
+        for key in path:
+            tree = tree.setdefault(key, {})
+        return tree
+
+    def conv_bn(self, path, conv, bn, k, cin, cout, kw=None):
+        """A bias-free ``TorchConv`` (k x kw) and its BatchNorm under ``path``."""
+        kw = kw or k
+        self._at(self.params, path)[conv] = {"Conv_0": {
+            "kernel": _uniform(self.rng, (k, kw, cin, cout), k * kw * cin)}}
+        self._at(self.params, path)[bn] = {"scale": np.ones(cout, np.float32),
+                                           "bias": np.zeros(cout, np.float32)}
+        self._at(self.stats, path)[bn] = {"mean": np.zeros(cout, np.float32),
+                                          "var": np.ones(cout, np.float32)}
+
+    def lstm(self, in_size, hidden):
+        """One LSTM direction (or cell) in torch's layout, U(+-1/sqrt(H))."""
+        g = 4 * hidden
+        return {name: _uniform(self.rng, shape, hidden) for name, shape in
+                (("w_ih", (g, in_size)), ("w_hh", (g, hidden)), ("b_ih", (g,)),
+                 ("b_hh", (g,)))}
+
+
+def _random_trba(rng, opt, num_classes):
+    """One TPS/ResNet/BiLSTM/Attn Recognizer's (params, batch_stats)."""
+    t = _Trees(rng)
+    h, oc, f = opt.hidden_size, opt.output_channel, opt.num_fiducial
+    loc = ("extractor", "transformation", "localization")
+    chans = (opt.input_channel, 64, 128, 256, 512)
+    for i in range(4):
+        t.conv_bn(loc, f"conv{i}", f"bn{i}", 3, chans[i], chans[i + 1])
+    t._at(t.params, loc).update(
+        localization_fc1=_torch_dense(rng, 512, 256),
+        localization_fc2={"kernel": np.zeros((256, 2 * f), np.float32),
+                          "bias": _fc2_bias(f)})
+    feat = ("extractor", "feature")
+    widths = (oc // 4, oc // 2, oc, oc)
+    t.conv_bn(feat, "conv0_1", "bn0_1", 3, opt.input_channel, oc // 16)
+    t.conv_bn(feat, "conv0_2", "bn0_2", 3, oc // 16, oc // 8)
+    inplanes = oc // 8
+    for i, (planes, blocks) in enumerate(zip(widths, (1, 2, 5, 3)), start=1):
+        for j in range(blocks):
+            block = feat + (f"layer{i}", f"block{j}")
+            cin = inplanes if j == 0 else planes
+            t.conv_bn(block, "conv1", "bn1", 3, cin, planes)
+            t.conv_bn(block, "conv2", "bn2", 3, planes, planes)
+            if cin != planes:
+                t.conv_bn(block, "down_conv", "down_bn", 1, cin, planes)
+        if i < 4:
+            t.conv_bn(feat, f"conv{i}", f"bn{i}", 3, planes, planes)
+        inplanes = planes
+    t.conv_bn(feat, "conv4_1", "bn4_1", 2, oc, oc)
+    t.conv_bn(feat, "conv4_2", "bn4_2", 2, oc, oc)
+    for name, in_size in (("seq0", oc), ("seq1", h)):
+        t.params["extractor"][name] = {
+            "rnn": {"fwd": t.lstm(in_size, h), "bwd": t.lstm(in_size, h)},
+            "linear": _torch_dense(rng, 2 * h, h)}
+    t.params["fc"] = _torch_dense(rng, h, num_classes)
+    cell = dict(t.lstm(h + 256, h),
+                i2h={"kernel": _uniform(rng, (h, h), h)},
+                h2h=_torch_dense(rng, h, h),
+                score={"kernel": _uniform(rng, (h, 1), h)})
+    t.params["prediction"] = {
+        "attention_cell": cell,
+        "char_embeddings": rng.standard_normal((num_classes, 256)).astype(np.float32)}
+    return t.params, t.stats
+
+
 def random_router(rng, opt, n_experts):
     """A fresh router stack (``dm_router``, ``channel_route``, ``route``)."""
-    h, i, t = opt.hidden_size, n_experts, opt.imgW // 4
+    h, i = opt.hidden_size, n_experts
+    t = sequence_length(opt.FeatureExtraction, opt.imgW)
     ln = lambda c: _affine(c, 0.0)  # noqa: E731
     return {
         "dm_router": {"norm": ln(h), "proj_1": _torch_dense(rng, h, 2 * h),
@@ -109,17 +201,19 @@ def random_router(rng, opt, n_experts):
 
 
 def random_mrn(rng, opt, class_counts: Sequence[int]):
-    """MRNNet trees: experts stacked on axis 0 (each fc zero-padded from its
-    own class count to the total, as the JAX learner stacks them) plus a
-    fresh router stack."""
+    """MRNNet trees: experts stacked on axis 0 (each fc, and an Attn
+    expert's char_embeddings rows, zero-padded from its own class count to
+    the total, as the JAX learner stacks them) plus a fresh router stack."""
     num_classes = max(class_counts)
     trees = []
     for count in class_counts:
         p, s = random_recognizer(rng, opt, count)
-        for leaf, axis in (("kernel", 1), ("bias", 0)):
-            pad = [(0, 0)] * p["fc"][leaf].ndim
-            pad[axis] = (0, num_classes - count)
-            p["fc"][leaf] = np.pad(p["fc"][leaf], pad)
+        grow = num_classes - count
+        p["fc"]["kernel"] = np.pad(p["fc"]["kernel"], ((0, 0), (0, grow)))
+        p["fc"]["bias"] = np.pad(p["fc"]["bias"], (0, grow))
+        if "prediction" in p:
+            emb = p["prediction"]["char_embeddings"]
+            p["prediction"]["char_embeddings"] = np.pad(emb, ((0, grow), (0, 0)))
         trees.append((p, s))
 
     def stack(*xs):

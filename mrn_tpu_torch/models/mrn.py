@@ -4,9 +4,12 @@
 (``is_train=True``).
 
 The experts are an ``nn.ModuleList`` run one after another (the JAX package
-stacks them on a leading axis under ``vmap``); each expert's SVTR Blocks are
+stacks them on a leading axis under ``vmap``).  An SVTR expert's Blocks are
 one fused-Block launch each, so a request costs ``n_experts * 12`` Block
-launches.  Load-bearing details kept from the reference:
+launches; a TRBA expert warps once (one grid_sample launch) and decodes
+greedily with its own ``class_counts[i]`` (JAX ``vmap``s the count), its
+logits ``[B, batch_max_length + 1, C]``.  Load-bearing details kept from
+the reference:
 
 - old experts' logits are padded to the current class count WITH ONES
   (columns ``c >= class_counts[i]`` become 1.0), not zeros;
@@ -18,7 +21,8 @@ launches.  Load-bearing details kept from the reference:
   ``einsum("ibtc,bi->btc")`` in float32 over the ones-padded expert logits.
 
 The experts always run in eval mode and without gradients: every expert is
-frozen while the router trains.
+frozen while the router trains.  Router training over Attn experts (their
+teacher-forced decoders) is not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ class MRNNet(nn.Module):
                  sequence_modeling: str = "None", input_channel: int = 4,
                  output_channel: int = 512, hidden_size: int = 256,
                  img_size: Tuple[int, int] = (32, 256),
-                 svtr: Optional[Mapping] = None):
+                 svtr: Optional[Mapping] = None, num_fiducial: int = 20,
+                 batch_max_length: int = 25):
         super().__init__()
         if len(class_counts) != n_experts:
             raise ValueError(f"{len(class_counts)} class counts for {n_experts} experts")
@@ -55,8 +60,10 @@ class MRNNet(nn.Module):
         self.experts = nn.ModuleList(
             Recognizer(num_classes, prediction, transformation,
                        feature_extraction, sequence_modeling, input_channel,
-                       output_channel, hidden_size, img_size, svtr)
+                       output_channel, hidden_size, img_size, svtr,
+                       num_fiducial=num_fiducial, batch_max_length=batch_max_length)
             for _ in range(n_experts))
+        self.attn = prediction == "Attn"
         self.patch = sequence_length(feature_extraction, img_size[1])
         self.dm_router = DMRouter(hidden_size, hidden_size * 2, self.patch,
                                   n_experts)
@@ -81,13 +88,17 @@ class MRNNet(nn.Module):
         return torch.where(keep, logits, torch.ones((), dtype=logits.dtype,
                                                     device=logits.device))
 
-    def forward(self, image: torch.Tensor,
+    def forward(self, image: torch.Tensor, text: Optional[torch.Tensor] = None,
                 is_train: bool = False) -> Dict[str, torch.Tensor]:
         """Returns {"logits" [B, T, C], "index", "aux_logits": None}: the
         expert pick [B] (``is_train=False``) or the routing weights [B, I]
-        (``is_train=True``)."""
+        (``is_train=True``).  ``text`` (Attn experts): the [SOS] column."""
+        if self.attn and is_train:
+            raise NotImplementedError("router training over Attn experts (teacher-forced "
+                                      "decoders) is not ported")
         with torch.no_grad():  # frozen experts: the JAX learner's stop_gradient
-            outs = [expert(image) for expert in self.experts]
+            outs = [expert(image, text, class_count=count)
+                    for expert, count in zip(self.experts, self.class_counts)]
             preds = torch.stack([o["predict"] for o in outs])      # [I, B, T, C]
             features = torch.stack([o["feature"] for o in outs])   # [I, B, T, H]
         scores = self._route_scores(features)

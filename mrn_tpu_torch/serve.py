@@ -1,5 +1,6 @@
-"""Serving entry point: recognise word crops with an SVTR recognizer or an
-SVTR-MRN routed ensemble.
+"""Serving entry point: recognise word crops with a recognizer or an MRN
+routed ensemble of SVTR (None/SVTR/None/CTC) or TRBA (TPS/ResNet/BiLSTM/Attn)
+experts.
 
     server = Server(opt, params, batch_stats, character, class_counts=counts)
     for word, conf in server.recognize(images): ...
@@ -8,9 +9,11 @@ SVTR-MRN routed ensemble.
 arrays (bridged with ``mrn_tpu_torch.bridge.from_flax``).  Images are NHWC
 at ``(imgH, imgW)``: float already normalised as ``(x/255 - 0.5)/0.5`` or
 uint8, which is normalised on the device.  The outputs follow the JAX eval
-path (``make_eval_batch`` + ``recognize_cli.recognize``): greedy CTC
-indices, ``max softmax`` per step, the decoded word and the confidence
-``prod(max softmax)`` over all steps.
+path (``make_eval_batch`` + ``recognize_cli.recognize``): the argmax indices
+and ``max softmax`` per step, the decoded word and the confidence
+``prod(max softmax)``.  CTC takes every step.  Attn decodes greedily from
+an [SOS] column, and each word and its ``max softmax`` are cut at the first
+"[EOS]" of the decoded string before the product.
 
 Runs on the CUDA card unless ``device="cpu"`` is passed, in
 ``opt.compute_dtype`` (float32 or bfloat16; bfloat16 casts every weight and
@@ -35,7 +38,7 @@ import torch
 
 from mrn_tpu_torch import resolve_device
 from mrn_tpu_torch.bridge import from_flax, quant_tree
-from mrn_tpu_torch.codec import CTCLabelConverter
+from mrn_tpu_torch.codec import build_converter
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.mrn import MRNNet
 from mrn_tpu_torch.models.svtr import Block, score_envelope
@@ -57,7 +60,8 @@ class Server:
             raise ValueError(f"compute_dtype {opt.compute_dtype!r} not in {list(_DTYPES)}")
         self.dtype = _DTYPES[opt.compute_dtype]
         self.opt = opt
-        self.converter = CTCLabelConverter(character)
+        self.converter = build_converter(opt.Prediction, character)
+        self.attn = opt.Prediction == "Attn"
         # the float32 trees as given: int8 quantization starts from them
         self.params, self.batch_stats = params, batch_stats
         num_classes = self.converter.num_classes
@@ -72,7 +76,8 @@ class Server:
                 sequence_modeling=opt.SequenceModeling,
                 input_channel=opt.input_channel,
                 output_channel=opt.output_channel, hidden_size=opt.hidden_size,
-                img_size=(opt.imgH, opt.imgW), svtr=opt.get("svtr"))
+                img_size=(opt.imgH, opt.imgW), svtr=opt.get("svtr"),
+                num_fiducial=opt.num_fiducial, batch_max_length=opt.batch_max_length)
             self.model.load_state_dict(from_flax(params, batch_stats), strict=True)
             self.model.to(device=self.device, dtype=self.dtype).eval()
         else:
@@ -110,8 +115,8 @@ class Server:
         score| of this batch on the composed path (``models.svtr.
         score_envelope``, loud on stderr at or above the fused Block's
         ``SCORE_CLAMP``), printed; None on the int8 path, whose softmax
-        subtracts the max."""
-        if self.quantized:
+        subtracts the max, and for a model without SVTR Blocks."""
+        if self.quantized or self.opt.FeatureExtraction != "SVTR":
             return None
         mx = score_envelope(self.model, self.images(images))
         print(f"# svtr score envelope: max |score| {mx:.1f} (fused-kernel clamp {SCORE_CLAMP:g})")
@@ -121,7 +126,12 @@ class Server:
     def forward(self, images) -> Dict[str, torch.Tensor]:
         """{"logits" [B, T, C], "index" [B] (MRN expert pick, else None)} on
         the device."""
-        out = self.model(self.images(images))
+        x = self.images(images)
+        text = None
+        if self.attn:  # make_eval_batch's [SOS] column
+            text = torch.full((x.shape[0], 1), self.converter.sos_id, dtype=torch.int64,
+                              device=self.device)
+        out = self.model(x, text)
         if "logits" in out:
             return {"logits": out["logits"], "index": out["index"]}
         return {"logits": out["predict"], "index": None}
@@ -145,8 +155,16 @@ class Server:
         preds, max_probs = res["preds_index"], res["max_probs"]
         words = self.converter.decode(preds, np.full((preds.shape[0],),
                                                      preds.shape[1]))
-        return [(w, float(np.prod(p)) if len(p) else 0.0)
-                for w, p in zip(words, max_probs)]
+        out = []
+        for w, p in zip(words, max_probs):
+            eos = w.find("[EOS]") if self.attn else -1
+            if eos >= 0:
+                # cut at the string index, as train/evaluate.py does: a
+                # multi-character special token before [EOS] shifts the cut
+                # of max_probs, a quirk kept for parity
+                w, p = w[:eos], p[:eos]
+            out.append((w, float(np.prod(p)) if len(p) else 0.0))
+        return out
 
 
 def quantize_int8(server: Server, batches: Iterable, n_batches: int = 4) -> Server:
