@@ -20,8 +20,11 @@
 5. holds the two training attention kernels (full and banded) against their
    plain versions at the four attention shapes of the SVTR training forward
    (f32 and bf16, forward, and f32 gradients through the autograd
-   Functions), timed beside the plain version, one
-   ``F.scaled_dot_product_attention`` call (timed only) and the bound;
+   Functions; two launches must be bitwise equal), timed beside the plain
+   version, one ``F.scaled_dot_product_attention`` call (timed only) and the
+   bound, with each kernel's share of the bound and its ratio to SDPA; and
+   the full kernel at int8 calibration's two masked Local shapes (N 512, the
+   three-pass path, and N 256), f32 and bf16, checked the same way;
 6. trains task 5 of the 6-task SVTR-MRN sequence at full width through
    ``MRN.incremental_train`` (5 frozen random experts plus the new one,
    batch 256 of synthetic crops from a uint8 bank on the card): step 0
@@ -146,6 +149,11 @@ ATTN_SHAPES = (("stage1-local", (8, 64), 2, "banded", 3),
                ("stage2-local", (4, 64), 4, "banded", 3),
                ("stage2-global", (4, 64), 4, "full", 3),
                ("stage3-global", (2, 64), 8, "full", 3))
+# int8 calibration's composed eval Blocks run the full kernel over a Local
+# Block's whole column-major mask (models/svtr.py Block._composed): (name,
+# grid (h, w), heads) at batch 256, head_dim 32; N 512 is wider than the 256
+# keys a warp holds in registers and takes the three-pass kernel
+CALIB_ATTN_SHAPES = (("stage1-local", (8, 64), 2), ("stage2-local", (4, 64), 4))
 # kernel vs plain forward: float32 summation order and exp ulps; bfloat16 a P
 # rounding flipped by a float32 ulp plus one output ulp at |o| < 4
 ATTN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 1e-2)}
@@ -481,20 +489,42 @@ def attention_bound_ms(b, heads, n, d, dt, pairs, mask_bytes):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_FLOPS[dt]
 
 
+def _attention_inputs(rng, heads, n, d, device, dt):
+    qkv = [torch.from_numpy(rng.standard_normal((BATCH, heads, n, d))
+                            .astype(np.float32)).to(device, dt) for _ in range(3)]
+    qkv[0] = qkv[0] * d ** -0.5
+    return qkv
+
+
+def _launch_twice(what, kernel):
+    """The kernel's output, after checking that a second launch on the same
+    inputs gives the same bits (the forwards have no atomics)."""
+    out = kernel()
+    torch.cuda.synchronize()
+    if not torch.equal(out, kernel()):
+        raise RuntimeError(f"{what}: two launches on the same inputs differ")
+    return out
+
+
+def _plan_text(dt, n, d, qb, width):
+    span, key_tiles, segments, passes, smem = svtr_attention._kernel_plan(dt, n, d, qb, width)
+    return (f"plan: {span} query rows per block, {key_tiles} key tiles in registers, "
+            f"{segments} key segment(s), {passes} pass(es), {smem} B shared")
+
+
 def phase_attention(device, rng):
     """Each attention kernel vs its plain version at the four attention
-    shapes of the SVTR training forward, f32 and bf16; timed beside the
-    plain version, ``F.scaled_dot_product_attention`` (timed only) and the
-    bound.  Returns per-kernel, per-dtype sums over one expert forward."""
+    shapes of the SVTR training forward, f32 and bf16, two launches bitwise
+    equal; timed beside the plain version,
+    ``F.scaled_dot_product_attention`` (timed only) and the bound.  Then the
+    full kernel at int8 calibration's masked shapes, checked the same way.
+    Returns per-kernel, per-dtype sums over one expert forward."""
     d = 32
     totals = {}
     for dt in (torch.float32, torch.bfloat16):
         for name, hw, heads, kind, count in ATTN_SHAPES:
             n = hw[0] * hw[1]
-            qkv = [torch.from_numpy(rng.standard_normal((BATCH, heads, n, d))
-                                    .astype(np.float32)).to(device, dt) for _ in range(3)]
-            qkv[0] = qkv[0] * d ** -0.5
-            q, k, v = qkv
+            q, k, v = _attention_inputs(rng, heads, n, d, device, dt)
             band = (hw[0], hw[1], 7, 11) if kind == "banded" else None
             full_mask = (torch.from_numpy(local_attention_mask_col_major(*band)).to(device)
                          if band else None)
@@ -505,12 +535,13 @@ def phase_attention(device, rng):
                     plan = svtr_block._band_spec(*band)
                     mask_bytes = 4 * n * plan[1]
                     what = f"qb {plan[0]} width {plan[1]}"
+                    qb, width = plan[0], plan[1]
                 else:
                     kernel = lambda: svtr_attention.attention_forward(q, k, v)  # noqa: E731
                     plain = lambda: svtr_attention.attention_reference(q, k, v)  # noqa: E731
                     mask_bytes, what = 0, "unmasked"
-                out_k = kernel()
-                torch.cuda.synchronize()
+                    qb = width = n
+                out_k = _launch_twice(f"{kind} {name}", kernel)
                 out_p = plain()
                 ms = cuda_ms(kernel, 5)
                 plain_ms = cuda_ms(plain, 3)
@@ -525,7 +556,8 @@ def phase_attention(device, rng):
                               out_k, out_p, atol, rtol)
             print(f"    ms {ms:.4f}  plain_ms {plain_ms:.4f}  library_ms {lib_ms:.4f}  "
                   f"bound_ms {bound:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'})"
-                  f"  ({bound / ms:.1%} of bound)")
+                  f"  ({bound / ms:.1%} of bound, {ms / lib_ms:.2f}x SDPA); two launches "
+                  f"bitwise equal; {_plan_text(dt, n, d, qb, width)}")
             if dt == torch.float32:   # gradients through the autograd Function
                 g = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(device)
                 grads = []
@@ -543,6 +575,21 @@ def phase_attention(device, rng):
                              ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
                 tot[key] += count * val
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    # its own generator: the later phases draw from rng as before
+    calib_rng = np.random.default_rng(SEED + 5)
+    for dt in (torch.float32, torch.bfloat16):
+        for name, hw, heads in CALIB_ATTN_SHAPES:
+            n = hw[0] * hw[1]
+            q, k, v = _attention_inputs(calib_rng, heads, n, d, device, dt)
+            mask = torch.from_numpy(local_attention_mask_col_major(*hw)).to(device)
+            with torch.no_grad():
+                kernel = lambda: svtr_attention.attention_forward(q, k, v, mask)  # noqa: E731
+                out_k = _launch_twice(f"full {name} calibration", kernel)
+                out_p = svtr_attention.attention_reference(q, k, v, mask)
+                ms = cuda_ms(kernel, 5)
+            check_close(f"full {name} calibration {str(dt)[6:]} [{BATCH},{heads},{n},{d}] "
+                        f"local mask [{n},{n}]", out_k, out_p, *ATTN_TOL[dt])
+            print(f"    ms {ms:.4f}; two launches bitwise equal; {_plan_text(dt, n, d, n, n)}")
     for (kind, dt), tot in totals.items():
         print(f"  {kind} attention, one expert forward (6 Blocks), {str(dt)[6:]}: "
               + ", ".join(f"{k} {v:.4g}" for k, v in tot.items()))

@@ -38,7 +38,7 @@ __all__ = ["attention_reference", "banded_attention_reference",
 launches = {"full": 0, "banded": 0}
 
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64)
-_QUERY_TILE = 32  # must match QT in csrc/svtr_attention.cu
+_QUERY_TILE = 32  # band query blocks: a multiple of QT in csrc/svtr_common.cuh
 
 
 # ------------------------------------------------------------ plain versions
@@ -118,9 +118,23 @@ def _lib():
     # dtype; q, k, v, mask, starts, out; BH N D qb width; stream
     lib.svtr_attention_forward.argtypes = [i] + [p] * 6 + [i] * 5 + [p]
     lib.svtr_attention_forward.restype = i
+    # dtype, N, D, qb, width; int32 out[5]
+    lib.svtr_attention_plan.argtypes = [i] * 5 + [p]
+    lib.svtr_attention_plan.restype = i
     lib.svtr_attention_error_string.argtypes = [i]
     lib.svtr_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _kernel_plan(dtype, n, d, qb, width):
+    """The built library's launch plan for ``[*, n, d]`` operands of
+    ``dtype`` (full attention: ``qb == width == n``): query rows per block,
+    key tiles of 8 held in registers, key segments, passes over the keys (1
+    for a window of exactly 128 or 256 keys, else 3), dynamic shared
+    bytes."""
+    out = (ctypes.c_int * 5)()
+    _lib().svtr_attention_plan(1 if dtype == torch.bfloat16 else 0, n, d, qb, width, out)
+    return tuple(out)
 
 
 def _check(q, k, v, mask):
@@ -144,8 +158,15 @@ def _check(q, k, v, mask):
         raise TypeError("svtr_attention kernel: the mask must be float32")
 
 
+def _aligned(t):
+    """``t``, or a copy of it when its data is not 16-byte aligned (a view
+    at an odd offset): the kernel stages rows with 16-byte copies."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(kind, q, k, v, mask, starts, qb, width):
     b, h, n, d = q.shape
+    q, k, v, mask = (_aligned(t) for t in (q, k, v, mask))
     out = torch.empty_like(q)
     lib = _lib()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

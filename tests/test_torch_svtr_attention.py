@@ -109,3 +109,66 @@ def test_cpu_tensors_never_launch(rng):
     attn.mha_small_n(q, k, v)
     attn.mha_small_n(q, k, v, band=(4, 64, 7, 11))
     assert attn.launches == before
+
+
+def _fma32(a, b, c):
+    """float32 fma(a, b, c), rounded once as the card's FFMA rounds: a b is
+    exact in float64; the exact sum a b + c is s + e (TwoSum), rounded to odd
+    in float64 (53 >= 24 + 2 bits) and then to nearest float32, which gives
+    the correctly rounded result (Boldo and Melquiond, round-to-odd)."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(np.uint64) & 1) == 0
+    s = np.where((e != 0) & even, np.nextafter(s, np.where(e > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def test_fma32_emulation_rounds_once():
+    """Against exact rational arithmetic on a sample, including sums where
+    rounding the float64 sum to float32 would round twice."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal(3000).astype(np.float32)
+    b = rng.standard_normal(3000).astype(np.float32)
+    c = (-a.astype(np.float64) * b * (1 + rng.standard_normal(3000) * 2.0 ** -20)
+         ).astype(np.float32)
+    # a b + c = 1 + 2^-24 + 2^-70: its float64 rounding 1 + 2^-24 is a float32
+    # tie, which rounds to 1; rounded once, the sum is 1 + 2^-23
+    a[0], b[0], c[0] = 1 - 2.0 ** -24, 1 + 2.0 ** -23, 2.0 ** -47 * (1 + 2.0 ** -23)
+    twice = (a[:1].astype(np.float64) * b[:1] + c[:1]).astype(np.float32)
+    assert twice[0] == 1 and _fma32(a[:1], b[:1], c[:1])[0] == np.float32(1 + 2.0 ** -23)
+    got = _fma32(a, b, c)
+    for i in range(3000):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        lo = np.float32(float(exact))
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo, np.nextafter(lo, np.float32(np.inf))]
+        best = min(cands, key=lambda y: (abs(Fraction(float(y)) - exact),
+                                         int(np.float32(y).view(np.uint32)) & 1))
+        assert got[i] == best, (i, a[i], b[i], c[i])
+
+
+def test_corrected_reciprocal_is_the_division(rng):
+    """The kernels normalise with r = 1/l once per row and q = x r, q += (x -
+    q l) r (two FMAs) per score (``normalise`` in csrc/svtr_attention.cu).
+    That is the correctly rounded x / l -- the plain version's division --
+    for every quotient >= 2^-100 (below, the residual underflows, and the
+    quotient may be one float32 ulp off: p < 2^-100 moves no float32 o).
+    The FMAs are emulated with one rounding each (``_fma32``); that the
+    kernel computes these FMAs is the card tests' kernel-vs-plain check."""
+    n = 2_000_000
+    x = np.exp(-rng.exponential(8.0, n)).astype(np.float32)     # exp(s - max)
+    l = (1 + rng.random(n) * rng.choice([1, 16, 255, 511], n)).astype(np.float32)
+    r = np.float32(1) / l
+    q = x * r
+    got = _fma32(_fma32(-q, l, x), r, q)
+    ref = x / l
+    big = ref >= 2.0 ** -100
+    assert big.mean() > 0.99
+    np.testing.assert_array_equal(got[big], ref[big])
+    ulp = np.maximum(np.spacing(ref[~big]), 2.0 ** -149)
+    assert (np.abs(got[~big].astype(np.float64) - ref[~big]) <= ulp).all()
+    assert (q[big] != ref[big]).mean() > 0.1   # the uncorrected product is not
