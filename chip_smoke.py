@@ -7,7 +7,8 @@
 2. builds the CUDA kernels from ``mrn_tpu_torch/ops/csrc`` (one ``nvcc``
    per source, all started together);
 3. holds the fused SVTR Block kernel against its plain PyTorch version at
-   the four Block shapes of SVTR at batch 256, in float32 and bfloat16, and
+   the four Block shapes of SVTR at batch 256, in float32 and bfloat16 (two
+   launches must be bitwise equal), prints each shape's launch plan, and
    times kernel, plain version and a library yardstick (a composed Block on
    cuBLAS and ``F.scaled_dot_product_attention``, which the port never
    calls) beside the card's bound for the same work;
@@ -15,8 +16,9 @@
    ensemble (4500 classes, random weights from a seed in the JAX init
    distributions, bridged with ``bridge.from_flax``): a few requests of 256
    crops in bfloat16 and float32 through ``serve.Server``, counting kernel
-   launches, then the same batch forced through the plain versions on the
-   card for comparison;
+   launches and the host-side weight folds (none in a warm request), then
+   the same batch forced through the plain versions on the card for
+   comparison, and a device profile of one warm bf16 request;
 5. holds the two training attention kernels (full and banded) against their
    plain versions at the four attention shapes of the SVTR training forward
    (f32 and bf16, forward, and f32 gradients through the autograd
@@ -35,7 +37,8 @@
 7. holds the three fused training Block kernels (forward, backward tail,
    backward head) against their plain versions at the four Block shapes at
    batch 256, f32 and bf16, with a non-trivial LN affine and droppath masks
-   with zeros: forward output and residuals, dy/dattn and 8 grads, dx and 4
+   with zeros: forward output and residuals (two forward launches bitwise
+   equal, the forward's launch plan printed), dy/dattn and 8 grads, dx and 4
    grads, the whole autograd Function's grads, and bitwise-repeatable weight
    grads; timed beside the plain versions, the bound and a library
    yardstick (the composed library Block's forward with grad enabled, and
@@ -372,8 +375,7 @@ def phase_blocks(device, rng):
                                  ).to(device=device, dtype=dt)
             with torch.inference_mode():
                 blk.plain = False
-                out_k = blk(x)
-                torch.cuda.synchronize()
+                out_k = _launch_twice(f"{name} {str(dt)[6:]} Block", lambda: blk(x))
                 ms = cuda_ms(lambda: blk(x), 5)
                 blk.plain = True
                 out_p = blk(x)
@@ -392,7 +394,10 @@ def phase_blocks(device, rng):
             err = check_close(f"{name} {str(dt)[6:]} [{BATCH},{n},{c}] qb {plan.qb} "
                               f"width {plan.width}", out_k, out_p, atol, rtol)
             print(f"    ms {ms:.3f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.3f}  "
-                  f"bound_ms {bound:.4f}  ({bound / ms:.1%} of bound)")
+                  f"bound_ms {bound:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'})  "
+                  f"({bound / ms:.1%} of bound); two launches bitwise equal; "
+                  + _block_plan_text(svtr_block._kernel_plan(dt, n, c, heads, 4 * c, plan.qb,
+                                                             plan.width)))
             tot["ms"] += count * ms
             tot["plain_ms"] += count * plain_ms
             tot["library_ms"] += count * lib_ms
@@ -404,6 +409,15 @@ def phase_blocks(device, rng):
               + ", ".join(f"{k} {v:.4g}" for k, v in tot.items()))
         totals[dt] = tot
     return totals
+
+
+def _block_plan_text(plan):
+    span, key_tiles, segments, passes, smem, *tiles = plan
+    return (f"plan: attention {span} query rows per block, {key_tiles} key tiles in "
+            f"registers, {segments} key segment(s), {passes} pass(es) "
+            f"({'one-pass' if segments == 1 and passes == 1 else 'segments'} kernel), "
+            f"{smem} B shared; "
+            f"projection tiles 128 x {'/'.join(map(str, tiles))} (qkv/proj/fc1/fc2)")
 
 
 def phase_serve(rng):
@@ -420,14 +434,16 @@ def phase_serve(rng):
 
     # ---- counted run: the main path, through the entry points
     svtr_block.launches = 0
-    timings = {}
+    timings, folds = {}, {}
     for dtype, n_req in REQUESTS.items():
-        timings[dtype] = []
+        timings[dtype], folds[dtype] = [], []
         for _ in range(n_req):
             torch.cuda.synchronize()
+            before = svtr_block.folds
             t0 = time.perf_counter()
             results = servers[dtype].recognize(images)
             timings[dtype].append(time.perf_counter() - t0)
+            folds[dtype].append(svtr_block.folds - before)
             if len(results) != BATCH or not all(np.isfinite(c) for _, c in results):
                 raise RuntimeError("recognize returned a malformed batch")
     launches = svtr_block.launches
@@ -439,6 +455,10 @@ def phase_serve(rng):
         raise RuntimeError("the served path did not run through the kernel as expected")
     if any(svtr_attention.launches.values()):
         raise RuntimeError("serving launched a training attention kernel")
+    print(f"  host-side weight folds per request: {folds} (the first request of each "
+          f"server folds each of its {N_EXPERTS * 12} Blocks once, a warm request none)")
+    if any(f[0] != N_EXPERTS * 12 or any(f[1:]) for f in folds.values()):
+        raise RuntimeError("a warm request folded weights again")
     for dtype, ts in timings.items():
         print(f"  {dtype}: request seconds {[round(t, 4) for t in ts]}, crops/s "
               f"{[round(BATCH / t, 1) for t in ts]} (first request includes warm-up)")
@@ -475,6 +495,20 @@ def phase_serve(rng):
                                "beyond score near-ties")
         check_close(f"{dtype} served logits (samples with the same pick)",
                     out_k["logits"][agree], out_p["logits"][agree], atol, rtol)
+
+    # ---- where a warm bf16 request's device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    servers["bfloat16"].recognize(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        servers["bfloat16"].recognize(images)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_device_profile(f"bf16 {N_EXPERTS}-expert SVTR request of {BATCH} crops, warm",
+                         prof, wall)
     return launches, timings
 
 
@@ -667,6 +701,11 @@ def phase_train_blocks(device, rng):
             with torch.no_grad():
                 out, res = tb.forward(x, params, dm_a, dm_b, heads, scale, band)
                 torch.cuda.synchronize()
+                out2, res2 = tb.forward(x, params, dm_a, dm_b, heads, scale, band)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip((out,) + res, (out2,) + res2)):
+                    raise RuntimeError(f"{label}: two forward launches on the same inputs differ")
+                del out2, res2
                 ref_out, ref_res = tb.forward_reference(x, params, dm_a, dm_b, heads, scale, band)
                 for what, a, b in zip(("out", "qkv", "attn_cat", "y", "h1"),
                                       (out,) + res, (ref_out,) + ref_res):
@@ -730,7 +769,9 @@ def phase_train_blocks(device, rng):
             print(f"  {label} {'banded qb %d width %d' % plan[:2] if plan else 'full'}: "
                   f"max |err| fwd {errs['fwd']:.3e} tail {errs['tail']:.3e} head "
                   f"{errs['head']:.3e} Function {errs['Function']:.3e}, at most {worst:.3f} of "
-                  f"each tensor's bound; weight grads bitwise repeatable")
+                  f"each tensor's bound; forward outputs and weight grads bitwise repeatable; "
+                  + _block_plan_text(tb._kernel_plan(dt, n, c, heads, hidden,
+                                                     *(plan[:2] if plan else (n, n)))))
             for kind in ("fwd", "tail", "head"):
                 b_ms, o_ms = bounds[kind]
                 bound = max(b_ms, o_ms)

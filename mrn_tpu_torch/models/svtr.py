@@ -40,7 +40,7 @@ from torch import nn
 from mrn_tpu_torch.models.common import (BatchNorm, Conv2d, LayerNorm,
                                          to_nchw, to_nhwc)
 from mrn_tpu_torch.ops.svtr_attention import attention_forward, attention_reference, mha_small_n
-from mrn_tpu_torch.ops.svtr_block import (SCORE_CLAMP, Int8Weights, _band_spec,
+from mrn_tpu_torch.ops.svtr_block import (SCORE_CLAMP, FoldCache, Int8Weights, _band_spec,
                                           fused_block, fused_block_int8,
                                           fused_block_int8_reference, fused_block_reference,
                                           prepare_int8)
@@ -166,6 +166,11 @@ class Block(nn.Module):
       derived once, and again after each ``load_state_dict`` and each move
       or cast.
 
+    With ``quant="none"`` the fused inference Block's folded weights
+    (``ops.svtr_block._fold``) are kept in a ``FoldCache`` and folded again
+    only when a weight changes (an in-place write, a new tensor, a cast or
+    move, ``functional_call`` with other tensors).
+
     ``plain`` runs the kernels' plain versions on any device (the card's
     reference in checks; the fused training Block's too),
     ``gelu_degree`` picks the inference kernels' erf fit and ``attn_int8``
@@ -220,6 +225,7 @@ class Block(nn.Module):
         self.attn_int8 = False
         self.score_max: Optional[torch.Tensor] = None
         self.int8_weights: Optional[Int8Weights] = None
+        self.fold_cache = FoldCache()
         self._prepare_int8()
 
     def _prepare_int8(self) -> None:
@@ -258,9 +264,11 @@ class Block(nn.Module):
             return fn(x, self.int8_weights, self.mask, self.num_heads, self.scale,
                       attn_int8=self.attn_int8, gelu_degree=self.gelu_degree)
         params = {name: getattr(self, name) for name in PARAM_KEYS}
-        fn = fused_block_reference if self.plain else fused_block
-        return fn(x, params, self.mask, self.num_heads, self.scale,
-                  band=self.band, gelu_degree=self.gelu_degree)
+        if self.plain:
+            return fused_block_reference(x, params, self.mask, self.num_heads, self.scale,
+                                         band=self.band, gelu_degree=self.gelu_degree)
+        return fused_block(x, params, self.mask, self.num_heads, self.scale, band=self.band,
+                           gelu_degree=self.gelu_degree, cache=self.fold_cache)
 
     def fused_train_ok(self, n: int) -> bool:
         """Whether ``MRN_FUSED_TRAIN=1`` sends this Block to the fused

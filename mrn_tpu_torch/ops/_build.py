@@ -14,13 +14,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "CSRC", "build_all", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "build_all", "load", "sass"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mrn_tpu_torch"
@@ -89,3 +90,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def sass(name: str) -> Dict[str, str]:
+    """{kernel's mangled name: its SASS} of the built ``csrc/<name>.cu``,
+    from ``cuobjdump -sass`` (on the PATH or beside ``nvcc``)."""
+    lib = build_all([name])[name]
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)", text)
+    return dict(zip(parts[1::2], parts[2::2]))

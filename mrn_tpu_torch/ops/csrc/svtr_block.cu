@@ -17,130 +17,120 @@
 // width) with the [N, width] band mask).
 //
 // Bound on an H100: about 1.66 GFLOP per image per expert for the 12 Blocks
-// of SVTR (the four projections carry most of it), so at batch 256 the work
-// is compute-bound: ~2.6 TFLOP for a 6-expert batch, a ~2.6 ms floor at the
-// bf16 tensor-core rate, against ~0.1 GB of activations moved per Block.
+// of SVTR (the four projections carry most of it), ~0.40 ms at the bf16
+// tensor-core rate at batch 256, against ~5 GB of activations moved by the
+// five launches per expert (~1.5 ms at 3.35 TB/s): in bfloat16 the Block is
+// held by its bytes, in float32 (67 TFLOP/s on the CUDA cores) by its
+// operations.
 //
-// Design (simple first): five launches per Block, on the GEMM main loop and
-// the attention kernel of svtr_common.cuh.
-//   1. gemm<kQkv>:  per 64x64 output tile, the block recomputes its rows'
-//      LayerNorm statistics, normalises A tiles on the fly, and stores qkv
-//      in T (every consumer rounds q/k/v to T, so this loses nothing);
-//   2. attention (kClampExp): per (image, head, 32-query tile), scores
-//      against the tile's key window chunk by chunk into a [32, width]
-//      shared-memory P tile, then row-sums and PV;
-//   3. gemm<kProj>: attn @ Wproj + b + x -> x1 (float32, the residual stream
+// Design: five launches per Block.
+//   1. proj<qkv>: LN(x) @ Wqkv_f + b -> qkv in T (every consumer rounds q, k,
+//      v to T, so this loses nothing); the block computes its 128 rows'
+//      LayerNorm statistics up front and normalises A as it loads it;
+//   2. attention: the tile attention of svtr_attention_tc.cuh in its
+//      kClampExp form, reading q, k, v inside qkv [B, N, 3C] and writing
+//      attn [B, N, C];
+//   3. proj<proj>: attn @ Wproj + b + x -> x1 (float32: the residual stream
 //      stays float32 as in the Pallas kernel);
-//   4. gemm<kFc1>:  LN(x1) @ Wfc1_f + b, GELU -> g in T;
-//   5. gemm<kFc2>:  g @ Wfc2 + b + x1 -> out in T.
-// What it leaves on the table: every product runs on the CUDA cores in
-// float32 FMAs (no wgmma/mma.sync tensor-core path, no TMA or cp.async
-// pipelining), and qkv, attn, x1 and g round-trip through device memory
-// instead of staying on chip across the Block.  Those are later work.
+//   4. proj<fc1>: LN(x1) @ Wfc1_f + b, GELU -> g in T;
+//   5. proj<fc2>: g @ Wfc2 + b + x1 -> out in T.
+// The projections run the main loops of svtr_gemm_tc.cuh: bf16 on the tensor
+// cores (mma.sync), float32 register-tiled on the CUDA cores.  What it
+// leaves on the table: wgmma and TMA, and keeping qkv, attn, x1 and g on
+// chip across the Block.
 
-#include "svtr_common.cuh"
+#include "svtr_attention_tc.cuh"
+#include "svtr_gemm_tc.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------- projections
-enum Mode { kQkv = 0, kProj = 1, kFc1 = 2, kFc2 = 3 };
+#define TRY(call)                              \
+  do {                                         \
+    const cudaError_t err_ = (call);           \
+    if (err_ != cudaSuccess) return (int)err_; \
+  } while (0)
 
-// out[M, Nout] = A[M, K] @ W[K, Nout] + bias (+ epilogue by MODE).
-// A is T except for kFc1 (float32 x1); kQkv/kFc1 normalise A's rows first,
-// with the statistics of the block's 64 rows computed up front.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const void* __restrict__ a_ptr, const T* __restrict__ w,
-            const float* __restrict__ bias, const void* __restrict__ res_ptr,
-            void* __restrict__ out_ptr, int M, int K, int Nout, int gelu_degree) {
-  constexpr bool kLN = MODE == kQkv || MODE == kFc1;
-  __shared__ float s_mean[BM], s_rstd[BM];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-
-  auto load_a = [&](int m, int k) -> float {
-    if (MODE == kFc1) return static_cast<const float*>(a_ptr)[(size_t)m * K + k];
-    return to_f(static_cast<const T*>(a_ptr)[(size_t)m * K + k]);
-  };
-
-  if (kLN) {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < BM; r += kGemmThreads / 32) {
-      const int m = m0 + r;
-      float s = 0.f, ss = 0.f;
-      if (m < M) {
-        for (int k = lane; k < K; k += 32) {
-          const float v = load_a(m, k);
-          s += v;
-          ss += v * v;
-        }
-      }
-      s = warp_sum(s);
-      ss = warp_sum(ss);
-      if (lane == 0) {
-        const float mean = s / K;
-        const float var = ss / K - mean * mean;
-        s_mean[r] = mean;
-        s_rstd[r] = rsqrtf(var + 1e-6f);
-      }
-    }
-    __syncthreads();
-  }
-
-  auto a = [&](int m, int k) -> float {
-    const float v = load_a(m, k);
-    return kLN ? (v - s_mean[m - m0]) * s_rstd[m - m0] : v;
-  };
-  float acc[4][4] = {};
-  gemm_mainloop<T, true, true>(a, Mat<T>{w, Nout}, M, Nout, 0, K, acc);
-  gemm_store(acc, M, Nout, [&](int m, int n, float v0) {
-    const size_t o = (size_t)m * Nout + n;
-    const float v = v0 + bias[n];
-    if (MODE == kQkv) {
-      static_cast<T*>(out_ptr)[o] = from_f<T>(v);
-    } else if (MODE == kProj) {
-      static_cast<float*>(out_ptr)[o] = to_f(static_cast<const T*>(res_ptr)[o]) + v;
-    } else if (MODE == kFc1) {
-      static_cast<T*>(out_ptr)[o] = from_f<T>(gelu_poly(v, gelu_degree));
-    } else {
-      static_cast<T*>(out_ptr)[o] = from_f<T>(static_cast<const float*>(res_ptr)[o] + v);
-    }
-  });
-}
-
-template <typename T, int MODE>
-cudaError_t launch_gemm(const void* a, const void* w, const float* bias,
-                        const void* res, void* out, int M, int K, int Nout,
-                        int gelu_degree, cudaStream_t stream) {
-  dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<T, MODE><<<grid, kGemmThreads, 0, stream>>>(
-      a, static_cast<const T*>(w), bias, res, out, M, K, Nout, gelu_degree);
-  return cudaGetLastError();
-}
+// ---------------------------------------------------------------- epilogues
+// Each takes columns j .. j + 8 of row i of the float32 accumulator v
+// (svtr_gemm_tc.cuh); prefetch loads the residual, if any, into r.
 
 template <typename T>
-int block_forward(const void* x, const void* qkv_w, const float* qkv_b,
-                  const void* proj_w, const float* proj_b, const void* fc1_w,
-                  const float* fc1_b, const void* fc2_w, const float* fc2_b,
-                  const float* mask, const int* starts, void* qkv, void* attn,
-                  float* x1, void* g, void* out, int B, int N, int C, int heads,
-                  int hidden, int qb, int width, int gelu_degree,
-                  cudaStream_t stream) {
-  const int M = B * N, D = C / heads;
-  cudaError_t err = launch_gemm<T, kQkv>(x, qkv_w, qkv_b, nullptr, qkv, M, C, 3 * C,
-                                         gelu_degree, stream);
-  if (err != cudaSuccess) return (int)err;
-  const T* q = static_cast<const T*>(qkv);
-  err = attention<T, kClampExp>(q, 3 * C, q + C, q + 2 * C, 3 * C, static_cast<T*>(attn), C,
-                                mask, starts, B, heads, N, D, qb, width, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<T, kProj>(attn, proj_w, proj_b, x, x1, M, C, C, gelu_degree, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<T, kFc1>(x1, fc1_w, fc1_b, nullptr, g, M, C, hidden, gelu_degree,
-                             stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm<T, kFc2>(g, fc2_w, fc2_b, x1, out, M, hidden, C, gelu_degree, stream);
-  return (int)err;
+struct QkvOut {  // qkv = acc + b (T)
+  const float* bias;
+  T* qkv;
+  int ld;
+  __device__ void prefetch(int, int, float (&)[8]) const {}
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&)[8]) const {
+    float b[8];
+    load8(bias + j, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] += b[e];
+    store8(qkv + (size_t)i * ld + j, v);
+  }
+};
+
+template <typename T>
+struct ProjOut {  // x1 = x + (acc + b), float32
+  const float* bias;
+  const T* x;
+  float* x1;
+  int ld;
+  __device__ void prefetch(int i, int j, float (&r)[8]) const { load8(x + (size_t)i * ld + j, r); }
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&r)[8]) const {
+    float b[8];
+    load8(bias + j, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = r[e] + (v[e] + b[e]);
+    store8(x1 + (size_t)i * ld + j, v);
+  }
+};
+
+template <typename T>
+struct Fc1Out {  // g = gelu(acc + b) (T)
+  const float* bias;
+  T* g;
+  int ld, degree;
+  __device__ void prefetch(int, int, float (&)[8]) const {}
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&)[8]) const {
+    float b[8];
+    load8(bias + j, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = gelu_poly(v[e] + b[e], degree);
+    store8(g + (size_t)i * ld + j, v);
+  }
+};
+
+template <typename T>
+struct Fc2Out {  // out = x1 + (acc + b) (T)
+  const float* bias;
+  const float* x1;
+  T* out;
+  int ld;
+  __device__ void prefetch(int i, int j, float (&r)[8]) const { load8(x1 + (size_t)i * ld + j, r); }
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&r)[8]) const {
+    float b[8];
+    load8(bias + j, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = r[e] + (v[e] + b[e]);
+    store8(out + (size_t)i * ld + j, v);
+  }
+};
+
+template <typename T>
+int block_forward(const T* x, const T* qkv_w, const float* qkv_b, const T* proj_w,
+                  const float* proj_b, const T* fc1_w, const float* fc1_b, const T* fc2_w,
+                  const float* fc2_b, const float* mask, const int* starts, T* qkv, T* attn,
+                  float* x1, T* g, T* out, int B, int N, int C, int heads, int hidden, int qb,
+                  int width, int gelu_degree, cudaStream_t s) {
+  const int M = B * N;
+  TRY(proj(LayerNormRows<T>{x, C, M}, qkv_w, QkvOut<T>{qkv_b, qkv, 3 * C}, M, 3 * C, C, s));
+  TRY((attention_tc<T, kClampExp>(qkv, 3 * C, qkv + C, qkv + 2 * C, 3 * C, attn, C, mask,
+                                  starts, B, heads, N, C / heads, qb, width, s)));
+  TRY(proj(Mat<T>{attn, C}, proj_w, ProjOut<T>{proj_b, x, x1, C}, M, C, C, s));
+  TRY(proj(LayerNormRows<float>{x1, C, M}, fc1_w, Fc1Out<T>{fc1_b, g, hidden, gelu_degree}, M,
+           hidden, C, s));
+  TRY(proj(Mat<T>{g, hidden}, fc2_w, Fc2Out<T>{fc2_b, x1, out, C}, M, C, hidden, s));
+  return 0;
 }
 
 }  // namespace
@@ -159,17 +149,32 @@ int svtr_block_forward(int dtype, const void* x, const void* qkv_w,
                        void* qkv, void* attn, float* x1, void* g, void* out, int B,
                        int N, int C, int heads, int hidden, int qb, int width,
                        int gelu_degree, void* stream) {
+  if (B <= 0 || N <= 0 || C <= 0 || heads <= 0 || C % heads || hidden <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (gelu_degree != 9 && gelu_degree != 15) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return block_forward<float>(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w,
-                                fc2_b, mask, starts, qkv, attn, x1, g, out, B, N, C,
-                                heads, hidden, qb, width, gelu_degree, s);
-  if (dtype == 1)
-    return block_forward<__nv_bfloat16>(x, qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b,
-                                        fc2_w, fc2_b, mask, starts, qkv, attn, x1, g,
-                                        out, B, N, C, heads, hidden, qb, width,
-                                        gelu_degree, s);
+#define BLOCK_ARGS(T)                                                                       \
+  static_cast<const T*>(x), static_cast<const T*>(qkv_w), qkv_b,                           \
+      static_cast<const T*>(proj_w), proj_b, static_cast<const T*>(fc1_w), fc1_b,          \
+      static_cast<const T*>(fc2_w), fc2_b, mask, starts, static_cast<T*>(qkv),             \
+      static_cast<T*>(attn), x1, static_cast<T*>(g), static_cast<T*>(out), B, N, C, heads, \
+      hidden, qb, width, gelu_degree, s
+  if (dtype == 0) return block_forward<float>(BLOCK_ARGS(float));
+  if (dtype == 1) return block_forward<__nv_bfloat16>(BLOCK_ARGS(__nv_bfloat16));
+#undef BLOCK_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The launch plan of svtr_block_forward: out[0..4] the attention's (query
+// rows per block, key tiles held in registers, key segments, passes over the
+// keys, dynamic shared-memory bytes), out[5..8] the output columns per block
+// of the qkv, proj, fc1 and fc2 projections (128 rows each).
+int svtr_block_plan(int dtype, int N, int C, int heads, int hidden, int qb, int width,
+                    int* out) {
+  export_plan(make_plan(kClampExp, dtype, N, C / heads, qb, width), out);
+  const int widths[4] = {3 * C, C, hidden, C}, depths[4] = {C, C, C, hidden};
+  for (int i = 0; i < 4; ++i) out[5 + i] = tile_n(dtype, widths[i], depths[i]);
+  return 0;
 }
 
 const char* svtr_block_error_string(int err) {

@@ -370,8 +370,8 @@ int block_forward(const BlockArgs& a, int B, cudaStream_t s) {
                      a.N, C, s));
   } else {
     const T* q = static_cast<const T*>(a.qkv);
-    TRY((attention<T, kMaxSubEarly>(q, 3 * C, q + C, q + 2 * C, 3 * C, a.attn, C, a.mask,
-                                     nullptr, B, a.heads, a.N, D, a.N, a.N, s)));
+    TRY(attention<T>(q, 3 * C, q + C, q + 2 * C, 3 * C, a.attn, C, a.mask, B, a.heads, a.N, D,
+                     s));
   }
   TRY((launch_gemm<T, kProj, false>(a, M, C, C, s)));
   TRY((launch_gemm<T, kFc1, false>(a, M, C, a.hidden, s)));

@@ -7,17 +7,19 @@
 //   - the minimax erf polynomials of the GELU, degree 15 (the JAX package's
 //     _ERF_COEFS; |erf error| < 1.9e-7) and degree 9 (_ERF9_COEFS, the
 //     inference Blocks' default; |erf error| < 1.4e-4);
-//   - the SIMT GEMM main loop: one 64x64 output tile per block of 256
-//     threads, 4x4 accumulators per thread, A and B tiles of 16 along the
-//     reduction staged in shared memory, every operand rounded to T, float32
-//     accumulation.  Operands come through loader functors (value of element
-//     (i, k) of A, (k, j) of B), so each caller fuses its own LayerNorm,
-//     droppath or GELU into the loads;
-//   - attention over one (image, head, 32-query tile) per block with the
-//     [32, width] float32 score tile in shared memory and 64-key K/V chunks,
-//     banded (query block a of qb rows attends to keys [starts[a], starts[a]
-//     + width)) or full, in the three softmax forms the Pallas kernels use,
-//     writing its output in the working type or in float32.
+//   - the SIMT GEMM main loop of the training Block's backward products:
+//     one 64x64 output tile per block of 256 threads, 4x4 accumulators per
+//     thread, A and B tiles of 16 along the reduction staged in shared
+//     memory, every operand rounded to T, float32 accumulation.  Operands
+//     come through loader functors (value of element (i, k) of A, (k, j) of
+//     B), so each caller fuses its own LayerNorm, droppath or GELU into the
+//     loads (the forward projections run svtr_gemm_tc.cuh);
+//   - the names of the three softmax forms of the Pallas kernels (the tile
+//     attention of svtr_attention_tc.cuh takes each);
+//   - the w8a8 Block's float attention (row 3 of the kernel table): one
+//     (image, head, 32-query tile) per block with the [32, N] float32 score
+//     tile in shared memory and 64-key K/V chunks, max-subtract softmax
+//     normalised before PV, float32 output.
 
 #pragma once
 
@@ -97,10 +99,15 @@ __device__ __forceinline__ float gelu_poly(float x, int degree) {
 constexpr int BM = 64, BN = 64, BK = 16, kGemmThreads = 256;
 
 template <typename S>
-struct Mat {  // row-major [rows, ld]
+struct Mat {  // row-major [rows, ld]; also an A loader of svtr_gemm_tc.cuh
+  using Src = S;
+  static constexpr bool kMap = false, kWholeRows = false;
   const S* p;
   int ld;
   __device__ float operator()(int r, int c) const { return to_f(p[(size_t)r * ld + c]); }
+  __device__ const S* row(int r) const { return p + (size_t)r * ld; }
+  __device__ void map8(int, int, float (&)[8]) const {}
+  __device__ void prepare(int) {}
 };
 
 // acc[i][j] (thread (tx, ty) = (tid % 16, tid / 16) holds rows m0 + ty + 16 i,
@@ -166,7 +173,7 @@ constexpr int QT = 32;   // query rows per block (wrappers: _QUERY_TILE)
 constexpr int KC = 64;   // keys per shared-memory chunk
 constexpr int kAttnThreads = 256;
 
-// The softmax forms of the Pallas kernels:
+// The softmax forms of the Pallas kernels (svtr_attention_tc.cuh):
 //   kClampExp:   p = round_T(exp(min(s, 60))), no max (inference Block),
 //                normalised after PV by the row sum of the rounded p;
 //   kMaxSubLate: p = round_T(exp(s - max)) (training Block), normalised
@@ -176,22 +183,21 @@ constexpr int kAttnThreads = 256;
 enum Softmax { kClampExp = 0, kMaxSubLate = 1, kMaxSubEarly = 2 };
 constexpr float kScoreClamp = 60.0f;
 
-size_t attention_smem_bytes(int d, int width) {
-  return sizeof(float) * ((size_t)QT * d + (size_t)KC * (d + 1) + (size_t)QT * width);
+// The w8a8 Block's float attention (kMaxSubEarly, float32 output).
+size_t attention_smem_bytes(int d, int n) {
+  return sizeof(float) * ((size_t)QT * d + (size_t)KC * (d + 1) + (size_t)QT * n);
 }
 
 // grid B * heads * ceil(N / QT), query tiles fastest (the tiles of one head
 // share its keys in L2).  Row r of image b, head h: q at q[(b N +
 // r) q_ld + h D], k / v at k / v[(b N + r) kv_ld + h D], out at out[(b N +
-// r) out_ld + h D] in TO (T, or float for an unrounded output); q pre-scaled.
-// mask [N, width] float32 or NULL; starts int32 [N / qb] or NULL (one window
-// [0, width) for every query).
-template <typename T, int D, int SOFTMAX, typename TO>
+// r) out_ld + h D] in float32; q pre-scaled.  mask [N, N] float32 or NULL.
+template <typename T, int D>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_kernel(const T* __restrict__ q, int q_ld, const T* __restrict__ k,
-                 const T* __restrict__ v, int kv_ld, TO* __restrict__ out, int out_ld,
-                 const float* __restrict__ mask, const int* __restrict__ starts, int heads,
-                 int N, int qb, int width) {
+                 const T* __restrict__ v, int kv_ld, float* __restrict__ out, int out_ld,
+                 const float* __restrict__ mask, int heads, int N) {
+  const int width = N;
   static_assert(kAttnThreads % D == 0 && QT * D % kAttnThreads == 0, "tile");
   constexpr int kRowsPerPass = kAttnThreads / D;
   constexpr int kPasses = QT / kRowsPerPass;
@@ -199,24 +205,21 @@ attention_kernel(const T* __restrict__ q, int q_ld, const T* __restrict__ k,
   float* Qs = smem;                      // [QT][D]
   float* KVs = Qs + QT * D;              // [KC][D + 1]
   float* Ps = KVs + KC * (D + 1);        // [QT][width]
-  __shared__ float s_inv[QT];
 
   const int tiles = (N + QT - 1) / QT, bh = blockIdx.x / tiles;
   const int b = bh / heads, h = bh % heads, q0 = (blockIdx.x % tiles) * QT;
   const int rows = min(QT, N - q0);
-  const int kbase = starts ? starts[q0 / qb] : 0;
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)b * N;
-  const T* kp = k + (row0 + kbase) * kv_ld + h * D;
-  const T* vp = v + (row0 + kbase) * kv_ld + h * D;
+  const T* kp = k + row0 * kv_ld + h * D;
+  const T* vp = v + row0 * kv_ld + h * D;
 
   for (int i = tid; i < QT * D; i += kAttnThreads) {
     const int r = i / D, d = i % D;
     Qs[i] = r < rows ? to_f(q[(row0 + q0 + r) * q_ld + h * D + d]) : 0.f;
   }
 
-  // scores for the whole key window, float32 (+ mask); kClampExp takes its
-  // rounded exp here
+  // scores for all N keys, float32 (+ mask)
   for (int kc = 0; kc < width; kc += KC) {
     const int kn = min(KC, width - kc);
     __syncthreads();
@@ -232,40 +235,31 @@ attention_kernel(const T* __restrict__ q, int q_ld, const T* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < D; ++d) s += Qs[r * D + d] * KVs[j * (D + 1) + d];
       if (mask) s += mask[(size_t)(q0 + r) * width + kc + j];
-      Ps[r * width + kc + j] = SOFTMAX == kClampExp ? round_to<T>(expf(fminf(s, kScoreClamp))) : s;
+      Ps[r * width + kc + j] = s;
     }
   }
   __syncthreads();
 
-  // one warp per row: max-subtract (not kClampExp), exp, row sum
+  // one warp per row: max-subtract, exp, row sum, p / sum rounded to T
   {
     const int warp = tid / 32, lane = tid % 32;
     for (int r = warp; r < rows; r += kAttnThreads / 32) {
       float* prow = Ps + r * width;
-      float m = 0.f;
-      if (SOFTMAX != kClampExp) {
-        m = -INFINITY;
-        for (int j = lane; j < width; j += 32) m = fmaxf(m, prow[j]);
-        m = warp_max(m);
-      }
+      float m = -INFINITY;
+      for (int j = lane; j < width; j += 32) m = fmaxf(m, prow[j]);
+      m = warp_max(m);
       float s = 0.f;
       for (int j = lane; j < width; j += 32) {
-        float p = prow[j];
-        if (SOFTMAX == kMaxSubLate) p = round_to<T>(expf(p - m));
-        if (SOFTMAX == kMaxSubEarly) p = expf(p - m);
+        const float p = expf(prow[j] - m);
         prow[j] = p;
         s += p;
       }
       s = warp_sum(s);
-      if (SOFTMAX == kMaxSubEarly) {
-        for (int j = lane; j < width; j += 32) prow[j] = round_to<T>(prow[j] / s);
-      } else if (lane == 0) {
-        s_inv[r] = 1.0f / (s + 1e-30f);
-      }
+      for (int j = lane; j < width; j += 32) prow[j] = round_to<T>(prow[j] / s);
     }
   }
 
-  // PV, float32 accumulation; normalised after unless kMaxSubEarly
+  // PV, float32 accumulation
   const int d = tid % D, r0 = tid / D;
   float acc[kPasses] = {};
   for (int kc = 0; kc < width; kc += KC) {
@@ -288,36 +282,34 @@ attention_kernel(const T* __restrict__ q, int q_ld, const T* __restrict__ k,
   for (int p = 0; p < kPasses; ++p) {
     const int r = r0 + p * kRowsPerPass;
     if (r >= rows) continue;
-    const float o = SOFTMAX == kMaxSubEarly ? acc[p] : acc[p] * s_inv[r];
-    out[(row0 + q0 + r) * out_ld + h * D + d] = from_f<TO>(o);
+    out[(row0 + q0 + r) * out_ld + h * D + d] = acc[p];
   }
 }
 
-template <typename T, int D, int SOFTMAX, typename TO>
-cudaError_t launch_attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, TO* out,
-                             int out_ld, const float* mask, const int* starts, int B,
-                             int heads, int N, int qb, int width, cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes(D, width);
+template <typename T, int D>
+cudaError_t launch_attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld,
+                             float* out, int out_ld, const float* mask, int B, int heads, int N,
+                             cudaStream_t stream) {
+  const size_t smem = attention_smem_bytes(D, N);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, D, SOFTMAX, TO>,
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned grid = (unsigned)B * heads * ((N + QT - 1) / QT);
-  attention_kernel<T, D, SOFTMAX, TO><<<grid, kAttnThreads, smem, stream>>>(
-      q, q_ld, k, v, kv_ld, out, out_ld, mask, starts, heads, N, qb, width);
+  attention_kernel<T, D><<<grid, kAttnThreads, smem, stream>>>(q, q_ld, k, v, kv_ld, out,
+                                                               out_ld, mask, heads, N);
   return cudaGetLastError();
 }
 
-// attention_kernel for head dim D in {8, 16, 32, 64}; out in T or float
-template <typename T, int SOFTMAX, typename TO>
-cudaError_t attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, TO* out,
-                      int out_ld, const float* mask, const int* starts, int B, int heads,
-                      int N, int D, int qb, int width, cudaStream_t s) {
-#define ATTN_CASE(DD)                                                                 \
-  case DD:                                                                            \
-    return launch_attention<T, DD, SOFTMAX, TO>(q, q_ld, k, v, kv_ld, out, out_ld, mask, \
-                                                starts, B, heads, N, qb, width, s)
+// attention_kernel for head dim D in {8, 16, 32, 64}
+template <typename T>
+cudaError_t attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, float* out,
+                      int out_ld, const float* mask, int B, int heads, int N, int D,
+                      cudaStream_t s) {
+#define ATTN_CASE(DD)                                                                   \
+  case DD:                                                                              \
+    return launch_attention<T, DD>(q, q_ld, k, v, kv_ld, out, out_ld, mask, B, heads, N, s)
   switch (D) {
     ATTN_CASE(8);
     ATTN_CASE(16);

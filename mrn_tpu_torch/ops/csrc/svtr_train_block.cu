@@ -32,32 +32,36 @@
 // bodies keep out of device memory (the score tile, the GELU chain) stays
 // in shared memory or registers here too.
 //
-// Design (simple first): several launches per entry point, SIMT float32
-// FMAs throughout.
-//   - gemm_kernel: the SIMT GEMM main loop of svtr_common.cuh (one 64x64
-//     output tile per block of 256 threads).  Operands come through small
-//     loader functors (plain, transposed, LayerNorm on the fly,
-//     droppath-scaled, GELU of h1) and results leave through epilogue
-//     functors (bias, residual, rounding, GELU, droppath), so each product
-//     of the Pallas bodies is one launch with its elementwise neighbours
-//     fused in.
+// Design: several launches per entry point.
+//   - The forward's four projections run the main loops of svtr_gemm_tc.cuh
+//     (proj_kernel): bf16 on the tensor cores (mma.sync m16n8k16), float32
+//     register-tiled on the CUDA cores; LayerNorm with its affine on the A
+//     loads (LayerNormRows, the statistics of a block's rows computed in the
+//     kernel), bias, q-scale, residual, GELU and droppath in the epilogues.
+//   - Its attention is the tile attention of svtr_attention_tc.cuh in its
+//     kMaxSubLate form, q from q_scaled [B, N, C], k and v inside qkv.
+//   - The backward's products: gemm_kernel, the SIMT main loop of
+//     svtr_common.cuh (one 64x64 output tile per block of 256 threads).
+//     Operands come through small loader functors (plain, transposed,
+//     LayerNorm on the fly, droppath-scaled, GELU of h1) and results leave
+//     through epilogue functors (bias, residual, rounding, GELU, droppath),
+//     so each product of the Pallas bodies is one launch with its
+//     elementwise neighbours fused in.
 //   - Weight gradients are products over all B*N rows: blockIdx.z splits the
 //     rows into a fixed number of contiguous chunks, each block writes its
 //     partial tile, and reduce_splits_kernel sums the partials in chunk
 //     order.  Bias and norm gradients use the same two passes.  No float
-//     atomics, so the same inputs give bitwise-identical grads.
+//     atomics, so the same inputs give bitwise-identical outputs and grads.
 //   - The LayerNorm backward is a row kernel (one warp per row) that also
 //     keeps per-warp column partials in shared memory for dn_s, dn_b (and
 //     dbp), combined per block in warp order.
-//   - attention: the kernel of svtr_common.cuh in its kMaxSubLate form, one
-//     block per (image, head, 32-query tile) with its [32, width] score tile
-//     in shared memory.
-// Left for later: tensor cores (wgmma), TMA/cp.async pipelining, and keeping
-// the Block's intermediates on chip across the launches.
+// Left for later: the backward's products on the tensor cores, TMA, and
+// keeping the Block's intermediates on chip across the launches.
 
 #include <algorithm>
 
-#include "svtr_common.cuh"
+#include "svtr_attention_tc.cuh"
+#include "svtr_gemm_tc.cuh"
 
 namespace {
 
@@ -133,7 +137,8 @@ struct Transposed {  // element (r, c) = l(c, r)
 };
 
 // ---------------------------------------------------------------- epilogues
-// Each takes (row, col, split, float32 accumulator).
+// The forward's epilogues take columns j .. j + 8 of row i of the float32
+// accumulator v (svtr_gemm_tc.cuh); prefetch loads the residual, if any.
 
 template <typename T>
 struct QkvEpi {  // qkv = acc + b (T); the q columns also as round(qkv_f32 * scale)
@@ -142,10 +147,18 @@ struct QkvEpi {  // qkv = acc + b (T); the q columns also as round(qkv_f32 * sca
   T* q_scaled;
   int c;
   float scale;
-  __device__ void operator()(int i, int j, int, float acc) const {
-    const float v = acc + bias[j];
-    qkv[(size_t)i * 3 * c + j] = from_f<T>(v);
-    if (j < c) q_scaled[(size_t)i * c + j] = from_f<T>(v * scale);
+  __device__ void prefetch(int, int, float (&)[8]) const {}
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&)[8]) const {
+    float b[8];
+    load8(bias + j, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] += b[e];
+    store8(qkv + (size_t)i * 3 * c + j, v);
+    if (j < c) {   // c is a multiple of 8: a chunk is all q or none
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] *= scale;
+      store8(q_scaled + (size_t)i * c + j, v);
+    }
   }
 };
 
@@ -157,11 +170,15 @@ struct ProjEpi {  // y = x + (acc + b) * dm_a: rounded residual and float32 copy
   T* y;
   float* y32;
   int c, n;
-  __device__ void operator()(int i, int j, int, float acc) const {
-    const size_t o = (size_t)i * c + j;
-    const float v = to_f(x[o]) + (acc + bias[j]) * dm[i / n];
-    y[o] = from_f<T>(v);
-    y32[o] = v;
+  __device__ void prefetch(int i, int j, float (&r)[8]) const { load8(x + (size_t)i * c + j, r); }
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&r)[8]) const {
+    float b[8];
+    load8(bias + j, b);
+    const float d = dm[i / n];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = r[e] + (v[e] + b[e]) * d;
+    store8(y + (size_t)i * c + j, v);
+    store8(y32 + (size_t)i * c + j, v);
   }
 };
 
@@ -171,11 +188,16 @@ struct Fc1Epi {  // h1 = acc + b (T) and gelu15 of the float32 h1 (T)
   T* h1;
   T* gact;
   int hidden;
-  __device__ void operator()(int i, int j, int, float acc) const {
-    const size_t o = (size_t)i * hidden + j;
-    const float h = acc + bias[j];
-    h1[o] = from_f<T>(h);
-    gact[o] = from_f<T>(gelu15(h));
+  __device__ void prefetch(int, int, float (&)[8]) const {}
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&)[8]) const {
+    float b[8];
+    load8(bias + j, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] += b[e];
+    store8(h1 + (size_t)i * hidden + j, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = gelu15(v[e]);
+    store8(gact + (size_t)i * hidden + j, v);
   }
 };
 
@@ -186,11 +208,18 @@ struct Fc2Epi {  // out = y32 + (acc + b) * dm_b
   const float* dm;
   T* out;
   int c, n;
-  __device__ void operator()(int i, int j, int, float acc) const {
-    const size_t o = (size_t)i * c + j;
-    out[o] = from_f<T>(y32[o] + (acc + bias[j]) * dm[i / n]);
+  __device__ void prefetch(int i, int j, float (&r)[8]) const { load8(y32 + (size_t)i * c + j, r); }
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&r)[8]) const {
+    float b[8];
+    load8(bias + j, b);
+    const float d = dm[i / n];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = r[e] + (v[e] + b[e]) * d;
+    store8(out + (size_t)i * c + j, v);
   }
 };
+
+// The backward's epilogues take (row, col, split, float32 accumulator).
 
 template <typename T>
 struct Dh1Epi {  // dh1 = dgv * gelu15'(h1), float32
@@ -429,22 +458,17 @@ int train_forward(const T* x, const float* n1s, const float* n1b, const T* wqkv,
                   const float* n2b, const T* w1, const float* b1, const T* w2,
                   const float* b2, const float* mask, const int* starts, const float* dma,
                   const float* dmb, T* out, T* qkv, T* attn, T* y, T* h1, T* q_scaled,
-                  float* y32, T* gact, float* stats, int B, int N, int C, int heads,
+                  float* y32, T* gact, int B, int N, int C, int heads,
                   int hidden, int qb, int width, float scale, cudaStream_t s) {
   const int M = B * N;
-  const Split one{1, 1 << 30};
-  TRY(row_stats(x, stats, M, C, s));
-  TRY((gemm<T, true, true>(LnRows<T>{x, stats, n1s, n1b, C}, Mat<T>{wqkv, 3 * C},
-                           QkvEpi<T>{bqkv, qkv, q_scaled, C, scale}, M, 3 * C, C, one, s)));
-  TRY((attention<T, kMaxSubLate>(q_scaled, C, qkv + C, qkv + 2 * C, 3 * C, attn, C, mask,
-                                 starts, B, heads, N, C / heads, qb, width, s)));
-  TRY((gemm<T, true, true>(Mat<T>{attn, C}, Mat<T>{wp, C},
-                           ProjEpi<T>{bp, x, dma, y, y32, C, N}, M, C, C, one, s)));
-  TRY(row_stats(y32, stats, M, C, s));
-  TRY((gemm<T, true, true>(LnRows<float>{y32, stats, n2s, n2b, C}, Mat<T>{w1, hidden},
-                           Fc1Epi<T>{b1, h1, gact, hidden}, M, hidden, C, one, s)));
-  TRY((gemm<T, true, true>(Mat<T>{gact, hidden}, Mat<T>{w2, C},
-                           Fc2Epi<T>{b2, y32, dmb, out, C, N}, M, C, hidden, one, s)));
+  TRY(proj(LayerNormRows<T>{x, C, M, n1s, n1b}, wqkv, QkvEpi<T>{bqkv, qkv, q_scaled, C, scale}, M,
+           3 * C, C, s));
+  TRY((attention_tc<T, kMaxSubLate>(q_scaled, C, qkv + C, qkv + 2 * C, 3 * C, attn, C, mask,
+                                    starts, B, heads, N, C / heads, qb, width, s)));
+  TRY(proj(Mat<T>{attn, C}, wp, ProjEpi<T>{bp, x, dma, y, y32, C, N}, M, C, C, s));
+  TRY(proj(LayerNormRows<float>{y32, C, M, n2s, n2b}, w1, Fc1Epi<T>{b1, h1, gact, hidden}, M,
+           hidden, C, s));
+  TRY(proj(Mat<T>{gact, hidden}, w2, Fc2Epi<T>{b2, y32, dmb, out, C, N}, M, C, hidden, s));
   return 0;
 }
 
@@ -538,8 +562,10 @@ long long svtr_train_workspace(int kind, int M, int C, int hidden) {
 // working type, vectors (norm scales/shifts, biases, dm_a, dm_b) float32.
 // mask [N, width] float32 or NULL; starts int32 [N / qb] on the device or NULL
 // (full attention: qb == width == N).  Outputs out, qkv, attn, y, h1; scratch
-// q_scaled [B,N,C] (T), y32 [B,N,C] float32, gact [B,N,hidden] (T), stats
-// [B*N, 2] float32.  Returns 0 or the CUDA error of the first failed launch.
+// q_scaled [B,N,C] (T), y32 [B,N,C] float32, gact [B,N,hidden] (T); stats
+// [B*N, 2] float32 is no longer written (the projections compute their
+// LayerNorm statistics in the kernel) and stays for the callers' interface.
+// Returns 0 or the CUDA error of the first failed launch.
 int svtr_train_forward(int dtype, const void* x, const float* n1s, const float* n1b,
                        const void* wqkv, const float* bqkv, const void* wp, const float* bp,
                        const float* n2s, const float* n2b, const void* w1, const float* b1,
@@ -550,16 +576,13 @@ int svtr_train_forward(int dtype, const void* x, const float* n1s, const float* 
                        int width, float scale, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0 || heads <= 0 || C % heads || hidden <= 0)
     return (int)cudaErrorInvalidValue;
-  if (starts == nullptr && (width != N || qb != N)) return (int)cudaErrorInvalidValue;
-  if (starts != nullptr && (qb % QT != 0 || N % qb != 0 || width > N))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FWD_ARGS(T)                                                                        \
   static_cast<const T*>(x), n1s, n1b, static_cast<const T*>(wqkv), bqkv,                  \
       static_cast<const T*>(wp), bp, n2s, n2b, static_cast<const T*>(w1), b1,             \
       static_cast<const T*>(w2), b2, mask, starts, dma, dmb, static_cast<T*>(out),        \
       static_cast<T*>(qkv), static_cast<T*>(attn), static_cast<T*>(y), static_cast<T*>(h1), \
-      static_cast<T*>(q_scaled), y32, static_cast<T*>(gact), stats, B, N, C, heads, hidden, \
+      static_cast<T*>(q_scaled), y32, static_cast<T*>(gact), B, N, C, heads, hidden,        \
       qb, width, scale, s
   if (dtype == 0) return train_forward<float>(FWD_ARGS(float));
   if (dtype == 1) return train_forward<__nv_bfloat16>(FWD_ARGS(__nv_bfloat16));
@@ -610,6 +633,18 @@ int svtr_train_bwd_head(int dtype, const void* x, const void* dy, const void* dq
   if (dtype == 1) return train_bwd_head<__nv_bfloat16>(HEAD_ARGS(__nv_bfloat16));
 #undef HEAD_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// The launch plan of svtr_train_forward: out[0..4] the attention's (query
+// rows per block, key tiles held in registers, key segments, passes over the
+// keys, dynamic shared-memory bytes), out[5..8] the output columns per block
+// of the qkv, proj, fc1 and fc2 projections (128 rows each).
+int svtr_train_plan(int dtype, int N, int C, int heads, int hidden, int qb, int width,
+                    int* out) {
+  export_plan(make_plan(kMaxSubLate, dtype, N, C / heads, qb, width), out);
+  const int widths[4] = {3 * C, C, hidden, C}, depths[4] = {C, C, C, hidden};
+  for (int i = 0; i < 4; ++i) out[5 + i] = tile_n(dtype, widths[i], depths[i]);
+  return 0;
 }
 
 const char* svtr_train_error_string(int err) {

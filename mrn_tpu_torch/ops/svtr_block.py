@@ -12,7 +12,8 @@ _make_kernel`` does:
 
 - bare single-pass LayerNorm (``E[x^2] - mean^2``, eps 1e-6, float32); the LN
   scale/shift and the attention q-scale are folded into the qkv weights and
-  LN2 into fc1 on the host side (``_fold``);
+  LN2 into fc1 on the host side (``_fold``), once per set of weights when the
+  caller keeps a ``FoldCache`` (each ``models.svtr.Block`` does);
 - matmul operands rounded to ``dt``, float32 accumulation;
 - reduction-free softmax: ``exp(min(s, 60))`` without a max-subtract, P
   rounded to ``dt``, the row-sum taken over the rounded P (the Pallas
@@ -46,8 +47,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Int8Weights", "SCORE_CLAMP", "fused_block", "fused_block_int8",
-           "fused_block_int8_reference", "fused_block_reference", "int8_launches", "launches",
+__all__ = ["FoldCache", "Int8Weights", "PARAM_KEYS", "SCORE_CLAMP", "folds", "fused_block",
+           "fused_block_int8", "fused_block_int8_reference", "fused_block_reference", "int8_launches", "launches",
            "prepare_int8"]
 
 # erf(z) = z * P(u), u an affine map of clamp(z^2): odd minimax polynomial in
@@ -81,6 +82,9 @@ SCORE_CLAMP = 60.0
 # per fused_block_int8 call on a CUDA tensor).
 launches = 0
 int8_launches = 0
+# Count of host-side weight folds (``_fold`` calls): a warm request through
+# Blocks with a FoldCache adds none.
+folds = 0
 
 
 def _erf_poly(z: torch.Tensor, coefs=_ERF9_COEFS) -> torch.Tensor:
@@ -166,6 +170,8 @@ def _fold(params: Dict[str, torch.Tensor], scale: float, dt: torch.dtype):
     """Epilogue folding in float32: LN scale/shift and the attention q-scale
     move into the qkv weights, LN2 into fc1, so the kernel runs bare
     LayerNorms:  LN(x)@W + b == normalize(x) @ (s[:,None]*W) + (b + ln_b@W)."""
+    global folds
+    folds += 1
     f32 = torch.float32
 
     def fold(kernel, bias, s_name, b_name, extra=None):
@@ -190,6 +196,48 @@ def _fold(params: Dict[str, torch.Tensor], scale: float, dt: torch.dtype):
             fc1_w, fc1_b,
             params["fc2_kernel"].to(dt).contiguous(),
             params["fc2_bias"].to(f32).contiguous())
+
+
+# A Block's 12 parameters under the JAX names
+PARAM_KEYS = ("norm1_scale", "norm1_bias", "qkv_kernel", "qkv_bias",
+              "proj_kernel", "proj_bias", "norm2_scale", "norm2_bias",
+              "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias")
+
+
+def _leaf_key(t: torch.Tensor):
+    """What identifies the values of a weight tensor while it stays alive:
+    its storage address, its version counter (bumped by every in-place
+    write through it or its views), dtype, device, shape and strides.
+    Inference tensors have no version counter: None (never cached)."""
+    if t.is_inference():
+        return None
+    return (t.data_ptr(), t._version, t.dtype, t.device, tuple(t.shape), t.stride())
+
+
+class FoldCache:
+    """A Block's folded operands (``_fold``), reused while its 12 weights are
+    the same tensors with the same contents, folded again otherwise.
+
+    The key holds each leaf's storage address, version counter, dtype,
+    device, shape and strides, beside the scale and the working dtype; the
+    cache keeps the keyed leaves alive, so no other tensor can take their
+    addresses while the key stands.  So an in-place update (``add_``, an
+    optimizer step, ``load_state_dict``'s copies), a swap of ``p.data``, a
+    ``Module.to`` and ``functional_call`` with other tensors each fold anew.
+    A write through a tensor obtained by ``.data`` bypasses the version
+    counter and is not seen: the port writes weights only through the
+    tensors themselves."""
+
+    def __init__(self):
+        self.key = self.leaves = self.weights = None
+
+    def weights_for(self, params: Dict[str, torch.Tensor], scale: float, dt: torch.dtype):
+        leaves = tuple(params[k] for k in PARAM_KEYS)
+        key = (float(scale), dt) + tuple(_leaf_key(t) for t in leaves)
+        if key != self.key or None in key:
+            self.weights = _fold(params, scale, dt)
+            self.key, self.leaves = key, leaves
+        return self.weights
 
 
 def _ln_bare(x: torch.Tensor) -> torch.Tensor:
@@ -231,7 +279,7 @@ def _block_plain(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
 
 
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64)
-_QUERY_TILE = 32  # must match QT in csrc/svtr_block.cu
+_QUERY_TILE = 32  # band query blocks: a multiple of QT in csrc/svtr_common.cuh
 
 
 @functools.lru_cache(maxsize=None)
@@ -244,9 +292,24 @@ def _lib():
     # width gelu_degree; stream
     lib.svtr_block_forward.argtypes = [i] + [p] * 16 + [i] * 8 + [p]
     lib.svtr_block_forward.restype = i
+    # dtype, N, C, heads, hidden, qb, width; int32 out[9]
+    lib.svtr_block_plan.argtypes = [i] * 7 + [p]
+    lib.svtr_block_plan.restype = i
     lib.svtr_block_error_string.argtypes = [i]
     lib.svtr_block_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _kernel_plan(dtype, n, c, heads, hidden, qb, width):
+    """The built library's launch plan for a ``[*, n, c]`` Block of
+    ``dtype``: its attention's (query rows per block, key tiles held in
+    registers, key segments, passes over the keys, dynamic shared bytes),
+    then the output columns per 128-row block of the qkv, proj, fc1 and fc2
+    projections."""
+    out = (ctypes.c_int * 9)()
+    _lib().svtr_block_plan(1 if dtype == torch.bfloat16 else 0, n, c, heads, hidden, qb,
+                           width, out)
+    return tuple(out)
 
 
 def _block_cuda(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
@@ -293,11 +356,13 @@ def _block_cuda(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
     return out
 
 
-def _prepare(x, params, mask, num_heads, scale, band):
+def _prepare(x, params, mask, num_heads, scale, band, cache=None):
     b, n, c = x.shape
     if c % num_heads:
         raise ValueError(f"dim {c} not divisible by {num_heads} heads")
-    return _fold(params, scale, x.dtype), _Plan(n, mask, band, x.device)
+    weights = (_fold(params, scale, x.dtype) if cache is None
+               else cache.weights_for(params, scale, x.dtype))
+    return weights, _Plan(n, mask, band, x.device)
 
 
 def fused_block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
@@ -312,17 +377,19 @@ def fused_block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
 
 def fused_block(x: torch.Tensor, params: Dict[str, torch.Tensor], mask,
                 num_heads: int, scale: float, band: Optional[tuple] = None,
-                gelu_degree: int = 9) -> torch.Tensor:
+                gelu_degree: int = 9, cache: Optional[FoldCache] = None) -> torch.Tensor:
     """x: [B, N, C]; params: the Block's parameters under the JAX names
     (kernels [in, out]); mask: additive [N, N] (tensor or numpy) or None;
     ``band`` (h, w, hk, wk): geometry of a COLUMN-major Local mask, which
-    enables the banded path when ``_band_spec`` finds a plan.
+    enables the banded path when ``_band_spec`` finds a plan; ``cache``: the
+    caller's ``FoldCache``, which folds the weights once per set of weights
+    (None folds on every call).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (or raises).  Other devices raise."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block: unsupported device {x.device}")
-    weights, plan = _prepare(x, params, mask, num_heads, scale, band)
+    weights, plan = _prepare(x, params, mask, num_heads, scale, band, cache)
     if x.device.type == "cpu":
         return _block_plain(x, weights, plan, num_heads, gelu_degree)
     return _block_cuda(x, weights, plan, num_heads, gelu_degree)

@@ -29,8 +29,9 @@ attention middle (vjp of the plain ``banded_attention_xla`` /
 ``xla_attention``, as the JAX package takes ``jax.vjp``) and the head (qkv
 projection and LN1 backward -> ``dx`` and 4 grads).
 
-``fused_block_train`` launches the CUDA kernels (``csrc/svtr_train_block.cu``)
-for CUDA tensors and runs the plain versions for CPU tensors; there is no
+``fused_block_train`` launches the CUDA kernels (``csrc/svtr_train_block.cu``;
+the forward's projections on ``csrc/svtr_gemm_tc.cuh``, its attention on
+``csrc/svtr_attention_tc.cuh``) for CUDA tensors and runs the plain versions for CPU tensors; there is no
 fallback between the two.
 """
 
@@ -43,22 +44,18 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from mrn_tpu_torch.ops.svtr_attention import banded_attention_xla, xla_attention
-from mrn_tpu_torch.ops.svtr_block import (_ERF_COEFS, _ERF_Z0SQ, _band_spec, _erf_poly,
-                                          _ln_bare, _Plan)
+from mrn_tpu_torch.ops.svtr_block import (PARAM_KEYS, _ERF_COEFS, _ERF_Z0SQ, _band_spec,
+                                          _erf_poly, _ln_bare, _Plan)
 
 __all__ = ["PARAM_KEYS", "bwd_head_reference", "bwd_tail_reference",
            "forward_reference", "fused_block_train", "launches"]
-
-PARAM_KEYS = ("norm1_scale", "norm1_bias", "qkv_kernel", "qkv_bias",
-              "proj_kernel", "proj_bias", "norm2_scale", "norm2_bias",
-              "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias")
 
 # CUDA launches per kernel (one per call of its C entry point on a CUDA
 # tensor; the plain versions never count).
 launches = {"train_fwd": 0, "train_bwd_tail": 0, "train_bwd_head": 0}
 
 _KERNEL_HEAD_DIMS = (8, 16, 32, 64)
-_QUERY_TILE = 32  # must match QT in csrc/svtr_train_block.cu
+_QUERY_TILE = 32  # band query blocks: a multiple of QT in csrc/svtr_common.cuh
 
 
 # ------------------------------------------------------------- host pieces
@@ -256,6 +253,9 @@ def _lib():
     lib.svtr_train_bwd_tail.argtypes = [i] + [p] * 24 + [i] * 4 + [p]
     # dtype; x dy dqkv n1s n1b wqkv, dx, 3 grads, 3 scratch; B N C; stream
     lib.svtr_train_bwd_head.argtypes = [i] + [p] * 13 + [i] * 3 + [p]
+    # dtype, N, C, heads, hidden, qb, width; int32 out[9]
+    lib.svtr_train_plan.argtypes = [i] * 7 + [p]
+    lib.svtr_train_plan.restype = i
     lib.svtr_train_workspace.argtypes = [i] * 4
     lib.svtr_train_workspace.restype = ctypes.c_longlong
     for fn in (lib.svtr_train_forward, lib.svtr_train_bwd_tail,
@@ -264,6 +264,17 @@ def _lib():
     lib.svtr_train_error_string.argtypes = [i]
     lib.svtr_train_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _kernel_plan(dtype, n, c, heads, hidden, qb, width):
+    """The built library's launch plan of the forward for a ``[*, n, c]``
+    Block of ``dtype``: its attention's (query rows per block, key tiles held
+    in registers, key segments, passes over the keys, dynamic shared bytes),
+    then the output columns per 128-row block of the qkv, proj, fc1 and fc2
+    projections."""
+    out = (ctypes.c_int * 9)()
+    _lib().svtr_train_plan(_dtype_code(dtype), n, c, heads, hidden, qb, width, out)
+    return tuple(out)
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -5,10 +5,7 @@ CUDA card; imports no JAX, so it also runs without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py
 """
 
-import os
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -240,17 +237,7 @@ def _sass_functions():
     """{function name: SASS text} of the built attention library."""
     from mrn_tpu_torch.ops import _build
 
-    _build.load("svtr_attention")
-    tool = shutil.which("cuobjdump")
-    if tool is None:
-        nvcc = _build._nvcc()
-        tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    if not os.path.exists(tool):
-        pytest.skip("cuobjdump not found beside nvcc")
-    text = subprocess.run([tool, "-sass", str(_build._target("svtr_attention"))],
-                          check=True, capture_output=True, text=True).stdout
-    parts = re.split(r"\n\s*Function : (\S+)", text)
-    return dict(zip(parts[1::2], parts[2::2]))
+    return _build.sass("svtr_attention")
 
 
 @pytest.mark.cuda

@@ -7,10 +7,13 @@ imports no JAX, so it also runs without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_train_block.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from mrn_tpu_torch.ops import _build
 from mrn_tpu_torch.ops import svtr_train_block as tb
 
 # kernel vs plain on the same inputs, per tensor as a bound on |k - p| from
@@ -155,3 +158,55 @@ def test_kernels_reject_what_they_do_not_take(device):
     x, p, dm_a, dm_b = _inputs(rng, (2, 16), 96, 2, device, torch.float32)
     with pytest.raises(ValueError):     # head_dim 48
         tb.forward(x, p, dm_a, dm_b, 2, 48 ** -0.5, None)
+
+
+# The four Block shapes of SVTR (imgW 256): (grid (h, w), C, heads, banded)
+MAIN_SHAPES = [((8, 64), 64, 2, True), ((4, 64), 128, 4, True),
+               ((4, 64), 128, 4, False), ((2, 64), 256, 8, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c,heads,banded", MAIN_SHAPES)
+def test_forward_two_launches_bitwise_equal(device, dt, hw, c, heads, banded):
+    """The forward has no split-K and no atomics: the same inputs give the
+    same bits in every output and residual; the main-path plan takes the
+    one-pass attention kernel."""
+    rng = np.random.default_rng(4)
+    x, p, dm_a, dm_b = _inputs(rng, hw, c, 4, device, dt)
+    band = (hw[0], hw[1], 7, 11) if banded else None
+    scale = (c // heads) ** -0.5
+    runs = []
+    for _ in range(2):
+        out, res = tb.forward(x, p, dm_a, dm_b, heads, scale, band)
+        torch.cuda.synchronize()
+        runs.append((out,) + tuple(res))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    n = hw[0] * hw[1]
+    qb, width = tb._band_spec(*band)[:2] if banded else (n, n)
+    kplan = tb._kernel_plan(dt, n, c, heads, 4 * c, qb, width)
+    assert kplan[2:4] == (1, 1) and 8 * kplan[1] == width   # one segment, one pass
+
+
+@pytest.mark.cuda
+def test_bf16_forward_runs_on_tensor_cores(device):
+    """The bf16 forms of the forward's projections and attention have
+    tensor-core products (HMMA, or HGMMA) in their SASS; the float32 forms
+    and the backward's SIMT products (gemm_kernel) have none."""
+    funcs = _build.sass("svtr_train_block")
+    fwd = {n: b for n, b in funcs.items() if "proj_kernel" in n or "attention_tc_" in n}
+    bf16 = {n: b for n, b in fwd.items() if "13__nv_bfloat16" in n}
+    f32 = {n: b for n, b in fwd.items() if n not in bf16}
+    assert sum("proj_kernel" in n for n in bf16) == 8, sorted(fwd)
+    assert sum("proj_kernel" in n for n in f32) == 8, sorted(fwd)
+    assert sum("attention_tc_" in n for n in bf16) == sum("attention_tc_" in n for n in f32) == 12
+    for name, body in bf16.items():
+        assert re.search(r"\bH(G)?MMA\b", body), f"{name}: no HMMA/HGMMA"
+    for name, body in f32.items():
+        assert not re.search(r"\bH(G)?MMA\b", body), f"{name}: tensor-core products in float32"
+        assert "FFMA" in body
+    backward = {n: b for n, b in funcs.items() if "gemm_kernel" in n}
+    assert backward
+    for name, body in backward.items():
+        assert not re.search(r"\bH(G)?MMA\b", body), f"{name}: the backward left the CUDA cores"

@@ -133,3 +133,122 @@ def test_unsupported_device_raises(rng):
     x = torch.empty((1, 32, 32), device="meta")
     with pytest.raises(ValueError):
         svtr_block.fused_block(x, params, None, 2, 0.25)
+
+
+# ------------------------------------------------ folded weights, once per set
+def _cpu_block(rng, c=32, heads=2, hw=(4, 8)):
+    from mrn_tpu_torch.models.svtr import Block
+
+    blk = Block(c, heads, "Global", hw).eval()
+    with torch.no_grad():
+        for key, val in _block_params(rng, c).items():
+            getattr(blk, key).copy_(torch.from_numpy(val))
+    x = torch.from_numpy(rng.standard_normal((2, hw[0] * hw[1], c)).astype(np.float32))
+    return blk, x
+
+
+def _leaves(blk):
+    return {k: getattr(blk, k) for k in svtr_block.PARAM_KEYS}
+
+
+def _assert_fresh(blk, x, params=None):
+    """The Block's cached operands are bitwise a fresh ``_fold`` of the
+    weights it ran with, and its output is the plain version's."""
+    params = _leaves(blk) if params is None else params
+    fresh = svtr_block._fold(params, blk.scale, x.dtype)
+    cached = blk.fold_cache.weights
+    assert len(cached) == len(fresh)
+    for a, b in zip(cached, fresh):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_fold_cache_matches_fresh_fold(rng):
+    blk, x = _cpu_block(rng)
+    with torch.no_grad():
+        for key in ("norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias"):
+            getattr(blk, key).add_(0.1)   # a non-trivial LN affine to fold
+        out = blk(x)
+    _assert_fresh(blk, x)
+    ref = svtr_block.fused_block_reference(x, _leaves(blk), None, blk.num_heads, blk.scale)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+def test_fold_cache_folds_once_for_unchanged_weights(rng):
+    blk, x = _cpu_block(rng)
+    with torch.no_grad():
+        first = blk(x)
+        before = svtr_block.folds
+        second = blk(x)
+        with torch.inference_mode():
+            third = blk(x)
+    assert svtr_block.folds == before
+    torch.testing.assert_close(second, first, atol=0, rtol=0)
+    torch.testing.assert_close(third, first, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("change", ["add_", "data_swap", "load_state_dict", "module_to",
+                                    "functional_call"])
+def test_fold_cache_sees_weight_changes(rng, change):
+    """Each way the port changes a Block's weights folds anew: the cached
+    operands equal a fresh fold of the new weights and the output the plain
+    version's on them."""
+    blk, x = _cpu_block(rng)
+    with torch.no_grad():
+        blk(x)
+    stale = [t.clone() for t in blk.fold_cache.weights]
+    params = None
+    with torch.no_grad():
+        if change == "add_":
+            blk.qkv_kernel.add_(0.01)
+        elif change == "data_swap":
+            blk.fc1_kernel.data = blk.fc1_kernel.data.to(torch.bfloat16)
+        elif change == "load_state_dict":
+            state = {k: v + 0.01 if v.is_floating_point() else v
+                     for k, v in blk.state_dict().items()}
+            blk.load_state_dict(state)
+        elif change == "module_to":
+            blk.to(torch.bfloat16)
+            x = x.to(torch.bfloat16)
+        before = svtr_block.folds
+        if change == "functional_call":
+            params = {k: v + 0.01 for k, v in _leaves(blk).items()}
+            out = torch.func.functional_call(blk, params, (x,))
+        else:
+            out = blk(x)
+    assert svtr_block.folds == before + 1
+    assert any(a.dtype != b.dtype or not torch.equal(a, b)
+               for a, b in zip(blk.fold_cache.weights, stale))
+    _assert_fresh(blk, x, params)
+    ref = svtr_block.fused_block_reference(x, params or _leaves(blk), None, blk.num_heads,
+                                           blk.scale)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    if change == "functional_call":   # back on its own weights: folded again
+        with torch.no_grad():
+            blk(x)
+        _assert_fresh(blk, x)
+
+
+def test_warm_request_runs_no_fold():
+    """A warm serving request (an MRN ensemble of SVTR experts on the CPU)
+    runs ``_fold`` zero times: every Block folded its weights at the first
+    request."""
+    from mrn_tpu_torch.config import load_config
+    from mrn_tpu_torch.models.init import random_mrn
+    from mrn_tpu_torch.serve import Server
+
+    opt = load_config("configs/svtr_mrn.py", imgW=64, output_channel=32, hidden_size=16,
+                      svtr=dict(embed_dim=(16, 32, 64), depth=(1, 1, 1),
+                                num_heads=(2, 2, 4)))
+    counts = (8, 12)
+    rng = np.random.default_rng(3)
+    params, stats = random_mrn(rng, opt, counts)
+    chars = [chr(0x61 + i) for i in range(max(counts) - 4)]
+    srv = Server(opt, params, stats, chars, class_counts=counts, device="cpu")
+    images = rng.integers(0, 256, (2, opt.imgH, opt.imgW, opt.input_channel), dtype=np.uint8)
+    before = svtr_block.folds
+    first = srv.recognize(images)
+    assert svtr_block.folds - before == 3 * len(counts)   # one per Block
+    before = svtr_block.folds
+    second = srv.recognize(images)
+    assert svtr_block.folds == before
+    assert first == second
