@@ -40,9 +40,12 @@
    with zeros: forward output and residuals (two forward launches bitwise
    equal, the forward's launch plan printed), dy/dattn and 8 grads, dx and 4
    grads, the whole autograd Function's grads, and bitwise-repeatable weight
-   grads; timed beside the plain versions, the bound and a library
-   yardstick (the composed library Block's forward with grad enabled, and
-   autograd's backward of it);
+   grads; prints the backward's launch plan per shape and the registers and
+   spills of its kernels; timed beside the plain versions, the bound and a
+   library yardstick (the composed library Block's forward with grad
+   enabled; for the tail autograd's backward of the library Block's proj,
+   LayerNorm and MLP sub-graph, for the head that of its LayerNorm and qkv
+   product, with the whole library Block's backward printed beside them);
 8. trains task 5 again with ``MRN_FUSED_TRAIN=1`` (set, then restored): every
    train-mode Block runs the fused training Block, counting 12 + 12 + 12
    launches per step-0 step; then one step-0 step on the fused kernels
@@ -316,6 +319,26 @@ def library_block(x, p, mask, heads, scale):
     return x + h @ p["fc2_kernel"] + p["fc2_bias"]
 
 
+def library_tail(x, attn_cat, p):
+    """Yardstick of row 6 (the backward tail): the library Block's sub-graph
+    from x and attn_cat on -- the proj product and residual, F.layer_norm,
+    the MLP with exact GELU -- whose backward gives the cotangents of x and
+    attn_cat and the 8 tail grads.  Timed only."""
+    c = x.shape[-1]
+    y = x + attn_cat @ p["proj_kernel"] + p["proj_bias"]
+    h = F.layer_norm(y, (c,), p["norm2_scale"], p["norm2_bias"], 1e-6)
+    h = F.gelu(h @ p["fc1_kernel"] + p["fc1_bias"])
+    return y + h @ p["fc2_kernel"] + p["fc2_bias"]
+
+
+def library_head(x, p):
+    """Yardstick of row 7 (the backward head): F.layer_norm and the qkv
+    product, whose backward gives dx's LayerNorm part and the 4 head
+    grads.  Timed only."""
+    h = F.layer_norm(x, (x.shape[-1],), p["norm1_scale"], p["norm1_bias"], 1e-6)
+    return h @ p["qkv_kernel"] + p["qkv_bias"]
+
+
 def check_close(what, got, ref, atol, rtol):
     err = (got.float() - ref.float()).abs()
     limit = atol + rtol * ref.float().abs()
@@ -340,16 +363,34 @@ def phase_environment():
     return smi
 
 
+def demangle(names):
+    """{mangled: readable} through ``c++filt`` where the toolkit's host has
+    it, else the names as they are."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    return dict(zip(names, (o.replace("(anonymous namespace)::", "") for o in out)))
+
+
+def print_ptxas(lib, select=lambda name: True, indent="  "):
+    """Registers and spills of each kernel of a built library (ptxas -v)."""
+    report = {n: r for n, r in _build.ptxas_report(lib).items() if select(n)}
+    names = demangle(sorted(report))
+    for name in sorted(report, key=names.get):
+        r = report[name]
+        print(f"{indent}ptxas {lib}: {names[name]}: {r.get('registers', '?')} registers, "
+              f"{r.get('spill_stores', '?')} bytes spill stores, "
+              f"{r.get('spill_loads', '?')} bytes spill loads")
+
+
 def phase_build():
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in libs:
-        log = _build.BUILD_DIR / f"{name}.log"
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+        print_ptxas(name)
 
 
 def phase_blocks(device, rng):
@@ -664,12 +705,22 @@ def _train_block_check(what, got, ref, dt):
     return err, err / bound
 
 
+def _bwd_plan_text(dt, m, c, hidden):
+    grads, projs = svtr_train_block._bwd_plan(dt, m, c, hidden)
+    return ("backward plan: " + ", ".join(
+        f"{k} tile {tm}x{tn} over {count} chunks of {chunk} rows"
+        for k, (tm, tn, count, chunk) in grads.items()) + "; "
+        + ", ".join(f"{k} 128x{w}" for k, w in projs.items()))
+
+
 def phase_train_blocks(device, rng):
     """The fused training Block's three kernels against their plain
     versions at the four Block shapes, f32 and bf16; returns per-kernel,
     per-dtype sums over one expert's 12 Blocks."""
     tb = svtr_train_block
     totals = {}
+    print_ptxas("svtr_train_block", lambda name: "wgrad_kernel" in name or (
+        "proj_kernel" in name and ("Dh1Epi" in name or "StoreEpi" in name)), "  backward ")
     for dt in (torch.float32, torch.bfloat16):
         for name, hw, c, heads, mixer, count in BLOCK_SHAPES:
             n = hw[0] * hw[1]
@@ -749,7 +800,9 @@ def phase_train_blocks(device, rng):
                 grads.append(torch.autograd.grad(o, [xl] + [leaves[k] for k in tb.PARAM_KEYS], g))
             for k, a, b in zip(("x",) + tb.PARAM_KEYS, *grads):
                 check("Function", f"d{k}", a, b)
-            # library yardstick (timed only): the composed library Block
+            # library yardsticks (timed only): the composed library Block
+            # forward and its whole backward; the tail's and the head's
+            # sub-graphs and their backwards
             leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
             xl = x.clone().requires_grad_()
             mask = (None if band is None else torch.from_numpy(
@@ -759,42 +812,58 @@ def phase_train_blocks(device, rng):
             lib_in = [xl] + list(leaves.values())
             lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, g, retain_graph=True), 5)
             del lib_out
+            attn_l = attn.clone().requires_grad_()
+            lib_out = library_tail(xl, attn_l, leaves)
+            lib_in = [xl, attn_l] + [leaves[k] for k in (
+                "proj_kernel", "proj_bias", "norm2_scale", "norm2_bias", "fc1_kernel",
+                "fc1_bias", "fc2_kernel", "fc2_bias")]
+            lib_tail = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, g, retain_graph=True),
+                               5)
+            lib_out = library_head(xl, leaves)
+            lib_in = [xl] + [leaves[k] for k in ("norm1_scale", "norm1_bias", "qkv_kernel",
+                                                  "qkv_bias")]
+            lib_head = cuda_ms(lambda: torch.autograd.grad(lib_out, lib_in, dqkv,
+                                                           retain_graph=True), 5)
+            del lib_out, lib_in
             plan = svtr_block._band_spec(*band) if band else None
             pairs = n * n if band is None else int((mask == 0).sum())
             mask_bytes = 0 if band is None else 4 * n * plan[1]
             bounds = dict(zip(("fwd", "tail", "head"),
                               train_block_bounds_ms(BATCH, n, c, heads, hidden, dt, pairs,
                                                     mask_bytes)))
-            library = {"fwd": lib_fwd, "tail": lib_bwd, "head": None}
+            library = {"fwd": lib_fwd, "tail": lib_tail, "head": lib_head}
             print(f"  {label} {'banded qb %d width %d' % plan[:2] if plan else 'full'}: "
                   f"max |err| fwd {errs['fwd']:.3e} tail {errs['tail']:.3e} head "
                   f"{errs['head']:.3e} Function {errs['Function']:.3e}, at most {worst:.3f} of "
                   f"each tensor's bound; forward outputs and weight grads bitwise repeatable; "
                   + _block_plan_text(tb._kernel_plan(dt, n, c, heads, hidden,
-                                                     *(plan[:2] if plan else (n, n)))))
+                                                     *(plan[:2] if plan else (n, n))))
+                  + "; " + _bwd_plan_text(dt, BATCH * n, c, hidden))
             for kind in ("fwd", "tail", "head"):
                 b_ms, o_ms = bounds[kind]
                 bound = max(b_ms, o_ms)
                 lib = library[kind]
                 print(f"    {kind}: ms {ms[kind]:.4f}  plain_ms {plain_ms[kind]:.4f}  "
                       f"bound_ms {bound:.4f} ({'operations' if o_ms >= b_ms else 'bytes'}, "
-                      f"{bound / ms[kind]:.1%} of bound)  library_ms "
-                      + ("n/a" if lib is None else f"{lib:.4f}"
-                         + (" (whole Block backward)" if kind == "tail" else "")))
+                      f"{bound / ms[kind]:.1%} of bound)  library_ms {lib:.4f}"
+                      + (f"  (whole library Block backward {lib_bwd:.4f})" if kind == "tail"
+                         else ""))
                 tot = totals.setdefault((kind, dt), dict(
-                    ms=0.0, plain_ms=0.0, library_ms=0.0 if lib is not None else None,
-                    bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, max_abs_err=0.0))
+                    ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                    ops_ms=0.0, max_abs_err=0.0))
                 tot["ms"] += count * ms[kind]
                 tot["plain_ms"] += count * plain_ms[kind]
-                if lib is not None:
-                    tot["library_ms"] += count * lib
+                tot["library_ms"] += count * lib
+                if kind == "tail":
+                    tot["block_bwd_library_ms"] = tot.get("block_bwd_library_ms", 0.0) + \
+                        count * lib_bwd
                 tot["bound_ms"] += count * bound
                 tot["bytes_ms"] += count * b_ms
                 tot["ops_ms"] += count * o_ms
                 tot["max_abs_err"] = max(tot["max_abs_err"], errs[kind])
     for (kind, dt), tot in totals.items():
         print(f"  train {kind}, one expert's 12 Blocks, {str(dt)[6:]}: "
-              + ", ".join(f"{k} {v:.4g}" for k, v in tot.items() if v is not None))
+              + ", ".join(f"{k} {v:.4g}" for k, v in tot.items()))
     return totals
 
 
@@ -1685,9 +1754,9 @@ def main():
           f"expert's 12 Blocks, its launches the served requests ({served}) plus the "
           f"router steps ({trained['fused']} composed, {fused_trained['fused']} fused runs); "
           f"attention times are one expert forward's 6 Blocks of each kind; "
-          f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms is "
-          f"autograd's whole library-Block backward (tail, attention and head), the "
-          f"head has none of its own; svtr_fused_block_int8 times are one recognizer's 12 "
+          f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms "
+          f"autograd's backward of the library Block's proj + LayerNorm + MLP sub-graph, "
+          f"the head's of its LayerNorm + qkv product; svtr_fused_block_int8 times are one recognizer's 12 "
           f"Blocks with float attention, its launches the int8 served requests, its "
           f"library_ms the torch._int_mm Block; grid_sample times are one warp of the "
           f"served batch's TPS grid (bf16 image, f32 grid), its launches the TRBA served "

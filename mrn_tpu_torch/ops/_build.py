@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "CSRC", "build_all", "load", "sass"]
+__all__ = ["BUILD_DIR", "CSRC", "build_all", "load", "ptxas_report", "sass"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mrn_tpu_torch"
@@ -101,3 +101,28 @@ def sass(name: str) -> Dict[str, str]:
                           text=True).stdout
     parts = re.split(r"\n\s*Function : (\S+)", text)
     return dict(zip(parts[1::2], parts[2::2]))
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """{kernel's mangled name: {"registers", "spill_stores", "spill_loads"}}
+    from the ``-Xptxas -v`` output kept beside the build of
+    ``csrc/<name>.cu`` (empty if the log is missing)."""
+    log = BUILD_DIR / f"{name}.log"
+    if not log.exists():
+        return {}
+    report: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = report.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            current["spill_stores"], current["spill_loads"] = int(m.group(1)), int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+            current = None
+    return report

@@ -61,6 +61,7 @@ namespace {
   } while (0)
 
 enum Mode { kQkv = 0, kProj = 1, kFc1 = 2, kFc2 = 3 };
+constexpr int BM = 64, BN = 64, kGemmThreads = 256;   // output tile, threads a block
 constexpr int IBK = 32;           // K of an int8 tile
 constexpr int kWords = IBK / 4;   // packed 32-bit words per tile row
 

@@ -7,13 +7,8 @@
 //   - the minimax erf polynomials of the GELU, degree 15 (the JAX package's
 //     _ERF_COEFS; |erf error| < 1.9e-7) and degree 9 (_ERF9_COEFS, the
 //     inference Blocks' default; |erf error| < 1.4e-4);
-//   - the SIMT GEMM main loop of the training Block's backward products:
-//     one 64x64 output tile per block of 256 threads, 4x4 accumulators per
-//     thread, A and B tiles of 16 along the reduction staged in shared
-//     memory, every operand rounded to T, float32 accumulation.  Operands
-//     come through loader functors (value of element (i, k) of A, (k, j) of
-//     B), so each caller fuses its own LayerNorm, droppath or GELU into the
-//     loads (the forward projections run svtr_gemm_tc.cuh);
+//   - Mat, a row-major matrix as the loader of the projection and
+//     weight-gradient main loops (svtr_gemm_tc.cuh, svtr_wgrad_tc.cuh);
 //   - the names of the three softmax forms of the Pallas kernels (the tile
 //     attention of svtr_attention_tc.cuh takes each);
 //   - the w8a8 Block's float attention (row 3 of the kernel table): one
@@ -95,78 +90,22 @@ __device__ __forceinline__ float gelu_poly(float x, int degree) {
   return degree == 15 ? gelu15(x) : gelu_erf<10>(x, kErf9);
 }
 
-// ---------------------------------------------------------------------- GEMM
-constexpr int BM = 64, BN = 64, BK = 16, kGemmThreads = 256;
+// ---------------------------------------------------------------- matrices
+struct NoRow {};   // the row state of a map that reads nothing per row
 
 template <typename S>
-struct Mat {  // row-major [rows, ld]; also an A loader of svtr_gemm_tc.cuh
+struct Mat {  // row-major [rows, ld]: a loader of svtr_gemm_tc.cuh and svtr_wgrad_tc.cuh
   using Src = S;
+  using Row = NoRow;
   static constexpr bool kMap = false, kWholeRows = false;
   const S* p;
   int ld;
-  __device__ float operator()(int r, int c) const { return to_f(p[(size_t)r * ld + c]); }
   __device__ const S* row(int r) const { return p + (size_t)r * ld; }
+  __device__ NoRow row_state(int) const { return {}; }
   __device__ void map8(int, int, float (&)[8]) const {}
+  __device__ void map8(NoRow, int, float (&)[8]) const {}
   __device__ void prepare(int) {}
 };
-
-// acc[i][j] (thread (tx, ty) = (tid % 16, tid / 16) holds rows m0 + ty + 16 i,
-// columns n0 + tx + 16 j) += sum over k in [kbeg, kend) of round_T(a(i, k)) *
-// round_T(b(k, j)).  A_KFAST / B_JFAST: which index of A / B runs along
-// memory, so the tile loads are coalesced.
-template <typename T, bool A_KFAST, bool B_JFAST, class A, class B>
-__device__ __forceinline__ void gemm_mainloop(const A& a, const B& b, int M, int Nn,
-                                              int kbeg, int kend, float (&acc)[4][4]) {
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += kGemmThreads) {
-      const int r = A_KFAST ? idx / BK : idx % BM;
-      const int kk = A_KFAST ? idx % BK : idx / BM;
-      const int i = m0 + r, k = k0 + kk;
-      As[kk][r] = (i < M && k < kend) ? round_to<T>(a(i, k)) : 0.f;
-    }
-    for (int idx = tid; idx < BK * BN; idx += kGemmThreads) {
-      const int cc = B_JFAST ? idx % BN : idx / BK;
-      const int kk = B_JFAST ? idx / BN : idx % BK;
-      const int j = n0 + cc, k = k0 + kk;
-      Bs[kk][cc] = (j < Nn && k < kend) ? round_to<T>(b(k, j)) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-}
-
-// e(m, n, acc) for every in-range element of the block's output tile
-template <class E>
-__device__ __forceinline__ void gemm_store(const float (&acc)[4][4], int M, int Nn, E e) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < Nn) e(m, n, acc[i][j]);
-    }
-  }
-}
 
 // ----------------------------------------------------------------- attention
 constexpr int QT = 32;   // query rows per block (wrappers: _QUERY_TILE)

@@ -1,7 +1,8 @@
-// Forward projection main loops for Hopper (sm_90a), shared by svtr_block.cu
-// (the inference Block, row 4 of the kernel table) and svtr_train_block.cu
-// (the training Block forward, row 5).  The backward products keep the SIMT
-// gemm_mainloop of svtr_common.cuh.
+// Projection main loops for Hopper (sm_90a), shared by svtr_block.cu (the
+// inference Block, row 4 of the kernel table) and svtr_train_block.cu (the
+// training Block forward, row 5, and the data gradients of its backward,
+// rows 6 and 7, on transposed weights).  The backward's weight gradients run
+// svtr_wgrad_tc.cuh.
 //
 // out[i, j] = sum over k of round_T(A(i, k)) * W[k, j], float32
 // accumulation, for W [K, Nout] row-major in T, handed to the epilogue in
@@ -21,8 +22,11 @@
 // and an epilogue takes 8 columns j .. j + 8 of row i at a time (j a
 // multiple of 8): e.prefetch(i, j, r) loads what it reads besides the
 // accumulator (a residual) into r, e(i, j, v, r) stores from the float32
-// accumulator v.  All of a thread's prefetches are issued before its first
-// store, so their latencies overlap.
+// accumulator v.  The prefetches of kRound chunks (an epilogue's kRound, 4
+// by default) are issued before their first store, so their latencies
+// overlap.  An epilogue with kColumnSums also adds its float32 values into
+// the thread's column sums (e(i, j, v, r, sums)), and e.columns(rb, j, s)
+// then gets the sum over row block rb's rows of column j, in a fixed order.
 // K and Nout are multiples of 8 (C is heads x D with D >= 8).
 //
 // Bound on an H100: a projection of K = 64..1024 moves its A and its output
@@ -198,14 +202,35 @@ struct LayerNormRows {
 };
 
 // ---------------------------------------------------------------- epilogue
+template <class E, class = void>
+struct EpiRound {
+  static constexpr int value = 4;
+};
+template <class E>
+struct EpiRound<E, std::void_t<decltype(E::kRound)>> {
+  static constexpr int value = E::kRound;
+};
+template <class E, class = void>
+struct EpiSums : std::false_type {};
+template <class E>
+struct EpiSums<E, std::void_t<decltype(E::kColumnSums)>> : std::bool_constant<E::kColumnSums> {};
+
 // The block's [128, BN] float32 tile, already in shared memory at cs (pitch
 // BN + 4), handed to the epilogue in chunks of 8 columns: a warp covers
-// whole rows, so loads and stores are 16-byte and coalesced.
+// whole rows, so loads and stores are 16-byte and coalesced.  A thread's
+// chunks are all in the same 8 columns (256 threads are a multiple of BN /
+// 8), so with kColumnSums its sums are those columns' over its rows; the
+// threads' sums are then added in thread order in shared memory (which the
+// tile held).
 template <int BN, class E>
-__device__ __forceinline__ void store_tile(const float* cs, int m0, int n0, int M, int Nout,
+__device__ __forceinline__ void store_tile(float* cs, int m0, int n0, int M, int Nout,
                                            const E& e) {
-  // 4 chunks a round: their prefetches in flight together, 32 registers
-  constexpr int kPer = kTileM * BN / 8 / kTileThreads, kRound = 4, kRowChunks = BN / 8;
+  // kRound chunks a round: their prefetches in flight together (4: 32 registers)
+  constexpr int kPer = kTileM * BN / 8 / kTileThreads;
+  constexpr int kRound = EpiRound<E>::value < kPer ? EpiRound<E>::value : kPer;
+  constexpr int kRowChunks = BN / 8;
+  constexpr bool kSums = EpiSums<E>::value;
+  float sums[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int u0 = 0; u0 < kPer; u0 += kRound) {
     float r[kRound][8];
@@ -223,7 +248,22 @@ __device__ __forceinline__ void store_tile(const float* cs, int m0, int n0, int 
       if (i >= M || j >= Nout) continue;
       const float4 a = lds4(cs + rr * (BN + 4) + cc), b = lds4(cs + rr * (BN + 4) + cc + 4);
       float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-      e(i, j, v, r[u]);
+      if constexpr (kSums)
+        e(i, j, v, r[u], sums);
+      else
+        e(i, j, v, r[u]);
+    }
+  }
+  if constexpr (kSums) {
+    __syncthreads();   // every thread is done reading the tile
+    store8(cs + 8 * threadIdx.x, sums);
+    __syncthreads();
+    constexpr int kRowsOf = kTileThreads / kRowChunks;
+    const int j = threadIdx.x;
+    if (j < BN && n0 + j < Nout) {
+      float s = 0.f;
+      for (int q = 0; q < kRowsOf; ++q) s += cs[8 * (q * kRowChunks + j / 8) + j % 8];
+      e.columns(m0 / kTileM, n0 + j, s);
     }
   }
 }

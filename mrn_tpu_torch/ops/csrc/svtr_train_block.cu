@@ -27,10 +27,11 @@
 //
 // Bound on an H100: per Block and image the forward's four projections are
 // 24*N*C^2 operations and the backward's eight 48*N*C^2, against ~(11 C +
-// 8 C) * N elements moved, so at batch 256 the work sits above the bf16
-// ridge (operations-bound) and far above the float32 one.  What the Pallas
-// bodies keep out of device memory (the score tile, the GELU chain) stays
-// in shared memory or registers here too.
+// 8 C) * N elements moved: in bf16 the bytes hold each entry point (about
+// 100-300 operations a byte, at or below the tensor cores' ridge), in
+// float32 the 67 TFLOP/s of the CUDA cores.  What the Pallas bodies keep out
+// of device memory (the score tile, the GELU chain) stays in shared memory
+// or registers here too.
 //
 // Design: several launches per entry point.
 //   - The forward's four projections run the main loops of svtr_gemm_tc.cuh
@@ -40,28 +41,38 @@
 //     kernel), bias, q-scale, residual, GELU and droppath in the epilogues.
 //   - Its attention is the tile attention of svtr_attention_tc.cuh in its
 //     kMaxSubLate form, q from q_scaled [B, N, C], k and v inside qkv.
-//   - The backward's products: gemm_kernel, the SIMT main loop of
-//     svtr_common.cuh (one 64x64 output tile per block of 256 threads).
-//     Operands come through small loader functors (plain, transposed,
-//     LayerNorm on the fly, droppath-scaled, GELU of h1) and results leave
-//     through epilogue functors (bias, residual, rounding, GELU, droppath),
-//     so each product of the Pallas bodies is one launch with its
-//     elementwise neighbours fused in.
-//   - Weight gradients are products over all B*N rows: blockIdx.z splits the
-//     rows into a fixed number of contiguous chunks, each block writes its
-//     partial tile, and reduce_splits_kernel sums the partials in chunk
-//     order.  Bias and norm gradients use the same two passes.  No float
-//     atomics, so the same inputs give bitwise-identical outputs and grads.
-//   - The LayerNorm backward is a row kernel (one warp per row) that also
-//     keeps per-warp column partials in shared memory for dn_s, dn_b (and
-//     dbp), combined per block in warp order.
-// Left for later: the backward's products on the tensor cores, TMA, and
-// keeping the Block's intermediates on chip across the launches.
+//   - The backward's four data gradients (dh1, dz2, dattn, dz1: row-parallel
+//     products with the weight transposed) run the same proj main loops,
+//     each weight first transposed into the work buffer to proj's [K, Nout]
+//     (one small launch per entry point); the droppath scale of g rides on
+//     the A loads (ScaledRows), gelu15'(h1) and db1's column sums on the
+//     epilogue (Dh1Epi).
+//   - dh1 and da, which the Pallas bodies keep in float32, are stored in T:
+//     every product that reads them rounds them to T first, and their sums
+//     (db1, dbp) are taken from the float32 values before the rounding.  In
+//     bf16 that halves the largest intermediate's traffic.
+//   - Its four weight gradients (dW2, dW1, dWp, dWqkv: products over all B*N
+//     rows) run weight_grad of svtr_wgrad_tc.cuh: both operands m-major
+//     through a cp.async ring, each side's map (GELU of h1, LN2 of y or LN1
+//     of x from the row statistics of row_stats, droppath-scaled g) on the
+//     landed tile, bf16 mma.sync or float32 register tiles; the rows split
+//     into a fixed number of chunks whose partial tiles are summed in chunk
+//     order, with the bias sums (db2, dbqkv) of the unrounded float32 B
+//     folded into the same pass.  No float atomics, so the same inputs give
+//     bitwise-identical outputs and grads.
+//   - The LayerNorm backward is a row kernel: C / 8 lanes (up to 32) a row,
+//     16-byte chunks, several rows a warp, column partials for dn_s, dn_b
+//     (and dbp) in shared memory per lane group, combined in group order,
+//     then per block in order.
+// Left for later: wgmma and TMA, fusing the LayerNorm backward into the dz
+// epilogues, and keeping the Block's intermediates on chip across the
+// launches.
 
 #include <algorithm>
 
 #include "svtr_attention_tc.cuh"
 #include "svtr_gemm_tc.cuh"
+#include "svtr_wgrad_tc.cuh"
 
 namespace {
 
@@ -88,52 +99,69 @@ __device__ __forceinline__ float gelu15_grad(float x) {
 }
 
 // ------------------------------------------------------------------ loaders
-// Each gives the float32 value of element (r, c) of a logical matrix (and
-// Mat, the plain row-major one, from svtr_common.cuh).
+// Row-major sources for the backward's main loops, besides Mat of
+// svtr_common.cuh.  weight_grad (svtr_wgrad_tc.cuh) takes each on either
+// side: row_state(m) fetches what the map reads for row m (a k-tile ahead,
+// off the map's path), map8(state, k, v) maps the float32 values of
+// columns k .. k + 8 in place.  ScaledRows is also proj's A
+// (svtr_gemm_tc.cuh), which maps through map8(m, k, v).
 
 template <typename S>
-struct MatT {  // element (r, c) of the transpose of a row-major [., ld]
-  const S* p;
-  int ld;
-  __device__ float operator()(int r, int c) const { return to_f(p[(size_t)c * ld + r]); }
-};
-
-template <typename S>
-struct LnRows {  // ((x[r, c] - mean_r) * rstd_r) * s[c] + b[c]
-  const S* x;
-  const float* stats;  // [rows, 2]: mean, rstd
-  const float* s;
-  const float* b;
-  int ld;
-  __device__ float operator()(int r, int c) const {
-    const float v = to_f(x[(size_t)r * ld + c]);
-    return ((v - stats[2 * r]) * stats[2 * r + 1]) * s[c] + b[c];
-  }
-};
-
-template <typename S>
-struct ScaledRows {  // x[r, c] * dm[r / n] (droppath-scaled cotangent)
+struct ScaledRows {   // x[m, k] * dm[m / n] (droppath-scaled cotangent)
+  using Src = S;
+  using Row = float;
+  static constexpr bool kMap = true, kWholeRows = false;
   const S* x;
   const float* dm;
   int ld, n;
-  __device__ float operator()(int r, int c) const {
-    return to_f(x[(size_t)r * ld + c]) * dm[r / n];
+  __device__ __forceinline__ const S* row(int m) const { return x + (size_t)m * ld; }
+  __device__ __forceinline__ float row_state(int m) const { return dm[m / n]; }
+  __device__ __forceinline__ void map8(float d, int, float (&v)[8]) const {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] *= d;
+  }
+  __device__ __forceinline__ void map8(int m, int k, float (&v)[8]) const {
+    map8(row_state(m), k, v);
+  }
+  __device__ void prepare(int) {}
+};
+
+template <typename S>
+struct GeluRows {   // gelu15(h[m, k])
+  using Src = S;
+  using Row = NoRow;
+  static constexpr bool kMap = true;
+  const S* h;
+  int ld;
+  __device__ __forceinline__ const S* row(int m) const { return h + (size_t)m * ld; }
+  __device__ __forceinline__ NoRow row_state(int) const { return {}; }
+  __device__ __forceinline__ void map8(NoRow, int, float (&v)[8]) const {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = gelu15(v[e]);
   }
 };
 
 template <typename S>
-struct GeluRows {  // gelu15(h[r, c])
-  const S* h;
+struct LnRows {   // ((x[m, k] - mean_m) * rstd_m) * s[k] + b[k]
+  using Src = S;
+  using Row = float2;   // mean, rstd
+  static constexpr bool kMap = true;
+  const S* x;
+  const float* stats;   // [rows, 2]: mean, rstd (row_stats)
+  const float* s;
+  const float* b;
   int ld;
-  __device__ float operator()(int r, int c) const {
-    return gelu15(to_f(h[(size_t)r * ld + c]));
+  __device__ __forceinline__ const S* row(int m) const { return x + (size_t)m * ld; }
+  __device__ __forceinline__ float2 row_state(int m) const {
+    return __ldg(reinterpret_cast<const float2*>(stats) + m);
   }
-};
-
-template <class L>
-struct Transposed {  // element (r, c) = l(c, r)
-  L l;
-  __device__ float operator()(int r, int c) const { return l(c, r); }
+  __device__ __forceinline__ void map8(float2 st, int k, float (&v)[8]) const {
+    float sc[8], sh[8];
+    load8(s + k, sc);
+    load8(b + k, sh);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = ((v[e] - st.x) * st.y) * sc[e] + sh[e];
+  }
 };
 
 // ---------------------------------------------------------------- epilogues
@@ -219,230 +247,280 @@ struct Fc2Epi {  // out = y32 + (acc + b) * dm_b
   }
 };
 
-// The backward's epilogues take (row, col, split, float32 accumulator).
+// The backward's data-gradient epilogues, in the same 8-column form.
 
+// dh1 = dgv * gelu15'(h1): rounded to T for the products that take it, and
+// its float32 column sums (db1) per 128-row block into part [row blocks,
+// hidden].  Two chunks a round: gelu15' is long, and four spilled.
 template <typename T>
-struct Dh1Epi {  // dh1 = dgv * gelu15'(h1), float32
+struct Dh1Epi {
+  static constexpr int kRound = 2;
+  static constexpr bool kColumnSums = true;
   const T* h1;
-  float* dh1;
+  T* dh1;
+  float* part;
   int hidden;
-  __device__ void operator()(int i, int j, int, float acc) const {
-    const size_t o = (size_t)i * hidden + j;
-    dh1[o] = acc * gelu15_grad(to_f(h1[o]));
+  __device__ void prefetch(int i, int j, float (&r)[8]) const {
+    load8(h1 + (size_t)i * hidden + j, r);
   }
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&r)[8],
+                             float (&sums)[8]) const {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] *= gelu15_grad(r[e]);
+      sums[e] += v[e];
+    }
+    store8(dh1 + (size_t)i * hidden + j, v);
+  }
+  __device__ void columns(int rb, int j, float s) const { part[(size_t)rb * hidden + j] = s; }
 };
 
 template <typename S>
-struct StoreEpi {
+struct StoreEpi {  // out = acc, rounded to S
   S* out;
   int ld;
-  __device__ void operator()(int i, int j, int, float acc) const {
-    out[(size_t)i * ld + j] = from_f<S>(acc);
-  }
-};
-
-struct PartialEpi {  // part[split][i][j]
-  float* part;
-  int ld;
-  size_t stride;
-  __device__ void operator()(int i, int j, int z, float acc) const {
-    part[(size_t)z * stride + (size_t)i * ld + j] = acc;
+  __device__ void prefetch(int, int, float (&)[8]) const {}
+  __device__ void operator()(int i, int j, float (&v)[8], const float (&)[8]) const {
+    store8(out + (size_t)i * ld + j, v);
   }
 };
 
 // ------------------------------------------------------------------- kernels
-// C[i, j] = sum over k in split z's chunk of round_T(A(i, k)) * round_T(B(k, j)),
-// handed to E(i, j, z, acc) (the main loop of svtr_common.cuh).
-template <typename T, class A, class B, class E, bool A_KFAST, bool B_JFAST>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(A a, B b, E e, int M, int Nn, int K, int kchunk) {
-  const int kbeg = blockIdx.z * kchunk, kend = min(K, kbeg + kchunk);
-  float acc[4][4] = {};
-  gemm_mainloop<T, A_KFAST, B_JFAST>(a, b, M, Nn, kbeg, kend, acc);
-  gemm_store(acc, M, Nn, [&](int m, int n, float v) { e(m, n, blockIdx.z, v); });
-}
-
-// Split of a reduction over K rows: enough blocks for two waves of the
-// card's 132 SMs, chunks of at least 256 rows.  Fixed by the shapes alone.
-struct Split {
-  int count, chunk;
+// dst [cols, rows] = the transpose of src [rows, cols], for up to three
+// matrices at once (blockIdx.z): the backward's data gradients take each
+// weight as proj's [K, Nout] operand.
+template <typename T>
+struct TransposeJobs {
+  const T* src[3];
+  T* dst[3];
+  int rows[3], cols[3];
 };
 
-Split split_rows(int K, int tiles) {
-  int s = (2 * 132 + tiles - 1) / tiles;
-  s = std::max(1, std::min(s, K / 256));
-  int chunk = (K + s - 1) / s;
-  chunk = (chunk + BK - 1) / BK * BK;
-  return {(K + chunk - 1) / chunk, chunk};
-}
-
-int gemm_tiles(int M, int Nn) { return ((M + BM - 1) / BM) * ((Nn + BN - 1) / BN); }
-
-template <typename T, bool A_KFAST, bool B_JFAST, class A, class B, class E>
-cudaError_t gemm(A a, B b, E e, int M, int Nn, int K, Split sp, cudaStream_t stream) {
-  dim3 grid((Nn + BN - 1) / BN, (M + BM - 1) / BM, sp.count);
-  gemm_kernel<T, A, B, E, A_KFAST, B_JFAST><<<grid, kGemmThreads, 0, stream>>>(
-      a, b, e, M, Nn, K, sp.chunk);
-  return cudaGetLastError();
-}
-
-// out[e] = sum over z = 0 .. S-1, in order, of part[z][e]
-__global__ void reduce_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                     int S, int E) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float s = 0.f;
-  for (int z = 0; z < S; ++z) s += part[(size_t)z * E + e];
-  out[e] = s;
-}
-
-cudaError_t reduce_splits(const float* part, float* out, int S, int E, cudaStream_t stream) {
-  reduce_splits_kernel<<<(E + 255) / 256, 256, 0, stream>>>(part, out, S, E);
-  return cudaGetLastError();
-}
-
-// Weight gradient out[K1, K2] = sum_m round(A(i, m)) * round(B(m, j)) over
-// all M rows: partial products per row chunk, then the ordered sum.
-template <typename T, class A, class B>
-cudaError_t weight_grad(A a, B b, float* out, float* work, int K1, int K2, int M,
-                        cudaStream_t stream) {
-  const Split sp = split_rows(M, gemm_tiles(K1, K2));
-  cudaError_t err = gemm<T, false, true>(a, b, PartialEpi{work, K2, (size_t)K1 * K2},
-                                         K1, K2, M, sp, stream);
-  if (err != cudaSuccess) return err;
-  return reduce_splits(work, out, sp.count, K1 * K2, stream);
-}
-
-// column sums out[j] = sum_m l(m, j), float32, over row chunks in order
-constexpr int kColChunk = 512;
-
-template <class L>
-__global__ void colsum_kernel(L l, float* __restrict__ part, int M, int ncol) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= ncol) return;
-  const int r0 = blockIdx.y * kColChunk, r1 = min(M, r0 + kColChunk);
-  float s = 0.f;
-  for (int m = r0; m < r1; ++m) s += l(m, j);
-  part[(size_t)blockIdx.y * ncol + j] = s;
-}
-
-template <class L>
-cudaError_t colsum(L l, float* out, float* work, int M, int ncol, cudaStream_t stream) {
-  const int S = (M + kColChunk - 1) / kColChunk;
-  colsum_kernel<<<dim3((ncol + 255) / 256, S), 256, 0, stream>>>(l, work, M, ncol);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_splits(work, out, S, ncol, stream);
-}
-
-// LayerNorm statistics per row: mean, rsqrt(E[x^2] - mean^2 + 1e-6)
-template <typename S>
-__global__ void row_stats_kernel(const S* __restrict__ x, float* __restrict__ stats, int M,
-                                 int C) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32, lane = threadIdx.x % 32;
-  if (warp >= M) return;
-  const S* row = x + (size_t)warp * C;
-  float s = 0.f, ss = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = to_f(row[c]);
-    s += v;
-    ss += v * v;
+template <typename T>
+__global__ void transpose_kernel(TransposeJobs<T> jobs) {
+  __shared__ T tile[32][33];
+  const int z = blockIdx.z, rows = jobs.rows[z], cols = jobs.cols[z];
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  if (r0 >= rows || c0 >= cols) return;
+  const T* src = jobs.src[z];
+  T* dst = jobs.dst[z];
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + threadIdx.x;
+    if (r < rows && c < cols) tile[i][threadIdx.x] = src[(size_t)r * cols + c];
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  if (lane == 0) {
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + threadIdx.x;
+    if (c < cols && r < rows) dst[(size_t)c * rows + r] = tile[threadIdx.x][i];
+  }
+}
+
+template <typename T>
+cudaError_t transpose(const TransposeJobs<T>& jobs, int count, cudaStream_t stream) {
+  int rows = 0, cols = 0;
+  for (int z = 0; z < count; ++z) {
+    rows = std::max(rows, jobs.rows[z]);
+    cols = std::max(cols, jobs.cols[z]);
+  }
+  transpose_kernel<T><<<dim3((cols + 31) / 32, (rows + 31) / 32, count), dim3(32, 8), 0,
+                        stream>>>(jobs);
+  return cudaGetLastError();
+}
+
+// T elements as a count of floats, rounded up to 16 bytes
+inline long long floats_of(long long elements) { return (elements + 3) / 4 * 4; }
+
+// LayerNorm backward rows: with tn = (t - mean) * rstd and d = dz * s, v =
+// res + rstd * (d - mean(d) - tn * mean(d tn)) -> out_t (T).  TAIL: res =
+// g, v is dy, and da = dy * dm_a -> out_f (T, the operand of the products).
+// Column partials per block: sum dz*tn, sum dz (and the unrounded sum da).
+// G lanes take a row (G the largest power of two up to 32 that divides C /
+// 8), each 16-byte chunks of 8 columns, so a warp holds 32 / G rows at once.
+// Each lane group keeps its column partials in shared memory, element e of
+// chunk ch at e * C / 8 + ch and the groups G floats apart, so the lanes of
+// a warp add into 32 different banks; the groups are combined in order.
+constexpr int kRowThreads = 256, kRowWarps = kRowThreads / 32;
+
+inline int row_lanes(int C) {
+  int g = 32;
+  while (g > 1 && (C / 8) % g) g /= 2;
+  return g;
+}
+
+// rows per block: a multiple of the block's row groups, about four blocks
+// per SM of the card's 132
+inline int rows_per_block(int M, int C) {
+  const int groups = kRowWarps * (32 / row_lanes(C));
+  const int r = (M + 4 * 132 - 1) / (4 * 132);
+  return std::max(groups, (r + groups - 1) / groups * groups);
+}
+
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LayerNorm statistics per row, mean and rsqrt(E[x^2] - mean^2 + 1e-6),
+// G lanes a row as in the row kernel below
+template <typename S, int G>
+__global__ void __launch_bounds__(kRowThreads)
+row_stats_kernel(const S* __restrict__ x, float* __restrict__ stats, int M, int C) {
+  const int m = (blockIdx.x * kRowThreads + threadIdx.x) / G, gl = threadIdx.x % G;
+  float s = 0.f, ss = 0.f;
+  if (m < M)
+    for (int ch = gl; ch < C / 8; ch += G) {
+      float v[8];
+      load8(x + (size_t)m * C + 8 * ch, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[e];
+        ss += v[e] * v[e];
+      }
+    }
+  s = group_sum<G>(s);
+  ss = group_sum<G>(ss);
+  if (m < M && gl == 0) {
     const float mean = s / C;
     const float var = ss / C - mean * mean;
-    stats[2 * warp] = mean;
-    stats[2 * warp + 1] = rsqrtf(var + 1e-6f);
+    stats[2 * m] = mean;
+    stats[2 * m + 1] = rsqrtf(var + 1e-6f);
   }
 }
 
 template <typename S>
 cudaError_t row_stats(const S* x, float* stats, int M, int C, cudaStream_t stream) {
-  row_stats_kernel<S><<<(M + 7) / 8, 256, 0, stream>>>(x, stats, M, C);
+  if (C % 8) return cudaErrorInvalidValue;
+#define ROW_STATS(G)                                                                     \
+  case G:                                                                                \
+    row_stats_kernel<S, G><<<(int)(((long long)M * G + kRowThreads - 1) / kRowThreads), \
+                             kRowThreads, 0, stream>>>(x, stats, M, C);                  \
+    break
+  switch (row_lanes(C)) {
+    ROW_STATS(1);
+    ROW_STATS(2);
+    ROW_STATS(4);
+    ROW_STATS(8);
+    ROW_STATS(16);
+    ROW_STATS(32);
+    default: return cudaErrorInvalidValue;
+  }
+#undef ROW_STATS
   return cudaGetLastError();
 }
 
-// LayerNorm backward rows, one warp per row: with tn = (t - mean) * rstd and
-// d = dz * s, v = res + rstd * (d - mean(d) - tn * mean(d tn)) -> out_t (T).
-// TAIL: res = g, v is dy, and da = dy * dm_a -> out_f.  Column partials per
-// block: sum dz*tn, sum dz (and sum da), warps combined in order.
-constexpr int kRowThreads = 256, kRowWarps = kRowThreads / 32;
-
-int rows_per_block(int M) {
-  int r = (M + 255) / 256;
-  r = (r + kRowWarps - 1) / kRowWarps * kRowWarps;
-  return std::max(64, r);
-}
-
-template <typename T, bool TAIL>
+template <typename T, bool TAIL, int G>
 __global__ void __launch_bounds__(kRowThreads)
 ln_bwd_rows_kernel(const T* __restrict__ t, const float* __restrict__ stats,
                    const float* __restrict__ dz, const float* __restrict__ nscale,
                    const T* __restrict__ res, const float* __restrict__ dm,
-                   T* __restrict__ out_t, float* __restrict__ out_f,
-                   float* __restrict__ part, int M, int N, int C, int rpb) {
-  constexpr int NP = TAIL ? 3 : 2;
-  extern __shared__ float cp[];  // [kRowWarps][NP][C]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int i = tid; i < kRowWarps * NP * C; i += kRowThreads) cp[i] = 0.f;
+                   T* __restrict__ out_t, T* __restrict__ out_f, float* __restrict__ part,
+                   int M, int N, int C, int rpb) {
+  constexpr int NP = TAIL ? 3 : 2, R = 32 / G, kGroups = kRowWarps * R;
+  extern __shared__ __align__(16) float cp[];  // [kGroups][NP * C + G]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, gl = lane % G;
+  const int stride = NP * C + G, nch = C / 8;
+  for (int i = tid; i < kGroups * stride; i += kRowThreads) cp[i] = 0.f;
   __syncthreads();
-  float* mine = cp + warp * NP * C;
+  float* mine = cp + (warp * R + lane / G) * stride;
   const int r0 = blockIdx.x * rpb, r1 = min(M, r0 + rpb);
-  for (int m = r0 + warp; m < r1; m += kRowWarps) {
-    const float mean = stats[2 * m], rstd = stats[2 * m + 1];
-    const size_t base = (size_t)m * C;
+  for (int base = r0 + warp * R; base < r1; base += kGroups) {
+    const int m = base + lane / G;
+    const bool ok = m < r1;
+    const float mean = ok ? stats[2 * m] : 0.f, rstd = ok ? stats[2 * m + 1] : 0.f;
+    const size_t row = (size_t)m * C;
     float sd = 0.f, sdn = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float tn = (to_f(t[base + c]) - mean) * rstd;
-      const float d = dz[base + c] * nscale[c];
-      sd += d;
-      sdn += d * tn;
-    }
-    sd = warp_sum(sd) / C;
-    sdn = warp_sum(sdn) / C;
+    if (ok)
+      for (int ch = gl; ch < nch; ch += G) {
+        float tv[8], dv[8], sc[8];
+        load8(t + row + 8 * ch, tv);
+        load8(dz + row + 8 * ch, dv);
+        load8(nscale + 8 * ch, sc);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = dv[e] * sc[e];
+          sd += d;
+          sdn += d * ((tv[e] - mean) * rstd);
+        }
+      }
+    sd = group_sum<G>(sd) / C;
+    sdn = group_sum<G>(sdn) / C;
+    if (!ok) continue;
     const float scale = TAIL ? dm[m / N] : 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float tn = (to_f(t[base + c]) - mean) * rstd;
-      const float dzv = dz[base + c];
-      const float d = dzv * nscale[c];
-      const float v = to_f(res[base + c]) + rstd * (d - sd - tn * sdn);
-      out_t[base + c] = from_f<T>(v);
-      mine[c] += dzv * tn;
-      mine[C + c] += dzv;
+    for (int ch = gl; ch < nch; ch += G) {
+      const int k = 8 * ch;
+      float tv[8], dv[8], sc[8], rv[8], v[8];
+      load8(t + row + k, tv);
+      load8(dz + row + k, dv);
+      load8(nscale + k, sc);
+      load8(res + row + k, rv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float tn = (tv[e] - mean) * rstd;
+        v[e] = rv[e] + rstd * (dv[e] * sc[e] - sd - tn * sdn);
+        mine[e * nch + ch] += dv[e] * tn;
+        mine[C + e * nch + ch] += dv[e];
+      }
+      store8(out_t + row + k, v);
       if (TAIL) {
-        const float da = v * scale;
-        out_f[base + c] = da;
-        mine[2 * C + c] += da;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          v[e] *= scale;
+          mine[2 * C + e * nch + ch] += v[e];
+        }
+        store8(out_f + row + k, v);
       }
     }
   }
   __syncthreads();
   for (int i = tid; i < NP * C; i += kRowThreads) {
+    const int np = i / C, col = i % C, at = np * C + (col % 8) * nch + col / 8;
     float s = 0.f;
-    for (int w = 0; w < kRowWarps; ++w) s += cp[w * NP * C + i];
+    for (int g = 0; g < kGroups; ++g) s += cp[g * stride + at];
     part[(size_t)blockIdx.x * NP * C + i] = s;
   }
 }
 
-template <typename T, bool TAIL>
-cudaError_t ln_bwd_rows(const T* t, const float* stats, const float* dz, const float* nscale,
-                        const T* res, const float* dm, T* out_t, float* out_f, float* part,
-                        float* out_vec, int M, int N, int C, cudaStream_t stream) {
+template <typename T, bool TAIL, int G>
+cudaError_t launch_ln_bwd_rows(const T* t, const float* stats, const float* dz,
+                               const float* nscale, const T* res, const float* dm, T* out_t,
+                               T* out_f, float* part, float* out_vec, int M, int N, int C,
+                               cudaStream_t stream) {
   constexpr int NP = TAIL ? 3 : 2;
-  const size_t smem = sizeof(float) * kRowWarps * NP * C;
+  const size_t smem = sizeof(float) * kRowWarps * (32 / G) * (NP * C + G);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ln_bwd_rows_kernel<T, TAIL>,
+  cudaError_t err = cudaFuncSetAttribute(ln_bwd_rows_kernel<T, TAIL, G>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int rpb = rows_per_block(M);
+  const int rpb = rows_per_block(M, C);
   const int blocks = (M + rpb - 1) / rpb;
-  ln_bwd_rows_kernel<T, TAIL><<<blocks, kRowThreads, smem, stream>>>(
+  ln_bwd_rows_kernel<T, TAIL, G><<<blocks, kRowThreads, smem, stream>>>(
       t, stats, dz, nscale, res, dm, out_t, out_f, part, M, N, C, rpb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return reduce_splits(part, out_vec, blocks, NP * C, stream);
+  return reduce_parts(part, out_vec, NP * C, nullptr, nullptr, 0, blocks, stream);
+}
+
+template <typename T, bool TAIL>
+cudaError_t ln_bwd_rows(const T* t, const float* stats, const float* dz, const float* nscale,
+                        const T* res, const float* dm, T* out_t, T* out_f, float* part,
+                        float* out_vec, int M, int N, int C, cudaStream_t stream) {
+  if (C % 8) return cudaErrorInvalidValue;
+#define LN_ROWS(G)                                                                        \
+  case G:                                                                                 \
+    return launch_ln_bwd_rows<T, TAIL, G>(t, stats, dz, nscale, res, dm, out_t, out_f, part, \
+                                          out_vec, M, N, C, stream)
+  switch (row_lanes(C)) {
+    LN_ROWS(1);
+    LN_ROWS(2);
+    LN_ROWS(4);
+    LN_ROWS(8);
+    LN_ROWS(16);
+    LN_ROWS(32);
+    default: return cudaErrorInvalidValue;
+  }
+#undef LN_ROWS
 }
 
 #define TRY(call)                              \
@@ -473,36 +551,50 @@ int train_forward(const T* x, const float* n1s, const float* n1b, const T* wqkv,
 }
 
 // ------------------------------------------------------------- backward tail
+// The floats of work ahead of the partial sums: the transposed weights,
+// counted as float32 whatever T is
+long long tail_weight_floats(int C, int hidden) {
+  return 2 * floats_of((long long)C * hidden) + floats_of((long long)C * C);
+}
+
+long long head_weight_floats(int C) { return floats_of(3LL * C * C); }
+
 template <typename T>
 int train_bwd_tail(const T* g, const T* y, const T* h1, const T* attn, const float* n2s,
                    const float* n2b, const T* w1, const T* w2, const T* wp,
                    const float* dma, const float* dmb, T* dy, T* dattn, float* dw2,
                    float* db2, float* dw1, float* db1, float* dwp, float* vec3,
-                   float* stats, float* dh1, float* dz2, float* da, float* work, int B,
+                   float* stats, float* dh1_buf, float* dz2, float* da_buf, float* work, int B,
                    int N, int C, int hidden, cudaStream_t s) {
   const int M = B * N;
-  const Split one{1, 1 << 30};
-  const ScaledRows<T> dh2{g, dmb, C, N};  // g * dm_b
+  // W2^T [C, hidden], W1^T [hidden, C], Wp^T [C, C]: proj's [K, Nout]
+  T* w2t = reinterpret_cast<T*>(work);
+  T* w1t = reinterpret_cast<T*>(work + floats_of((long long)C * hidden));
+  T* wpt = reinterpret_cast<T*>(work + 2 * floats_of((long long)C * hidden));
+  float* part = work + tail_weight_floats(C, hidden);
+  // dh1 and da in T: the products round them to T, and their sums (db1,
+  // dbp) are taken from the float32 values before the rounding
+  T* dh1 = reinterpret_cast<T*>(dh1_buf);
+  T* da = reinterpret_cast<T*>(da_buf);
+  const ScaledRows<T> dh2{g, dmb, C, N};   // g * dm_b
   TRY(row_stats(y, stats, M, C, s));
+  TRY(transpose(TransposeJobs<T>{{w2, w1, wp}, {w2t, w1t, wpt}, {hidden, C, C}, {C, hidden, C}},
+                3, s));
   // dW2 = gelu(h1)^T dh2, db2 = colsum(dh2)
-  TRY((weight_grad<T>(Transposed<GeluRows<T>>{{h1, hidden}}, dh2, dw2, work, hidden, C, M, s)));
-  TRY(colsum(dh2, db2, work, M, C, s));
+  TRY((weight_grad<T, true>(GeluRows<T>{h1, hidden}, dh2, dw2, db2, part, M, hidden, C, s)));
   // dh1 = (dh2 W2^T) * gelu15'(h1), db1 = colsum(dh1)
-  TRY((gemm<T, true, false>(dh2, MatT<T>{w2, C}, Dh1Epi<T>{h1, dh1, hidden}, M, hidden, C,
-                            one, s)));
-  TRY(colsum(Mat<float>{dh1, hidden}, db1, work, M, hidden, s));
+  TRY(proj(dh2, w2t, Dh1Epi<T>{h1, dh1, part, hidden}, M, hidden, C, s));
+  TRY(reduce_parts(part, db1, hidden, nullptr, nullptr, 0, (M + kTileM - 1) / kTileM, s));
   // dW1 = z2^T dh1 with z2 = LN2(y) recomputed from the rounded y
-  TRY((weight_grad<T>(Transposed<LnRows<T>>{{y, stats, n2s, n2b, C}}, Mat<float>{dh1, hidden},
-                      dw1, work, C, hidden, M, s)));
+  TRY((weight_grad<T, false>(LnRows<T>{y, stats, n2s, n2b, C}, Mat<T>{dh1, hidden}, dw1,
+                             nullptr, part, M, C, hidden, s)));
   // dz2 = dh1 W1^T
-  TRY((gemm<T, true, false>(Mat<float>{dh1, hidden}, MatT<T>{w1, hidden},
-                            StoreEpi<float>{dz2, C}, M, C, hidden, one, s)));
+  TRY(proj(Mat<T>{dh1, hidden}, w1t, StoreEpi<float>{dz2, C}, M, C, hidden, s));
   // LN2 backward: dy, da = dy * dm_a, and dn2s, dn2b, dbp
-  TRY((ln_bwd_rows<T, true>(y, stats, dz2, n2s, g, dma, dy, da, work, vec3, M, N, C, s)));
+  TRY((ln_bwd_rows<T, true>(y, stats, dz2, n2s, g, dma, dy, da, part, vec3, M, N, C, s)));
   // dWp = attn^T da, dattn = da Wp^T
-  TRY((weight_grad<T>(Transposed<Mat<T>>{{attn, C}}, Mat<float>{da, C}, dwp, work, C, C, M, s)));
-  TRY((gemm<T, true, false>(Mat<float>{da, C}, MatT<T>{wp, C}, StoreEpi<T>{dattn, C}, M, C,
-                            C, one, s)));
+  TRY((weight_grad<T, false>(Mat<T>{attn, C}, Mat<T>{da, C}, dwp, nullptr, part, M, C, C, s)));
+  TRY(proj(Mat<T>{da, C}, wpt, StoreEpi<T>{dattn, C}, M, C, C, s));
   return 0;
 }
 
@@ -513,33 +605,23 @@ int train_bwd_head(const T* x, const T* dy, const T* dqkv, const float* n1s,
                    float* vec2, float* stats, float* dz1, float* work, int B, int N, int C,
                    cudaStream_t s) {
   const int M = B * N;
-  const Split one{1, 1 << 30};
+  T* wqkvt = reinterpret_cast<T*>(work);   // Wqkv^T [3C, C]
+  float* part = work + head_weight_floats(C);
   TRY(row_stats(x, stats, M, C, s));
+  TRY(transpose(TransposeJobs<T>{{wqkv}, {wqkvt}, {C}, {3 * C}}, 1, s));
   // dWqkv = z1^T dqkv with z1 = LN1(x), dbqkv = colsum(dqkv)
-  TRY((weight_grad<T>(Transposed<LnRows<T>>{{x, stats, n1s, n1b, C}}, Mat<T>{dqkv, 3 * C},
-                      dwqkv, work, C, 3 * C, M, s)));
-  TRY(colsum(Mat<T>{dqkv, 3 * C}, dbqkv, work, M, 3 * C, s));
+  TRY((weight_grad<T, true>(LnRows<T>{x, stats, n1s, n1b, C}, Mat<T>{dqkv, 3 * C}, dwqkv, dbqkv,
+                            part, M, C, 3 * C, s)));
   // dz1 = dqkv Wqkv^T
-  TRY((gemm<T, true, false>(Mat<T>{dqkv, 3 * C}, MatT<T>{wqkv, 3 * C},
-                            StoreEpi<float>{dz1, C}, M, C, 3 * C, one, s)));
+  TRY(proj(Mat<T>{dqkv, 3 * C}, wqkvt, StoreEpi<float>{dz1, C}, M, C, 3 * C, s));
   // LN1 backward: dx = dy + ..., and dn1s, dn1b
-  TRY((ln_bwd_rows<T, false>(x, stats, dz1, n1s, dy, nullptr, dx, nullptr, work, vec2, M, N,
-                             C, s)));
+  TRY((ln_bwd_rows<T, false>(x, stats, dz1, n1s, dy, nullptr, dx, (T*)nullptr, part, vec2, M,
+                             N, C, s)));
   return 0;
 }
 
-long long max3(long long a, long long b, long long c) { return a > b ? (a > c ? a : c) : (b > c ? b : c); }
-
-long long wgrad_floats(int K1, int K2, int M) {
-  return (long long)split_rows(M, gemm_tiles(K1, K2)).count * K1 * K2;
-}
-
-long long colsum_floats(int M, int ncol) {
-  return (long long)((M + kColChunk - 1) / kColChunk) * ncol;
-}
-
 long long rows_floats(int M, int np, int C) {
-  const int rpb = rows_per_block(M);
+  const int rpb = rows_per_block(M, C);
   return (long long)((M + rpb - 1) / rpb) * np * C;
 }
 
@@ -548,14 +630,15 @@ long long rows_floats(int M, int np, int C) {
 extern "C" {
 
 // Floats of the `work` buffer the tail (kind 0) or head (kind 1) needs for
-// its partial sums, for M = B*N rows, width C and MLP width hidden.
+// its transposed weights and partial sums, for M = B*N rows, width C and
+// MLP width hidden.
 long long svtr_train_workspace(int kind, int M, int C, int hidden) {
   if (kind == 0)
-    return max3(max3(wgrad_floats(hidden, C, M), wgrad_floats(C, hidden, M),
-                     wgrad_floats(C, C, M)),
-                max3(colsum_floats(M, C), colsum_floats(M, hidden), 0),
-                rows_floats(M, 3, C));
-  return max3(wgrad_floats(C, 3 * C, M), colsum_floats(M, 3 * C), rows_floats(M, 2, C));
+    return tail_weight_floats(C, hidden) +
+           std::max({wgrad_floats(M, hidden, C), wgrad_floats(M, C, hidden),
+                     wgrad_floats(M, C, C), rows_floats(M, 3, C),
+                     (long long)(M + kTileM - 1) / kTileM * hidden});
+  return head_weight_floats(C) + std::max(wgrad_floats(M, C, 3 * C), rows_floats(M, 2, C));
 }
 
 // dtype: 0 float32, 1 bfloat16.  Matrices [in, out] and activations in the
@@ -593,8 +676,9 @@ int svtr_train_forward(int dtype, const void* x, const float* n1s, const float* 
 // Tail: g, y, h1, attn (T); n2s, n2b, dm_a, dm_b float32; w1 [C, hidden], w2
 // [hidden, C], wp [C, C] (T).  Outputs dy, dattn (T); dw2 [hidden, C], db2
 // [C], dw1 [C, hidden], db1 [hidden], dwp [C, C], vec3 [3, C] = dn2s, dn2b,
-// dbp (float32).  Scratch float32: stats [M, 2], dh1 [M, hidden], dz2 [M, C],
-// da [M, C], work (svtr_train_workspace(0, ...) floats).
+// dbp (float32).  Scratch, float32 buffers: stats [M, 2], dh1 [M, hidden]
+// and da [M, C] (both holding T values), dz2 [M, C], work
+// (svtr_train_workspace(0, ...) floats).
 int svtr_train_bwd_tail(int dtype, const void* g, const void* y, const void* h1,
                         const void* attn, const float* n2s, const float* n2b, const void* w1,
                         const void* w2, const void* wp, const float* dma, const float* dmb,
@@ -644,6 +728,24 @@ int svtr_train_plan(int dtype, int N, int C, int heads, int hidden, int qb, int 
   export_plan(make_plan(kMaxSubLate, dtype, N, C / heads, qb, width), out);
   const int widths[4] = {3 * C, C, hidden, C}, depths[4] = {C, C, C, hidden};
   for (int i = 0; i < 4; ++i) out[5 + i] = tile_n(dtype, widths[i], depths[i]);
+  return 0;
+}
+
+// The launch plan of the backward for M = B*N rows: out[4 p .. 4 p + 4] the
+// weight gradient p's (k1 tile, k2 tile, row chunks, rows a chunk) for p =
+// dW2, dW1, dWp, dWqkv; out[16 .. 20] the output columns per 128-row block
+// of the dh1, dz2, dattn and dz1 projections.
+int svtr_train_bwd_plan(int dtype, int M, int C, int hidden, int* out) {
+  const int k1[4] = {hidden, C, C, C}, k2[4] = {C, hidden, C, 3 * C};
+  for (int p = 0; p < 4; ++p) {
+    const Split sp = wg_split(M, k1[p], k2[p]);
+    out[4 * p] = wg_tile(k1[p]);
+    out[4 * p + 1] = wg_tile(k2[p]);
+    out[4 * p + 2] = sp.count;
+    out[4 * p + 3] = sp.chunk;
+  }
+  const int widths[4] = {hidden, C, C, C}, depths[4] = {C, hidden, C, 3 * C};
+  for (int i = 0; i < 4; ++i) out[16 + i] = tile_n(dtype, widths[i], depths[i]);
   return 0;
 }
 

@@ -30,9 +30,11 @@ attention middle (vjp of the plain ``banded_attention_xla`` /
 projection and LN1 backward -> ``dx`` and 4 grads).
 
 ``fused_block_train`` launches the CUDA kernels (``csrc/svtr_train_block.cu``;
-the forward's projections on ``csrc/svtr_gemm_tc.cuh``, its attention on
-``csrc/svtr_attention_tc.cuh``) for CUDA tensors and runs the plain versions for CPU tensors; there is no
-fallback between the two.
+the forward's projections and the backward's data gradients on
+``csrc/svtr_gemm_tc.cuh``, the backward's weight gradients on
+``csrc/svtr_wgrad_tc.cuh``, the forward's attention on
+``csrc/svtr_attention_tc.cuh``) for CUDA tensors and runs the plain versions
+for CPU tensors; there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -256,6 +258,9 @@ def _lib():
     # dtype, N, C, heads, hidden, qb, width; int32 out[9]
     lib.svtr_train_plan.argtypes = [i] * 7 + [p]
     lib.svtr_train_plan.restype = i
+    # dtype, M, C, hidden; int32 out[20]
+    lib.svtr_train_bwd_plan.argtypes = [i] * 4 + [p]
+    lib.svtr_train_bwd_plan.restype = i
     lib.svtr_train_workspace.argtypes = [i] * 4
     lib.svtr_train_workspace.restype = ctypes.c_longlong
     for fn in (lib.svtr_train_forward, lib.svtr_train_bwd_tail,
@@ -275,6 +280,18 @@ def _kernel_plan(dtype, n, c, heads, hidden, qb, width):
     out = (ctypes.c_int * 9)()
     _lib().svtr_train_plan(_dtype_code(dtype), n, c, heads, hidden, qb, width, out)
     return tuple(out)
+
+
+def _bwd_plan(dtype, m, c, hidden):
+    """The built library's launch plan of the backward for ``m`` rows of a
+    Block of width ``c``: per weight gradient (dW2, dW1, dWp, dWqkv) its
+    (k1 tile, k2 tile, row chunks, rows a chunk), then the output columns
+    per 128-row block of the dh1, dz2, dattn and dz1 projections."""
+    out = (ctypes.c_int * 20)()
+    _lib().svtr_train_bwd_plan(_dtype_code(dtype), m, c, hidden, out)
+    grads = {name: tuple(out[4 * i:4 * i + 4])
+             for i, name in enumerate(("dW2", "dW1", "dWp", "dWqkv"))}
+    return grads, dict(zip(("dh1", "dz2", "dattn", "dz1"), out[16:20]))
 
 
 def _ptr(t: Optional[torch.Tensor]):

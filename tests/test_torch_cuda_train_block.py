@@ -191,22 +191,98 @@ def test_forward_two_launches_bitwise_equal(device, dt, hw, c, heads, banded):
 
 @pytest.mark.cuda
 def test_bf16_forward_runs_on_tensor_cores(device):
-    """The bf16 forms of the forward's projections and attention have
-    tensor-core products (HMMA, or HGMMA) in their SASS; the float32 forms
-    and the backward's SIMT products (gemm_kernel) have none."""
+    """The bf16 forms of the training Block's products -- the forward's
+    projections and attention, the backward's data gradients (proj forms
+    with the Dh1Epi / StoreEpi epilogues) and weight gradients
+    (wgrad_kernel) -- have tensor-core products (HMMA, or HGMMA) in their
+    SASS; the float32 forms have none and have FFMA."""
     funcs = _build.sass("svtr_train_block")
-    fwd = {n: b for n, b in funcs.items() if "proj_kernel" in n or "attention_tc_" in n}
-    bf16 = {n: b for n, b in fwd.items() if "13__nv_bfloat16" in n}
-    f32 = {n: b for n, b in fwd.items() if n not in bf16}
-    assert sum("proj_kernel" in n for n in bf16) == 8, sorted(fwd)
-    assert sum("proj_kernel" in n for n in f32) == 8, sorted(fwd)
-    assert sum("attention_tc_" in n for n in bf16) == sum("attention_tc_" in n for n in f32) == 12
-    for name, body in bf16.items():
-        assert re.search(r"\bH(G)?MMA\b", body), f"{name}: no HMMA/HGMMA"
-    for name, body in f32.items():
-        assert not re.search(r"\bH(G)?MMA\b", body), f"{name}: tensor-core products in float32"
-        assert "FFMA" in body
-    backward = {n: b for n, b in funcs.items() if "gemm_kernel" in n}
-    assert backward
-    for name, body in backward.items():
-        assert not re.search(r"\bH(G)?MMA\b", body), f"{name}: the backward left the CUDA cores"
+    fwd_epi, bwd_epi = ("QkvEpi", "ProjEpi", "Fc1Epi", "Fc2Epi"), ("Dh1Epi", "StoreEpi")
+    fwd = {n: b for n, b in funcs.items() if "attention_tc_" in n
+           or ("proj_kernel" in n and any(e in n for e in fwd_epi))}
+    bwd = {n: b for n, b in funcs.items() if "wgrad_kernel" in n
+           or ("proj_kernel" in n and any(e in n for e in bwd_epi))}
+    assert {n for n in funcs if "proj_kernel" in n} <= set(fwd) | set(bwd), sorted(funcs)
+    # forms (bf16, f32), two or four tile shapes per site: the backward's
+    # sites with the same loaders and epilogue share a form (dz2 and dz1; in
+    # float32 dattn too)
+    for kind, forms, counts in (("forward", fwd, {"proj_kernel": (8, 8), "attention_tc_": (12, 12)}),
+                                ("backward", bwd, {"proj_kernel": (6, 4), "wgrad_kernel": (16, 16)})):
+        bf16 = {n: b for n, b in forms.items() if "13__nv_bfloat16" in n}
+        f32 = {n: b for n, b in forms.items() if n not in bf16}
+        for part, count in counts.items():
+            assert (sum(part in n for n in bf16), sum(part in n for n in f32)) == count, \
+                (kind, part, sorted(forms))
+        for name, body in bf16.items():
+            assert re.search(r"\bH(G)?MMA\b", body), f"{kind} {name}: no HMMA/HGMMA"
+        for name, body in f32.items():
+            assert not re.search(r"\bH(G)?MMA\b", body), \
+                f"{kind} {name}: tensor-core products in float32"
+            assert "FFMA" in body, f"{kind} {name}: no FFMA"
+
+
+def _backward_inputs(seed, hw, c, heads, banded, batch, device, dt):
+    """A Block's residuals from the forward kernel, a cotangent g and a
+    dqkv [B, N, 3C] in dt, from a seed."""
+    rng = np.random.default_rng(seed)
+    x, p, dm_a, dm_b = _inputs(rng, hw, c, batch, device, dt)
+    band = (hw[0], hw[1], 7, 11) if banded else None
+    _, res = tb.forward(x, p, dm_a, dm_b, heads, (c // heads) ** -0.5, band)
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)).to(device, dt)
+    dqkv = torch.from_numpy(rng.standard_normal(res[0].shape).astype(np.float32)).to(device, dt)
+    return x, p, dm_a, dm_b, res, g, dqkv
+
+
+def _check_backward(x, p, dm_a, dm_b, res, g, dqkv, dt):
+    """Tail and head kernels against their plain versions on the same
+    inputs; returns the kernels' outputs."""
+    _, attn, y, h1 = res
+    dy, dattn, tail = tb.bwd_tail(g, y, h1, attn, p, dm_a, dm_b)
+    dx, head = tb.bwd_head(x, dy, dqkv, p)
+    torch.cuda.synchronize()
+    rdy, rdattn, rtail = tb.bwd_tail_reference(g, y, h1, attn, p, dm_a, dm_b)
+    rdx, rhead = tb.bwd_head_reference(x, dy, dqkv, p)
+    for name, a, b in [("dy", dy, rdy), ("dattn", dattn, rdattn), ("dx", dx, rdx)] + [
+            (k, tail[k], rtail[k]) for k in rtail] + [(k, head[k], rhead[k]) for k in rhead]:
+        _close(a, b, dt, name)
+    return (dy, dattn, dx), dict(tail, **head)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c,heads,banded", MAIN_SHAPES)
+def test_backward_matches_plain_at_main_shapes(device, dt, hw, c, heads, banded):
+    """Rows 6 and 7 at the four SVTR Block shapes at batch 256 (32768 to
+    131072 rows, several row chunks per weight gradient)."""
+    _check_backward(*_backward_inputs(6, hw, c, heads, banded, 256, device, dt), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_backward_ragged_rows(device, dt):
+    """M = 37 x 80 rows: not a multiple of 128 (the data gradients' row
+    blocks) nor of any weight gradient's row chunk, so the last tile and the
+    last chunk are partial."""
+    hw, c, batch = (2, 40), 64, 37
+    m = batch * hw[0] * hw[1]
+    grads, _ = tb._bwd_plan(dt, m, c, 4 * c)
+    assert m % 128 and all(count > 1 and m % chunk for _, _, count, chunk in grads.values())
+    _check_backward(*_backward_inputs(8, hw, c, 4, False, batch, device, dt), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c,heads,banded", MAIN_SHAPES)
+def test_backward_two_launches_bitwise_equal(device, dt, hw, c, heads, banded):
+    """No float atomics: the same inputs give the same bits in dy, dattn,
+    dx and all 12 grads at the main shapes."""
+    x, p, dm_a, dm_b, (_, attn, y, h1), g, dqkv = _backward_inputs(
+        7, hw, c, heads, banded, 256, device, dt)
+    runs = []
+    for _ in range(2):
+        dy, dattn, tail = tb.bwd_tail(g, y, h1, attn, p, dm_a, dm_b)
+        dx, head = tb.bwd_head(x, dy, dqkv, p)
+        torch.cuda.synchronize()
+        runs.append(dict(tail, dy=dy, dattn=dattn, dx=dx, **head))
+    for key in runs[0]:
+        assert torch.equal(runs[0][key], runs[1][key]), key
