@@ -55,12 +55,15 @@
    fused step 0;
 10. holds the w8a8 Block kernel against its plain version at the four Block
    shapes at batch 256, float32 and bfloat16, float and int8 attention, each
-   Block calibrated on its input and quantized first; two launches must be
-   bitwise equal, and the plain version with float products (the control)
-   must fail the check the kernel passes; timed beside the plain version,
-   the bound and a library yardstick (the w8a8 Block from ``torch._int_mm``,
-   ``F.layer_norm`` and ``F.scaled_dot_product_attention``, which the port
-   never calls), whose kernels are then profiled;
+   Block calibrated on its input and quantized first (Local Blocks banded,
+   the plain version over the full mask); two launches must be bitwise
+   equal, and the plain version with float products (the control) must
+   fail the check the kernel passes; prints the kernel's registers and
+   spills, each shape's band and launch plan and the device time of each
+   of its five launches (``torch.profiler``); timed beside the plain
+   version, the bound and a library yardstick (the w8a8 Block from
+   ``torch._int_mm``, ``F.layer_norm`` and ``F.scaled_dot_product_attention``,
+   which the port never calls), whose kernels are then profiled;
 11. serves one full-width SVTR recognizer of ``configs/svtr_mrn.py`` (task 0,
    2000 classes, random weights) int8 as ``evaluate_cli --int8 --taski 0``
    does: prints the float server's score envelope, calibrates on 4 synthetic
@@ -1147,16 +1150,54 @@ def profile_int8_yardstick(runs):
         print(f"    {ms:8.3f} ms {ms / max(busy, 1e-9):6.1%} x{e.count:<4d} {e.key[:100]}")
 
 
-def int8_block_bound_ms(b, n, c, heads, hidden, dt, pairs, attn_int8):
+INT8_LAUNCHES = ("qkv", "attention", "proj", "fc1", "fc2")
+
+
+def profile_launches(fn, launches):
+    """The last ``launches`` device kernels of three calls of ``fn`` traced
+    by ``torch.profiler`` (after a warm-up call), in launch order, as (name
+    without template arguments, device ms).  A trace can miss kernels (its
+    first call's, or all of them), so a short one is taken again, up to
+    three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(3):
+                fn()
+                torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)[-launches:]
+        if len(kernels) == launches:
+            break
+    return [(e.name.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0],
+             e.time_range.elapsed_us() / 1e3) for e in kernels]
+
+
+def print_int8_launches(fn):
+    """One line: each launch of one w8a8 Block call with its device time."""
+    launches = profile_launches(fn, len(INT8_LAUNCHES))
+    labels = INT8_LAUNCHES if len(launches) == len(INT8_LAUNCHES) else [""] * len(launches)
+    print("    launches (device ms): " + ", ".join(
+        f"{label} {name} {ms:.4f}" for label, (name, ms) in zip(labels, launches))
+          + f"; sum {sum(ms for _, ms in launches):.4f}")
+
+
+def int8_block_bound_ms(b, n, c, heads, hidden, dt, pairs, attn_int8, width):
     """(bytes_ms, ops_ms) of the least time of one w8a8 Block call on an
     H100: x in and out in dt, the int8 kernels, the float32 LN, bias and
-    dequant rows and the full mask, each once, over HBM bandwidth; the four
+    dequant rows and the [n, width] mask the kernel reads (the full mask, or
+    a Local Block's band mask), each once, over HBM bandwidth; the four
     projections at the int8 tensor peak plus QK^T and PV over the visible
     (query, key) pairs at x's type's peak (or int8's with ``attn_int8``)."""
     isz = torch.tensor([], dtype=dt).element_size()
     m = b * n
     nbytes = (2 * m * c * isz + c * (4 * c + 2 * hidden) + 4 * (4 * c + 2 * (5 * c + hidden))
-              + 4 * 8 + (0 if pairs == n * n else 4 * n * n))
+              + 4 * 8 + (0 if pairs == n * n else 4 * n * width))
     attn_ops = 2 * 2 * b * heads * pairs * (c // heads)
     ops_ms = 1e3 * (2 * m * c * (4 * c + 2 * hidden) / PEAK_INT8_OPS
                     + attn_ops / (PEAK_INT8_OPS if attn_int8 else PEAK_FLOPS[dt]))
@@ -1205,6 +1246,7 @@ def phase_int8_blocks(device, rng):
     profiles the library yardstick once; returns sums over one expert's 12
     Blocks per (dtype, attn_int8)."""
     totals, yardsticks = {}, []
+    print_ptxas("svtr_block_int8")
     for dt in (torch.float32, torch.bfloat16):
         for attn_int8 in (False, True):
             tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
@@ -1223,6 +1265,7 @@ def phase_int8_blocks(device, rng):
                     if not torch.equal(out_k, again):
                         raise RuntimeError(f"int8 {name}: two kernel launches differ")
                     ms = cuda_ms(lambda: blk(x), 5)
+                    print_int8_launches(lambda: blk(x))
                     blk.plain = True
                     out_p = blk(x)
                     plain_ms = cuda_ms(lambda: blk(x), 3)
@@ -1234,14 +1277,18 @@ def phase_int8_blocks(device, rng):
                     if dt == torch.bfloat16 and not attn_int8:
                         yardsticks.append(yardstick)
                 pairs = n * n if blk.mask is None else int((blk.mask == 0).sum())
+                plan = svtr_block._Plan(n, blk.mask, blk.band, device)
                 bytes_ms, ops_ms = int8_block_bound_ms(BATCH, n, c, heads, 4 * c, dt, pairs,
-                                                       attn_int8)
+                                                       attn_int8, plan.width)
                 bound = max(bytes_ms, ops_ms)
                 err = check_int8(f"int8 {name} {str(dt)[6:]} attn_int8={attn_int8} "
-                                 f"[{BATCH},{n},{c}]", out_k, out_p, out_c, dt)
+                                 f"[{BATCH},{n},{c}] qb {plan.qb} width {plan.width}",
+                                 out_k, out_p, out_c, dt)
                 print(f"    ms {ms:.3f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.3f}  "
                       f"bound_ms {bound:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}, "
-                      f"{bound / ms:.1%} of bound); two launches bitwise equal")
+                      f"{bound / ms:.1%} of bound); two launches bitwise equal; "
+                      + _block_plan_text(svtr_block._int8_kernel_plan(
+                          dt, attn_int8, n, c, heads, 4 * c, plan.qb, plan.width)))
                 for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                                  ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
                     tot[key] += count * val

@@ -260,9 +260,11 @@ class Block(nn.Module):
         if self.quant == "calib" or self.score_max is not None:
             return self._composed(x, train=False)
         if self.quant == "int8":
-            fn = fused_block_int8_reference if self.plain else fused_block_int8
-            return fn(x, self.int8_weights, self.mask, self.num_heads, self.scale,
-                      attn_int8=self.attn_int8, gelu_degree=self.gelu_degree)
+            args = (x, self.int8_weights, self.mask, self.num_heads, self.scale,
+                    self.attn_int8, self.gelu_degree)
+            if self.plain:
+                return fused_block_int8_reference(*args)
+            return fused_block_int8(*args, band=self.band)
         params = {name: getattr(self, name) for name in PARAM_KEYS}
         if self.plain:
             return fused_block_reference(x, params, self.mask, self.num_heads, self.scale,

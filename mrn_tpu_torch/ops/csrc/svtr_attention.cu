@@ -50,8 +50,9 @@ int svtr_attention_forward(int dtype, const void* q, const void* k, const void* 
 #define ATTN_ARGS(T)                                                                        \
   static_cast<const T*>(q), D, static_cast<const T*>(k), static_cast<const T*>(v), D,      \
       static_cast<T*>(out), D, mask, starts, BH, 1, N, D, qb, width, s
-  if (dtype == 0) return (int)attention_tc<float, kMaxSubEarly>(ATTN_ARGS(float));
-  if (dtype == 1) return (int)attention_tc<__nv_bfloat16, kMaxSubEarly>(ATTN_ARGS(__nv_bfloat16));
+  if (dtype == 0) return (int)attention_tc<float, kMaxSubEarly, true>(ATTN_ARGS(float));
+  if (dtype == 1)
+    return (int)attention_tc<__nv_bfloat16, kMaxSubEarly, true>(ATTN_ARGS(__nv_bfloat16));
 #undef ATTN_ARGS
   return (int)cudaErrorInvalidValue;
 }

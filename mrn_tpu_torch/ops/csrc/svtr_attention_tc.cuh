@@ -1,10 +1,11 @@
-// Tile attention for Hopper (sm_90a), shared by the three sources whose
+// Tile attention for Hopper (sm_90a), shared by the four sources whose
 // Pallas kernels attend: svtr_attention.cu (the composed training path's
-// full and banded forwards, rows 1-2 of the kernel table), svtr_block.cu
-// (the inference Block, row 4) and svtr_train_block.cu (the training Block
+// full and banded forwards, rows 1-2 of the kernel table), svtr_block_int8.cu
+// (the w8a8 inference Block's float attention, row 3), svtr_block.cu (the
+// inference Block, row 4) and svtr_train_block.cu (the training Block
 // forward, row 5).  The softmax form is a template parameter, with the names
 // of svtr_common.cuh:
-//   kMaxSubEarly (rows 1-2): p = exp(s - max) / sum, correctly rounded
+//   kMaxSubEarly (rows 1-3): p = exp(s - max) / sum, correctly rounded
 //     (Markstein, see normalise), rounded to T before PV;
 //   kClampExp (row 4): p = round_T(exp(min(s, 60))), no row max; the row sum
 //     over the rounded p; o * 1 / (sum + 1e-30) after PV;
@@ -15,11 +16,12 @@
 //
 // Rows are strided: image b, head h, token r reads q at q[(b N + r) q_ld +
 // h D], k and v at [(b N + r) kv_ld + h D] and writes out[(b N + r) out_ld +
-// h D] (row 4: q, k, v inside qkv [B, N, 3C]; row 5: q from q_scaled [B, N,
-// C]; out [B, N, C]).  Rows 1-2 read packed [BH, N, D] (heads 1, every
-// stride D), a layout the kMaxSubEarly form takes at compile time: runtime
-// strides there had cost 6-10% in bf16 (PERF.md, section 6).  Every row
-// starts 16-byte aligned (the C side refuses otherwise).
+// h D] (rows 3-4: q, k, v inside qkv [B, N, 3C]; row 5: q from q_scaled [B,
+// N, C]; out [B, N, C]).  Rows 1-2 read packed [BH, N, D] (heads 1, every
+// stride D), a layout they take at compile time (PACKED): runtime strides
+// there had cost 6-10% in bf16 (PERF.md, section 6).  The output is in T,
+// or float32 for row 3 (O).  Every row starts 16-byte aligned (the C side
+// refuses otherwise).
 //
 // Design.  One block of 4 warps per (image, head, span of up to 128 query
 // rows); a span never straddles two band query blocks (it is the block's qb
@@ -119,14 +121,15 @@ void export_plan(const Plan& p, int* out) {
 }
 
 // The kernels' arguments: row r of image b, head h as in the header note;
-// mask [N, width] float32 or NULL; starts int32 [N / qb] or NULL (one window
-// [0, width) for every query); span from the plan.
-template <typename T>
+// out in O (T, or float32 for row 3); mask [N, width] float32 or NULL;
+// starts int32 [N / qb] or NULL (one window [0, width) for every query);
+// span from the plan.
+template <typename T, typename O = T>
 struct AttnArgs {
   const T* q;
   const T* k;
   const T* v;
-  T* out;
+  O* out;
   const float* mask;
   const int* starts;
   int heads, N, qb, width, span;
@@ -392,9 +395,10 @@ __device__ __forceinline__ void tile_pv(float (&o)[D / 8][4], const float (&p)[N
 }
 
 // out rows r0 + g, r0 + g + 8 (of the span's valid rows; row stride ld),
-// head dims 8dn + 2t, times the row's r[h] when SCALE (the late forms)
-template <typename T, int D, bool SCALE>
-__device__ __forceinline__ void store_tile(T* op, int ld,
+// head dims 8dn + 2t, times the row's r[h] when SCALE (the late forms), in
+// the output type O
+template <typename T, typename O, int D, bool SCALE>
+__device__ __forceinline__ void store_tile(O* op, int ld,
                                            const float (&o)[Layout<T, D>::DP / 8][4],
                                            const float (&r)[2], int r0, int rows) {
   const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
@@ -411,8 +415,8 @@ __device__ __forceinline__ void store_tile(T* op, int ld,
         v0 *= r[h];
         v1 *= r[h];
       }
-      T* dst = op + (size_t)row * ld + d;
-      if constexpr (Layout<T, D>::kBf16)
+      O* dst = op + (size_t)row * ld + d;
+      if constexpr (std::is_same<O, __nv_bfloat16>::value)
         *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
       else
         *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
@@ -421,26 +425,24 @@ __device__ __forceinline__ void store_tile(T* op, int ld,
 }
 
 // ----------------------------------------------------------------- kernels
-// Row strides known at compile time: the kMaxSubEarly form (rows 1-2)
-// always reads packed [BH, N, D] rows (heads 1, every stride D), which
-// keeps its address arithmetic constant; the late forms read strided rows.
-template <int SOFTMAX>
-__host__ __device__ constexpr bool packed_rows() { return SOFTMAX == kMaxSubEarly; }
+// PACKED: row strides known at compile time.  Rows 1-2 read packed [BH, N,
+// D] rows (heads 1, every stride D), which keeps their address arithmetic
+// constant; rows 3-5 read strided rows of qkv.
 
 // The block's span of query rows and its key window (both kernels): grid
 // batch * heads * ceil(N / span), spans fastest.  Stages the span's queries
 // (zero-padded to 16-row tiles) without waiting for them.
-template <typename T, int D, bool PACKED>
+template <typename T, typename O, int D, bool PACKED>
 struct Span {
   int rows;          // valid query rows
   const T* kp;       // the window's first key and value rows
   const T* vp;
   const float* mrow; // the mask row of the span's first query, or NULL
-  T* op;             // the span's first output row
+  O* op;             // the span's first output row
 
   __host__ __device__ static constexpr int ld(int runtime) { return PACKED ? D : runtime; }
 
-  __device__ __forceinline__ Span(const AttnArgs<T>& a, T* Qs) {
+  __device__ __forceinline__ Span(const AttnArgs<T, O>& a, T* Qs) {
     const int spans = (a.N + a.span - 1) / a.span;
     const int bh = blockIdx.x / spans, q0 = (blockIdx.x % spans) * a.span;
     const int b = PACKED ? bh : bh / a.heads, h = PACKED ? 0 : bh % a.heads;
@@ -458,15 +460,15 @@ struct Span {
 
 // A window of exactly 8*NT keys (width == 8*NT), whose scores a warp holds
 // in registers: K and V staged once, every key loop bound a constant.
-template <typename T, int D, int NT, int SOFTMAX>
-__global__ void __launch_bounds__(kTcThreads) attention_tc_kernel(const AttnArgs<T> a) {
+template <typename T, int D, int NT, int SOFTMAX, bool PACKED, typename O>
+__global__ void __launch_bounds__(kTcThreads) attention_tc_kernel(const AttnArgs<T, O> a) {
   using L = Layout<T, D>;
   constexpr int kKeys = 8 * NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* Ks = Qs + round_up(a.span, 16) * L::P;
   T* Vs = Ks + kKeys * L::P;
-  using S = Span<T, D, packed_rows<SOFTMAX>()>;
+  using S = Span<T, O, D, PACKED>;
   const S sp(a, Qs);
   const int warp = threadIdx.x / 32;
 
@@ -493,7 +495,7 @@ __global__ void __launch_bounds__(kTcThreads) attention_tc_kernel(const AttnArgs
     if (r0 < sp.rows) {
       float o[L::DP / 8][4] = {};
       tile_pv<D, NT>(o, s, Vs);
-      store_tile<T, D, SOFTMAX != kMaxSubEarly>(sp.op, S::ld(a.out_ld), o, r, r0, sp.rows);
+      store_tile<T, O, D, SOFTMAX != kMaxSubEarly>(sp.op, S::ld(a.out_ld), o, r, r0, sp.rows);
     }
   }
 }
@@ -502,8 +504,9 @@ __global__ void __launch_bounds__(kTcThreads) attention_tc_kernel(const AttnArgs
 // over 256-key segments, recomputing the scores.  Pass roles: 0 the row
 // max, 1 the row sum (kMaxSubEarly), 2 PV (with the row sum of the rounded
 // p in the late forms).
-template <typename T, int D, int SOFTMAX>
-__global__ void __launch_bounds__(kTcThreads) attention_tc_segments_kernel(const AttnArgs<T> a) {
+template <typename T, int D, int SOFTMAX, bool PACKED, typename O>
+__global__ void __launch_bounds__(kTcThreads)
+attention_tc_segments_kernel(const AttnArgs<T, O> a) {
   using L = Layout<T, D>;
   constexpr int NT = 32, kKeys = 8 * NT;
   constexpr int kPasses = segment_passes(SOFTMAX);
@@ -511,7 +514,7 @@ __global__ void __launch_bounds__(kTcThreads) attention_tc_segments_kernel(const
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* Ks = Qs + round_up(a.span, 16) * L::P;
   T* Vs = Ks + kKeys * L::P;
-  using S = Span<T, D, packed_rows<SOFTMAX>()>;
+  using S = Span<T, O, D, PACKED>;
   const S sp(a, Qs);
   const int warp = threadIdx.x / 32;
   const int segments = (a.width + kKeys - 1) / kKeys;
@@ -562,18 +565,19 @@ __global__ void __launch_bounds__(kTcThreads) attention_tc_segments_kernel(const
       r[1] = 1.0f / (quad_sum(l[1]) + 1e-30f);
     }
     if (r0 < sp.rows)
-      store_tile<T, D, SOFTMAX != kMaxSubEarly>(sp.op, S::ld(a.out_ld), o, r, r0, sp.rows);
+      store_tile<T, O, D, SOFTMAX != kMaxSubEarly>(sp.op, S::ld(a.out_ld), o, r, r0, sp.rows);
   }
 }
 
-template <typename T>
-using AttnKernel = void (*)(AttnArgs<T>);
+template <typename T, typename O>
+using AttnKernel = void (*)(AttnArgs<T, O>);
 
-template <typename T, int D, int SOFTMAX>
-AttnKernel<T> pick_attention(const Plan& plan, int width) {
-  if (!plan.one_pass_kernel(width)) return &attention_tc_segments_kernel<T, D, SOFTMAX>;
-  return plan.key_tiles == 16 ? &attention_tc_kernel<T, D, 16, SOFTMAX>
-                              : &attention_tc_kernel<T, D, 32, SOFTMAX>;
+template <typename T, int D, int SOFTMAX, bool PACKED, typename O>
+AttnKernel<T, O> pick_attention(const Plan& plan, int width) {
+  if (!plan.one_pass_kernel(width))
+    return &attention_tc_segments_kernel<T, D, SOFTMAX, PACKED, O>;
+  return plan.key_tiles == 16 ? &attention_tc_kernel<T, D, 16, SOFTMAX, PACKED, O>
+                              : &attention_tc_kernel<T, D, 32, SOFTMAX, PACKED, O>;
 }
 
 bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -581,11 +585,12 @@ bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr
 // The tile attention over `batch` images of `heads` heads (head dim D in {8,
 // 16, 32, 64}): full (starts NULL, qb == width == N, mask [N, N] or NULL)
 // or banded (starts int32 [N / qb] on the device, qb a multiple of QT, N a
-// multiple of qb, mask [N, width]).  Every pointer and row stride 16-byte
+// multiple of qb, mask [N, width]).  PACKED: heads 1 and every row stride
+// D.  The output in O (T, or float).  Every pointer and row stride 16-byte
 // aligned.  Returns the launch's CUDA error, or cudaErrorInvalidValue /
 // cudaErrorMisalignedAddress for arguments it does not take.
-template <typename T, int SOFTMAX>
-cudaError_t attention_tc(const T* q, int q_ld, const T* k, const T* v, int kv_ld, T* out,
+template <typename T, int SOFTMAX, bool PACKED, typename O = T>
+cudaError_t attention_tc(const T* q, int q_ld, const T* k, const T* v, int kv_ld, O* out,
                          int out_ld, const float* mask, const int* starts, int batch,
                          int heads, int N, int D, int qb, int width, cudaStream_t stream) {
   if (batch <= 0 || heads <= 0 || N <= 0 || width <= 0 || qb <= 0) return cudaErrorInvalidValue;
@@ -593,26 +598,26 @@ cudaError_t attention_tc(const T* q, int q_ld, const T* k, const T* v, int kv_ld
   if (starts != nullptr && (qb % QT != 0 || N % qb != 0 || width > N))
     return cudaErrorInvalidValue;
   const int row_bytes = (int)sizeof(T);
-  if (packed_rows<SOFTMAX>() && (heads != 1 || q_ld != D || kv_ld != D || out_ld != D))
+  if (PACKED && (heads != 1 || q_ld != D || kv_ld != D || out_ld != D))
     return cudaErrorInvalidValue;
   if (!(aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) && aligned16(mask)) ||
-      (q_ld * row_bytes) % 16 || (kv_ld * row_bytes) % 16 || (out_ld * row_bytes) % 16)
+      (q_ld * row_bytes) % 16 || (kv_ld * row_bytes) % 16 || (out_ld * (int)sizeof(O)) % 16)
     return cudaErrorMisalignedAddress;
   const Plan plan = make_plan(SOFTMAX, std::is_same<T, float>::value ? 0 : 1, N, D, qb, width);
   if ((size_t)plan.smem > kMaxSmem) return cudaErrorInvalidValue;
-  AttnKernel<T> kernel;
+  AttnKernel<T, O> kernel;
   switch (D) {
-    case 8: kernel = pick_attention<T, 8, SOFTMAX>(plan, width); break;
-    case 16: kernel = pick_attention<T, 16, SOFTMAX>(plan, width); break;
-    case 32: kernel = pick_attention<T, 32, SOFTMAX>(plan, width); break;
-    case 64: kernel = pick_attention<T, 64, SOFTMAX>(plan, width); break;
+    case 8: kernel = pick_attention<T, 8, SOFTMAX, PACKED, O>(plan, width); break;
+    case 16: kernel = pick_attention<T, 16, SOFTMAX, PACKED, O>(plan, width); break;
+    case 32: kernel = pick_attention<T, 32, SOFTMAX, PACKED, O>(plan, width); break;
+    case 64: kernel = pick_attention<T, 64, SOFTMAX, PACKED, O>(plan, width); break;
     default: return cudaErrorInvalidValue;
   }
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return err;
-  const AttnArgs<T> a{q, k, v, out, mask, starts, heads, N, qb, width, plan.span,
-                      q_ld, kv_ld, out_ld};
+  const AttnArgs<T, O> a{q, k, v, out, mask, starts, heads, N, qb, width, plan.span,
+                         q_ld, kv_ld, out_ld};
   const unsigned grid = (unsigned)batch * heads * ((N + plan.span - 1) / plan.span);
   kernel<<<grid, kTcThreads, plan.smem, stream>>>(a);
   return cudaGetLastError();

@@ -124,7 +124,7 @@ int block_forward(const T* x, const T* qkv_w, const float* qkv_b, const T* proj_
                   int width, int gelu_degree, cudaStream_t s) {
   const int M = B * N;
   TRY(proj(LayerNormRows<T>{x, C, M}, qkv_w, QkvOut<T>{qkv_b, qkv, 3 * C}, M, 3 * C, C, s));
-  TRY((attention_tc<T, kClampExp>(qkv, 3 * C, qkv + C, qkv + 2 * C, 3 * C, attn, C, mask,
+  TRY((attention_tc<T, kClampExp, false>(qkv, 3 * C, qkv + C, qkv + 2 * C, 3 * C, attn, C, mask,
                                   starts, B, heads, N, C / heads, qb, width, s)));
   TRY(proj(Mat<T>{attn, C}, proj_w, ProjOut<T>{proj_b, x, x1, C}, M, C, C, s));
   TRY(proj(LayerNormRows<float>{x1, C, M}, fc1_w, Fc1Out<T>{fc1_b, g, hidden, gelu_degree}, M,

@@ -1,6 +1,7 @@
 // Device code shared by the port's CUDA sources (svtr_block.cu,
-// svtr_block_int8.cu, svtr_attention.cu, svtr_train_block.cu).  Each source is its own shared
-// library, so everything here sits in an anonymous namespace.
+// svtr_block_int8.cu, svtr_attention.cu, svtr_train_block.cu).  Each source
+// is its own shared library, so everything here sits in an anonymous
+// namespace.
 //
 //   - float <-> working type T (float or bfloat16) and rounding to T;
 //   - warp reductions;
@@ -10,11 +11,8 @@
 //   - Mat, a row-major matrix as the loader of the projection and
 //     weight-gradient main loops (svtr_gemm_tc.cuh, svtr_wgrad_tc.cuh);
 //   - the names of the three softmax forms of the Pallas kernels (the tile
-//     attention of svtr_attention_tc.cuh takes each);
-//   - the w8a8 Block's float attention (row 3 of the kernel table): one
-//     (image, head, 32-query tile) per block with the [32, N] float32 score
-//     tile in shared memory and 64-key K/V chunks, max-subtract softmax
-//     normalised before PV, float32 output.
+//     attention of svtr_attention_tc.cuh takes each) and the granule of a
+//     band's query blocks.
 
 #pragma once
 
@@ -108,9 +106,7 @@ struct Mat {  // row-major [rows, ld]: a loader of svtr_gemm_tc.cuh and svtr_wgr
 };
 
 // ----------------------------------------------------------------- attention
-constexpr int QT = 32;   // query rows per block (wrappers: _QUERY_TILE)
-constexpr int KC = 64;   // keys per shared-memory chunk
-constexpr int kAttnThreads = 256;
+constexpr int QT = 32;   // band query blocks are a multiple of it (wrappers: _QUERY_TILE)
 
 // The softmax forms of the Pallas kernels (svtr_attention_tc.cuh):
 //   kClampExp:   p = round_T(exp(min(s, 60))), no max (inference Block),
@@ -118,145 +114,9 @@ constexpr int kAttnThreads = 256;
 //   kMaxSubLate: p = round_T(exp(s - max)) (training Block), normalised
 //                after PV by the row sum of the rounded p;
 //   kMaxSubEarly: p = round_T(exp(s - max) / sum) before PV (the training
-//                attention forwards of the composed path).
+//                attention forwards of the composed path, and the w8a8
+//                Block's float attention).
 enum Softmax { kClampExp = 0, kMaxSubLate = 1, kMaxSubEarly = 2 };
 constexpr float kScoreClamp = 60.0f;
-
-// The w8a8 Block's float attention (kMaxSubEarly, float32 output).
-size_t attention_smem_bytes(int d, int n) {
-  return sizeof(float) * ((size_t)QT * d + (size_t)KC * (d + 1) + (size_t)QT * n);
-}
-
-// grid B * heads * ceil(N / QT), query tiles fastest (the tiles of one head
-// share its keys in L2).  Row r of image b, head h: q at q[(b N +
-// r) q_ld + h D], k / v at k / v[(b N + r) kv_ld + h D], out at out[(b N +
-// r) out_ld + h D] in float32; q pre-scaled.  mask [N, N] float32 or NULL.
-template <typename T, int D>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_kernel(const T* __restrict__ q, int q_ld, const T* __restrict__ k,
-                 const T* __restrict__ v, int kv_ld, float* __restrict__ out, int out_ld,
-                 const float* __restrict__ mask, int heads, int N) {
-  const int width = N;
-  static_assert(kAttnThreads % D == 0 && QT * D % kAttnThreads == 0, "tile");
-  constexpr int kRowsPerPass = kAttnThreads / D;
-  constexpr int kPasses = QT / kRowsPerPass;
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [QT][D]
-  float* KVs = Qs + QT * D;              // [KC][D + 1]
-  float* Ps = KVs + KC * (D + 1);        // [QT][width]
-
-  const int tiles = (N + QT - 1) / QT, bh = blockIdx.x / tiles;
-  const int b = bh / heads, h = bh % heads, q0 = (blockIdx.x % tiles) * QT;
-  const int rows = min(QT, N - q0);
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)b * N;
-  const T* kp = k + row0 * kv_ld + h * D;
-  const T* vp = v + row0 * kv_ld + h * D;
-
-  for (int i = tid; i < QT * D; i += kAttnThreads) {
-    const int r = i / D, d = i % D;
-    Qs[i] = r < rows ? to_f(q[(row0 + q0 + r) * q_ld + h * D + d]) : 0.f;
-  }
-
-  // scores for all N keys, float32 (+ mask)
-  for (int kc = 0; kc < width; kc += KC) {
-    const int kn = min(KC, width - kc);
-    __syncthreads();
-    for (int i = tid; i < KC * D; i += kAttnThreads) {
-      const int j = i / D, d = i % D;
-      KVs[j * (D + 1) + d] = j < kn ? to_f(kp[(size_t)(kc + j) * kv_ld + d]) : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < QT * KC; i += kAttnThreads) {
-      const int r = i / KC, j = i % KC;
-      if (r >= rows || j >= kn) continue;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s += Qs[r * D + d] * KVs[j * (D + 1) + d];
-      if (mask) s += mask[(size_t)(q0 + r) * width + kc + j];
-      Ps[r * width + kc + j] = s;
-    }
-  }
-  __syncthreads();
-
-  // one warp per row: max-subtract, exp, row sum, p / sum rounded to T
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < rows; r += kAttnThreads / 32) {
-      float* prow = Ps + r * width;
-      float m = -INFINITY;
-      for (int j = lane; j < width; j += 32) m = fmaxf(m, prow[j]);
-      m = warp_max(m);
-      float s = 0.f;
-      for (int j = lane; j < width; j += 32) {
-        const float p = expf(prow[j] - m);
-        prow[j] = p;
-        s += p;
-      }
-      s = warp_sum(s);
-      for (int j = lane; j < width; j += 32) prow[j] = round_to<T>(prow[j] / s);
-    }
-  }
-
-  // PV, float32 accumulation
-  const int d = tid % D, r0 = tid / D;
-  float acc[kPasses] = {};
-  for (int kc = 0; kc < width; kc += KC) {
-    const int kn = min(KC, width - kc);
-    __syncthreads();
-    for (int i = tid; i < KC * D; i += kAttnThreads) {
-      const int j = i / D, dd = i % D;
-      KVs[j * (D + 1) + dd] = j < kn ? to_f(vp[(size_t)(kc + j) * kv_ld + dd]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < kPasses; ++p) {
-      const int r = r0 + p * kRowsPerPass;
-      if (r >= rows) continue;
-      const float* prow = Ps + r * width + kc;
-      for (int j = 0; j < kn; ++j) acc[p] += prow[j] * KVs[j * (D + 1) + d];
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < kPasses; ++p) {
-    const int r = r0 + p * kRowsPerPass;
-    if (r >= rows) continue;
-    out[(row0 + q0 + r) * out_ld + h * D + d] = acc[p];
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch_attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld,
-                             float* out, int out_ld, const float* mask, int B, int heads, int N,
-                             cudaStream_t stream) {
-  const size_t smem = attention_smem_bytes(D, N);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)B * heads * ((N + QT - 1) / QT);
-  attention_kernel<T, D><<<grid, kAttnThreads, smem, stream>>>(q, q_ld, k, v, kv_ld, out,
-                                                               out_ld, mask, heads, N);
-  return cudaGetLastError();
-}
-
-// attention_kernel for head dim D in {8, 16, 32, 64}
-template <typename T>
-cudaError_t attention(const T* q, int q_ld, const T* k, const T* v, int kv_ld, float* out,
-                      int out_ld, const float* mask, int B, int heads, int N, int D,
-                      cudaStream_t s) {
-#define ATTN_CASE(DD)                                                                   \
-  case DD:                                                                              \
-    return launch_attention<T, DD>(q, q_ld, k, v, kv_ld, out, out_ld, mask, B, heads, N, s)
-  switch (D) {
-    ATTN_CASE(8);
-    ATTN_CASE(16);
-    ATTN_CASE(32);
-    ATTN_CASE(64);
-    default: return cudaErrorInvalidValue;
-  }
-#undef ATTN_CASE
-}
 
 }  // namespace

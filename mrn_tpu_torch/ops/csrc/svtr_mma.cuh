@@ -1,9 +1,10 @@
 // PTX helpers for Hopper (sm_90a) shared by the port's tensor-core kernels
-// (svtr_attention_tc.cuh, svtr_gemm_tc.cuh): 16-byte cp.async copies into
-// shared memory, ldmatrix (plain and transposed), the bf16 mma.sync
-// m16n8k16 product with float32 accumulation, and packing two floats into a
-// bf16 pair.  Everything sits in an anonymous namespace, as in
-// svtr_common.cuh.
+// (svtr_attention_tc.cuh, svtr_gemm_tc.cuh, svtr_block_int8.cu): 16- and
+// 8-byte cp.async copies into shared memory, ldmatrix (plain and
+// transposed), the bf16 mma.sync m16n8k16 product with float32
+// accumulation, the int8 mma.sync m16n8k32 product with int32
+// accumulation, and packing two floats into a bf16 pair.  Everything sits
+// in an anonymous namespace, as in svtr_common.cuh.
 
 #pragma once
 
@@ -20,6 +21,13 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes global -> shared (both 8-byte aligned), or 8 zero bytes when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 
@@ -56,6 +64,27 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b on the int8 tensor cores: a 16x32 s8 (row), b 32x8 s8 (col), c
+// s32.  The products and sums are exact (no saturation is needed: the
+// callers' sums stay far below 2^31).  Fragments, with lane = 4g + t: a[0]
+// row g, k 4t..4t+3 (a byte each, k low to high), a[1] row g+8, a[2] and
+// a[3] the same at k + 16; b0 column g, k 4t..4t+3, b1 at k + 16; c as the
+// bf16 product's accumulator (rows g, g+8; columns 2t, 2t+1).  ldmatrix of
+// 8 rows of 16 bytes gives exactly these fragments from k-contiguous rows.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four int8 values (the low bytes of a..d) in one word, a in the low byte
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | (uint32_t)(b & 0xff) << 8 | (uint32_t)(c & 0xff) << 16 |
+         (uint32_t)(d & 0xff) << 24;
 }
 
 // (lo, hi) rounded to bf16, lo in the low half

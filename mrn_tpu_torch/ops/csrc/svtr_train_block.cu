@@ -541,7 +541,7 @@ int train_forward(const T* x, const float* n1s, const float* n1b, const T* wqkv,
   const int M = B * N;
   TRY(proj(LayerNormRows<T>{x, C, M, n1s, n1b}, wqkv, QkvEpi<T>{bqkv, qkv, q_scaled, C, scale}, M,
            3 * C, C, s));
-  TRY((attention_tc<T, kMaxSubLate>(q_scaled, C, qkv + C, qkv + 2 * C, 3 * C, attn, C, mask,
+  TRY((attention_tc<T, kMaxSubLate, false>(q_scaled, C, qkv + C, qkv + 2 * C, 3 * C, attn, C, mask,
                                     starts, B, heads, N, C / heads, qb, width, s)));
   TRY(proj(Mat<T>{attn, C}, wp, ProjEpi<T>{bp, x, dma, y, y32, C, N}, M, C, C, s));
   TRY(proj(LayerNormRows<float>{y32, C, M, n2s, n2b}, w1, Fc1Epi<T>{b1, h1, gact, hidden}, M,

@@ -33,9 +33,11 @@ their affine (no folding), each projection quantizes its input per tensor
 per-channel int8 kernel, then ``acc * deq + bias`` in float32; the attention
 takes the max-subtract softmax normalised before PV over the full mask, with
 operands in x's dtype (or int8 with ``attn_int8``) and a float32 output;
-the residual stream stays float32.  Its scales, dequant rows and float32
-rows come from ``prepare_int8``, once per set of weights.  Its kernel is ``csrc/svtr_block_int8.cu``,
-with the same CPU / CUDA rule.
+the residual stream stays float32.  Its scales, dequant rows, float32 rows
+and k-contiguous kernel copies come from ``prepare_int8``, once per set of
+weights.  Its kernel is ``csrc/svtr_block_int8.cu``, with the same CPU /
+CUDA rule; the kernel bands Local blocks with the same plan, which drops
+only keys whose softmax weight is exactly 0.
 """
 
 from __future__ import annotations
@@ -401,11 +403,12 @@ _PROJ_NAMES = ("qkv", "proj", "fc1", "fc2")
 
 class Int8Weights(NamedTuple):
     """A w8a8 Block's operands as its kernel takes them (``prepare_int8``)."""
-    norms: Tuple[torch.Tensor, ...]    # LN1 scale, bias, LN2 scale, bias: float32
-    kernels: Tuple[torch.Tensor, ...]  # qkv, proj, fc1, fc2: int8 [in, out]
-    biases: Tuple[torch.Tensor, ...]   # float32
-    deqs: Tuple[torch.Tensor, ...]     # float32 dequant rows s * w_scale[out]
-    inv: torch.Tensor                  # float32 [8]: 0-3 projections, 4-6 q, k, v
+    norms: Tuple[torch.Tensor, ...]      # LN1 scale, bias, LN2 scale, bias: float32
+    kernels: Tuple[torch.Tensor, ...]    # qkv, proj, fc1, fc2: int8 [in, out]
+    biases: Tuple[torch.Tensor, ...]     # float32
+    deqs: Tuple[torch.Tensor, ...]       # float32 dequant rows s * w_scale[out]
+    inv: torch.Tensor                    # float32 [8]: 0-3 projections, 4-6 q, k, v
+    kernels_t: Tuple[torch.Tensor, ...]  # the kernels transposed: int8 [out, in], contiguous
 
 
 def prepare_int8(params: Dict[str, torch.Tensor],
@@ -414,10 +417,11 @@ def prepare_int8(params: Dict[str, torch.Tensor],
     set of weights: per projection the activation scale ``s = max(amax,
     1e-12) / 127``, its multiplier ``1 / s`` and the dequant row ``s *
     w_scale[out]``; the q, k, v multipliers for the int8-attention mode; LN
-    rows and biases as float32 copies of their values (in x's dtype).
-    ``params``: the Block's leaves under the JAX names, the four projection
-    kernels int8 ``[in, out]``; ``quant``: its ``act_amax_*`` and
-    ``w_scale_*``."""
+    rows and biases as float32 copies of their values (in x's dtype); each
+    int8 kernel also transposed into a contiguous ``[out, in]`` copy, whose
+    rows the CUDA kernel streams ``in`` contiguous.  ``params``: the Block's
+    leaves under the JAX names, the four projection kernels int8 ``[in,
+    out]``; ``quant``: its ``act_amax_*`` and ``w_scale_*``."""
     f32 = torch.float32
     zero = torch.zeros((), dtype=f32, device=params["qkv_bias"].device)
     with torch.no_grad():
@@ -434,7 +438,8 @@ def prepare_int8(params: Dict[str, torch.Tensor],
                       for k in ("norm1_scale", "norm1_bias", "norm2_scale", "norm2_bias"))
         kernels = tuple(params[f"{n}_kernel"].contiguous() for n in _PROJ_NAMES)
         biases = tuple(params[f"{n}_bias"].to(f32).contiguous() for n in _PROJ_NAMES)
-        return Int8Weights(norms, kernels, biases, tuple(deqs), torch.stack(inv))
+        return Int8Weights(norms, kernels, biases, tuple(deqs), torch.stack(inv),
+                           tuple(k.t().contiguous() for k in kernels))
 
 
 def _q8(h: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
@@ -451,7 +456,7 @@ def _block_int8_plain(x, w: Int8Weights, mask, num_heads: int, scale: float,
     max-subtract softmax normalised before PV, float32 attention output."""
     from mrn_tpu_torch.ops.int8 import int_matmul
 
-    (n1s, n1b, n2s, n2b), kernels, biases, deqs, inv = w
+    (n1s, n1b, n2s, n2b), kernels, biases, deqs, inv, _ = w
     dt = x.dtype
     b, n, c = x.shape
     d = c // num_heads
@@ -487,21 +492,35 @@ def _lib_int8():
 
     lib = _build.load("svtr_block_int8")
     p, i = ctypes.c_void_p, ctypes.c_int
-    # dtype attn_int8; x, 4 norms, 4 x (kernel, bias, deq), inv, mask, 5
-    # buffers; B N C heads hidden gelu_degree; scale; stream
-    lib.svtr_block_int8_forward.argtypes = [i, i] + [p] * 24 + [i] * 6 + [ctypes.c_float, p]
+    # dtype attn_int8; x, 4 norms, 4 x (kernel^T, bias, deq), inv, mask,
+    # starts, 5 buffers; B N C heads hidden qb width gelu_degree; scale; stream
+    lib.svtr_block_int8_forward.argtypes = [i, i] + [p] * 25 + [i] * 8 + [ctypes.c_float, p]
     lib.svtr_block_int8_forward.restype = i
+    # dtype attn_int8 N C heads hidden qb width; int32 out[9]
+    lib.svtr_block_int8_plan.argtypes = [i] * 8 + [p]
+    lib.svtr_block_int8_plan.restype = i
     lib.svtr_block_int8_error_string.argtypes = [i]
     lib.svtr_block_int8_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _block_int8_cuda(x, w: Int8Weights, mask, num_heads: int, scale: float,
+def _int8_kernel_plan(dtype, attn_int8, n, c, heads, hidden, qb, width):
+    """The built library's launch plan for a ``[*, n, c]`` w8a8 Block: its
+    attention's (query rows per block, key tiles held in registers, key
+    segments, passes over the keys, dynamic shared bytes), then the output
+    columns per 128-row block of the qkv, proj, fc1 and fc2 projections."""
+    out = (ctypes.c_int * 9)()
+    _lib_int8().svtr_block_int8_plan(1 if dtype == torch.bfloat16 else 0, int(attn_int8), n,
+                                     c, heads, hidden, qb, width, out)
+    return tuple(out)
+
+
+def _block_int8_cuda(x, w: Int8Weights, plan: _Plan, num_heads: int, scale: float,
                      attn_int8: bool, gelu_degree: int):
     global int8_launches
     from mrn_tpu_torch.ops.int8 import MAX_EXACT_K
 
-    norms, kernels, biases, deqs, inv = w
+    norms, kernels, biases, deqs, inv, kernels_t = w
     b, n, c = x.shape
     d = c // num_heads
     hidden = kernels[2].shape[1]
@@ -509,24 +528,30 @@ def _block_int8_cuda(x, w: Int8Weights, mask, num_heads: int, scale: float,
         raise TypeError(f"svtr_block_int8 kernel takes float32/bfloat16, not {x.dtype}")
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"svtr_block_int8 kernel: head_dim {d} not in {_KERNEL_HEAD_DIMS}")
-    if attn_int8 and n % 4:
-        raise ValueError(f"svtr_block_int8 kernel: int8 attention needs N % 4 == 0, N={n}")
+    if c % 16 or c > 256 or hidden % 16:
+        raise ValueError(f"svtr_block_int8 kernel: dim {c} and hidden {hidden} must be "
+                         "multiples of 16, dim at most 256")
     if hidden > MAX_EXACT_K:
         raise ValueError(f"svtr_block_int8 kernel: hidden {hidden} > {MAX_EXACT_K}")
+    if plan.qb != n and plan.qb % _QUERY_TILE:
+        raise ValueError(f"svtr_block_int8 kernel: band rows {plan.qb} not a "
+                         f"multiple of {_QUERY_TILE}")
     if gelu_degree not in _GELU_COEFS:
         raise ValueError(f"gelu_degree must be 9 or 15, not {gelu_degree}")
-    for w, shape in zip(kernels, ((c, 3 * c), (c, c), (c, hidden), (hidden, c))):
-        if w.dtype != torch.int8 or tuple(w.shape) != shape:
-            raise ValueError(f"svtr_block_int8 kernel: projection kernel {w.dtype} "
-                             f"{tuple(w.shape)}, expected int8 {shape}")
-    for t in (*norms, *kernels, *biases, *deqs, inv, mask):
+    for wt, shape in zip(kernels_t, ((3 * c, c), (c, c), (hidden, c), (c, hidden))):
+        if wt.dtype != torch.int8 or tuple(wt.shape) != shape or not wt.is_contiguous():
+            raise ValueError(f"svtr_block_int8 kernel: transposed projection kernel "
+                             f"{wt.dtype} {tuple(wt.shape)}, expected contiguous int8 {shape}")
+    for t in (*norms, *kernels_t, *biases, *deqs, inv, plan.mask):
         if t is not None and t.device != x.device:
             raise ValueError("svtr_block_int8 kernel: tensors on different devices")
-    if mask is not None and (mask.dtype != torch.float32 or tuple(mask.shape) != (n, n)
-                             or not mask.is_contiguous()):
-        raise ValueError("svtr_block_int8 kernel: the mask must be a contiguous "
-                         "float32 [N, N]")
+    if plan.mask is not None and (plan.mask.dtype != torch.float32 or not plan.mask.is_contiguous()
+                                  or tuple(plan.mask.shape) != (n, plan.width)):
+        raise ValueError(f"svtr_block_int8 kernel: the mask must be a contiguous float32 "
+                         f"[N, {plan.width}]")
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
     dt, dev = x.dtype, x.device
     qkv = torch.empty((b, n, 3 * c), dtype=torch.int8 if attn_int8 else dt, device=dev)
     attn = torch.empty((b, n, c), dtype=torch.float32, device=dev)
@@ -534,14 +559,14 @@ def _block_int8_cuda(x, w: Int8Weights, mask, num_heads: int, scale: float,
     g = torch.empty((b, n, hidden), dtype=torch.int8, device=dev)
     out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    per_proj = [ptr(t) for trio in zip(kernels, biases, deqs) for t in trio]
+    per_proj = [ptr(t) for trio in zip(kernels_t, biases, deqs) for t in trio]
     lib = _lib_int8()
     with torch.cuda.device(dev):
         rc = lib.svtr_block_int8_forward(
             1 if dt == torch.bfloat16 else 0, int(attn_int8), ptr(x),
-            *(ptr(t) for t in norms), *per_proj, ptr(inv), ptr(mask),
-            ptr(qkv), ptr(attn), ptr(x1), ptr(g), ptr(out),
-            b, n, c, num_heads, hidden, gelu_degree, scale,
+            *(ptr(t) for t in norms), *per_proj, ptr(inv), ptr(plan.mask),
+            ptr(plan.starts_dev), ptr(qkv), ptr(attn), ptr(x1), ptr(g), ptr(out),
+            b, n, c, num_heads, hidden, plan.qb, plan.width, gelu_degree, scale,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("svtr_block_int8 kernel launch failed: "
@@ -560,25 +585,31 @@ def _int8_mask(x, mask, num_heads):
 def fused_block_int8_reference(x: torch.Tensor, weights: Int8Weights, mask,
                                num_heads: int, scale: float, attn_int8: bool = False,
                                gelu_degree: int = 9) -> torch.Tensor:
-    """Plain PyTorch version of the w8a8 kernel, on any device.  Same
-    arguments as ``fused_block_int8``."""
+    """Plain PyTorch version of the w8a8 kernel, on any device, over the full
+    mask as the Pallas kernel attends.  The arguments of
+    ``fused_block_int8`` but ``band``."""
     mask = _int8_mask(x, mask, num_heads)
     return _block_int8_plain(x, weights, mask, num_heads, scale, attn_int8, gelu_degree)
 
 
 def fused_block_int8(x: torch.Tensor, weights: Int8Weights, mask, num_heads: int,
-                     scale: float, attn_int8: bool = False,
-                     gelu_degree: int = 9) -> torch.Tensor:
+                     scale: float, attn_int8: bool = False, gelu_degree: int = 9,
+                     band: Optional[tuple] = None) -> torch.Tensor:
     """w8a8 inference Block (``_make_kernel_int8``).  x: [B, N, C] float32 or
     bfloat16; weights: the Block's ``prepare_int8`` operands; mask: the
-    additive ``[N, N]`` mask or None (a Local Block's mask is full here: the
-    int8 path does not band); ``attn_int8`` also runs QK^T and PV int8
-    (``set_attention_int8``).
+    additive ``[N, N]`` mask or None; ``attn_int8`` also runs QK^T and PV
+    int8 (``set_attention_int8``); ``band`` (h, w, hk, wk): geometry of a
+    COLUMN-major Local mask, with which the kernel attends only to each
+    query block's window (``_band_spec``; exact: the keys it skips have p =
+    0).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``csrc/svtr_block_int8.cu``) or raises.  Other devices raise."""
+    A CPU tensor takes the plain version over the full mask; a CUDA tensor
+    launches the kernel (``csrc/svtr_block_int8.cu``) or raises.  Other
+    devices raise."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block_int8: unsupported device {x.device}")
     mask = _int8_mask(x, mask, num_heads)
-    fn = _block_int8_plain if x.device.type == "cpu" else _block_int8_cuda
-    return fn(x, weights, mask, num_heads, scale, attn_int8, gelu_degree)
+    if x.device.type == "cpu":
+        return _block_int8_plain(x, weights, mask, num_heads, scale, attn_int8, gelu_degree)
+    plan = _Plan(x.shape[1], mask, band, x.device)
+    return _block_int8_cuda(x, weights, plan, num_heads, scale, attn_int8, gelu_degree)

@@ -21,6 +21,7 @@ from mrn_tpu.models.svtr import SVTRExtractor as JaxSVTRExtractor
 from mrn_tpu.models.svtr import local_attention_mask_col_major as jax_col_mask
 from mrn_tpu.ops import int8 as jax_int8
 from mrn_tpu.ops import metrics as jax_metrics
+from mrn_tpu.ops.svtr_block import _band_spec as jax_band_spec
 from mrn_tpu.ops.svtr_block import fused_block as jax_fused_block
 from mrn_tpu_torch.bridge import from_flax, quant_tree, to_flax
 from mrn_tpu_torch.config import load_config
@@ -219,6 +220,66 @@ def test_block_int8_weights_follow_load_and_cast(rng):
     assert not torch.equal(w.biases[2], ref.biases[2])
     for got_t, ref_t in zip((*w.kernels, *w.deqs, w.inv), (*ref.kernels, *ref.deqs, ref.inv)):
         torch.testing.assert_close(got_t, ref_t, atol=0, rtol=0)
+
+
+def test_prepare_int8_transposed_kernels_follow_load_and_cast(rng):
+    """``prepare_int8``'s k-contiguous copies, which the CUDA kernel streams,
+    are the int8 kernels transposed; a Block derives them anew on
+    ``load_state_dict`` and on casts, and they enter neither its state dict
+    nor the bridge's trees."""
+    x, v, jq = _calibrated_block(rng, "Local")
+    qv = int8.quantize_variables(dict(v, quant=jq))
+    blk = Block(32, 2, "Local", (4, 8), col_major=True, quant="int8")
+    state = {**_tensors(qv["params"]), **_tensors(qv["quant"])}
+    blk.load_state_dict(state, strict=True)
+
+    def check(expected):
+        kernels_t = blk.int8_weights.kernels_t
+        assert len(kernels_t) == 4
+        for kt, name in zip(kernels_t, ("qkv", "proj", "fc1", "fc2")):
+            assert kt.dtype == torch.int8 and kt.is_contiguous()
+            torch.testing.assert_close(kt, expected[f"{name}_kernel"].t(), atol=0, rtol=0)
+
+    check(state)
+    state = dict(state, fc1_kernel=torch.flip(state["fc1_kernel"], [0]),
+                 qkv_kernel=-state["qkv_kernel"])
+    blk.load_state_dict(state, strict=True)
+    check(state)
+    blk.to(torch.bfloat16)
+    check(state)
+    keys = set(blk.state_dict())
+    assert keys == set(PARAM_KEYS) | set(quant_tree(blk)) and len(keys) == 12 + 11
+    params, _ = to_flax(blk)
+    assert sorted(params) == sorted(PARAM_KEYS)
+    for name in ("qkv", "proj", "fc1", "fc2"):
+        np.testing.assert_array_equal(params[f"{name}_kernel"],
+                                      state[f"{name}_kernel"].numpy())
+
+
+@pytest.mark.parametrize("hw,plan", [((8, 64), (128, 256)), ((4, 64), (64, 128)),
+                                     ((8, 32), (32, 128)), ((4, 128), (128, 256))])
+def test_int8_band_windows_hold_every_visible_key(hw, plan):
+    """The CUDA kernel attends a Local Block's query blocks only to their band
+    windows (``_band_spec``, the JAX package's plan for the float Block),
+    while the Pallas kernel and the plain version attend over the full mask.
+    They compute the same function: in the JAX package's full column-major
+    mask every key visible to a query block lies inside its window, the band
+    mask is the full mask's window, and every key outside carries -inf, so
+    its p = exp(-inf - max) is exactly 0, and so is rint(p * 127).  (8, 64)
+    and (4, 64) are SVTR's Local Blocks (stages 1 and 2)."""
+    full = jax_col_mask(*hw)
+    qb, width, starts, band_mask = svtr_block._band_spec(*hw, 7, 11)
+    jqb, jwidth, jstarts, jband = jax_band_spec(*hw, 7, 11)
+    assert (qb, width) == (jqb, jwidth) == plan
+    assert tuple(starts) == tuple(jstarts) and len(starts) * qb == full.shape[0]
+    np.testing.assert_array_equal(band_mask, np.asarray(jband))
+    for a, st in enumerate(starts):
+        rows = full[a * qb:(a + 1) * qb]
+        assert 0 <= st <= full.shape[1] - width
+        np.testing.assert_array_equal(band_mask[a * qb:(a + 1) * qb], rows[:, st:st + width])
+        outside = np.concatenate([rows[:, :st], rows[:, st + width:]], axis=1)
+        assert np.isneginf(outside).all()
+        assert (rows[:, st:st + width] == 0).any(axis=1).all()
 
 
 def test_quant_block_refuses_train_mode():
