@@ -29,11 +29,13 @@
    three-pass path, and N 256), f32 and bf16, checked the same way;
 6. trains task 5 of the 6-task SVTR-MRN sequence at full width through
    ``MRN.incremental_train`` (5 frozen random experts plus the new one,
-   batch 256 of synthetic crops from a uint8 bank on the card): step 0
-   (the new expert) and step 1 (the router over 6 experts), bf16 then f32,
-   printing each step's loss, time and images/s and counting kernel
-   launches; then, in bf16 and f32, one step-0 step on the kernel path
-   against the same step on the plain versions (loss, grad norm, fc grad);
+   batch 256 of synthetic crops from a uint8 bank on the card, validated
+   on one batch of the task's own crops): step 0 (the new expert) and step
+   1 (the router over 6 experts), bf16 then f32, printing each step's loss,
+   its ``StepMeter`` window's mean step time and images/s and counting
+   kernel launches (the validations' fused Blocks included); then, in bf16
+   and f32, one step-0 step on the kernel path against the same step on the
+   plain versions (loss, grad norm, fc grad);
 7. holds the three fused training Block kernels (forward, backward tail,
    backward head) against their plain versions at the four Block shapes at
    batch 256, f32 and bf16, with a non-trivial LN affine and droppath masks
@@ -53,6 +55,18 @@
    fused against composed with the same masks;
 9. profiles one step of each kind: the composed step 1 and step 0, and the
    fused step 0;
+9b. checkpoints, validation and test: task 5 again, bf16 policy, validated
+   on one synthetic set of 300 crops per seen task (two eval batches each,
+   the second padded), best checkpoints and expert blobs written under
+   ``build/`` (removed at the end), then ``MRN.test``; counts the fused
+   Block's launches of the validations and the test, and checks (a) that
+   the best files reload leaf for leaf what was saved and the blob names
+   are the restored trees' hashes, (b) that ``Server.from_checkpoint`` on
+   the step-1 file serves the learner's TF logits bitwise in float32 (and
+   bfloat16 against its plain path), (c) FF and TF validation on the
+   kernels against the plain versions (picks may differ only at near-ties)
+   and (d) that ``test`` scores every seen task; prints checkpoint bytes,
+   save/load seconds and validation crops/s;
 10. holds the w8a8 Block kernel against its plain version at the four Block
    shapes at batch 256, float32 and bfloat16, float and int8 attention, each
    Block calibrated on its input and quantized first (Local Blocks banded,
@@ -98,6 +112,7 @@ Exits non-zero without printing a result when no CUDA card is present.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import copy
 import json
@@ -105,6 +120,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -115,9 +131,11 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-from mrn_tpu_torch.bridge import quant_tree, to_flax  # noqa: E402
+from mrn_tpu_torch.bridge import quant_tree, state_to_flax, to_flax  # noqa: E402
 from mrn_tpu_torch.config import load_config  # noqa: E402
-from mrn_tpu_torch.data.synthetic import SyntheticTaskLoader, alphabet_of_size  # noqa: E402
+from mrn_tpu_torch.data.manager import ValDataset  # noqa: E402
+from mrn_tpu_torch.data.synthetic import (SyntheticTaskLoader, alphabet_of_size,  # noqa: E402
+                                          synthetic_val_set)
 from mrn_tpu_torch.models.init import (random_block, random_mrn,  # noqa: E402
                                        random_recognizer, random_router)
 from mrn_tpu_torch.models import tps  # noqa: E402
@@ -126,8 +144,11 @@ from mrn_tpu_torch.models.svtr import (Block, configure_blocks,  # noqa: E402
                                        local_attention_mask_col_major)
 from mrn_tpu_torch.ops import _build, int8, metrics, svtr_attention, svtr_block  # noqa: E402
 from mrn_tpu_torch.ops import grid_sample, svtr_train_block  # noqa: E402
+from mrn_tpu_torch.ops.ctc import ctc_loss_per_sample  # noqa: E402
 from mrn_tpu_torch.serve import Server, quantize_int8  # noqa: E402
-from mrn_tpu_torch.train.learners.mrn import MRN  # noqa: E402
+from mrn_tpu_torch.train import checkpoint  # noqa: E402
+from mrn_tpu_torch.train.learners import mrn as mrn_learner  # noqa: E402
+from mrn_tpu_torch.train.learners.mrn import MRN, tree_hash  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the full 700 W limit.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -175,6 +196,20 @@ TRAIN_TASK = 5
 TRAIN_ITERS = 4          # step-0 updates; step 1 runs TRAIN_ITERS // 2
 CROPS_PER_TASK = 256
 TRAIN_DTYPES = ("bf16", "f32")
+# validation: the training phases validate on one batch of the task's own
+# synthetic crops; the checkpoint phase on one set of VAL_CROPS per seen
+# task (two eval batches per set, the second padded).  Kernel-4 launches
+# per eval batch: 12 Blocks for FF (the standalone expert), 6 experts x 12
+# for TF (the routed ensemble).
+VAL_CROPS = 300
+FF_LAUNCHES, TF_LAUNCHES = 12, N_EXPERTS * 12
+# FF/TF validation on the kernels against the plain versions, float32: the
+# served logits agree to float32 noise (max |diff| 2.4e-6 at this width on
+# an H100 80GB HBM3); a per-sample CTC sums 64 log-softmax steps, each
+# moved by at most 2 max|diff|, so it moves by <= 3e-4 against per-sample
+# losses of ~100 with random weights over 4500 classes: 1e-4 relative
+# leaves 30x (measured on that card: 5.8e-7 at most per sample)
+VAL_LOSS_RTOL = 1e-4
 # kernel path vs the same step-0 step forced through the plain versions:
 # (loss rtol, grad-norm rtol, fc-grad atol as a share of the leaf's largest
 # |grad|).  float32: the forwards differ in summation order and exp ulps
@@ -346,7 +381,7 @@ def check_close(what, got, ref, atol, rtol):
     err = (got.float() - ref.float()).abs()
     limit = atol + rtol * ref.float().abs()
     ok = bool(torch.isfinite(got.float()).all()) and bool((err <= limit).all())
-    mx = float(err.max())
+    mx = float(err.max()) if err.numel() else 0.0
     print(f"  {what}: max_abs_err {mx:.3e} (tol atol {atol:g} + rtol {rtol:g}*|ref|) "
           f"{'ok' if ok else 'FAILED'}")
     if not ok:
@@ -464,6 +499,49 @@ def _block_plan_text(plan):
             f"projection tiles 128 x {'/'.join(map(str, tiles))} (qkv/proj/fc1/fc2)")
 
 
+def _routed_outputs(model, x, plain):
+    """An MRNNet's eval forward on ``x`` with its Blocks on the kernels or on
+    the plain versions; the route scores are read with a hook on the
+    router's last layer."""
+    scores = []
+    hook = model.route.register_forward_hook(
+        lambda mod, inp, out: scores.append(out[..., 0].float()))
+    configure_blocks(model, plain=plain)
+    try:
+        with torch.no_grad():
+            out = model(x, is_train=False)
+    finally:
+        configure_blocks(model, plain=False)
+        hook.remove()
+    return out, scores[0]
+
+
+def routed_vs_plain(model, x, tol, what):
+    """An MRNNet's eval forward on ``x`` on the kernels against the same on
+    the plain versions: route scores within ``tol`` ((atol, rtol)), expert
+    picks equal except on a near-tie of the plain path's top-2 scores, and
+    the logits of samples with the same pick within ``tol``.  Returns (kernel
+    output, plain output, same-pick mask)."""
+    atol, rtol = tol
+    out_k, scores_k = _routed_outputs(model, x, False)
+    out_p, scores_p = _routed_outputs(model, x, True)
+    err = check_close(f"{what} route scores", scores_k, scores_p, atol, rtol)
+    # with every score within err of its plain value, the order of two
+    # experts can flip only where their plain margin is <= 2 * err
+    top2 = scores_p.topk(2, dim=1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * err
+    agree = out_k["index"] == out_p["index"]
+    print(f"  {what}: expert picks agree on {int(agree.sum())}/{len(agree)} samples, "
+          f"{int(near_tie.sum())} near-ties (picks per expert "
+          f"{torch.bincount(out_k['index'], minlength=model.n_experts).tolist()})")
+    if bool((~agree & ~near_tie).any()):
+        raise RuntimeError(f"{what}: expert picks disagree between kernel and plain paths "
+                           "beyond score near-ties")
+    check_close(f"{what} served logits (samples with the same pick)",
+                out_k["logits"][agree], out_p["logits"][agree], atol, rtol)
+    return out_k, out_p, agree
+
+
 def phase_serve(rng):
     """The slice's main path: 6-expert SVTR-MRN serving at full width."""
     chars = [chr(0x4E00 + i) for i in range(max(CLASS_COUNTS) - 4)]
@@ -508,37 +586,12 @@ def phase_serve(rng):
               f"{[round(BATCH / t, 1) for t in ts]} (first request includes warm-up)")
     print(f"  sample words of the last request: {[w for w, _ in results[:3]]}")
 
-    # ---- the same batch through the plain versions on the card.  The route
-    # scores are read with a hook on the router's last layer; a pick may
-    # differ only on a near-tie of the plain path's top-2 scores.
+    # ---- the same batch through the plain versions on the card
     for dtype, srv in servers.items():
-        atol, rtol = LOGIT_TOL[srv.dtype]
-        scores = []
-        hook = srv.model.route.register_forward_hook(
-            lambda mod, inp, out: scores.append(out[..., 0].float()))
-        out_k = srv.forward(images)
-        configure_blocks(srv.model, plain=True)
-        out_p = srv.forward(images)
-        configure_blocks(srv.model, plain=False)
-        hook.remove()
+        out_k, _, _ = routed_vs_plain(srv.model, srv.images(images), LOGIT_TOL[srv.dtype], dtype)
         shape = (BATCH, base.imgW // 4, max(CLASS_COUNTS))
         if tuple(out_k["logits"].shape) != shape:
             raise RuntimeError(f"logits shape {tuple(out_k['logits'].shape)} != {shape}")
-        check_close(f"{dtype} route scores", scores[0], scores[1], atol, rtol)
-        # with every score within delta of its plain value, the order of two
-        # experts can flip only where their plain margin is <= 2 * delta
-        delta = float((scores[0] - scores[1]).abs().max())
-        top2 = scores[1].topk(2, dim=1).values
-        near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * delta
-        agree = out_k["index"] == out_p["index"]
-        print(f"  {dtype}: expert picks agree on {int(agree.sum())}/{BATCH} samples, "
-              f"{int(near_tie.sum())} near-ties (picks per expert "
-              f"{torch.bincount(out_k['index'], minlength=N_EXPERTS).tolist()})")
-        if bool((~agree & ~near_tie).any()):
-            raise RuntimeError("expert picks disagree between kernel and plain paths "
-                               "beyond score near-ties")
-        check_close(f"{dtype} served logits (samples with the same pick)",
-                    out_k["logits"][agree], out_p["logits"][agree], atol, rtol)
 
     # ---- where a warm bf16 request's device time goes
     from torch.profiler import ProfilerActivity, profile
@@ -947,17 +1000,42 @@ def _step_pair(base, loader, character, dtype, variants, tol, what):
         raise RuntimeError(f"{dtype}: the {what} training steps disagree")
 
 
-def _train_runs(base, rng, loader, character, tag):
-    """``MRN.incremental_train`` of task 5 for each dtype of TRAIN_DTYPES,
-    from fresh learners; prints each step and checks that it moved."""
-    learners = {dtype: _train_learner(base, rng, loader, dtype) for dtype in TRAIN_DTYPES}
-    n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
+def reset_launches():
     svtr_attention.launches.update(full=0, banded=0)
     svtr_block.launches = 0
     svtr_train_block.launches.update(train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
+
+
+def read_launches():
+    return dict(svtr_attention.launches, fused=svtr_block.launches, **svtr_train_block.launches)
+
+
+def val_points(num_iter, val_interval):
+    """The iterations ``_run_loop`` validates at: 1, every ``val_interval``
+    and the last."""
+    return len({i for i in range(1, num_iter + 1)
+                if i % val_interval == 0 or i in (1, num_iter)})
+
+
+def val_launches(opt, ff_batches, tf_batches):
+    """Kernel-4 launches of the validations of one task-5 training run:
+    step 0 FF, step 1 TF every val_interval // 5."""
+    n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
+    return (val_points(n0, opt.val_interval) * ff_batches * FF_LAUNCHES
+            + val_points(n1, max(1, opt.val_interval // 5)) * tf_batches * TF_LAUNCHES)
+
+
+def _train_runs(base, rng, loader, character, valid, tag):
+    """``MRN.incremental_train`` of task 5 for each dtype of TRAIN_DTYPES,
+    from fresh learners, validated on ``valid``; prints each step (its time
+    the mean step of its ``StepMeter`` window, synced at the window's end,
+    validation left out) and checks that it moved."""
+    learners = {dtype: _train_learner(base, rng, loader, dtype) for dtype in TRAIN_DTYPES}
+    n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
+    reset_launches()
     for dtype, learner in learners.items():
         init_rng = copy.deepcopy(learner.np_rng)
-        learner.incremental_train(TRAIN_TASK, character, loader)
+        learner.incremental_train(TRAIN_TASK, character, loader, valid)
         init_fc = random_recognizer(init_rng, learner.opt, CLASS_COUNTS[-1])[0]["fc"]["kernel"]
         init_route = random_router(init_rng, learner.opt, N_EXPERTS)["route"]["kernel"]
         moved = (float((learner.expert_states[-1]["fc.kernel"].cpu()
@@ -969,44 +1047,54 @@ def _train_runs(base, rng, loader, character, tag):
                   f"{rec['iteration']}: loss {rec['loss']:.5f}"
                   + (f" (clf {rec['clf']:.5f}, router {rec['router']:.5f})" if "clf" in rec else "")
                   + f", grad_norm {rec['grad_norm']:.4g}, lr {rec['lr']:.4g}, "
-                  f"{1e3 * rec['seconds']:.1f} ms, {BATCH / rec['seconds']:.1f} images/s")
+                  f"{1e3 * rec['seconds']:.1f} ms/step over its window, "
+                  f"{BATCH / rec['seconds']:.1f} images/s")
         print(f"  {tag} {dtype}: max |change| of the new expert's fc {moved[0]:.3e}, "
               f"of the router's route kernel {moved[1]:.3e}")
         if not all(np.isfinite(rec["loss"]) for rec in learner.history):
             raise RuntimeError(f"{tag} {dtype}: non-finite training loss")
         if len(learner.history) != n0 + n1 or min(moved) <= 0.0:
             raise RuntimeError(f"{tag} {dtype}: the trained parameters did not move")
-    launches = dict(svtr_attention.launches, fused=svtr_block.launches,
-                    **svtr_train_block.launches)
-    return launches, learners
+    return read_launches(), learners
 
 
 def _train_setup(base):
+    """The task-5 training stream (a uint8 bank of every task's crops) and
+    the training phases' validation: one batch of task 5's own crops,
+    rendered from a seed of its own."""
     alphabets = _task_alphabets()
     t0 = time.perf_counter()
     loader = SyntheticTaskLoader(alphabets, TRAIN_TASK, BATCH, CROPS_PER_TASK,
                                  img_h=base.imgH, img_w=base.imgW, seed=SEED)
+    val_set = synthetic_val_set(alphabets, TRAIN_TASK, BATCH, base.imgH, base.imgW,
+                                seed=SEED + 1)
     print(f"  rendered {len(loader.labels)} crops {loader.bank.shape[1:]} into the bank "
-          f"in {time.perf_counter() - t0:.1f} s")
-    return "".join(alphabets), loader
+          f"and {len(val_set)} validation crops in {time.perf_counter() - t0:.1f} s")
+    valid = ValDataset(["val"], base, {"val": val_set}.__getitem__)
+    return alphabets, loader, valid
 
 
-def phase_train(rng, base, character, loader):
+def phase_train(rng, base, character, loader, valid):
     """Slice 2's path: SVTR-MRN training of task 5 at full width on the
     composed route (step 0, the new expert alone; step 1, the router over 6
-    frozen experts) through ``MRN.incremental_train``, bf16 then f32; then,
-    in each dtype, one step-0 step on the kernel path against the same step
-    on the plain versions."""
+    frozen experts) through ``MRN.incremental_train``, bf16 then f32,
+    validated on one batch; then, in each dtype, one step-0 step on the
+    kernel path against the same step on the plain versions."""
     n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
     steps = len(TRAIN_DTYPES)
     with fused_train_env(False):
         # ---- counted run: the main path, through the entry point
-        launches, learners = _train_runs(base, rng, loader, character, "composed")
-    expected = dict(full=6 * n0 * steps, banded=6 * n0 * steps, fused=72 * n1 * steps,
+        launches, learners = _train_runs(base, rng, loader, character, valid, "composed")
+    n_val = val_launches(base, 1, 1) * steps
+    expected = dict(full=6 * n0 * steps, banded=6 * n0 * steps,
+                    fused=72 * n1 * steps + n_val,
                     train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
     print(f"  launches in the composed training runs: {launches} (expected {expected}: "
           f"per step-0 step 6 full + 6 banded attention, per step-1 step 72 fused "
-          f"Blocks = {N_EXPERTS} experts x 12)")
+          f"Blocks = {N_EXPERTS} experts x 12, and {n_val} fused Blocks of the "
+          f"validations = {steps} runs x ({val_points(n0, base.val_interval)} FF x "
+          f"{FF_LAUNCHES} + {val_points(n1, max(1, base.val_interval // 5))} TF x "
+          f"{TF_LAUNCHES}) of one batch)")
     if launches != expected:
         raise RuntimeError("the training path did not run through the kernels as expected")
     for dtype in TRAIN_DTYPES:
@@ -1016,8 +1104,8 @@ def phase_train(rng, base, character, loader):
     return launches, learners
 
 
-def phase_train_fused(rng, base, character, loader):
-    """This slice's path: the same task-5 training with ``MRN_FUSED_TRAIN=1``
+def phase_train_fused(rng, base, character, loader, valid):
+    """Slice 3's path: the same task-5 training with ``MRN_FUSED_TRAIN=1``
     (every train-mode Block is the fused training Block: 12 forward, 12 tail
     and 12 head launches per step-0 step, no attention-kernel launch), bf16
     then f32; then one step-0 step on the fused kernels against the fused
@@ -1027,12 +1115,15 @@ def phase_train_fused(rng, base, character, loader):
     steps = len(TRAIN_DTYPES)
     with fused_train_env(True):
         # ---- counted run: the main path, through the entry point
-        launches, learners = _train_runs(base, rng, loader, character, "fused")
-    expected = dict(full=0, banded=0, fused=72 * n1 * steps, train_fwd=12 * n0 * steps,
+        launches, learners = _train_runs(base, rng, loader, character, valid, "fused")
+    n_val = val_launches(base, 1, 1) * steps
+    expected = dict(full=0, banded=0, fused=72 * n1 * steps + n_val,
+                    train_fwd=12 * n0 * steps,
                     train_bwd_tail=12 * n0 * steps, train_bwd_head=12 * n0 * steps)
     print(f"  launches in the fused training runs: {launches} (expected {expected}: "
           f"per step-0 step 12 forward + 12 tail + 12 head fused training Blocks and no "
-          f"attention kernel, per step-1 step 72 fused inference Blocks)")
+          f"attention kernel, per step-1 step 72 fused inference Blocks, and {n_val} of "
+          f"the validations, as in the composed runs)")
     if launches != expected:
         raise RuntimeError("the fused training path did not run through the kernels as expected")
     for dtype in TRAIN_DTYPES:
@@ -1072,6 +1163,252 @@ def phase_profile(runs, loader):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         print_device_profile(f"bf16 {label}, one step", prof, wall)
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", np.asarray(tree[k])
+
+
+def check_same_tree(what, got, ref):
+    """Leaf for leaf: the same keys, dtypes, shapes and bytes."""
+    got, ref = dict(_leaves(got)), dict(_leaves(ref))
+    if got.keys() != ref.keys():
+        raise RuntimeError(f"{what}: keys differ ({sorted(got.keys() ^ ref.keys())[:4]})")
+    for k, r in ref.items():
+        g = got[k]
+        if g.dtype != r.dtype or g.shape != r.shape or g.tobytes() != r.tobytes():
+            raise RuntimeError(f"{what}: leaf {k} differs")
+    return len(ref)
+
+
+def _ff_logits(learner, model, x, plain):
+    """The standalone expert's float32 eval logits of one batch on the
+    kernels or on the plain versions."""
+    configure_blocks(model, plain=plain)
+    try:
+        with torch.no_grad():
+            return learner._eval_logits(x, "FF").float()
+    finally:
+        configure_blocks(model, plain=False)
+
+
+def check_validation_paths(learner, loader, choose, model):
+    """Check (c): ``run_validation`` on the kernels (timed: crops/s) and on
+    the plain versions (``configure_blocks(plain=True)``), and, batch by
+    batch, the two paths' outputs: expert picks (TF) equal except on a
+    near-tie of the plain route scores and the logits of samples with the
+    same pick within LOGIT_TOL (``routed_vs_plain``; FF: every sample's); a
+    greedy pick different only where the plain top-2 margin is within twice
+    the row's largest logit difference; each such sample's CTC within
+    VAL_LOSS_RTOL.  Words may differ only on those
+    samples, and the score and NED by no more than they account for; with
+    no flipped expert pick the validation losses agree within
+    VAL_LOSS_RTOL."""
+    res, secs = {}, {}
+    for plain in (False, True):
+        configure_blocks(model, plain=plain)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[plain] = learner.run_validation(loader, choose)
+            secs[plain] = time.perf_counter() - t0
+        finally:
+            configure_blocks(model, plain=False)
+    atol, rtol = LOGIT_TOL[torch.float32]
+    flipped, expert_flips, worst_loss, offset = set(), 0, 0.0, 0
+    for images, labels, n_valid in loader:
+        x = learner._device_images(images)[:n_valid]
+        if choose == "TF":
+            out_k, out_p, same = routed_vs_plain(model, x, (atol, rtol), "TF validation")
+            lk, lp = out_k["logits"].float(), out_p["logits"].float()
+            expert_flips += int((~same).sum())
+        else:
+            lk, lp = (_ff_logits(learner, model, x, plain) for plain in (False, True))
+            same = torch.ones(n_valid, dtype=torch.bool, device=x.device)
+            check_close("FF validation logits", lk, lp, atol, rtol)
+        delta = (lk - lp).abs().amax(dim=2, keepdim=True)
+        top2 = lp.topk(2, dim=2).values
+        pick_flip = (lk.argmax(2) != lp.argmax(2)) & same[:, None]
+        if bool((pick_flip & ((top2[..., 0] - top2[..., 1]) > 2 * delta[..., 0])).any()):
+            raise RuntimeError(f"{choose} validation: greedy picks differ beyond near-ties")
+        labels_index, lengths = learner.converter.encode(
+            labels[:n_valid], batch_max_length=learner.opt.batch_max_length)
+        lengths = torch.as_tensor(lengths, device=x.device)
+        target = torch.as_tensor(labels_index, device=x.device)
+        per_k = ctc_loss_per_sample(lk, target, lengths)[same]
+        per_p = ctc_loss_per_sample(lp, target, lengths)[same]
+        rel = ((per_k - per_p).abs() / per_p.abs()).max() if len(per_p) else torch.zeros(())
+        worst_loss = max(worst_loss, float(rel))
+        flipped |= {offset + i for i in range(n_valid)
+                    if not bool(same[i]) or bool(pick_flip[i].any())}
+        offset += n_valid
+    k, p = res[False], res[True]
+    words = {i for i, (a, b) in enumerate(zip(k.preds, p.preds)) if a != b}
+    share = 100.0 * len(flipped) / max(1, k.length_of_data)
+    loss_rel = abs(k.loss - p.loss) / abs(p.loss)
+    print(f"  {choose} validation of {k.length_of_data} crops: kernels {secs[False]:.3f} s "
+          f"({k.length_of_data / secs[False]:.1f} crops/s), plain {secs[True]:.3f} s; "
+          f"score {k.score:.2f} vs {p.score:.2f}, NED {k.ned:.4f} vs {p.ned:.4f}, loss "
+          f"{k.loss:.6f} vs {p.loss:.6f} (rel {loss_rel:.2e}, tol {VAL_LOSS_RTOL:g}); "
+          f"per-sample CTC max rel {worst_loss:.2e}; {len(words)} words differ, "
+          f"{len(flipped)} samples with a near-tie flip ({expert_flips} expert picks)")
+    if not words <= flipped or worst_loss > VAL_LOSS_RTOL:
+        raise RuntimeError(f"{choose} validation: kernel and plain paths disagree")
+    if abs(k.score - p.score) > share or abs(k.ned - p.ned) > share:
+        raise RuntimeError(f"{choose} validation: scores differ beyond the near-tie flips")
+    if expert_flips == 0 and loss_rel > VAL_LOSS_RTOL:
+        raise RuntimeError(f"{choose} validation: losses disagree")
+    return k.length_of_data / secs[False]
+
+
+def phase_checkpoints(base, alphabets, loader):
+    """This slice's path: task 5 of SVTR-MRN at full width (5 frozen random
+    experts plus the new one, 4500 classes, batch 256), bf16 policy,
+    ``num_iter`` 4, through ``MRN.incremental_train`` with validation on one
+    synthetic set of VAL_CROPS per seen task (FF at step 0 on task 5's set,
+    TF at step 1 on all six), best checkpoints and expert blobs written to
+    ``opt.output_dir``, then ``MRN.test`` (reloads the step-1 best, scores
+    every seen task).  Checks: (a) the best files reload leaf for leaf
+    what was saved, the blob names are the hashes of the restored trees;
+    (b) ``Server.from_checkpoint`` on the step-1 file serves the learner's
+    TF logits bitwise in float32, and bfloat16 against its plain path; (c)
+    FF and TF validation on the kernels against the plain versions; (d)
+    ``test`` scores every seen task."""
+    rng = np.random.default_rng(SEED + 10)   # leaves the later phases' draws as they were
+    character = "".join(alphabets)
+    sets = {f"val/{t}": synthetic_val_set(alphabets, t, VAL_CROPS, base.imgH, base.imgW,
+                                          seed=SEED + 100 + t)
+            for t in range(TRAIN_TASK + 1)}
+    names = list(sets)
+    # a directory of its own: every blob this run needs is written (and seen) here
+    learner = _train_learner(base.replace(output_dir=os.path.join(base.output_dir, "ckpt")),
+                             rng, loader, "bf16")
+    valid = ValDataset(names, learner.opt, sets.__getitem__)
+
+    def builder(name):
+        return ValDataset([name], learner.opt, sets.__getitem__).create_dataset()
+
+    saved = {}   # path -> the trees handed to save_model (the last write of each file)
+    write = mrn_learner.save_model
+
+    def capture(path, params, stats, extra=None):
+        saved[path] = copy.deepcopy(dict(params=params, batch_stats=stats, **(extra or {})))
+        return write(path, params, stats, extra)
+
+    ff_batches = -(-VAL_CROPS // BATCH)
+    tf_batches = -(-len(names) * VAL_CROPS // BATCH)
+    n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
+    # ---- counted run: the main path, through the entry points
+    with fused_train_env(False), mock.patch.object(mrn_learner, "save_model", capture):
+        reset_launches()
+        t0 = time.perf_counter()
+        learner.incremental_train(TRAIN_TASK, character, loader, valid)
+        t1 = time.perf_counter()
+        best, _ = learner.test(names, [], [], TRAIN_TASK, val_dataset_builder=builder)
+        t2 = time.perf_counter()
+        launches = read_launches()
+    n_val = val_launches(learner.opt, ff_batches, tf_batches)
+    n_test = len(names) * ff_batches * TF_LAUNCHES
+    expected = dict(full=6 * n0, banded=6 * n0, fused=72 * n1 + n_val + n_test,
+                    train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
+    print(f"  incremental_train {t1 - t0:.1f} s, test {t2 - t1:.1f} s; launches {launches} "
+          f"(expected {expected}: 6 full + 6 banded attention per step-0 step, 72 fused "
+          f"Blocks per step-1 step, {n_val} in the validations = "
+          f"{val_points(n0, learner.opt.val_interval)} FF x {ff_batches} batches x "
+          f"{FF_LAUNCHES} + {val_points(n1, max(1, learner.opt.val_interval // 5))} TF x "
+          f"{tf_batches} batches x {TF_LAUNCHES}, {n_test} in test = {len(names)} sets x "
+          f"{ff_batches} batches x {TF_LAUNCHES})")
+    if launches != expected:
+        raise RuntimeError("validation and test did not run through the kernels as expected")
+    for rec in learner.history:
+        print(f"  bf16 task {rec['task']} step {rec['step']} iter {rec['iteration']}: loss "
+              f"{rec['loss']:.5f}, {1e3 * rec['seconds']:.1f} ms/step over its window")
+    log = open(learner.log.train_log_path, encoding="utf-8").read()
+    for line in log.splitlines():
+        if line.startswith(("Current_score", "Best_score", "Task 5 load", "Task 5 Test AIA",
+                            "Task 5 accs", "ned:")):
+            print(f"    log: {line}")
+
+    # ---- (d) test() scored every seen task
+    accs = ast.literal_eval(log.split("Task 5 accs: ")[-1].splitlines()[0])
+    print(f"  (d) test(): task accuracies {accs}, AIA {best[-1]}")
+    if len(accs) != len(names) or not all(np.isfinite(accs)) or len(best) != 1:
+        raise RuntimeError("test() did not score every seen task")
+
+    # ---- (a) the best files reload what was saved, leaf for leaf
+    path1 = learner._best_path(TRAIN_TASK, 1)
+    path0 = learner._best_path(TRAIN_TASK, 0)
+    blob_dir = learner._expert_dir()
+    refs = saved[path1]["expert_refs"]
+    if learner._expert_hashes != refs:
+        raise RuntimeError("(a) the restored blob refs differ from the saved ones")
+    n_leaves = 0
+    for i, state in enumerate(learner.expert_states):
+        params, stats = state_to_flax(state)
+        blob = saved[os.path.join(blob_dir, f"{refs[i]}.msgpack")]
+        n_leaves += check_same_tree(f"(a) expert {i}", params, blob["params"])
+        n_leaves += check_same_tree(f"(a) expert {i} stats", stats, saved[path1]["expert_stats"][i])
+        if tree_hash(params, stats) != refs[i]:
+            raise RuntimeError(f"(a) blob {refs[i]} is not the hash of expert {i}'s trees")
+    n_leaves += check_same_tree("(a) router", learner._router_tree(), saved[path1]["router"])
+    check_same_tree("(a) step-1 params", learner._router_tree(), saved[path1]["params"])
+    learner._load_best(TRAIN_TASK, 0)
+    params, stats = to_flax(learner.model)
+    n_leaves += check_same_tree("(a) step-0 expert", params, saved[path0]["params"])
+    n_leaves += check_same_tree("(a) step-0 stats", stats, saved[path0]["batch_stats"])
+    learner._load_best(TRAIN_TASK, 1)
+    print(f"  (a) {n_leaves} leaves of the step-0 and step-1 best files and the "
+          f"{len(refs)} blobs reload bitwise; blob names are the restored trees' hashes")
+
+    # checkpoint sizes and times
+    t0 = time.perf_counter()
+    blob_params, blob_stats = state_to_flax(learner.expert_states[-1])
+    t1 = time.perf_counter()
+    probe = os.path.join(learner.opt.output_dir, "probe.msgpack")
+    n_bytes = checkpoint.save_model(probe, blob_params, blob_stats, extra={"class_count": 1})
+    t2 = time.perf_counter()
+    checkpoint.load_model(probe)
+    t3 = time.perf_counter()
+    checkpoint.load_model(path1)
+    t4 = time.perf_counter()
+    print(f"  checkpoint bytes per best save: step 1 (router only, {len(refs)} refs, every "
+          f"expert's stats) {os.path.getsize(path1)}, step 0 (one expert inline) "
+          f"{os.path.getsize(path0)}; one expert blob {n_bytes}; device-to-host trees "
+          f"{t1 - t0:.3f} s, save_model {t2 - t1:.3f} s, load_model {t3 - t2:.3f} s (blob), "
+          f"{t4 - t3:.3f} s (step-1 file)")
+
+    # ---- (b) serving the step-1 file
+    images = next(iter(valid.create_list_dataset()))[0]
+    srv = Server.from_checkpoint(base.replace(compute_dtype="float32"), path1, character,
+                                 TRAIN_TASK)
+    with torch.no_grad():
+        ref = learner._eval_logits(learner._device_images(images), "TF")
+    got = srv.forward(images)["logits"]
+    if not torch.equal(got, ref):
+        raise RuntimeError("(b) Server.from_checkpoint's logits differ from the learner's")
+    print(f"  (b) float32 Server.from_checkpoint: logits {tuple(got.shape)} bitwise equal "
+          f"to the learner's TF eval logits on the first validation batch")
+    srv16 = Server.from_checkpoint(base.replace(compute_dtype="bfloat16"), path1, character,
+                                   TRAIN_TASK)
+    out16, _, _ = routed_vs_plain(srv16.model, srv16.images(images),
+                                  LOGIT_TOL[torch.bfloat16], "(b) bfloat16 from_checkpoint")
+    print(f"  (b) bfloat16 against float32 served: max |logit diff| "
+          f"{float((out16['logits'].float() - got).abs().max()):.3e} (not checked)")
+    del srv, srv16
+
+    # ---- (c) FF and TF validation, kernels against plain versions
+    learner._phase = "standalone"
+    ff_rate = check_validation_paths(learner, valid.create_dataset(), "FF", learner.model)
+    learner._phase = "routed"
+    tf_rate = check_validation_paths(learner, valid.create_list_dataset(), "TF",
+                                     learner._eval_ensemble())
+    print(f"  validation crops/s (float32 experts, host clock around run_validation): "
+          f"FF {ff_rate:.1f}, TF {tf_rate:.1f}")
+    return launches
 
 
 def int8_block(rng, c, heads, mixer, hw, x32, device, dt):
@@ -1743,18 +2080,29 @@ def main():
     served, _ = phase_serve(rng)
     print("== attention kernels vs plain, SVTR training shapes")
     attn = phase_attention(device, rng)
-    base = load_config(os.path.join(ROOT, "configs", "svtr_mrn.py"))
-    character, loader = _train_setup(base)
-    print("== SVTR-MRN training, full width, composed Blocks")
-    trained, learners = phase_train(rng, base, character, loader)
-    print("== fused training Block kernels vs plain, SVTR Block shapes")
-    train_blocks = phase_train_blocks(device, rng)
-    print("== SVTR-MRN training, full width, MRN_FUSED_TRAIN=1")
-    fused_trained, fused_learners = phase_train_fused(rng, base, character, loader)
-    print("== profile of one bf16 training step of each kind")
-    phase_profile((("composed step 1", learners["bf16"], False),
-                   ("composed step 0", learners["bf16"], False),
-                   ("fused step 0", fused_learners["bf16"], True)), loader)
+    # best checkpoints and expert blobs of the training phases, removed at the end
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        base = load_config(os.path.join(ROOT, "configs", "svtr_mrn.py"), output_dir=out_dir,
+                           data_log=os.path.join(out_dir, "data_any.txt"))
+        alphabets, loader, valid = _train_setup(base)
+        character = "".join(alphabets)
+        print("== SVTR-MRN training, full width, composed Blocks")
+        trained, learners = phase_train(rng, base, character, loader, valid)
+        print("== fused training Block kernels vs plain, SVTR Block shapes")
+        train_blocks = phase_train_blocks(device, rng)
+        print("== SVTR-MRN training, full width, MRN_FUSED_TRAIN=1")
+        fused_trained, fused_learners = phase_train_fused(rng, base, character, loader, valid)
+        print("== profile of one bf16 training step of each kind")
+        phase_profile((("composed step 1", learners["bf16"], False),
+                       ("composed step 0", learners["bf16"], False),
+                       ("fused step 0", fused_learners["bf16"], True)), loader)
+        del learners, fused_learners
+        print("== SVTR-MRN checkpoints, validation and test, full width")
+        ckpt = phase_checkpoints(base, alphabets, loader)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
     print("== w8a8 Block kernel vs plain, SVTR Block shapes")
     int8_totals = phase_int8_blocks(device, rng)
     print("== int8 serving, one SVTR recognizer (task 0), full width")
@@ -1766,11 +2114,11 @@ def main():
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
-             served + trained["fused"] + fused_trained["fused"], totals[bf16]),
+             served + trained["fused"] + fused_trained["fused"] + ckpt["fused"], totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
-             trained["full"], attn[("full", bf16)]),
+             trained["full"] + ckpt["full"], attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
-             trained["banded"], attn[("banded", bf16)]),
+             trained["banded"] + ckpt["banded"], attn[("banded", bf16)]),
             ("svtr_train_block_forward", "svtr_train_block.cu",
              "mrn_tpu/ops/svtr_train_block.py:124", fused_trained["train_fwd"],
              train_blocks[("fwd", bf16)]),
@@ -1799,8 +2147,11 @@ def main():
     } for name, source, replaces, launches, tot in rows]}
     print(f"kernel record: bfloat16 at batch {BATCH}; svtr_fused_block times are one "
           f"expert's 12 Blocks, its launches the served requests ({served}) plus the "
-          f"router steps ({trained['fused']} composed, {fused_trained['fused']} fused runs); "
-          f"attention times are one expert forward's 6 Blocks of each kind; "
+          f"router steps and validations of the training runs ({trained['fused']} composed, "
+          f"{fused_trained['fused']} fused) and of the checkpoint phase with its test "
+          f"({ckpt['fused']}); attention times are one expert forward's 6 Blocks of each "
+          f"kind, their launches the composed step-0 steps of the training and checkpoint "
+          f"phases; "
           f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms "
           f"autograd's backward of the library Block's proj + LayerNorm + MLP sub-graph, "
           f"the head's of its LayerNorm + qkv product; svtr_fused_block_int8 times are one recognizer's 12 "

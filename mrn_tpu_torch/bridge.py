@@ -52,7 +52,7 @@ from torch import nn
 from mrn_tpu_torch.models.svtr import is_quant_scale
 
 __all__ = ["flax_tree", "from_flax", "mrn_state", "pad_expert_state", "quant_tree",
-           "recognizer_state", "routed_state", "to_flax"]
+           "recognizer_state", "routed_state", "state_to_flax", "to_flax"]
 
 _BLOCK_RE = re.compile(r"\bblocks(\d)_(\d+)\b")
 _PORT_BLOCK_RE = re.compile(r"\bblocks(\d)\.(\d+)\b")
@@ -206,6 +206,14 @@ def to_flax(module: nn.Module) -> Tuple[Dict, Dict]:
                                                 if t.dtype == torch.int8]
     stats = [(k, t) for k, t in buffers if t.dtype != torch.int8]
     return flax_tree(params), flax_tree(stats)
+
+
+def state_to_flax(state: Mapping[str, torch.Tensor]) -> Tuple[Dict, Dict]:
+    """``to_flax`` of a float Recognizer given as its state dict (a frozen
+    expert): the BatchNorm ``mean``/``var`` leaves are its batch_stats."""
+    stats = {k for k in state if k.rsplit(".", 1)[-1] in ("mean", "var")}
+    return (flax_tree((k, v) for k, v in state.items() if k not in stats),
+            flax_tree((k, state[k]) for k in stats))
 
 
 def quant_tree(module: nn.Module) -> Dict:

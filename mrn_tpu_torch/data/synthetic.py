@@ -11,6 +11,9 @@ batches of bank indices for task ``taski``:
 - ``get_batch2() -> (indices, words, task_ids)``: the crops of tasks
   ``0..taski`` (the rehearsal mix of step 1), each tagged with its task id
   (the ``dataset_idx`` of the ``router_labels="task"`` stream).
+
+``synthetic_val_set`` renders a task's validation crops from a generator of
+its own, so drawing them leaves the training stream as it was.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["SyntheticTaskLoader", "alphabet_of_size", "synth_word_image_bits"]
+from mrn_tpu_torch.data.dataset import ArrayDataset
+
+__all__ = ["SyntheticTaskLoader", "alphabet_of_size", "synth_word_image_bits",
+           "synthetic_val_set"]
 
 
 def alphabet_of_size(n: int, start: int = 0x4E00) -> str:
@@ -58,6 +64,37 @@ def synth_word_image_bits(word: str, char_to_idx: Dict[str, int],
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def _char_index(task_alphabets: Sequence[str]) -> Dict[str, int]:
+    char_to_idx: Dict[str, int] = {}
+    for alphabet in task_alphabets:
+        for ch in alphabet:
+            char_to_idx.setdefault(ch, len(char_to_idx))
+    return char_to_idx
+
+
+def _render(alphabet: str, char_to_idx: Dict[str, int], n: int, img_h: int,
+            img_w: int, min_len: int, max_len: int, rng
+            ) -> Tuple[List[np.ndarray], List[str]]:
+    """``n`` crops of words drawn uniformly from ``alphabet``."""
+    chars = list(alphabet)
+    images, labels = [], []
+    for _ in range(n):
+        word = "".join(rng.choice(chars, size=int(rng.integers(min_len, max_len + 1))))
+        images.append(synth_word_image_bits(word, char_to_idx, img_h, img_w, rng))
+        labels.append(word)
+    return images, labels
+
+
+def synthetic_val_set(task_alphabets: Sequence[str], taski: int, n: int,
+                      img_h: int = 32, img_w: int = 256, min_len: int = 1,
+                      max_len: int = 4, seed: int = 0) -> ArrayDataset:
+    """``n`` uint8 crops of task ``taski`` (``SyntheticTaskLoader``'s
+    renderer and character indices) from ``default_rng(seed)``."""
+    images, labels = _render(task_alphabets[taski], _char_index(task_alphabets), n,
+                             img_h, img_w, min_len, max_len, np.random.default_rng(seed))
+    return ArrayDataset(np.stack(images), labels)
+
+
 class SyntheticTaskLoader:
     """``n_per_task`` crops per task, words of ``min_len..max_len``
     characters drawn uniformly from each task's own alphabet; the bit
@@ -69,18 +106,14 @@ class SyntheticTaskLoader:
                  img_w: int = 256, min_len: int = 1, max_len: int = 4,
                  seed: int = 0):
         rng = np.random.default_rng(seed)
-        char_to_idx: Dict[str, int] = {}
-        for alphabet in task_alphabets:
-            for ch in alphabet:
-                char_to_idx.setdefault(ch, len(char_to_idx))
+        char_to_idx = _char_index(task_alphabets)
         images: List[np.ndarray] = []
         self.labels: List[str] = []
         for alphabet in task_alphabets[:taski + 1]:
-            chars = list(alphabet)
-            for _ in range(n_per_task):
-                word = "".join(rng.choice(chars, size=int(rng.integers(min_len, max_len + 1))))
-                images.append(synth_word_image_bits(word, char_to_idx, img_h, img_w, rng))
-                self.labels.append(word)
+            task_images, task_labels = _render(alphabet, char_to_idx, n_per_task,
+                                               img_h, img_w, min_len, max_len, rng)
+            images += task_images
+            self.labels += task_labels
         self.bank = np.stack(images)
         self.task_ids = np.repeat(np.arange(taski + 1, dtype=np.int32), n_per_task)
         self.current = np.flatnonzero(self.task_ids == taski).astype(np.int32)

@@ -26,24 +26,36 @@ w8a8 serving (``evaluate_cli.py --int8``) of a single SVTR recognizer::
 
 ``server.check_score_envelope(images)`` is the float path's check of the
 fused Block's score clamp (``evaluate_cli.check_svtr_envelope``).
+
+Serving a best checkpoint file the JAX package or the port wrote
+(``evaluate_cli.load_learner``)::
+
+    server = Server.from_checkpoint(opt, "saved_models/exp/Latin_1_1_best_score.msgpack",
+                                    character, last_task=1)
+
+task 0's file is one recognizer; a later task's file is the router, its
+experts the blobs ``experts/{ref}.msgpack`` beside it (or inline in an
+older file).
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from mrn_tpu_torch import resolve_device
-from mrn_tpu_torch.bridge import from_flax, quant_tree
+from mrn_tpu_torch.bridge import from_flax, quant_tree, recognizer_state, routed_state
 from mrn_tpu_torch.codec import build_converter
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.mrn import MRNNet
 from mrn_tpu_torch.models.svtr import Block, score_envelope
 from mrn_tpu_torch.ops.int8 import quantize_variables
 from mrn_tpu_torch.ops.svtr_block import SCORE_CLAMP
+from mrn_tpu_torch.train.checkpoint import composite_experts, load_model
 
 __all__ = ["Server", "quantize_int8"]
 
@@ -54,7 +66,11 @@ class Server:
     def __init__(self, opt, params: Mapping, batch_stats: Optional[Mapping],
                  character: Sequence[str],
                  class_counts: Optional[Sequence[int]] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 state: Optional[Mapping[str, torch.Tensor]] = None):
+        """``state``: an MRN ensemble's port state dict, loaded in place of
+        ``from_flax(params, batch_stats)`` (``from_checkpoint``'s router over
+        experts kept apart from its params)."""
         self.device = resolve_device(device)
         if opt.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {opt.compute_dtype!r} not in {list(_DTYPES)}")
@@ -65,12 +81,11 @@ class Server:
         # the float32 trees as given: int8 quantization starts from them
         self.params, self.batch_stats = params, batch_stats
         num_classes = self.converter.num_classes
-        if "experts" in params:
-            n = len(np.asarray(params["experts"]["fc"]["kernel"]))
+        if state is not None or "experts" in params:
             if class_counts is None:
                 raise ValueError("an MRN ensemble needs the per-expert class_counts")
             self.model = MRNNet(
-                n, num_classes, class_counts, prediction=opt.Prediction,
+                len(class_counts), num_classes, class_counts, prediction=opt.Prediction,
                 transformation=opt.Transformation,
                 feature_extraction=opt.FeatureExtraction,
                 sequence_modeling=opt.SequenceModeling,
@@ -78,10 +93,34 @@ class Server:
                 output_channel=opt.output_channel, hidden_size=opt.hidden_size,
                 img_size=(opt.imgH, opt.imgW), svtr=opt.get("svtr"),
                 num_fiducial=opt.num_fiducial, batch_max_length=opt.batch_max_length)
-            self.model.load_state_dict(from_flax(params, batch_stats), strict=True)
+            self.model.load_state_dict(from_flax(params, batch_stats) if state is None
+                                       else state, strict=True)
             self.model.to(device=self.device, dtype=self.dtype).eval()
         else:
             self.model = self.build(params, batch_stats)
+
+    @classmethod
+    def from_checkpoint(cls, opt, path: str, character: Sequence[str], last_task: int,
+                        device: Optional[Union[str, torch.device]] = None) -> "Server":
+        """Serves the best checkpoint ``path`` of task ``last_task``
+        (``character``: the cumulative character list of tasks 0..last_task):
+        at task 0 the recognizer it holds; later, its router over the
+        frozen experts (``expert_refs`` resolved under ``experts/`` beside
+        the file, or the inline list), each expert's class count read from
+        its ``fc.kernel``."""
+        payload = load_model(path)
+        if last_task == 0:
+            return cls(opt, payload["params"], payload["batch_stats"], character,
+                       device=device)
+        params, stats, _ = composite_experts(
+            payload, os.path.join(os.path.dirname(os.path.abspath(path)), "experts"))
+        stats = stats or [{}] * len(params)
+        counts = [int(np.shape(p["fc"]["kernel"])[-1]) for p in params]
+        states = [recognizer_state(p, s) for p, s in zip(params, stats)]
+        num_classes = build_converter(opt.Prediction, character).num_classes
+        return cls(opt, payload["params"], payload["batch_stats"], character,
+                   class_counts=counts, device=device,
+                   state=routed_state(states, payload["params"], num_classes))
 
     def build(self, params: Mapping, batch_stats: Optional[Mapping],
               quant: Optional[Mapping] = None, mode: str = "none",
@@ -176,7 +215,7 @@ def quantize_int8(server: Server, batches: Iterable, n_batches: int = 4) -> Serv
     (``ops.int8.quantize_variables``) and the server's model is rebuilt with
     ``quant="int8"`` in its own dtype.  An MRN ensemble is refused, as the
     JAX CLI refuses it.  Returns the server."""
-    if "experts" in server.params:
+    if isinstance(server.model, MRNNet):
         raise ValueError("int8 serving supports single-recognizer models (the "
                          "composite MRN/DER eval paths stay float)")
     calib = server.build(server.params, server.batch_stats, mode="calib", dtype=torch.float32)

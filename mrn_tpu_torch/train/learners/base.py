@@ -1,6 +1,22 @@
-"""The part of ``mrn_tpu/train/learners/base.py`` a training step needs:
-the converter, the mixed-precision policy, the train-mode forward, batch
-encoding with the device image bank, the optimizer and the loop.
+"""The port of ``mrn_tpu/train/learners/base.py`` that SVTR-MRN needs: the
+converter, the mixed-precision policy, the train-mode forward, batch
+encoding with the device image bank, the optimizer, the loop with its
+validation points, best checkpoints and ``test``.
+
+The loop (``_run_loop``) validates at iteration 1, every ``val_interval``
+and at the last iteration, writing a best checkpoint whenever the score
+improves (``best_score`` starts over in every loop).  Step losses stay on
+the device, at most 64 in flight; at a validation point they are read
+back in one copy into the ``Averager`` and into ``history`` (one record a
+step: its metrics, and ``seconds``, the mean step time of its ``StepMeter``
+window: the host clock from the window's first batch to the end of its
+last step on the device, validation left out).
+
+Evaluation runs float32 weights (the masters, as the JAX eval step does)
+in eval mode: ``eval_batch`` gives the greedy ``preds_index``, the
+``max_probs`` of the float32 softmax and the CTC ``loss_sum`` /
+``loss_count`` (per sample over ``max(length, 1)``, non-finite values
+zeroed, padded rows of length 0 left out).
 
 Mixed precision (``opt.train_dtype == "bf16"``, the JAX ``--bf16`` policy):
 every float parameter and the image are cast to bfloat16 for the forward
@@ -14,6 +30,7 @@ Runs on the CUDA card unless ``device="cpu"`` is passed.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Dict, List, Mapping, Optional, Union
 
@@ -23,11 +40,18 @@ from torch import nn
 from torch.func import functional_call
 
 from mrn_tpu_torch import resolve_device
+from mrn_tpu_torch.bridge import recognizer_state, to_flax
 from mrn_tpu_torch.codec import CTCLabelConverter
+from mrn_tpu_torch.ops.ctc import ctc_loss_per_sample
+from mrn_tpu_torch.train.checkpoint import best_model_path, load_model, save_model
+from mrn_tpu_torch.train.evaluate import ValidationResult, validation
 from mrn_tpu_torch.train.optim import build_optimizer, build_schedule
 from mrn_tpu_torch.train.steps import TrainState, make_train_step, recognition_loss
+from mrn_tpu_torch.utils import Averager, ExperimentLog, StepMeter
 
 __all__ = ["BaseLearner"]
+
+MAX_IN_FLIGHT = 64  # step losses left on the device before the oldest is read
 
 
 class BaseLearner:
@@ -50,6 +74,9 @@ class BaseLearner:
         self._train_step = None
         self._bank = None       # (host bank, its copy on the device)
         self.history: List[Dict] = []
+        self.best_score = -1.0
+        self.log = ExperimentLog(opt.exp_name, opt.get("output_dir", "./saved_models"),
+                                 opt.get("data_log", "./data_any.txt"))
 
     # ------------------------------------------------------------ setup
     def build_converter(self) -> CTCLabelConverter:
@@ -102,11 +129,15 @@ class BaseLearner:
 
     # ------------------------------------------------------------ batches
     def _device_images(self, images) -> torch.Tensor:
-        """Float images move to the device as they are; integer batches are
-        indices into the uint8 image bank ``opt.image_bank`` [N, H, W, C],
-        copied to the device once, gathered and normalised
-        ``(x / 255 - 0.5) / 0.5`` there."""
+        """Float images move to the device as they are; uint8 crops move and
+        are normalised ``(x / 255 - 0.5) / 0.5`` there; other integer
+        batches are indices into the uint8 image bank ``opt.image_bank``
+        [N, H, W, C], copied to the device once, gathered and normalised
+        there."""
         images = np.asarray(images)
+        if images.dtype == np.uint8:
+            x = torch.as_tensor(images, device=self.device)
+            return (x.float() / 255.0 - 0.5) / 0.5
         if not np.issubdtype(images.dtype, np.integer):
             return torch.as_tensor(images, dtype=torch.float32, device=self.device)
         bank = self.opt.get("image_bank")
@@ -135,14 +166,165 @@ class BaseLearner:
         return self.get_train_step()(self.state, batch)
 
     # --------------------------------------------------------------- loop
-    def _run_loop(self, get_batch: Callable, num_iter: int, step: int) -> None:
-        """``num_iter`` steps.  Each one is timed on the host clock from
-        fetching its batch to reading its loss back (which waits for the
-        device) and appended to ``history``."""
+    def _flush(self, records: List[Dict], train_loss_avg: Averager) -> None:
+        """Reads the device values of ``records`` back in one copy, writes
+        them into the records and adds each step's logged loss
+        (``log_loss``, else ``loss``) to ``train_loss_avg``."""
+        slots = [(r, k) for r in records for k, v in r.items() if isinstance(v, torch.Tensor)]
+        if slots:
+            values = torch.stack([r[k].detach().float().reshape(()) for r, k in slots])
+            for (r, k), v in zip(slots, values.cpu().tolist()):
+                r[k] = v
+        for r in records:
+            train_loss_avg.add(r.get("log_loss", r["loss"]))
+
+    def _run_loop(self, taski: int, train_loader, valid_loader, num_iter: Optional[int] = None,
+                  get_batch: Optional[Callable] = None, step: Optional[int] = None,
+                  val_interval: Optional[int] = None) -> None:
+        """``num_iter`` steps on ``get_batch`` (default
+        ``train_loader.get_batch``), validated on ``valid_loader`` at
+        iteration 1, every ``val_interval`` and the last iteration."""
+        num_iter = int(num_iter or self.opt.num_iter)
+        val_interval = int(val_interval or self.opt.val_interval)
+        get_batch = get_batch or train_loader.get_batch
+        train_loss_avg = Averager()
+        start_time = time.time()
+        self.best_score = -1.0
+        meter = StepMeter()
+        pending: List[Dict] = []   # records whose losses are still on the device
+        window: List[Dict] = []    # records of the meter's window
         for iteration in range(1, num_iter + 1):
-            t0 = time.perf_counter()
-            metrics = self.train_step(get_batch())
-            record = {k: float(v) for k, v in metrics.items()}
-            record.update(task=self._cur_task, step=step, iteration=iteration,
-                          seconds=time.perf_counter() - t0)
+            fetched = get_batch()
+            record = dict(self.train_step(fetched), task=taski, step=step,
+                          iteration=iteration)
             self.history.append(record)
+            pending.append(record)
+            window.append(record)
+            if len(pending) > MAX_IN_FLIGHT:
+                self._flush([pending.pop(0)], train_loss_avg)
+            meter.tick(len(fetched[1]))
+
+            if iteration % val_interval == 0 or iteration == 1 or iteration == num_iter:
+                self._flush(pending, train_loss_avg)
+                pending = []
+                if self.device.type == "cuda":   # the window ends on the device
+                    torch.cuda.synchronize(self.device)
+                seconds = meter.seconds()
+                for r in window:
+                    r["seconds"] = seconds / len(window)
+                self.log.write(f"[{iteration}/{num_iter}] {meter.report(seconds)}\n")
+                self.val(valid_loader, self.opt, self.best_score, start_time, iteration,
+                         train_loss_avg, taski, step=step)
+                train_loss_avg.reset()
+                window = []
+                meter.reset()
+
+    # --------------------------------------------------------------- eval
+    def _eval_logits(self, images: torch.Tensor, val_choose: str) -> torch.Tensor:
+        """The eval-mode model's logits [B, T, C]."""
+        return self.model(images, train=False)["predict"]
+
+    @torch.no_grad()
+    def eval_batch(self, images, labels_index, lengths,
+                   val_choose: str = "val") -> Dict[str, np.ndarray]:
+        """``make_eval_batch``'s outputs for one padded batch, on the host:
+        ``preds_index`` [B, T] int32, ``max_probs`` [B, T], ``loss_sum``
+        and ``loss_count``."""
+        logits = self._eval_logits(self._device_images(images), val_choose).float()
+        lengths = torch.as_tensor(np.asarray(lengths), device=self.device)
+        per = ctc_loss_per_sample(logits, torch.as_tensor(np.asarray(labels_index),
+                                                          device=self.device), lengths)
+        per = per / lengths.clamp(min=1)
+        valid = lengths > 0
+        out = {"preds_index": logits.argmax(dim=2).to(torch.int32),
+               "max_probs": torch.softmax(logits, dim=2).amax(dim=2),
+               "loss_sum": torch.where(valid & torch.isfinite(per), per,
+                                       torch.zeros_like(per)).sum(),
+               "loss_count": valid.sum()}
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def run_validation(self, valid_loader, val_choose: str = "val") -> ValidationResult:
+        return validation(functools.partial(self.eval_batch, val_choose=val_choose),
+                          valid_loader, self.converter, self.opt,
+                          is_attn=self.opt.Prediction == "Attn")
+
+    def val(self, valid_loader, opt, best_score, start_time, iteration,
+            train_loss_avg, taski, step=None, val_choose="val") -> ValidationResult:
+        """Validates, saves a best checkpoint on a better score and logs the
+        JAX package's lines."""
+        res = self.run_validation(valid_loader, val_choose)
+        if res.score > self.best_score:
+            self.best_score = res.score
+            self._save_best(taski, step=step)
+        elapsed = time.time() - start_time
+        line = (f"\n[{iteration}/{opt.num_iter}] Train_loss: {train_loss_avg.val():0.5f}, "
+                f"Valid_loss: {res.loss:0.5f}\n"
+                f"Current_score: {res.score:0.2f}, Ned_score: {res.ned or 0:0.2f}\n"
+                f"Best_score: {self.best_score:0.2f}\n"
+                f"Infer_time: {res.infer_time:0.2f}, Elapsed_time: {elapsed:0.2f}\n")
+        for gt, pred, conf in zip(res.labels[:5], res.preds[:5], res.confidences[:5]):
+            line += f"{gt:25s} | {pred:25s} | {conf:0.4f}\t{pred == gt}\n"
+        self.log.write(line)
+        return res
+
+    # ------------------------------------------------------ checkpoints
+    def _best_path(self, taski: int, step: Optional[int] = None) -> str:
+        return best_model_path(self.opt.get("output_dir", "./saved_models"),
+                               self.opt.exp_name, self.opt.lan_list[taski], taski, step)
+
+    def _ckpt_step_tag(self) -> Optional[int]:
+        return None
+
+    def _save_best(self, taski: int, step: Optional[int] = None) -> None:
+        save_model(self._best_path(taski, step), *to_flax(self.model))
+
+    def _load_best(self, taski: int, step: Optional[int] = None) -> None:
+        path = self._best_path(taski, step)
+        params, stats = to_flax(self.model)
+        payload = load_model(path, {"params": params, "batch_stats": stats})
+        self.model.load_state_dict(recognizer_state(payload["params"], payload["batch_stats"]),
+                                   strict=True)
+        self.log.write(f"Task {taski} load checkpoint from {path}.\n")
+
+    # ------------------------------------------------------------- test
+    def test(self, valid_datas, best_scores, ned_scores, taski,
+             val_dataset_builder=None, val_choose="test"):
+        """Reloads the best checkpoint and scores every seen task; MLT17/19
+        interleaved split averaging (``mrn_tpu/train/learners/base.py``)."""
+        self._load_best(taski, step=self._ckpt_step_tag())
+        task_accs, ned_accs = [], []
+        for val_data in valid_datas:
+            res = self.run_validation(val_dataset_builder(val_data), val_choose)
+            task_accs.append(round(res.score, 2))
+            ned_accs.append(round(res.ned if res.ned is not None else 0.0, 2))
+
+        self.log.write_data_log(f"----------- {self.opt.exp_name} Task {taski}------------\n")
+        if (taski + 1) * 2 == len(task_accs):
+            score17, score19 = self.double_write(taski, task_accs)
+            best_scores.append(score17)
+            ned_scores.append(score19)
+            self.log.write(f"Task {taski} Avg Incremental Acc: 17: {score17} 19: {score19}\n")
+        else:
+            best_scores.append(round(sum(task_accs) / len(task_accs), 2))
+            ned_scores.append(round(sum(ned_accs) / len(ned_accs), 2))
+            self.log.write(f"Task {taski} Test AIA: {best_scores[-1]}\n"
+                           f"Task {taski} accs: {task_accs}\nned: {ned_accs}\n")
+            self.log.write_data_log(
+                f"{taski} Avg Acc: {best_scores[-1]:0.2f} \n  acc: {task_accs}\n")
+        return best_scores, ned_scores
+
+    def double_write(self, taski, accs):
+        """Interleaved MLT17/MLT19 averaging."""
+        list17 = [accs[i * 2] for i in range(taski + 1)]
+        list19 = [accs[i * 2 + 1] for i in range(taski + 1)]
+        score17 = round(sum(list17) / len(list17), 2)
+        score19 = round(sum(list19) / len(list19), 2)
+        self.log.write_data_log(
+            f"Task{taski} : 2017: {score17:0.2f} 2019: {score19:0.2f}\n"
+            f"17 acc: {list17}\n19 acc: {list19}\n")
+        return score17, score19
+
+    def count_param(self) -> int:
+        n = sum(p.numel() for p in self.model.parameters())
+        self.log.write(f"Total parameters: {n / 1e6:0.2f} M\n")
+        return n

@@ -1,6 +1,7 @@
 """Import hygiene and device policy of the PyTorch port: no module of
-``mrn_tpu_torch`` (nor ``chip_smoke.py``) imports JAX, flax, optax or the
-JAX package, and entry points never fall back to the CPU on their own."""
+``mrn_tpu_torch``, nor ``chip_smoke.py`` or ``scripts/torch_step_reading.py``,
+imports JAX, flax, optax, msgpack (the card's machine has none of them) or
+the JAX package, and entry points never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -15,18 +16,19 @@ import torch
 from mrn_tpu_torch import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "mrn_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "mrn_tpu")
 
 
 def _port_files():
     files = sorted((ROOT / "mrn_tpu_torch").rglob("*.py"))
     assert len(files) >= 10
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_step_reading.py"]
 
 
 def test_scan_covers_every_subpackage():
-    parts = {p.relative_to(ROOT / "mrn_tpu_torch").parts[0] for p in _port_files()[:-1]}
-    assert {"models", "ops", "train", "data"} <= parts
+    package = ROOT / "mrn_tpu_torch"
+    parts = {p.relative_to(package).parts[0] for p in _port_files() if package in p.parents}
+    assert {"models", "ops", "train", "data", "utils"} <= parts
     learners = ROOT / "mrn_tpu_torch" / "train" / "learners"
     assert set(learners.glob("*.py")) <= set(_port_files())
 

@@ -349,9 +349,9 @@ def test_fused_step0_matches_jax_learner(tmp_path, monkeypatch):
     jax_svtr.set_train_gelu("poly")
     try:
         common = dict(imgW=IMG_W, output_channel=32, hidden_size=16,
-                      batch_size=STEP_BATCH, num_iter=4, manual_seed=3)
-        jopt = jax_load_config("configs/svtr_mrn.py", output_dir=str(tmp_path),
-                               data_log=str(tmp_path / "data_any.txt"), **common)
+                      batch_size=STEP_BATCH, num_iter=4, manual_seed=3,
+                      output_dir=str(tmp_path), data_log=str(tmp_path / "data_any.txt"))
+        jopt = jax_load_config("configs/svtr_mrn.py", **common)
         topt = load_config("configs/svtr_mrn.py", svtr=SVTR, **common)
         character = ALPHABETS[0] + ALPHABETS[1]
         jl = JaxMRN(jopt)

@@ -31,7 +31,9 @@ from mrn_tpu.train.optim import build_schedule as jax_build_schedule
 from mrn_tpu.train.steps import TrainState as JaxTrainState
 from mrn_tpu_torch.bridge import flax_tree, from_flax, to_flax
 from mrn_tpu_torch.config import load_config
-from mrn_tpu_torch.data.synthetic import SyntheticTaskLoader, alphabet_of_size
+from mrn_tpu_torch.data.manager import ValDataset
+from mrn_tpu_torch.data.synthetic import (SyntheticTaskLoader, alphabet_of_size,
+                                          synthetic_val_set)
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.svtr import configure_blocks
 from mrn_tpu_torch.ops.ctc import ctc_loss
@@ -76,9 +78,9 @@ BF16_LOSS_RTOL = 2e-2
 
 def _options(tmp, **kw):
     common = dict(imgW=IMG_W, output_channel=32, hidden_size=16,
-                  batch_size=BATCH, num_iter=4, manual_seed=3, **kw)
-    jopt = jax_load_config("configs/svtr_mrn.py", output_dir=str(tmp),
-                           data_log=str(tmp / "data_any.txt"), **common)
+                  batch_size=BATCH, num_iter=4, manual_seed=3, output_dir=str(tmp),
+                  data_log=str(tmp / "data_any.txt"), **kw)
+    jopt = jax_load_config("configs/svtr_mrn.py", **common)
     topt = load_config("configs/svtr_mrn.py", svtr=SVTR, **common)
     return jopt, topt
 
@@ -428,13 +430,17 @@ def test_incremental_train_runs_a_two_task_sequence(tmp_path):
     expert, step 1 over both frozen experts with OneCycle over 2 num_iter);
     step 1 leaves every expert as it was."""
     _, topt = _options(tmp_path)   # num_iter 4
+    val_sets = {f"v{t}": synthetic_val_set(ALPHABETS, t, 4, img_w=IMG_W, seed=50 + t)
+                for t in (0, 1)}
     learner = None
     for taski in (0, 1):
         loader = _loader(taski)
         if learner is None:
             learner = MRN(topt.replace(image_bank=loader.bank), device="cpu")
         learner.opt = learner.opt.replace(image_bank=loader.bank)
-        learner.incremental_train(taski, "".join(ALPHABETS[:taski + 1]), loader)
+        valid = ValDataset([f"v{t}" for t in range(taski + 1)], learner.opt,
+                           val_sets.__getitem__)
+        learner.incremental_train(taski, "".join(ALPHABETS[:taski + 1]), loader, valid)
         learner.after_task()
         if taski == 0:
             first = {k: v.clone() for k, v in learner.expert_states[0].items()}
