@@ -67,6 +67,20 @@
    kernels against the plain versions (picks may differ only at near-ties)
    and (d) that ``test`` scores every seen task; prints checkpoint bytes,
    save/load seconds and validation crops/s;
+9c. runs the 6-task SVTR-MRN campaign (``mrn_tpu_torch.campaign``'s
+   ``run_incremental``, the slice's entry point) at full width, bf16, batch
+   256, prefetch on, composed Blocks, cut as ``CAMPAIGN_*`` below says:
+   synthetic suite, ``DatasetManager`` with rehearsal memory, task-0
+   reference init, best checkpoints, ``test`` and the accuracy matrix,
+   counting the kernels' launches; checks (a) that the batches the loop
+   took equal those of the same stream built again without the learner or
+   the prefetcher, bitwise, and that step 1's router targets are binary,
+   (b) the memory sizes after each task, (c) that a crash injected after
+   routed step ``CAMPAIGN_CRASH`` of task 5 resumes (``resume_full``,
+   ``start_task=5.5``) into the uninterrupted replay's batches bitwise and
+   its losses and router within ``TRAIN_STEP_TOL``; prints (d) the matrix,
+   the AIA and seconds per stage and (e) the step-0 window mean with and
+   without the prefetcher and a traced window's idle share;
 10. holds the w8a8 Block kernel against its plain version at the four Block
    shapes at batch 256, float32 and bfloat16, float and int8 attention, each
    Block calibrated on its input and quantized first (Local Blocks banded,
@@ -131,9 +145,11 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from mrn_tpu_torch import campaign  # noqa: E402
 from mrn_tpu_torch.bridge import quant_tree, state_to_flax, to_flax  # noqa: E402
 from mrn_tpu_torch.config import load_config  # noqa: E402
-from mrn_tpu_torch.data.manager import ValDataset  # noqa: E402
+from mrn_tpu_torch.data.manager import DatasetManager, ValDataset  # noqa: E402
+from mrn_tpu_torch.data.prefetch import Prefetcher  # noqa: E402
 from mrn_tpu_torch.data.synthetic import (SyntheticTaskLoader, alphabet_of_size,  # noqa: E402
                                           synthetic_val_set)
 from mrn_tpu_torch.models.init import (random_block, random_mrn,  # noqa: E402
@@ -148,6 +164,7 @@ from mrn_tpu_torch.ops.ctc import ctc_loss_per_sample  # noqa: E402
 from mrn_tpu_torch.serve import Server, quantize_int8  # noqa: E402
 from mrn_tpu_torch.train import checkpoint  # noqa: E402
 from mrn_tpu_torch.train.learners import mrn as mrn_learner  # noqa: E402
+from mrn_tpu_torch.train.learners.base import BaseLearner  # noqa: E402
 from mrn_tpu_torch.train.learners.mrn import MRN, tree_hash  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the full 700 W limit.
@@ -309,6 +326,27 @@ GRID_SAMPLE_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (0.0, 2.0 ** -7)
 # decode steps carry to the logits (bfloat16: a flipped rounding feeds the
 # next layer)
 TRBA_LOGIT_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-1, 5e-2)}
+
+# The 6-task campaign phase: mrn_tpu_torch.campaign's run_incremental at
+# full width, bf16, batch 256, prefetch on, seed 111, cut against the
+# protocol of ACCURACY_RUNS/t6/svtr_mrn.json: the train instance counts / 8
+# (336..5926 for 2687..47411), CAMPAIGN_TEST test crops a task (for
+# 529..11073), memory_num CAMPAIGN_MEMORY (for 2000; under the smallest cut
+# task, 404) and num_iter CAMPAIGN_ITERS with val_interval CAMPAIGN_VAL (for
+# 1000 and 500): 20 step-0 steps a task validated at 1, 10 and 20, and 10
+# step-1 steps validated at 1, 2, 4, 6, 8 and 10.
+CAMPAIGN_CUT = 8
+CAMPAIGN_TEST = 256
+CAMPAIGN_MEMORY = 256
+CAMPAIGN_ITERS = 20
+CAMPAIGN_VAL = 10
+CAMPAIGN_SEED = 111
+# (c): the crash comes after routed step 5 of task 5; its last snapshot is
+# step 4's (one at every validation point before the last)
+CAMPAIGN_CRASH = 5
+# (e): a step-0 window of TIME_STEPS steps after TIME_WARMUP, no validation
+# in it; TRACE_STEPS of them traced
+TIME_WARMUP, TIME_STEPS, TRACE_STEPS = 3, 10, 5
 
 
 # ------------------------------------------------------------------- timing
@@ -1034,7 +1072,7 @@ def _train_runs(base, rng, loader, character, valid, tag):
     n0, n1 = TRAIN_ITERS, TRAIN_ITERS // 2
     reset_launches()
     for dtype, learner in learners.items():
-        init_rng = copy.deepcopy(learner.np_rng)
+        init_rng = copy.deepcopy(learner.weight_rng)
         learner.incremental_train(TRAIN_TASK, character, loader, valid)
         init_fc = random_recognizer(init_rng, learner.opt, CLASS_COUNTS[-1])[0]["fc"]["kernel"]
         init_route = random_router(init_rng, learner.opt, N_EXPERTS)["route"]["kernel"]
@@ -1409,6 +1447,256 @@ def phase_checkpoints(base, alphabets, loader):
     print(f"  validation crops/s (float32 experts, host clock around run_validation): "
           f"FF {ff_rate:.1f}, TF {tf_rate:.1f}")
     return launches
+
+
+class _Crash(Exception):
+    """The crash check (c) injects."""
+
+
+class _MemoryDraw:
+    """What MRN's memory draw reads of its learner: ``opt``, ``np_rng``
+    (seeded as the learner's) and ``memory_index``."""
+    build_random_current_memory = BaseLearner.build_random_current_memory
+    reduce_samplers = BaseLearner.reduce_samplers
+    build_rehearsal_memory = MRN.build_rehearsal_memory
+
+    def __init__(self, opt):
+        self.opt, self.np_rng, self.memory_index = opt, np.random.default_rng(opt.manual_seed), []
+
+
+def _campaign_opt(out, source, device, **kw):
+    opt = campaign.campaign_options(
+        tasks=len(campaign.LANS), num_iter=CAMPAIGN_ITERS, batch_size=BATCH,
+        seed=CAMPAIGN_SEED, bf16=True, out=out,
+        **dict(dict(memory_num=CAMPAIGN_MEMORY, val_interval=CAMPAIGN_VAL), **kw))
+    opt.image_bank = source.device_bank(device)
+    return opt
+
+
+def _campaign_run(opt, source, crash_after=None):
+    """``run_incremental`` recording each step's (task, phase, batch
+    indices, router targets) and the memory sizes after each draw; with
+    ``crash_after`` it raises after that many routed steps and the crash is
+    swallowed."""
+    learner = MRN(opt)
+    steps, sizes, routed = [], [], [0]
+    step, draw = learner.train_step, learner.build_rehearsal_memory
+
+    def recorded_step(fetched):
+        if crash_after is not None and learner._phase == "routed":
+            routed[0] += 1
+            if routed[0] > crash_after:
+                raise _Crash()
+        steps.append((learner._cur_task, learner._phase, np.asarray(fetched[0]).copy(),
+                      np.asarray(fetched[2]).copy() if len(fetched) > 2 else None))
+        return step(fetched)
+
+    def recorded_draw(manager, taski):
+        draw(manager, taski)
+        sizes.append([len(ix) for ix in learner.memory_index])
+
+    learner.train_step, learner.build_rehearsal_memory = recorded_step, recorded_draw
+    result = None
+    try:
+        result = campaign.run_incremental(opt, source, learner=learner)[1:]
+    except _Crash:
+        pass
+    return learner, steps, sizes, result
+
+
+def _stream_again(opt, source):
+    """The campaign's stream built again without the learner or the
+    prefetcher: per task the step-0 build and ``num_iter`` batches, then
+    (task > 0) the memory draw and ``num_iter // 2`` indexed batches."""
+    manager = DatasetManager(opt, dataset_factory=source.train_factory)
+    manager.init_start(opt, opt.select_data, None, 0)
+    draw, steps = _MemoryDraw(opt), []
+    for taski in range(len(opt.lan_list)):
+        if taski:
+            manager.get_dataset(taski, memory=None)
+        steps += [(taski, "standalone", manager.get_batch()[0], None)
+                  for _ in range(opt.num_iter)]
+        if taski:
+            draw.build_rehearsal_memory(manager, taski)
+            steps += [(taski, "routed") + tuple(manager.get_batch2()[::2])
+                      for _ in range(opt.num_iter // 2)]
+    return steps, draw.memory_index
+
+
+def _same_steps(what, got, ref):
+    if len(got) != len(ref) or any(
+            g[:2] != r[:2] or g[2].tobytes() != r[2].tobytes()
+            or (g[3] is None) != (r[3] is None)
+            or (g[3] is not None and g[3].tobytes() != r[3].tobytes())
+            for g, r in zip(got, ref)):
+        raise RuntimeError(f"{what}: the batches differ")
+
+
+def campaign_launches(tasks, ff_batches):
+    """Kernel launches of the campaign run: 6 full + 6 banded attention per
+    step-0 step; kernel 4 in the FF validations (12 a batch), the step-1
+    steps and TF validations ((t + 1) experts x 12 a step or batch, t + 1
+    test sets of one batch at task t), and ``test`` plus the matrix row (FF
+    at task 0, TF later), each over every seen set."""
+    n0, n1 = CAMPAIGN_ITERS, CAMPAIGN_ITERS // 2
+    fused = 0
+    for t in range(tasks):
+        experts = (t + 1) * 12
+        fused += val_points(n0, CAMPAIGN_VAL) * ff_batches * 12
+        if t == 0:
+            fused += 2 * ff_batches * 12
+            continue
+        fused += n1 * experts
+        fused += val_points(n1, max(1, CAMPAIGN_VAL // 5)) * (t + 1) * ff_batches * experts
+        fused += 2 * (t + 1) * ff_batches * experts
+    return dict(full=6 * n0 * tasks, banded=6 * n0 * tasks, fused=fused,
+                train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
+
+
+def _step0_window(learner, manager, prefetch):
+    """The mean step-0 step (host clock, synced at both ends) of TIME_STEPS
+    steps after TIME_WARMUP, batches from ``manager`` through a prefetcher
+    or not."""
+    n = TIME_WARMUP + TIME_STEPS
+    fetch = Prefetcher(manager.get_batch, n) if prefetch else manager.get_batch
+    try:
+        for _ in range(TIME_WARMUP):
+            learner.train_step(fetch())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIME_STEPS):
+            learner.train_step(fetch())
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TIME_STEPS
+    finally:
+        if prefetch:
+            fetch.close()
+
+
+def phase_campaign(out_dir, device):
+    """This slice's path: the 6-task campaign through ``run_incremental``
+    (cuts in CAMPAIGN_*), counting kernel launches; checks (a)-(c) and
+    prints (d)-(e) (see the module doc).  Returns the launches."""
+    t0 = time.perf_counter()
+    n_train = [n // CAMPAIGN_CUT for n in campaign.N_TRAIN]
+    shape = campaign.campaign_options()
+    source = campaign.build_source(shape, CAMPAIGN_SEED, None, n_train,
+                                   [CAMPAIGN_TEST] * len(campaign.LANS))
+    print(f"  rendered {len(source.bank)} crops {source.bank.shape[1:]} (train {n_train}, "
+          f"test {CAMPAIGN_TEST} a task) in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(out_dir, "campaign")
+    opt = _campaign_opt(out, source, device)
+
+    # ---- counted run: the main path, through the entry point
+    with fused_train_env(False):
+        reset_launches()
+        t0 = time.perf_counter()
+        learner, steps, sizes, (aia, matrix, seconds) = _campaign_run(opt, source)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    ff_batches = -(-CAMPAIGN_TEST // BATCH)
+    expected = campaign_launches(len(campaign.LANS), ff_batches)
+    print(f"  run_incremental over {len(campaign.LANS)} tasks in {wall:.1f} s; launches "
+          f"{launches} (expected {expected}: 6 full + 6 banded attention per step-0 step; "
+          f"kernel 4 in the step-1 steps, the validations, test and the matrix rows)")
+    if launches != expected:
+        raise RuntimeError("the campaign did not run through the kernels as expected")
+
+    # ---- (a) the stream, prefetched, against the same stream built again
+    again, memory = _stream_again(opt, source)
+    _same_steps("(a) prefetched against rebuilt", steps, again)
+    targets = np.concatenate([s[3] for s in steps if s[1] == "routed"])
+    if set(targets.tolist()) != {0, 1}:
+        raise RuntimeError(f"(a) step-1 router targets are {sorted(set(targets.tolist()))}")
+    if [ix.tobytes() for ix in learner.memory_index] != [ix.tobytes() for ix in memory]:
+        raise RuntimeError("(a) the learner's memory indices differ from the rebuilt draw")
+    print(f"  (a) {len(steps)} batches the loop took with the prefetcher equal the rebuilt "
+          f"stream's bitwise; step-1 targets binary ({int((targets == 0).sum())} memory, "
+          f"{int((targets == 1).sum())} current); memory indices equal")
+
+    # ---- (b) memory sizes: memory_num / taski each, earlier memories cut
+    want = [[int(CAMPAIGN_MEMORY / t)] * t for t in range(1, len(campaign.LANS))]
+    print(f"  (b) memory sizes after tasks 1-5: {sizes} (expected {want})")
+    if sizes != want:
+        raise RuntimeError("(b) the rehearsal memory has the wrong sizes")
+
+    # ---- (d) the accuracy matrix
+    print(f"  (d) accuracy matrix {matrix}; AIA per stage {aia}; seconds per stage {seconds}; "
+          f"forgetting {campaign.forgetting(matrix)}")
+    if [len(r) for r in matrix] != list(range(1, 7)) or not np.all(np.isfinite(aia)):
+        raise RuntimeError("(d) the matrix is not 6 stages of finite scores")
+    for t in range(len(campaign.LANS)):
+        for s, label in ((0, "step 0"), (1, "step 1")):
+            recs = [r for r in learner.history if r["task"] == t and r["step"] == s]
+            if recs:
+                print(f"    task {t} {label}: {len(recs)} steps, loss {recs[0]['loss']:.4f} "
+                      f"-> {recs[-1]['loss']:.4f}, last window "
+                      f"{1e3 * recs[-1]['seconds']:.1f} ms/step")
+    history = learner.history
+
+    # ---- (e) step-0 windows with and without the prefetcher, a trace
+    learner._phase = "standalone"
+    learner.build_optimizer()
+    manager = DatasetManager(opt, dataset_factory=source.train_factory)
+    manager.init_start(opt, opt.select_data, None, len(campaign.LANS) - 1)
+    with fused_train_env(False):
+        windows = {flag: [] for flag in (True, False)}
+        for flag in (True, False, True, False):
+            windows[flag].append(_step0_window(learner, manager, flag))
+        from torch.profiler import ProfilerActivity, profile
+        fetch = Prefetcher(manager.get_batch, TRACE_STEPS + 1)
+        try:
+            learner.train_step(fetch())
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t1 = time.perf_counter()
+                for _ in range(TRACE_STEPS):
+                    learner.train_step(fetch())
+                torch.cuda.synchronize()
+                traced = time.perf_counter() - t1
+        finally:
+            fetch.close()
+    print(f"  (e) composed bf16 step 0, {TIME_STEPS}-step windows after {TIME_WARMUP} steps, "
+          f"no validation in them: prefetch on "
+          f"{', '.join(f'{1e3 * w:.2f}' for w in windows[True])} ms/step, off "
+          f"{', '.join(f'{1e3 * w:.2f}' for w in windows[False])} ms/step")
+    idle = print_device_profile(f"(e) bf16 step 0, {TRACE_STEPS} steps, prefetch on", prof,
+                                traced)
+    print(f"  (e) idle share of the traced window: "
+          f"{'not measured' if idle is None else f'{idle:.1%}'}")
+    del learner, manager
+
+    # ---- (c) crash and resume in the router phase of task 5
+    replay = dict(start_task=len(campaign.LANS) - 0.5, eval_from=len(campaign.LANS))
+    ref, ref_steps, _, _ = _campaign_run(_campaign_opt(out, source, device, **replay), source)
+    _campaign_run(_campaign_opt(out, source, device, full_ckpt=True, **replay), source,
+                  crash_after=CAMPAIGN_CRASH)
+    last = len(campaign.LANS) - 1
+    path = os.path.join(out, "saved", opt.exp_name,
+                        f"{campaign.LANS[last]}_{last}_1_train_state.msgpack")
+    if not os.path.exists(path):
+        raise RuntimeError("(c) the crashed run left no snapshot")
+    resumed, res_steps, _, _ = _campaign_run(
+        _campaign_opt(out, source, device, full_ckpt=True, resume_full=True, **replay), source)
+    if os.path.exists(path):
+        raise RuntimeError("(c) the completed stage kept its snapshot")
+    start = len(ref_steps) - len(res_steps)
+    _same_steps("(c) resumed against uninterrupted", res_steps, ref_steps[start:])
+    loss_rtol, _, share = TRAIN_STEP_TOL["bf16"]
+    ref_loss = [r["loss"] for r in ref.history[start:]]
+    res_loss = [r["loss"] for r in resumed.history]
+    dloss = max(abs(a - b) / abs(b) for a, b in zip(res_loss, ref_loss))
+    drouter = max(float((resumed.router_state[k] - v).abs().max()) / max(float(v.abs().max()),
+                                                                         1e-12)
+                  for k, v in ref.router_state.items())
+    print(f"  (c) crash after routed step {CAMPAIGN_CRASH} of task {last}, resumed from step "
+          f"{start}: {len(res_steps)} batches equal the uninterrupted replay's bitwise; losses "
+          f"max rel diff {dloss:.3e} (tol {loss_rtol:g}), router max |diff| {drouter:.3e} of "
+          f"its largest |param| (tol {share:g})")
+    if dloss > loss_rtol or drouter > share:
+        raise RuntimeError("(c) the resumed run left the uninterrupted one")
+    return launches, history
 
 
 def int8_block(rng, c, heads, mixer, hw, x32, device, dt):
@@ -1852,12 +2140,13 @@ def print_device_profile(label, prof, wall):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0:
         print(f"  {label}: the profiler recorded no device time ({1e3 * wall:.1f} ms traced)")
-        return
+        return None
     print(f"  {label}: device busy {busy:.1f} ms of {1e3 * wall:.1f} ms traced "
           f"({1 - busy / (1e3 * wall):.1%} idle); top kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         ms = e.self_device_time_total / 1e3
         print(f"    {ms:8.2f} ms {ms / busy:6.1%} x{e.count:<4d} {e.key[:90]}")
+    return 1 - busy / (1e3 * wall)
 
 
 def _trba_trees(rng, base, images, class_counts=None):
@@ -2101,6 +2390,9 @@ def main():
         del learners, fused_learners
         print("== SVTR-MRN checkpoints, validation and test, full width")
         ckpt = phase_checkpoints(base, alphabets, loader)
+        del loader
+        print("== SVTR-MRN 6-task campaign, full width, bf16")
+        camp, _ = phase_campaign(out_dir, device)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print("== w8a8 Block kernel vs plain, SVTR Block shapes")
@@ -2114,11 +2406,12 @@ def main():
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
-             served + trained["fused"] + fused_trained["fused"] + ckpt["fused"], totals[bf16]),
+             served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"],
+             totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
-             trained["full"] + ckpt["full"], attn[("full", bf16)]),
+             trained["full"] + ckpt["full"] + camp["full"], attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
-             trained["banded"] + ckpt["banded"], attn[("banded", bf16)]),
+             trained["banded"] + ckpt["banded"] + camp["banded"], attn[("banded", bf16)]),
             ("svtr_train_block_forward", "svtr_train_block.cu",
              "mrn_tpu/ops/svtr_train_block.py:124", fused_trained["train_fwd"],
              train_blocks[("fwd", bf16)]),
@@ -2148,10 +2441,10 @@ def main():
     print(f"kernel record: bfloat16 at batch {BATCH}; svtr_fused_block times are one "
           f"expert's 12 Blocks, its launches the served requests ({served}) plus the "
           f"router steps and validations of the training runs ({trained['fused']} composed, "
-          f"{fused_trained['fused']} fused) and of the checkpoint phase with its test "
-          f"({ckpt['fused']}); attention times are one expert forward's 6 Blocks of each "
-          f"kind, their launches the composed step-0 steps of the training and checkpoint "
-          f"phases; "
+          f"{fused_trained['fused']} fused), of the checkpoint phase with its test "
+          f"({ckpt['fused']}) and of the campaign ({camp['fused']}); attention times are one "
+          f"expert forward's 6 Blocks of each kind, their launches the composed step-0 steps "
+          f"of the training, checkpoint and campaign phases; "
           f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms "
           f"autograd's backward of the library Block's proj + LayerNorm + MLP sub-graph, "
           f"the head's of its LayerNorm + qkv product; svtr_fused_block_int8 times are one recognizer's 12 "

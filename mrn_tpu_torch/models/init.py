@@ -13,8 +13,8 @@ the flax layout (bridged into the port with ``bridge.from_flax``).
   and ``localization_fc2`` a zero kernel with the RARE fiducial bias (so
   every crop starts from the same near-identity grid).
 
-A new expert is drawn this way (the JAX learner's ``change_model``); the
-task-0 ``apply_reference_init`` pass is not ported.
+A new expert is drawn this way (the JAX learner's ``change_model``); task
+0's expert then gets ``models.surgery.apply_reference_init``.
 """
 
 from __future__ import annotations

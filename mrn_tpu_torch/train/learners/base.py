@@ -1,7 +1,8 @@
 """The port of ``mrn_tpu/train/learners/base.py`` that SVTR-MRN needs: the
 converter, the mixed-precision policy, the train-mode forward, batch
 encoding with the device image bank, the optimizer, the loop with its
-validation points, best checkpoints and ``test``.
+validation points, best checkpoints, ``test``, the rehearsal-memory draw
+and full-state snapshots.
 
 The loop (``_run_loop``) validates at iteration 1, every ``val_interval``
 and at the last iteration, writing a best checkpoint whenever the score
@@ -10,7 +11,26 @@ the device, at most 64 in flight; at a validation point they are read
 back in one copy into the ``Averager`` and into ``history`` (one record a
 step: its metrics, and ``seconds``, the mean step time of its ``StepMeter``
 window: the host clock from the window's first batch to the end of its
-last step on the device, validation left out).
+last step on the device, validation left out).  Batches come through a
+``data.prefetch.Prefetcher`` (``opt.prefetch``, on by default) that draws
+exactly the loop's batches on a thread; encoding and the copy to the
+device stay on the main thread.
+
+Generators: ``np_rng`` (seeded ``manual_seed``) draws only the rehearsal
+memory, as the JAX learner's does; ``weight_rng`` (a stream of its own from
+the same seed) draws new experts and routers; ``generator`` (torch, on the
+learner's device) draws every DropPath keep mask.
+
+Full-state snapshots (``opt.full_ckpt``): at every validation point before
+the last, ``{lan}_{taski}[_{step}]_train_state.msgpack`` holds the live
+params and statistics (flax layout), the Adam state in optax's layout
+(``train.optim.adam_state_to_optax``), the iteration, the DropPath
+generator's state (where JAX keeps its PRNG key) and the host state (the
+numpy generators, the memory indices, the best score and the manager's
+generator as it was when the stream was built).  With ``opt.resume_full``
+a loop that finds its snapshot restores it, rebuilds the stream from the
+manager's generator at build and skips the consumed batches; a completed
+stage removes its snapshot.
 
 Evaluation runs float32 weights (the masters, as the JAX eval step does)
 in eval mode: ``eval_batch`` gives the greedy ``preds_index``, the
@@ -31,8 +51,9 @@ Runs on the CUDA card unless ``device="cpu"`` is passed.
 from __future__ import annotations
 
 import functools
+import os
 import time
-from typing import Callable, Dict, List, Mapping, Optional, Union
+from typing import Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,10 +63,13 @@ from torch.func import functional_call
 from mrn_tpu_torch import resolve_device
 from mrn_tpu_torch.bridge import recognizer_state, to_flax
 from mrn_tpu_torch.codec import CTCLabelConverter
+from mrn_tpu_torch.data.prefetch import Prefetcher
 from mrn_tpu_torch.ops.ctc import ctc_loss_per_sample
-from mrn_tpu_torch.train.checkpoint import best_model_path, load_model, save_model
+from mrn_tpu_torch.train.checkpoint import (best_model_path, load_model, load_train_state,
+                                            save_model, save_train_state, train_state_path)
 from mrn_tpu_torch.train.evaluate import ValidationResult, validation
-from mrn_tpu_torch.train.optim import build_optimizer, build_schedule
+from mrn_tpu_torch.train.optim import (adam_state_from_optax, adam_state_to_optax,
+                                       build_optimizer, build_schedule)
 from mrn_tpu_torch.train.steps import TrainState, make_train_step, recognition_loss
 from mrn_tpu_torch.utils import Averager, ExperimentLog, StepMeter
 
@@ -62,6 +86,8 @@ class BaseLearner:
         self.opt = opt
         self.device = resolve_device(device)
         self.np_rng = np.random.default_rng(opt.manual_seed)
+        self.weight_rng = np.random.default_rng(
+            np.random.SeedSequence(opt.manual_seed, spawn_key=(1,)))
         # draws every DropPath keep mask of the models this learner builds
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(opt.manual_seed)
@@ -73,6 +99,7 @@ class BaseLearner:
         self.state: Optional[TrainState] = None
         self._train_step = None
         self._bank = None       # (host bank, its copy on the device)
+        self.memory_index: List[np.ndarray] = []
         self.history: List[Dict] = []
         self.best_score = -1.0
         self.log = ExperimentLog(opt.exp_name, opt.get("output_dir", "./saved_models"),
@@ -128,26 +155,36 @@ class BaseLearner:
         return self._train_step
 
     # ------------------------------------------------------------ batches
+    def _bank_on_device(self) -> torch.Tensor:
+        """``opt.image_bank`` [N, H, W, C] uint8 on the device: a tensor
+        there already, a ``DeviceImageBank``'s device copy (dropped by its
+        ``add``), or a numpy array copied once (again if its length
+        changes)."""
+        bank = self.opt.get("image_bank")
+        if bank is None:
+            raise ValueError("bank-index batch but opt.image_bank is unset")
+        if isinstance(bank, torch.Tensor):
+            return bank.to(self.device)
+        if hasattr(bank, "as_device_array"):
+            return bank.as_device_array(self.device)
+        if self._bank is None or self._bank[0] is not bank or len(self._bank[1]) != len(bank):
+            self._bank = (bank, torch.as_tensor(np.asarray(bank, np.uint8),
+                                                device=self.device))
+        return self._bank[1]
+
     def _device_images(self, images) -> torch.Tensor:
         """Float images move to the device as they are; uint8 crops move and
         are normalised ``(x / 255 - 0.5) / 0.5`` there; other integer
-        batches are indices into the uint8 image bank ``opt.image_bank``
-        [N, H, W, C], copied to the device once, gathered and normalised
-        there."""
+        batches are indices into the uint8 image bank ``opt.image_bank``,
+        gathered and normalised on the device."""
         images = np.asarray(images)
         if images.dtype == np.uint8:
             x = torch.as_tensor(images, device=self.device)
             return (x.float() / 255.0 - 0.5) / 0.5
         if not np.issubdtype(images.dtype, np.integer):
             return torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        bank = self.opt.get("image_bank")
-        if bank is None:
-            raise ValueError("bank-index batch but opt.image_bank is unset")
-        if self._bank is None or self._bank[0] is not bank:
-            self._bank = (bank, torch.as_tensor(np.asarray(bank, np.uint8),
-                                                device=self.device))
         index = torch.as_tensor(images.astype(np.int64), device=self.device)
-        img = self._bank[1].index_select(0, index)
+        img = self._bank_on_device().index_select(0, index)
         return (img.float() / 255.0 - 0.5) / 0.5
 
     def _encode_batch(self, images, labels) -> Dict[str, torch.Tensor]:
@@ -181,43 +218,169 @@ class BaseLearner:
     def _run_loop(self, taski: int, train_loader, valid_loader, num_iter: Optional[int] = None,
                   get_batch: Optional[Callable] = None, step: Optional[int] = None,
                   val_interval: Optional[int] = None) -> None:
-        """``num_iter`` steps on ``get_batch`` (default
+        """``num_iter`` iterations on ``get_batch`` (default
         ``train_loader.get_batch``), validated on ``valid_loader`` at
-        iteration 1, every ``val_interval`` and the last iteration."""
+        iteration 1, every ``val_interval`` and the last iteration; under
+        ``opt.resume_full`` a snapshot of this phase restarts the loop
+        after its iteration."""
         num_iter = int(num_iter or self.opt.num_iter)
         val_interval = int(val_interval or self.opt.val_interval)
         get_batch = get_batch or train_loader.get_batch
         train_loss_avg = Averager()
         start_time = time.time()
         self.best_score = -1.0
+        start_iter = self._maybe_resume_full(taski, step, train_loader)
+        prefetcher = None
+        if self.opt.get("prefetch", True):
+            prefetcher = get_batch = Prefetcher(get_batch, num_iter - start_iter, depth=2)
         meter = StepMeter()
         pending: List[Dict] = []   # records whose losses are still on the device
         window: List[Dict] = []    # records of the meter's window
-        for iteration in range(1, num_iter + 1):
-            fetched = get_batch()
-            record = dict(self.train_step(fetched), task=taski, step=step,
-                          iteration=iteration)
-            self.history.append(record)
-            pending.append(record)
-            window.append(record)
-            if len(pending) > MAX_IN_FLIGHT:
-                self._flush([pending.pop(0)], train_loss_avg)
-            meter.tick(len(fetched[1]))
+        try:
+            for iteration in range(start_iter + 1, num_iter + 1):
+                fetched = get_batch()
+                record = dict(self.train_step(fetched), task=taski, step=step,
+                              iteration=iteration)
+                self.history.append(record)
+                pending.append(record)
+                window.append(record)
+                if len(pending) > MAX_IN_FLIGHT:
+                    self._flush([pending.pop(0)], train_loss_avg)
+                meter.tick(len(fetched[1]))
 
-            if iteration % val_interval == 0 or iteration == 1 or iteration == num_iter:
-                self._flush(pending, train_loss_avg)
-                pending = []
-                if self.device.type == "cuda":   # the window ends on the device
-                    torch.cuda.synchronize(self.device)
-                seconds = meter.seconds()
-                for r in window:
-                    r["seconds"] = seconds / len(window)
-                self.log.write(f"[{iteration}/{num_iter}] {meter.report(seconds)}\n")
-                self.val(valid_loader, self.opt, self.best_score, start_time, iteration,
-                         train_loss_avg, taski, step=step)
-                train_loss_avg.reset()
-                window = []
-                meter.reset()
+                if iteration % val_interval == 0 or iteration == 1 or iteration == num_iter:
+                    self._flush(pending, train_loss_avg)
+                    pending = []
+                    if self.device.type == "cuda":   # the window ends on the device
+                        torch.cuda.synchronize(self.device)
+                    seconds = meter.seconds()
+                    for r in window:
+                        r["seconds"] = seconds / len(window)
+                    self.log.write(f"[{iteration}/{num_iter}] {meter.report(seconds)}\n")
+                    self.val(valid_loader, self.opt, self.best_score, start_time, iteration,
+                             train_loss_avg, taski, step=step)
+                    train_loss_avg.reset()
+                    window = []
+                    if self.opt.get("full_ckpt") and iteration < num_iter:
+                        self._save_full_state(taski, step, iteration, train_loader)
+                    meter.reset()
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        if self.opt.get("full_ckpt"):
+            # a completed stage drops its rolling snapshot, so a later resume
+            # cannot rewind into it
+            path = self._train_state_path(taski, step)
+            if os.path.exists(path):
+                os.remove(path)
+
+    # ------------------------------------------------ full-state snapshots
+    def _train_state_path(self, taski: int, step: Optional[int]) -> str:
+        return train_state_path(self.opt.get("output_dir", "./saved_models"),
+                                self.opt.exp_name, self.opt.lan_list[taski], taski, step)
+
+    def _snapshot_trees(self) -> Tuple[Dict, Dict]:
+        """The live (params, batch_stats) a snapshot keeps: the model's."""
+        return to_flax(self.model)
+
+    def _restore_trees(self, params: Mapping, batch_stats: Mapping) -> None:
+        """Loads a snapshot's trees in place (the optimizer holds the
+        parameter tensors)."""
+        self.model.load_state_dict(recognizer_state(params, batch_stats), strict=True)
+
+    def _host_state(self, train_loader=None) -> Dict:
+        host = {"np_rng": self.np_rng.bit_generator.state,
+                "weight_rng": self.weight_rng.bit_generator.state,
+                "memory_index": [np.asarray(ix) for ix in self.memory_index],
+                "best_score": self.best_score}
+        if train_loader is not None and hasattr(train_loader, "rng_state_at_build"):
+            host["manager_rng_at_build"] = train_loader.rng_state_at_build
+        return host
+
+    def _restore_host_state(self, host: Mapping) -> None:
+        self.np_rng.bit_generator.state = host["np_rng"]
+        if "weight_rng" in host:
+            self.weight_rng.bit_generator.state = host["weight_rng"]
+        self.memory_index = [np.asarray(ix) for ix in host["memory_index"]]
+        self.best_score = float(host["best_score"])
+
+    def _rebuild_stream(self, train_loader, taski: int, step: Optional[int]) -> None:
+        """Re-runs the stream build that preceded the interrupted loop."""
+        if taski == 0 or self.opt.memory is None:
+            train_loader.get_dataset(taski, memory=None if taski == 0 else self.opt.memory)
+        else:
+            train_loader.get_dataset(taski, memory=self.opt.memory,
+                                     index_list=self.memory_index)
+
+    def _restore_stream(self, train_loader, host: Mapping, taski: int,
+                        step: Optional[int], iteration: int) -> None:
+        """Rewinds the manager's generator to its state at build, rebuilds
+        the loaders (their construction shuffles replay) and skips the
+        ``iteration`` consumed batches."""
+        if train_loader is None or not hasattr(train_loader, "skip_batches"):
+            return
+        if "manager_rng_at_build" in host and hasattr(train_loader, "rng"):
+            train_loader.rng.bit_generator.state = host["manager_rng_at_build"]
+            self._rebuild_stream(train_loader, taski, step)
+        train_loader.skip_batches(iteration)
+
+    def _save_full_state(self, taski: int, step: Optional[int], iteration: int,
+                         train_loader=None) -> None:
+        params, stats = self._snapshot_trees()
+        save_train_state(self._train_state_path(taski, step), params=params,
+                         batch_stats=stats,
+                         opt_state=adam_state_to_optax(self.state.opt, list(self.state.params)),
+                         iteration=iteration,
+                         rng_key=self.generator.get_state().numpy(),
+                         host_state=self._host_state(train_loader))
+
+    def _maybe_resume_full(self, taski: int, step: Optional[int], train_loader) -> int:
+        """Restores this (task, step)'s snapshot under ``opt.resume_full``
+        and fast-forwards the stream; returns the iteration to go on from
+        (0 without a snapshot)."""
+        if not self.opt.get("resume_full"):
+            return 0
+        path = self._train_state_path(taski, step)
+        if not os.path.exists(path):
+            return 0
+        payload = load_train_state(path)
+        self._restore_trees(payload["params"], payload["batch_stats"])
+        adam_state_from_optax(self.state.opt, list(self.state.params), payload["opt_state"])
+        self.generator.set_state(torch.as_tensor(np.asarray(payload["rng_key"], np.uint8)))
+        self._restore_host_state(payload["host_state"])
+        iteration = payload["iteration"]
+        self.state.step = iteration
+        self._restore_stream(train_loader, payload["host_state"], taski, step, iteration)
+        self.log.write(f"Task {taski} resume from {path} @ iter {iteration}.\n")
+        return iteration
+
+    # ------------------------------------------------------ rehearsal
+    def build_rehearsal_memory(self, train_loader, taski: int) -> None:
+        memory_num = self.opt.memory_num
+        num_i = int(memory_num / taski)
+        self.build_random_current_memory(num_i, taski, train_loader)
+        if self.memory_index and len(self.memory_index) * len(self.memory_index[0]) > memory_num:
+            self.reduce_samplers(taski, taski_num=num_i)
+        train_loader.get_dataset(taski, memory=self.opt.memory, index_list=self.memory_index)
+
+    def build_random_current_memory(self, taski_num: int, taski: int, train_loader) -> None:
+        """Draws ``taski_num`` samples of task ``taski - 1`` from ``np_rng``."""
+        _, len_data = train_loader.rehearsal_prev_model(taski)
+        self.memory_index.append(self.np_rng.choice(range(len_data), taski_num,
+                                                    replace=False))
+
+    def reduce_samplers(self, taski: int, taski_num: int) -> None:
+        for i in range(taski):
+            self.memory_index[i] = self.memory_index[i][:taski_num]
+
+    def _build_stream(self, train_loader, taski: int) -> None:
+        """The stream of a task's rehearsal step: the memory when the
+        learner keeps one and the loader has rehearsal, else the current
+        task alone."""
+        if self.opt.memory is not None and getattr(train_loader, "rehearsal", True):
+            self.build_rehearsal_memory(train_loader, taski)
+        else:
+            train_loader.get_dataset(taski, memory=self.opt.memory)
 
     # --------------------------------------------------------------- eval
     def _eval_logits(self, images: torch.Tensor, val_choose: str) -> torch.Tensor:

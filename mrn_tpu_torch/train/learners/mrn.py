@@ -1,18 +1,33 @@
 """MRN learner, the two training phases of a task with their validation
-and best checkpoints (mirrors ``mrn_tpu/train/learners/mrn.py`` without
-LMDB, rehearsal memory or resume):
+and best checkpoints (mirrors ``mrn_tpu/train/learners/mrn.py``):
 
 - step 0: the NEW expert trains alone (train mode: DropPath, BatchNorm on
-  batch statistics, CTC), validated "FF" (the standalone expert) on the
-  current task's set; then (task > 0) it is frozen into the expert list;
-- step 1 (task > 0): a fresh router stack trains over all experts stacked
-  and frozen, for ``num_iter // 2`` updates on the rehearsal stream whose
-  batches carry each sample's task id, with loss
-  ``15 * CTC + CE(index, task id)`` and OneCycle over ``2 * num_iter``,
+  batch statistics, CTC) on the current task's stream
+  (``train_loader.get_dataset(taski, memory=None)``), validated "FF" (the
+  standalone expert) on the current task's set; then (task > 0) it is
+  frozen into the expert list.  Task 0's expert gets the reference init
+  pass (``models.surgery.apply_reference_init``); later experts keep their
+  construction init;
+- step 1 (task > 0): the rehearsal memory is drawn
+  (``build_rehearsal_memory``: ``memory_num / taski`` samples of the last
+  task, earlier tasks' memories cut to the same size, or full-size
+  memories when ``memory_num >= 5000``), then a fresh router stack trains
+  over all experts stacked and frozen, for ``num_iter // 2`` updates on the
+  rehearsal stream whose batches carry each sample's ``dataset_idx`` (memory
+  0 / current 1, or the task id under ``router_labels="task"``), with loss
+  ``15 * CTC + CE(index, dataset_idx)`` and OneCycle over ``2 * num_iter``,
   validated "TF" (the hard expert pick) on every seen task's set every
   ``max(1, val_interval // 5)`` iterations.  The experts run in eval mode,
-  so their BatchNorm statistics stay pinned (``mrn_pin_expert_stats=True``),
-  and without gradients.
+  so their BatchNorm statistics stay pinned (``mrn_pin_expert_stats=True``;
+  the reference's drifting mode is not ported, ROADMAP.md §1 item 4), and
+  without gradients.
+
+``opt.start_task`` replays what a crashed run finished: a phase below it
+(task ``i`` step 0 below ``i``, step 1 below ``i + 0.5``) builds its
+stream as training would (so the generators advance alike) and loads its
+best checkpoint instead of training.  A router-phase snapshot keeps the
+router, its Adam state and the host state, not the frozen experts, which
+the replay rebuilds.
 
 Validation runs float32 experts: under the bf16 policy the training
 ensemble holds bfloat16 expert copies, so "TF" runs a float32 ensemble
@@ -27,10 +42,10 @@ expert's ``expert_stats`` and the ``router``.  ``test`` reloads the best
 checkpoint (FF at task 0, TF later) and ``after_task`` freezes the
 reloaded task-0 expert.
 
-``train_loader`` is any object with the ``DatasetManager`` batch methods:
-``get_batch() -> (images, labels)`` for step 0 and ``get_batch2() ->
-(images, labels, task_ids)`` for step 1; images may be indices into
-``opt.image_bank``.  ``valid_loader`` is a ``data.manager.ValDataset``.
+``train_loader`` is a ``data.manager.DatasetManager`` (or an object with
+its ``get_dataset``, ``rehearsal_prev_model``, ``get_batch`` and
+``get_batch2``); images may be indices into ``opt.image_bank``.
+``valid_loader`` is a ``data.manager.ValDataset``.
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ from mrn_tpu_torch.bridge import (flax_tree, from_flax, recognizer_state, routed
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.init import random_recognizer, random_router
 from mrn_tpu_torch.models.mrn import MRNNet
+from mrn_tpu_torch.models.surgery import apply_reference_init
 from mrn_tpu_torch.models.svtr import set_droppath_generator
 from mrn_tpu_torch.ops.losses import cross_entropy_dense
 from mrn_tpu_torch.train.checkpoint import composite_experts, load_model, save_model
@@ -84,6 +100,10 @@ def tree_hash(*trees: Mapping) -> str:
 class MRN(BaseLearner):
 
     def __init__(self, opt, device=None):
+        if not opt.get("mrn_pin_expert_stats", True):
+            raise NotImplementedError("mrn_pin_expert_stats=False (experts' statistics "
+                                      "drifting in the router phase) is not ported "
+                                      "(ROADMAP.md §1 item 4)")
         super().__init__(opt, device)
         self.expert_states: List[Dict[str, torch.Tensor]] = []  # frozen, unpadded
         self.class_counts: List[int] = []
@@ -94,19 +114,24 @@ class MRN(BaseLearner):
         self._phase = "standalone"  # "standalone" | "routed"
 
     # ------------------------------------------------------------ models
-    def _new_expert(self) -> None:
-        """A fresh expert in the JAX init distributions, as the current
-        standalone model.  It serves as both ``build_model`` (task 0) and
-        ``change_model`` (task > 0): the task-0 ``apply_reference_init``
-        pass of the JAX learner is not ported."""
-        params, stats = random_recognizer(self.np_rng, self.opt, self._total_classes)
+    def _new_expert(self, params, stats) -> None:
+        """The expert of ``params`` / ``stats`` (flax trees) as the current
+        standalone model."""
         model = build_recognizer(self.opt, self._total_classes)
         model.load_state_dict(from_flax(params, stats), strict=True)
         self.model = model.to(self.device)
         set_droppath_generator(self.model, self.generator)
         self._phase = "standalone"
 
-    build_model = change_model = _new_expert
+    def build_model(self) -> None:
+        """Task 0: the first expert, drawn in the JAX init distributions
+        from ``weight_rng``, then the reference init pass."""
+        params, stats = random_recognizer(self.weight_rng, self.opt, self._total_classes)
+        self._new_expert(apply_reference_init(params, self.weight_rng), stats)
+
+    def change_model(self) -> None:
+        """Task > 0: a fresh expert in its construction init."""
+        self._new_expert(*random_recognizer(self.weight_rng, self.opt, self._total_classes))
 
     def _set_experts(self, states: List[Dict[str, torch.Tensor]], counts: List[int],
                      hashes: List[Optional[str]]) -> None:
@@ -197,12 +222,13 @@ class MRN(BaseLearner):
     # ------------------------------------------------------------ train
     def start_router_phase(self, router: Optional[Mapping] = None) -> None:
         """Step 1's set-up: the routed ensemble over every frozen expert
-        with ``router`` (flax tree) or a fresh router stack, cast once under
-        the bf16 policy (the JAX step casts them every step to the same
-        values), and its optimizer (OneCycle over ``2 * num_iter``)."""
+        with ``router`` (flax tree) or a fresh router stack from
+        ``weight_rng``, cast once under the bf16 policy (the JAX step casts
+        them every step to the same values), and its optimizer (OneCycle
+        over ``2 * num_iter``)."""
         self._phase = "routed"
         if router is None:
-            router = random_router(self.np_rng, self.opt, len(self.expert_states))
+            router = random_router(self.weight_rng, self.opt, len(self.expert_states))
         self.mrn_model = self._routed_model(router, self._mp_dtype())
         self._eval_mrn = None
         self.build_optimizer(scale=1.0, the=2)
@@ -220,11 +246,30 @@ class MRN(BaseLearner):
             self.build_model()
         self.count_param()
         self.build_optimizer()
-        self.log.write(f"Task {taski} start training ------{self.opt.exp_name}------\n")
-        self._run_loop(taski, train_loader, valid_loader.create_dataset(), step=0)
-        if taski == 0:
-            return  # the first expert is frozen by after_task
-        self._freeze_newest()
+        self._train_mrn(taski, train_loader, valid_loader, step=0)
+        if taski > 0:
+            self._train_mrn(taski, train_loader, valid_loader, step=1)
+
+    def _train_mrn(self, taski: int, train_loader, valid_loader, step: int) -> None:
+        """One phase of task ``taski``, or its replay below ``start_task``."""
+        if float(self.opt.get("start_task", 0)) > taski + step * 0.5:
+            if taski > 0 and step == 0:
+                train_loader.get_dataset(taski, memory=None)
+            elif taski > 0:
+                self._build_stream(train_loader, taski)
+            self._load_best(taski, step=step)
+            if step == 0 and taski > 0:
+                self._freeze_newest()
+            return
+        if step == 0:
+            self.log.write(f"Task {taski} start training ------{self.opt.exp_name}------\n")
+            if taski > 0:
+                train_loader.get_dataset(taski, memory=None)
+            self._run_loop(taski, train_loader, valid_loader.create_dataset(), step=0)
+            if taski > 0:
+                self._freeze_newest()
+            return   # the first expert is frozen by after_task
+        self._build_stream(train_loader, taski)
         self.start_router_phase()
         self._run_loop(taski, train_loader, valid_loader.create_list_dataset(),
                        num_iter=int(self.opt.num_iter // 2),
@@ -233,6 +278,39 @@ class MRN(BaseLearner):
         self.router_state = {k: v.detach().clone()
                              for k, v in self.mrn_model.state_dict().items()
                              if not k.startswith("experts.")}
+
+    def build_rehearsal_memory(self, train_loader, taski: int) -> None:
+        """MRN's memory: ``memory_num >= 5000`` keeps full-size memories."""
+        memory_num = self.opt.memory_num
+        num_i = memory_num if memory_num >= 5000 else int(memory_num / taski)
+        self.build_random_current_memory(num_i, taski, train_loader)
+        if memory_num < 5000 and self.memory_index \
+                and len(self.memory_index) * len(self.memory_index[0]) > memory_num:
+            self.reduce_samplers(taski, taski_num=num_i)
+        train_loader.get_dataset(taski, memory=self.opt.memory, index_list=self.memory_index)
+
+    # ------------------------------------------------ full-state snapshots
+    def _rebuild_stream(self, train_loader, taski: int, step: Optional[int]) -> None:
+        if step == 0 or taski == 0:
+            train_loader.get_dataset(taski, memory=None)
+        else:
+            train_loader.get_dataset(taski, memory=self.opt.memory,
+                                     index_list=self.memory_index)
+
+    def _snapshot_trees(self):
+        """Step 1 keeps the router only: the frozen experts are rebuilt by
+        the replay, and their statistics stay pinned."""
+        if self._phase != "routed":
+            return super()._snapshot_trees()
+        return self._router_tree(), {}
+
+    def _restore_trees(self, params, batch_stats) -> None:
+        if self._phase != "routed":
+            return super()._restore_trees(params, batch_stats)
+        live = dict(self.mrn_model.named_parameters())
+        with torch.no_grad():
+            for name, value in recognizer_state({k: params[k] for k in ROUTER_KEYS}).items():
+                live[name].copy_(value)
 
     def after_task(self) -> None:
         """At task 0 the first expert (reloaded from its best checkpoint by

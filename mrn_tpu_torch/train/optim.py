@@ -13,18 +13,28 @@ Frozen parameters are simply not handed to the optimizer: they get no
 update, as the JAX package's zero-update mask gives them none, and their
 (zero) gradients stay out of the global norm there too.  The update is in
 place on the master parameters.
+
+``adam_state_to_optax`` / ``adam_state_from_optax`` map the state (update
+count, ``mu``, ``nu``) to and from the state dict of the JAX package's
+optimizer, ``chain(masked(set_to_zero), chain(clip_by_global_norm,
+adam))``: ``{"0": {"inner_state": {}}, "1": {"0": {}, "1": {"0": {"count",
+"mu", "nu"}, "1": {"count"}}}}``, ``mu`` and ``nu`` flax-layout trees of
+the trained parameters (a full-state snapshot leaves the frozen experts'
+moments out).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from mrn_tpu_torch.bridge import flax_tree, recognizer_state
 from mrn_tpu_torch.ops.schedules import multistep_schedule, onecycle_schedule
 
-__all__ = ["Adam", "build_optimizer", "build_schedule"]
+__all__ = ["Adam", "adam_state_from_optax", "adam_state_to_optax", "build_optimizer",
+           "build_schedule"]
 
 
 def build_schedule(opt, scale: float = 1.0, the: int = 1) -> Callable[[int], float]:
@@ -83,6 +93,31 @@ class Adam:
         torch._foreach_add_(self.params, updates)
         self.count += 1
         return {"grad_norm": norm, "lr": lr}
+
+
+def adam_state_to_optax(adam: Adam, names: Sequence[str]) -> Dict:
+    """``adam``'s state as the optax state dict; ``names`` are the port
+    names of ``adam.params``, in order."""
+    count = np.asarray(adam.count, np.int32)
+    moments = {key: flax_tree(zip(names, getattr(adam, key))) for key in ("mu", "nu")}
+    return {"0": {"inner_state": {}},
+            "1": {"0": {}, "1": {"0": dict(count=count, **moments),
+                                 "1": {"count": count.copy()}}}}
+
+
+def adam_state_from_optax(adam: Adam, names: Sequence[str], state: Mapping) -> None:
+    """Loads an optax state dict (``adam_state_to_optax``'s layout) into
+    ``adam`` in place; every one of ``names`` must have its moments."""
+    inner = state["1"]["1"]
+    for key in ("mu", "nu"):
+        tensors = recognizer_state(inner["0"][key])
+        if set(tensors) != set(names):
+            raise ValueError(f"optimizer state {key}: parameters "
+                             f"{sorted(set(tensors) ^ set(names))[:4]} differ")
+        with torch.no_grad():
+            for name, dst in zip(names, getattr(adam, key)):
+                dst.copy_(tensors[name])
+    adam.count = int(np.asarray(inner["0"]["count"]))
 
 
 def build_optimizer(opt, schedule: Callable[[int], float],
