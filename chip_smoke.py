@@ -81,6 +81,23 @@
    its losses and router within ``TRAIN_STEP_TOL``; prints (d) the matrix,
    the AIA and seconds per stage and (e) the step-0 window mean with and
    without the prefetcher and a traced window's idle share;
+9d. runs the other strategies (base, LwF, WA, EWC, DER, joint_mix and
+   joint_loader) through ``campaign.run_incremental`` / ``run_joint`` at
+   full width, bf16, batch 256, prefetch on, over 3 tasks of the campaign
+   suite, cut as ``STRATEGY_*`` below says, counting the launches of rows
+   1, 2 and 4 against the expected counts; checks (a) that the batches
+   each run took (EWC's Fisher batches too) equal those of its stream
+   built again without the prefetcher, bitwise, half-batch loaders
+   included, and (b) the strategies' invariants: LwF's and WA's KD term
+   finite and above 0 from task 1, every WA align leaving the new columns'
+   mean norm at the old columns' within 1e-5, EWC's Fisher at most 1e-4
+   and its penalty finite, DER's frozen extractors bitwise unchanged over
+   a task, and task 0 of base, LwF, WA and EWC the same draws and the same
+   model; (c) one training step with the kernels against the plain
+   versions within ``TRAIN_STEP_TOL``: LwF at task 1 (row 4 in the old
+   network, rows 1-2 in the live one), DER at task 2 composed and with
+   ``MRN_FUSED_TRAIN=1`` (rows 5-7); prints (d) each strategy's step time
+   over a window after 3 warm-up steps, its stage seconds and launches;
 10. holds the w8a8 Block kernel against its plain version at the four Block
    shapes at batch 256, float32 and bfloat16, float and int8 attention, each
    Block calibrated on its input and quantized first (Local Blocks banded,
@@ -347,6 +364,20 @@ CAMPAIGN_CRASH = 5
 # (e): a step-0 window of TIME_STEPS steps after TIME_WARMUP, no validation
 # in it; TRACE_STEPS of them traced
 TIME_WARMUP, TIME_STEPS, TRACE_STEPS = 3, 10, 5
+
+# The strategies phase: campaign.run_incremental / run_joint for each of
+# STRATEGY_ILS at full width, bf16, batch 256, prefetch on, seed 111, on
+# the campaign phase's suite (train instance counts / CAMPAIGN_CUT,
+# CAMPAIGN_TEST test crops a task), cut against the protocol of
+# ACCURACY_RUNS/t6/svtr_{base,wa}.json: STRATEGY_TASKS tasks (for 6),
+# memory_num CAMPAIGN_MEMORY (for 2000), num_iter STRATEGY_ITERS with
+# val_interval STRATEGY_VAL (for 1000 and 500; validations at 1, 5 and
+# 10) and fisher_num_iter STRATEGY_FISHER (for num_iter // 4 = 250).
+STRATEGY_ILS = ("base", "lwf", "wa", "ewc", "der", "joint_mix", "joint_loader")
+STRATEGY_TASKS = 3
+STRATEGY_ITERS = 10
+STRATEGY_VAL = 5
+STRATEGY_FISHER = 3
 
 
 # ------------------------------------------------------------------- timing
@@ -1573,10 +1604,9 @@ def _step0_window(learner, manager, prefetch):
             fetch.close()
 
 
-def phase_campaign(out_dir, device):
-    """This slice's path: the 6-task campaign through ``run_incremental``
-    (cuts in CAMPAIGN_*), counting kernel launches; checks (a)-(c) and
-    prints (d)-(e) (see the module doc).  Returns the launches."""
+def campaign_source():
+    """The campaign suite, cut: train instance counts / CAMPAIGN_CUT,
+    CAMPAIGN_TEST test crops a task."""
     t0 = time.perf_counter()
     n_train = [n // CAMPAIGN_CUT for n in campaign.N_TRAIN]
     shape = campaign.campaign_options()
@@ -1584,6 +1614,13 @@ def phase_campaign(out_dir, device):
                                    [CAMPAIGN_TEST] * len(campaign.LANS))
     print(f"  rendered {len(source.bank)} crops {source.bank.shape[1:]} (train {n_train}, "
           f"test {CAMPAIGN_TEST} a task) in {time.perf_counter() - t0:.1f} s")
+    return source
+
+
+def phase_campaign(out_dir, device, source):
+    """This slice's path: the 6-task campaign through ``run_incremental``
+    (cuts in CAMPAIGN_*), counting kernel launches; checks (a)-(c) and
+    prints (d)-(e) (see the module doc).  Returns the launches."""
     out = os.path.join(out_dir, "campaign")
     opt = _campaign_opt(out, source, device)
 
@@ -1697,6 +1734,305 @@ def phase_campaign(out_dir, device):
     if dloss > loss_rtol or drouter > share:
         raise RuntimeError("(c) the resumed run left the uninterrupted one")
     return launches, history
+
+
+class _BaseMemoryDraw(_MemoryDraw):
+    """The base learner's memory draw (WA's and DER's), on its own
+    generator."""
+    build_rehearsal_memory = BaseLearner.build_rehearsal_memory
+
+
+def _strategy_opt(out, source, device, il):
+    opt = campaign.campaign_options(
+        tasks=STRATEGY_TASKS, num_iter=STRATEGY_ITERS, batch_size=BATCH, seed=CAMPAIGN_SEED,
+        bf16=True, out=out, il=il, memory_num=CAMPAIGN_MEMORY, val_interval=STRATEGY_VAL,
+        fisher_num_iter=STRATEGY_FISHER)
+    opt.image_bank = source.device_bank(device)
+    return opt
+
+
+def _strategy_stream(opt, source):
+    """A strategy's stream built again without the learner or the
+    prefetcher: the joint streams' ``num_iter`` batches, or per task the
+    build (the memory draw of a strategy that keeps one), ``num_iter``
+    batches and EWC's Fisher batches."""
+    manager = DatasetManager(opt, dataset_factory=source.train_factory)
+    n = opt.num_iter
+    if opt.il.startswith("joint"):
+        for t in range(len(opt.lan_list)):
+            manager.joint_start(opt, opt.select_data, None, t, len(opt.lan_list))
+        return [manager.get_batch()[0] for _ in range(n)]
+    manager.init_start(opt, opt.select_data, None, 0)
+    draw, batches = _BaseMemoryDraw(opt), []
+    for t in range(len(opt.lan_list)):
+        if t and opt.memory is not None:
+            draw.build_rehearsal_memory(manager, t)
+        elif t:
+            manager.get_dataset(t, memory=None)
+        extra = opt.fisher_num_iter if opt.il == "ewc" else 0
+        batches += [manager.get_batch()[0] for _ in range(n + extra)]
+    return batches
+
+
+def strategy_launches(il, tasks, ff_batches):
+    """Launches of rows 1, 2 and 4 in one strategy's run: 6 full + 6 banded
+    attention per train-mode forward of one network (each step, and EWC's
+    Fisher batches); row 4, 12 per network and eval batch: the
+    validations (DER's network has t + 1 extractors at task t), ``test``
+    and the matrix row over every seen set, LwF's and WA's old network and
+    DER's t frozen extractors in each step of task t; the joint run
+    validates the all-task set at every point and tests every task after
+    iteration 1 and once more at the end."""
+    n, points = STRATEGY_ITERS, val_points(STRATEGY_ITERS, STRATEGY_VAL)
+    launches = dict(full=0, banded=0, fused=0, train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
+    if il.startswith("joint"):
+        list_batches = -(-tasks * CAMPAIGN_TEST // BATCH)
+        launches.update(full=6 * n, banded=6 * n,
+                        fused=12 * (points * list_batches + (points - 1 + 2) * tasks * ff_batches))
+        return launches
+    for t in range(tasks):
+        forwards = n + (STRATEGY_FISHER if il == "ewc" else 0)
+        launches["full"] += 6 * forwards
+        launches["banded"] += 6 * forwards
+        nets = t + 1 if il == "der" else 1
+        launches["fused"] += 12 * nets * ff_batches * (points + 2 * (t + 1))
+        if t and il in ("lwf", "wa"):
+            launches["fused"] += 12 * n
+        if il == "der":
+            launches["fused"] += 12 * t * n
+    return launches
+
+
+def _param_diff(got, ref):
+    """The largest |difference| of two flax trees, as a share of the
+    largest |value| of its leaf."""
+    worst = 0.0
+    for (k, a), (_, b) in zip(_leaves(got), _leaves(ref)):
+        scale = max(float(np.abs(b).max(initial=0.0)), 1e-12)
+        worst = max(worst, float(np.abs(a - b).max(initial=0.0)) / scale)
+    return worst
+
+
+def _instrument(learner, checks):
+    """Wraps the learner's hooks to record what (a) and (b) read: every
+    batch it encodes, task 0's draws and trained model, each WA align,
+    each EWC Fisher and DER's frozen extractors around each loop."""
+    batches = []
+    encode, build, after = learner._encode_batch, learner.build_model, learner.after_task
+
+    def recorded_encode(images, labels):
+        batches.append(np.asarray(images).copy())
+        return encode(images, labels)
+
+    def recorded_build():
+        build()
+        checks["draws"] = to_flax(learner.model)
+
+    def recorded_after():
+        if learner._cur_task == 0:
+            checks["task0"] = to_flax(learner.model)
+        after()
+
+    learner._encode_batch, learner.build_model = recorded_encode, recorded_build
+    learner.after_task = recorded_after
+    if hasattr(learner, "_align"):
+        align = learner._align
+
+        def checked_align():
+            gamma = align()
+            kernel = learner.model.fc.kernel.detach().float()
+            norms = kernel.norm(dim=0)
+            cut = learner._known_classes
+            new, old = float(norms[cut:].mean()), float(norms[:cut].mean())
+            checks.setdefault("align", []).append((gamma, abs(new - old) / old))
+            return gamma
+
+        learner._align = checked_align
+    if hasattr(learner, "get_fisher_diagonal"):
+        update = learner._update_fisher
+
+        def checked_update(loader):
+            update(loader)
+            checks.setdefault("fisher", []).append(
+                (max(float(f.max()) for f in learner.fisher.values()),
+                 all(bool(torch.isfinite(f).all()) for f in learner.fisher.values())))
+
+        learner._update_fisher = checked_update
+    if hasattr(learner, "n_experts"):
+        run_loop = learner._run_loop
+
+        def checked_loop(*args, **kwargs):
+            frozen = [{k: v.detach().clone() for k, v in e.state_dict().items()}
+                      for e in learner.model.extractors[:-1]]
+            run_loop(*args, **kwargs)
+            same = all(torch.equal(v, e.state_dict()[k])
+                       for e, state in zip(learner.model.extractors, frozen)
+                       for k, v in state.items())
+            checks.setdefault("frozen", []).append((len(frozen), same))
+
+        learner._run_loop = checked_loop
+    return batches
+
+
+def _strategy_step_pair(learner, batch, variants, tol, what):
+    """One training step of ``learner`` from the same weights, batch and
+    DropPath masks under each of two ``variants`` ((label, plain, fused)):
+    loss, global grad norm and the fc grad within ``tol`` (as
+    ``_step_pair``)."""
+    start = copy.deepcopy(learner.model.state_dict())
+    gen_state = learner.generator.get_state()
+    captured = {}
+
+    def keep_fc_grad(grads):
+        captured["fc"] = grads["fc.kernel"].detach().clone()
+        return grads
+
+    learner.grad_transform = lambda: keep_fc_grad
+    results = []
+    for _, plain, fused in variants:
+        learner.model.load_state_dict(start)
+        learner.generator.set_state(gen_state)
+        for model in (learner.model, learner._old_model):
+            if model is not None:
+                configure_blocks(model, plain=plain)
+        learner.build_optimizer()
+        with fused_train_env(fused):
+            metrics = learner.train_step(batch)
+        results.append((float(metrics["loss"]), float(metrics["grad_norm"]), captured["fc"]))
+    for model in (learner.model, learner._old_model):
+        if model is not None:
+            configure_blocks(model, plain=False)
+    (lk, gk, fk), (lp, gp, fp) = results
+    loss_rtol, norm_rtol, fc_share = tol
+    largest = float(fp.abs().max())
+    dfc = float((fk - fp).abs().max())
+    print(f"  (c) bf16 step, {what}: loss {lk:.7f} vs {lp:.7f} "
+          f"(rel {abs(lk - lp) / abs(lp):.2e}, tol {loss_rtol:g}), grad_norm {gk:.6f} vs "
+          f"{gp:.6f} (rel {abs(gk - gp) / gp:.2e}, tol {norm_rtol:g}), fc grad max |diff| "
+          f"{dfc:.3e} of max |grad| {largest:.3e} (tol {fc_share:g} of it)")
+    if abs(lk - lp) > loss_rtol * abs(lp) or abs(gk - gp) > norm_rtol * gp \
+            or dfc > fc_share * largest:
+        raise RuntimeError(f"(c) the {what} training steps disagree")
+
+
+def _learner_at(out, source, device, il, task):
+    """A fresh ``il`` learner grown to ``task`` (random weights, every
+    earlier task ended with ``after_task``) and a batch of that task's
+    stream."""
+    opt = _strategy_opt(out, source, device, il)
+    learner = campaign.build_learner(opt)
+    for t in range(task + 1):
+        learner._cur_task, learner.character = t, list(source.cumulative_character(t))
+        learner.converter = learner.build_converter()
+        if t == 0:
+            learner.build_model()
+        else:
+            learner.change_model()
+        if t < task:
+            learner.after_task()
+    manager = DatasetManager(opt, dataset_factory=source.train_factory)
+    manager.init_start(opt, opt.select_data, None, task)
+    return learner, manager.get_batch()
+
+
+def phase_strategies(out_dir, device, source):
+    """The other strategies through the campaign's entry points (cuts in
+    STRATEGY_*), counting the launches of rows 1, 2 and 4; checks (a)-(c),
+    prints (d) (see the module doc).  Returns the launches summed over the
+    strategies."""
+    total = dict(full=0, banded=0, fused=0, train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
+    ff_batches = -(-CAMPAIGN_TEST // BATCH)
+    task0, loss_rtol = {}, TRAIN_STEP_TOL["bf16"][2]
+    for il in STRATEGY_ILS:
+        opt = _strategy_opt(os.path.join(out_dir, "strategies"), source, device, il)
+        learner = campaign.build_learner(opt)
+        checks = {}
+        batches = _instrument(learner, checks)
+        manager = DatasetManager(opt, dataset_factory=source.train_factory)
+        run = campaign.run_joint if il.startswith("joint") else campaign.run_incremental
+        with fused_train_env(False):
+            reset_launches()
+            t0 = time.perf_counter()
+            _, aia, matrix, seconds = run(opt, source, learner=learner, manager=manager)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        expected = strategy_launches(il, STRATEGY_TASKS, ff_batches)
+        print(f"  {il}: {wall:.1f} s, stage seconds {seconds}, AIA {aia}, matrix {matrix}; "
+              f"launches {launches} (expected {expected})")
+        if launches != expected:
+            raise RuntimeError(f"{il}: the run did not go through the kernels as expected")
+        for k in total:
+            total[k] += launches[k]
+        # ---- (a) the stream
+        del learner._encode_batch   # the window below records nothing
+        again = _strategy_stream(opt, source)
+        if len(batches) != len(again) or any(a.tobytes() != b.tobytes()
+                                             for a, b in zip(batches, again)):
+            raise RuntimeError(f"(a) {il}: the batches differ from the rebuilt stream")
+        halves = [lo.batch_size for lo in manager.loaders]
+        print(f"  (a) {il}: {len(batches)} batches equal the rebuilt stream's bitwise "
+              f"(loaders of {halves} at the end)")
+        # ---- (b) invariants
+        later = [r for r in learner.history if r["task"] > 0]
+        if il in ("lwf", "wa"):
+            kd = [r["kd"] for r in later]
+            if not kd or not all(np.isfinite(kd)) or min(kd) <= 0:
+                raise RuntimeError(f"(b) {il}: KD terms {kd[:4]}...")
+            print(f"  (b) {il}: KD from task 1 in [{min(kd):.4f}, {max(kd):.4f}]")
+        if il == "wa":
+            aligns = checks.get("align", [])
+            print(f"  (b) wa: {len(aligns)} aligns, gamma and |new - old| / old mean norm "
+                  f"{[(round(g, 5), f'{d:.1e}') for g, d in aligns]}")
+            if len(aligns) != 2 * (STRATEGY_TASKS - 1) or max(d for _, d in aligns) > 1e-5:
+                raise RuntimeError("(b) wa: an align left the norms apart")
+        if il == "ewc":
+            fisher, penalty = checks.get("fisher", []), [r["ewc"] for r in later]
+            print(f"  (b) ewc: Fisher max per task {[f'{m:.2e}' for m, _ in fisher]}; penalty "
+                  f"in [{min(penalty):.3e}, {max(penalty):.3e}]")
+            if len(fisher) != STRATEGY_TASKS or any(m > 1e-4 or not ok for m, ok in fisher) \
+                    or not all(np.isfinite(penalty)):
+                raise RuntimeError("(b) ewc: the Fisher or the penalty is out of its bounds")
+        if il == "der":
+            frozen = checks.get("frozen", [])
+            print(f"  (b) der: frozen extractors per task and unchanged: {frozen}")
+            if [n for n, _ in frozen] != list(range(STRATEGY_TASKS)) \
+                    or not all(same for _, same in frozen):
+                raise RuntimeError("(b) der: a frozen extractor moved")
+        if il in ("base", "lwf", "wa", "ewc"):
+            task0[il] = (checks["draws"], checks["task0"])
+        # ---- (d) a step window on the last task's stream; the step is built
+        # again, as a loop would build it, on what after_task left
+        learner._train_step = None
+        with fused_train_env(False):
+            windows = [_step0_window(learner, manager, True) for _ in range(2)]
+        print(f"  (d) {il}: bf16 step over {TIME_STEPS} steps after {TIME_WARMUP} on task "
+              f"{len(opt.lan_list) - 1 if not il.startswith('joint') else 0}'s stream: "
+              f"{', '.join(f'{1e3 * w:.2f}' for w in windows)} ms; stage seconds {seconds}")
+        del learner, manager
+    # ---- (b) the shared task 0
+    ref_draws, ref_model = task0["base"]
+    for il in ("lwf", "wa", "ewc"):
+        draws, model = task0[il]
+        if _param_diff(draws[0], ref_draws[0]) != 0.0:
+            raise RuntimeError(f"(b) {il}'s task-0 draws differ from base's")
+        diff = max(_param_diff(model[0], ref_model[0]), _param_diff(model[1], ref_model[1]))
+        print(f"  (b) task 0 of {il} against base: the same draws; trained model "
+              f"{'bitwise equal' if diff == 0.0 else f'max |diff| {diff:.2e} of its leaf'}")
+        if diff > loss_rtol:
+            raise RuntimeError(f"(b) {il}'s task-0 model differs from base's")
+    # ---- (c) kernels against plain versions on the new paths
+    out = os.path.join(out_dir, "strategies_c")
+    variants = (("kernels", False, False), ("plain", True, False))
+    learner, batch = _learner_at(out, source, device, "lwf", 1)
+    _strategy_step_pair(learner, batch, variants, TRAIN_STEP_TOL["bf16"],
+                        "LwF task 1, composed (row 4 old network, rows 1-2)")
+    learner, batch = _learner_at(out, source, device, "der", 2)
+    _strategy_step_pair(learner, batch, variants, TRAIN_STEP_TOL["bf16"],
+                        "DER task 2, composed (row 4 frozen extractors, rows 1-2)")
+    _strategy_step_pair(learner, batch, (("kernels", False, True), ("plain", True, True)),
+                        FUSED_STEP_TOL["bf16"],
+                        "DER task 2, MRN_FUSED_TRAIN=1 (row 4, rows 5-7)")
+    return total
 
 
 def int8_block(rng, c, heads, mixer, hw, x32, device, dt):
@@ -2392,7 +2728,11 @@ def main():
         ckpt = phase_checkpoints(base, alphabets, loader)
         del loader
         print("== SVTR-MRN 6-task campaign, full width, bf16")
-        camp, _ = phase_campaign(out_dir, device)
+        source = campaign_source()
+        camp, _ = phase_campaign(out_dir, device, source)
+        print("== the other strategies, 3 tasks, full width, bf16")
+        strat = phase_strategies(out_dir, device, source)
+        del source
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print("== w8a8 Block kernel vs plain, SVTR Block shapes")
@@ -2406,12 +2746,14 @@ def main():
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
-             served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"],
-             totals[bf16]),
+             served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"]
+             + strat["fused"], totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
-             trained["full"] + ckpt["full"] + camp["full"], attn[("full", bf16)]),
+             trained["full"] + ckpt["full"] + camp["full"] + strat["full"],
+             attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
-             trained["banded"] + ckpt["banded"] + camp["banded"], attn[("banded", bf16)]),
+             trained["banded"] + ckpt["banded"] + camp["banded"] + strat["banded"],
+             attn[("banded", bf16)]),
             ("svtr_train_block_forward", "svtr_train_block.cu",
              "mrn_tpu/ops/svtr_train_block.py:124", fused_trained["train_fwd"],
              train_blocks[("fwd", bf16)]),
@@ -2442,9 +2784,10 @@ def main():
           f"expert's 12 Blocks, its launches the served requests ({served}) plus the "
           f"router steps and validations of the training runs ({trained['fused']} composed, "
           f"{fused_trained['fused']} fused), of the checkpoint phase with its test "
-          f"({ckpt['fused']}) and of the campaign ({camp['fused']}); attention times are one "
+          f"({ckpt['fused']}), of the campaign ({camp['fused']}) and of the strategies "
+          f"({strat['fused']}); attention times are one "
           f"expert forward's 6 Blocks of each kind, their launches the composed step-0 steps "
-          f"of the training, checkpoint and campaign phases; "
+          f"of the training, checkpoint, campaign and strategies phases; "
           f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms "
           f"autograd's backward of the library Block's proj + LayerNorm + MLP sub-graph, "
           f"the head's of its LayerNorm + qkv product; svtr_fused_block_int8 times are one recognizer's 12 "

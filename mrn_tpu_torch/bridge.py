@@ -26,8 +26,14 @@ from an expert list (each fc, and an Attn expert's char_embeddings,
 zero-padded to the current class count) plus a router tree, as the JAX
 learner's ``_routed_variables`` does.
 
+A DER tree (``params["extractors"]`` and ``batch_stats["extractors"]``
+stacked on a leading axis, the JAX ``extractor_stack``, plus ``fc`` over
+the concatenated features and ``aux_fc``) is unstacked into
+``extractors.<i>.`` (``der_state``), the port ``DERNet``'s ``ModuleList``.
+
 ``to_flax`` goes back: a port module's parameters and buffers as numpy
-``(params, batch_stats)`` trees in the JAX layout (MRN experts stacked), so
+``(params, batch_stats)`` trees in the JAX layout (MRN experts and DER
+extractors stacked), so
 tests can hold updated weights and statistics against the JAX package's
 leaf by leaf.
 
@@ -51,8 +57,11 @@ from torch import nn
 
 from mrn_tpu_torch.models.svtr import is_quant_scale
 
-__all__ = ["flax_tree", "from_flax", "mrn_state", "pad_expert_state", "quant_tree",
-           "recognizer_state", "routed_state", "state_to_flax", "to_flax"]
+__all__ = ["der_state", "flax_tree", "from_flax", "mrn_state", "pad_expert_state",
+           "quant_tree", "recognizer_state", "routed_state", "state_to_flax", "to_flax"]
+
+# subtrees stacked on a leading axis in the JAX layout, a ModuleList here
+STACKED = ("experts", "extractors")
 
 _BLOCK_RE = re.compile(r"\bblocks(\d)_(\d+)\b")
 _PORT_BLOCK_RE = re.compile(r"\bblocks(\d)\.(\d+)\b")
@@ -89,12 +98,12 @@ def recognizer_state(params: Mapping, batch_stats: Optional[Mapping] = None,
     return state
 
 
-def mrn_state(params: Mapping, batch_stats: Optional[Mapping] = None
-              ) -> Dict[str, torch.Tensor]:
-    """State dict of a port ``MRNNet`` from the JAX ``MRNNet`` trees."""
-    experts = params["experts"]
-    expert_stats = (batch_stats or {}).get("experts", {})
-    n = len(np.asarray(experts["fc"]["kernel"]))
+def _unstacked(params: Mapping, batch_stats: Optional[Mapping], key: str
+               ) -> Dict[str, torch.Tensor]:
+    """The ``<key>.<i>.`` entries of the subtree stacked under ``key``."""
+    stack = params[key]
+    stack_stats = (batch_stats or {}).get(key, {})
+    n = len(np.asarray(next(v for _, v in _flatten(stack))))
 
     def take(tree, i):
         return {k: take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
@@ -102,18 +111,38 @@ def mrn_state(params: Mapping, batch_stats: Optional[Mapping] = None
 
     state = {}
     for i in range(n):
-        state.update(recognizer_state(take(experts, i), take(expert_stats, i),
-                                      prefix=f"experts.{i}."))
+        state.update(recognizer_state(take(stack, i), take(stack_stats, i),
+                                      prefix=f"{key}.{i}."))
+    return state
+
+
+def mrn_state(params: Mapping, batch_stats: Optional[Mapping] = None
+              ) -> Dict[str, torch.Tensor]:
+    """State dict of a port ``MRNNet`` from the JAX ``MRNNet`` trees."""
+    state = _unstacked(params, batch_stats, "experts")
     for key in ("dm_router", "channel_route", "route"):
         state.update(recognizer_state({key: params[key]}))
     return state
 
 
+def der_state(params: Mapping, batch_stats: Optional[Mapping] = None
+              ) -> Dict[str, torch.Tensor]:
+    """State dict of a port ``DERNet`` (or of DER optimizer moments) from
+    JAX ``DERNet`` trees: ``extractors`` unstacked, the rest as it is."""
+    state = _unstacked(params, batch_stats, "extractors")
+    state.update(recognizer_state({k: v for k, v in params.items() if k != "extractors"},
+                                  {k: v for k, v in (batch_stats or {}).items()
+                                   if k != "extractors"}))
+    return state
+
+
 def from_flax(params: Mapping, batch_stats: Optional[Mapping] = None,
               quant: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
-    """``mrn_state`` for an MRN tree (has ``experts``), else
-    ``recognizer_state``; ``quant`` (a w8a8 recognizer's ``quant``
-    collection) lands beside the params."""
+    """``mrn_state`` for an MRN tree (has ``experts``), ``der_state`` for a
+    DER tree (has ``extractors``), else ``recognizer_state``; ``quant`` (a
+    w8a8 recognizer's ``quant`` collection) lands beside the params."""
+    if "extractors" in params:
+        return der_state(params, batch_stats)
     if "experts" in params:
         if quant:
             raise ValueError("a quant collection belongs to a single recognizer; "
@@ -180,26 +209,27 @@ def _flax_leaf(name: str, tensor: torch.Tensor) -> Tuple[str, np.ndarray]:
 def flax_tree(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict:
     """Port-named tensors (``named_parameters()``, ``named_buffers()``, or a
     dict's items, e.g. gradients) -> one numpy tree (floats as float32,
-    int8 kernels as int8) in the JAX layout; ``experts.<i>.`` entries are
-    stacked on axis 0 under ``experts``."""
+    int8 kernels as int8) in the JAX layout; ``experts.<i>.`` and
+    ``extractors.<i>.`` entries are stacked on axis 0 under ``experts`` and
+    ``extractors``."""
     tree: Dict = {}
-    experts: Dict[str, Dict[int, np.ndarray]] = {}
+    stacked: Dict[str, Dict[int, np.ndarray]] = {}
     for name, tensor in named:
         path, arr = _flax_leaf(name, tensor)
-        if path.startswith("experts."):
+        head = path.split(".", 1)[0]
+        if head in STACKED:
             _, index, rest = path.split(".", 2)
-            experts.setdefault(rest, {})[int(index)] = arr
+            stacked.setdefault(f"{head}.{rest}", {})[int(index)] = arr
         else:
             _nest(tree, path, arr)
-    for rest, per_expert in experts.items():
-        _nest(tree, "experts." + rest,
-              np.stack([per_expert[i] for i in sorted(per_expert)]))
+    for path, per_index in stacked.items():
+        _nest(tree, path, np.stack([per_index[i] for i in sorted(per_index)]))
     return tree
 
 
 def to_flax(module: nn.Module) -> Tuple[Dict, Dict]:
-    """``(params, batch_stats)`` numpy trees of a port Recognizer or MRNNet
-    in the JAX layout (a w8a8 model's int8 kernels in ``params``; its quant
+    """``(params, batch_stats)`` numpy trees of a port Recognizer, MRNNet or
+    DERNet in the JAX layout (a w8a8 model's int8 kernels in ``params``; its quant
     scales are ``quant_tree``'s)."""
     buffers = [(k, t) for k, t in module.named_buffers() if not is_quant_scale(k)]
     params = list(module.named_parameters()) + [(k, t) for k, t in buffers

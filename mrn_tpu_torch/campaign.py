@@ -1,25 +1,32 @@
-"""The 6-task synthetic incremental campaign of SVTR-MRN (the port's copy of
-the incremental path of ``scripts/accuracy_campaign.py``).
+"""The 6-task synthetic incremental campaign of SVTR (the port's copy of
+``scripts/accuracy_campaign.py``), for every incremental-learning strategy
+of the port.
 
 The suite echoes MLT17's shape: 6 tasks in the reference order with its
 class counts (1895/325/1620/1124/73/112, disjoint CJK spans) and instance
 counts, 32x256 RGBA crops rendered with the bit-pattern encoder over one
 character index, characters Zipf(1.0) and lengths ``p(L) ~ 1/L``.  Per
-task: train (step 0, then the router step), reload the best checkpoint and
-score every seen task; the record holds the accuracy matrix, the AIA per
-stage, the average forgetting and the seconds per stage.
+task: train, reload the best checkpoint and score every seen task; the
+record holds the accuracy matrix, the AIA per stage, the average
+forgetting and the seconds per stage.  The joint strategies train once on
+all tasks (``run_joint``) and record one row.
 
-    python3 -m mrn_tpu_torch.campaign --tasks 6 --num_iter 1000 --bf16 \\
-        --out ACCURACY_RUNS_TORCH/t6
+    python3 -m mrn_tpu_torch.campaign --il wa --tasks 6 --num_iter 1000 \
+        --bf16 --out ACCURACY_RUNS_TORCH/t6
 
-writes ``<out>/svtr_mrn.json`` (best checkpoints under ``<out>/saved/``);
-the rendered suite is cached as ``build/campaign/suite_<tag>.npz`` under
-the repository root.  ``--smoke`` runs a narrow SVTR (embed 16/32/64, depth
-1/2/1) on 1/80 of the data.  A crashed campaign goes on with ``--start_task
-K --eval_from K`` (tasks below K replay their best checkpoints; K + 0.5
-also replays task K's step 0); ``--stop_after K`` ends after stage K,
-writing ``<out>/svtr_mrn.stage<K>.json``.  Runs on the CUDA card unless
-``--device cpu``.  Only ``il="mrn"`` with the SVTR recognizer is ported.
+writes ``<out>/svtr_<il>.json`` (best checkpoints under ``<out>/saved/``);
+``--il`` is ``base``, ``lwf``, ``wa``, ``ewc``, ``der``, ``mrn``,
+``joint_mix`` or ``joint_loader``; ``mrn``, ``der``, ``wa`` and
+``joint_mix`` keep a rehearsal memory (``MEMORY_ILS``), EWC's Fisher takes
+``num_iter // 4`` batches.  The rendered suite is cached as
+``build/campaign/suite_<tag>.npz`` under the repository root; on the card
+the CUDA kernels are built before stage 0's clock starts.  ``--smoke``
+runs a narrow SVTR (embed 16/32/64, depth 1/2/1) on 1/80 of the data.  A
+crashed campaign goes on with ``--start_task K --eval_from K`` (tasks
+below K replay their best checkpoints; for MRN K + 0.5 also replays task
+K's step 0); ``--stop_after K`` ends after stage K, writing
+``<out>/svtr_<il>.stage<K>.json``.  Runs on the CUDA card unless
+``--device cpu``.  Only the SVTR recognizer is ported.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ from mrn_tpu_torch.data.manager import DatasetManager, ValDataset
 from mrn_tpu_torch.data.synthetic import SyntheticSource, alphabet_of_size
 from mrn_tpu_torch.train.learners import build_learner
 
-__all__ = ["CLASSES", "GEN_PARAMS", "LANS", "N_TEST", "N_TRAIN", "build_source",
-           "campaign_options", "device_name", "forgetting", "main", "run_incremental"]
+__all__ = ["CLASSES", "GEN_PARAMS", "ILS", "LANS", "MEMORY_ILS", "N_TEST", "N_TRAIN",
+           "build_source", "campaign_options", "campaign_record", "device_name", "forgetting",
+           "main",
+           "run_incremental", "run_joint"]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CACHE_DIR = os.path.join(ROOT, "build", "campaign")
@@ -53,6 +62,9 @@ GEN_PARAMS = dict(min_len=1, max_len=10, renderer="bits", zipf=1.0,
 MEMORY_NUM = 2000
 SMOKE_SVTR = dict(embed_dim=(16, 32, 64), depth=(1, 2, 1), num_heads=(2, 2, 4))
 SMOKE_MEMORY_NUM = 16   # below the smallest smoke task
+ILS = ("base", "lwf", "wa", "ewc", "der", "mrn", "joint_mix", "joint_loader")
+# the strategies that keep a rehearsal memory, as the shipped configs do
+MEMORY_ILS = {"mrn", "der", "wa", "joint_mix"}
 
 
 def task_alphabets() -> List[str]:
@@ -98,12 +110,15 @@ def build_source(opt, seed: int = 111, cache_dir: Optional[str] = None,
 
 def campaign_options(tasks: int = 6, num_iter: int = 1000, batch_size: int = 256,
                      seed: int = 111, bf16: bool = False, out: str = "ACCURACY_RUNS_TORCH",
-                     smoke: bool = False, **overrides):
-    """The JAX script's options for SVTR-MRN (``run_strategy``)."""
+                     smoke: bool = False, il: str = "mrn", **overrides):
+    """The JAX script's options for SVTR under strategy ``il``
+    (``run_strategy``)."""
     dims = dict(output_channel=512, hidden_size=256)
     if smoke:
         dims = dict(output_channel=64, hidden_size=32, svtr=SMOKE_SVTR)
-    opt = dict(exp_name="acc_svtr_mrn", il="mrn", memory="random",
+    opt = dict(exp_name=f"acc_svtr_{il}", il=il,
+               memory="random" if il in MEMORY_ILS else None,
+               fisher_num_iter=max(1, num_iter // 4),
                memory_num=SMOKE_MEMORY_NUM if smoke else MEMORY_NUM,
                batch_size=batch_size, num_iter=num_iter,
                val_interval=max(1, num_iter // 2), batch_max_length=25, imgH=32, imgW=256,
@@ -112,7 +127,7 @@ def campaign_options(tasks: int = 6, num_iter: int = 1000, batch_size: int = 256
                Prediction="CTC", valid_datas=["synth_test"], workers=0, NED=True,
                manual_seed=seed, train_dtype="bf16" if bf16 else None,
                output_dir=os.path.join(out, "saved"),
-               data_log=os.path.join(out, "data_svtr_mrn.txt"), **dims)
+               data_log=os.path.join(out, f"data_svtr_{il}.txt"), **dims)
     opt.update(overrides)
     return default_options(**opt)
 
@@ -126,7 +141,10 @@ def _val_builder(opt, source) -> Callable:
 def _matrix_row(learner, opt, source, taski: int) -> List[float]:
     """Accuracy on tasks 0..taski with the best checkpoint ``test`` has
     just reloaded."""
-    choose = "FF" if taski == 0 else "TF"
+    if opt.il == "mrn":
+        choose = "FF" if taski == 0 else "TF"
+    else:
+        choose = "test"
     row = []
     for j in range(taski + 1):
         res = learner.run_validation(_val_builder(opt, source)(f"synth_test/{opt.lan_list[j]}"),
@@ -155,7 +173,7 @@ def run_incremental(opt, source, learner=None, device=None, manager=None):
             # a replayed stage whose row is already recorded
             learner.after_task()
             stage_times.append(round(time.time() - t0, 1))
-            print(f"[mrn] task {taski} ({opt.lan_list[taski]}): resumed, eval skipped "
+            print(f"[{opt.il}] task {taski} ({opt.lan_list[taski]}): resumed, eval skipped "
                   f"({stage_times[-1]}s)", flush=True)
             continue
         best_scores, ned_scores = learner.test(valid_datas, best_scores, ned_scores, taski,
@@ -163,12 +181,36 @@ def run_incremental(opt, source, learner=None, device=None, manager=None):
         matrix.append(_matrix_row(learner, opt, source, taski))
         learner.after_task()
         stage_times.append(round(time.time() - t0, 1))
-        print(f"[mrn] task {taski} ({opt.lan_list[taski]}): row={matrix[-1]} "
+        print(f"[{opt.il}] task {taski} ({opt.lan_list[taski]}): row={matrix[-1]} "
               f"AIA={best_scores[-1]} ({stage_times[-1]}s)", flush=True)
         if 0 <= stop_after <= taski:
-            print(f"[mrn] stop_after={stop_after}: stage complete", flush=True)
+            print(f"[{opt.il}] stop_after={stop_after}: stage complete", flush=True)
             break
     return learner, best_scores, matrix, stage_times
+
+
+def run_joint(opt, source, learner=None, device=None, manager=None):
+    """The joint upper bound: every task's stream through
+    ``joint_start``, one training run on all characters, then ``test`` and
+    the row over every task; returns ``(learner, [row mean], [row],
+    [seconds])``."""
+    learner = learner or build_learner(opt, device=device)
+    manager = manager or DatasetManager(opt, dataset_factory=source.train_factory)
+    n_tasks = len(opt.lan_list)
+    valid_datas = [f"synth_test/{lan}" for lan in opt.lan_list]
+    t0 = time.time()
+    for taski in range(n_tasks):
+        manager.joint_start(opt, opt.select_data, None, taski, n_tasks)
+    val_ds = ValDataset(valid_datas, opt, dataset_factory=source.val_factory)
+    best_scores, ned_scores = learner.incremental_train(
+        0, source.cumulative_character(n_tasks - 1), manager, val_ds,
+        valid_datas=valid_datas, val_dataset_builder=_val_builder(opt, source))
+    learner.test(valid_datas, best_scores, ned_scores, 0,
+                 val_dataset_builder=_val_builder(opt, source))
+    row = _matrix_row(learner, opt, source, n_tasks - 1)
+    seconds = round(time.time() - t0, 1)
+    print(f"[{opt.il}] joint row={row} ({seconds}s)", flush=True)
+    return learner, [round(sum(row) / len(row), 2)], [row], [seconds]
 
 
 def forgetting(matrix: Sequence[Sequence[float]]) -> Optional[float]:
@@ -198,9 +240,28 @@ def device_name(device) -> str:
         return f"{torch.cuda.get_device_name(device)}, power limit not read"
 
 
+def campaign_record(il: str, num_iter: int, bf16: bool, batch_size: int, seed: int,
+                    n_train: Sequence[int], n_test: Sequence[int], aia: List[float],
+                    matrix: List[List[float]], times: List[float], total: float,
+                    card: str) -> dict:
+    """The fields of the JAX campaign's ``ACCURACY_RUNS/t6/svtr_<il>.json``
+    plus the card's ``device``."""
+    return {
+        "il": il, "num_iter": num_iter, "train_dtype": "bf16" if bf16 else "f32",
+        "batch_size": batch_size, "seed": seed,
+        "classes": CLASSES, "n_train": list(n_train), "n_test": list(n_test),
+        "shared_glyphs": 0,
+        "aia_per_stage": aia, "final_aia": aia[-1] if aia else None,
+        "acc_matrix": matrix, "final_row": matrix[-1] if matrix else None,
+        "avg_forgetting": forgetting(matrix) if matrix else None,
+        "stage_seconds": times, "total_seconds": total,
+        "arch": "svtr", "recycled": False, "device": card,
+    }
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--il", default="mrn")
+    ap.add_argument("--il", default="mrn", choices=ILS)
     ap.add_argument("--arch", default="svtr")
     ap.add_argument("--tasks", type=int, default=6)
     ap.add_argument("--num_iter", type=int, default=2500)
@@ -216,19 +277,25 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--eval_from", type=int, default=0,
                     help="skip the evaluation of stages below this")
     ap.add_argument("--stop_after", type=int, default=-1,
-                    help="end after this stage, writing <out>/svtr_mrn.stage<K>.json")
+                    help="end after this stage, writing <out>/svtr_<il>.stage<K>.json")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
-    if args.il != "mrn" or args.arch != "svtr":
-        raise NotImplementedError(f"il={args.il!r}, arch={args.arch!r}: the port's campaign "
-                                  "runs SVTR-MRN only (ROADMAP.md §1 items 5, 7-9)")
+    if args.arch != "svtr":
+        raise NotImplementedError(f"arch={args.arch!r}: the port's campaign runs SVTR only "
+                                  "(ROADMAP.md §1 items 7-9)")
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        # the kernels' nvcc builds stay out of stage 0's seconds
+        from mrn_tpu_torch.ops import _build
+        t_kernels = time.time()
+        _build.build_all()
+        print(f"kernels built in {time.time() - t_kernels:.1f}s", flush=True)
     n_train, n_test = N_TRAIN, N_TEST
     if args.smoke:
         n_train = [max(8, n // 80) for n in N_TRAIN]
         n_test = [max(8, n // 80) for n in N_TEST]
     opt = campaign_options(args.tasks, args.num_iter, args.batch_size, args.seed, args.bf16,
-                           args.out, args.smoke, start_task=args.start_task,
+                           args.out, args.smoke, il=args.il, start_task=args.start_task,
                            eval_from=args.eval_from, stop_after=args.stop_after)
     os.makedirs(args.out, exist_ok=True)
     t_build = time.time()
@@ -239,27 +306,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           flush=True)
 
     t0 = time.time()
-    _, aia, matrix, times = run_incremental(opt, source, device=device)
+    run = run_joint if args.il in ("joint_mix", "joint_loader") else run_incremental
+    _, aia, matrix, times = run(opt, source, device=device)
     card = device_name(device)
+    total = round(time.time() - t0, 1)
     if args.stop_after >= 0:
         record = {"stage": args.stop_after, "eval_from": args.eval_from, "rows": matrix,
-                  "aia": aia, "stage_seconds": times,
-                  "total_seconds": round(time.time() - t0, 1), "device": card}
-        path = os.path.join(args.out, f"svtr_mrn.stage{args.stop_after}.json")
+                  "aia": aia, "stage_seconds": times, "total_seconds": total, "device": card}
+        path = os.path.join(args.out, f"svtr_{args.il}.stage{args.stop_after}.json")
     else:
-        record = {
-            "il": "mrn", "num_iter": args.num_iter,
-            "train_dtype": "bf16" if args.bf16 else "f32",
-            "batch_size": args.batch_size, "seed": args.seed,
-            "classes": CLASSES, "n_train": list(n_train), "n_test": list(n_test),
-            "shared_glyphs": 0,
-            "aia_per_stage": aia, "final_aia": aia[-1] if aia else None,
-            "acc_matrix": matrix, "final_row": matrix[-1] if matrix else None,
-            "avg_forgetting": forgetting(matrix) if matrix else None,
-            "stage_seconds": times, "total_seconds": round(time.time() - t0, 1),
-            "arch": "svtr", "recycled": False, "device": card,
-        }
-        path = os.path.join(args.out, "svtr_mrn.json")
+        record = campaign_record(args.il, args.num_iter, args.bf16, args.batch_size, args.seed,
+                                 n_train, n_test, aia, matrix, times, total, card)
+        path = os.path.join(args.out, f"svtr_{args.il}.json")
     with open(path, "w", encoding="utf-8") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({k: record[k] for k in ("final_aia", "avg_forgetting", "final_row",

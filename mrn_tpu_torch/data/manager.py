@@ -23,11 +23,28 @@ and draws everything from one generator seeded ``opt.manual_seed``:
   ``memory_num / taski`` current samples, tagged memory (0) / current (1)
   under ``router_labels="reference"`` or with the task id under
   ``"task"``;
-- ``get_batch()`` / ``get_batch2()``: one batch per loader, concatenated;
-  ``skip_batches(n)``: n such rounds without collating.
+- ``get_dataset(taski, "test_ch", index_list)``: one stream of the memory
+  (each task's full dataset repeated before its indices are taken) and
+  the current task;
+- ``get_dataset(taski, "large", index_list)``: one stream of the memory
+  (``memory_num * taski``) and ``memory_num`` current samples;
+- ``get_dataset(taski, "total")``: one stream of the current task and
+  every earlier task in full;
+- ``get_dataset(taski, memory, index_list)``, any other policy name (the
+  configs' ``"random"``) with another ``il``: two loaders of
+  ``batch_size // 2``, the memory's then the current task's;
+- ``joint_start(opt, select_data, log, taski, total_task)``, called once
+  per task: ``il="joint_mix"`` gathers each task's dataset in
+  ``data_list`` and after the last task builds one loader over them all;
+  ``"joint_loader"`` adds one loader of ``batch_size // total_task`` per
+  task;
+- ``get_batch()`` / ``get_batch2()``: one batch per loader, in loader
+  order, concatenated; ``skip_batches(n)``: n such rounds without
+  collating.
 
-The other memory policies and ``joint_start`` serve the other learners and
-raise (ROADMAP.md §1 item 5), as does the LMDB factory (item 6).
+Every loader built draws its first permutation from the generator when it
+is built, and one more at each new epoch.  The LMDB factory raises
+(ROADMAP.md §1 item 6).
 
 ``ValDataset(val_datas, opt, dataset_factory)`` builds, from
 ``dataset_factory(val_data) -> dataset``, the current (last) set's loader
@@ -55,8 +72,6 @@ __all__ = ["DatasetManager", "EpochLoader", "ValDataset"]
 LIST_CAP = 700
 # small datasets are repeated to about this many samples a task
 REPEAT_TO = 50000
-
-OTHER_LEARNERS = "ROADMAP.md §1 item 5 (the other learners)"
 
 
 def _identity(image):
@@ -150,6 +165,7 @@ class DatasetManager:
                  seed: Optional[int] = None):
         self.opt = opt
         self.select_data: Optional[Sequence[str]] = None
+        self.data_list: List = []          # joint_mix's datasets, one a task
         self.loaders: List[EpochLoader] = []
         self.rng = np.random.default_rng(opt.manual_seed if seed is None else seed)
         self._factory = dataset_factory or self._lmdb_factory
@@ -186,7 +202,15 @@ class DatasetManager:
         self.get_dataset(taski, memory=None)
 
     def joint_start(self, opt, select_data, log, taski, total_task):
-        raise NotImplementedError(f"joint training: {OTHER_LEARNERS}")
+        self.opt = opt
+        self.select_data = select_data
+        dataset = self.create_dataset(data_list=select_data, taski=taski)
+        if opt.il == "joint_mix":
+            self.data_list.append(dataset)
+            if taski == total_task - 1:
+                self._add_loader(ConcatDataset(self.data_list), int(opt.batch_size))
+        elif opt.il == "joint_loader":
+            self._add_loader(dataset, int(opt.batch_size // total_task))
 
     def get_dataset(self, taski, memory="random", index_list=None):
         """Builds task ``taski``'s stream; returns the memory index list."""
@@ -216,9 +240,27 @@ class DatasetManager:
                     taski, total_num=memory_num, index_array=index_list)
                 self._add_loader(IndexConcatDataset([memory_data, split_dataset]),
                                  self.opt.batch_size, with_index=True)
+        elif memory == "test_ch":
+            memory_data, index_list = self.rehearsal_memory(
+                taski, total_num=memory_num, index_array=index_list, repeat=True)
+            self._add_loader(ConcatDataset([memory_data, dataset]), self.opt.batch_size)
+        elif memory == "large":
+            index_current = self.rng.choice(len(dataset), memory_num, replace=False)
+            split_dataset = Subset(dataset, index_current.tolist())
+            memory_data, index_list = self.rehearsal_memory(
+                taski, total_num=memory_num * taski, index_array=index_list)
+            self._add_loader(ConcatDataset([memory_data, split_dataset]), self.opt.batch_size)
+        elif memory == "total":
+            total_list = [dataset]
+            for i in range(taski):
+                total_list.append(self.create_dataset(data_list=self.select_data, taski=i))
+            self._add_loader(ConcatDataset(total_list), self.opt.batch_size)
         elif memory is not None:
-            raise NotImplementedError(f"memory={memory!r} with il={self.opt.il!r}: "
-                                      f"{OTHER_LEARNERS}")
+            # two half-batch loaders, the memory's first
+            memory_data, index_list = self.rehearsal_memory(
+                taski, total_num=memory_num, index_array=index_list)
+            self._add_loader(memory_data, self.opt.batch_size // 2)
+            self._add_loader(dataset, self.opt.batch_size // 2)
         else:
             self._add_loader(dataset)
         return index_list

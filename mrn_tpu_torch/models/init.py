@@ -14,7 +14,9 @@ the flax layout (bridged into the port with ``bridge.from_flax``).
   every crop starts from the same near-identity grid).
 
 A new expert is drawn this way (the JAX learner's ``change_model``); task
-0's expert then gets ``models.surgery.apply_reference_init``.
+0's expert then gets ``models.surgery.apply_reference_init``.  A DERNet
+(``random_der``) stacks SVTR extractors drawn one after another, then its
+``fc`` and ``aux_fc``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 from mrn_tpu_torch.models.composer import sequence_length
 from mrn_tpu_torch.models.tps import _fc2_bias
 
-__all__ = ["random_block", "random_mrn", "random_recognizer", "random_router"]
+__all__ = ["random_block", "random_der", "random_extractor", "random_mrn",
+           "random_recognizer", "random_router"]
 
 _SVTR = dict(embed_dim=(64, 128, 256), depth=(3, 6, 3))
 
@@ -75,6 +78,31 @@ def random_recognizer(rng, opt, num_classes):
     narrow the backbone: ``embed_dim``, ``depth``) or TRBA."""
     if opt.FeatureExtraction == "ResNet":
         return _random_trba(rng, opt, num_classes)
+    extractor, stats = random_extractor(rng, opt)
+    return ({"extractor": extractor, "fc": _torch_dense(rng, opt.hidden_size, num_classes)},
+            {"extractor": stats})
+
+
+def random_der(rng, opt, n_extractors, num_classes):
+    """A DERNet's trees: ``n_extractors`` SVTR extractors stacked under
+    ``extractors`` (drawn one after another), ``fc`` over their concatenated
+    features and ``aux_fc`` over one extractor's."""
+    trees = [random_extractor(rng, opt) for _ in range(n_extractors)]
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        return np.stack(xs)
+
+    h = opt.hidden_size
+    params = {"extractors": stack(*(p for p, _ in trees)),
+              "fc": _torch_dense(rng, n_extractors * h, num_classes),
+              "aux_fc": _torch_dense(rng, h, num_classes)}
+    return params, {"extractors": stack(*(s for _, s in trees))}
+
+
+def random_extractor(rng, opt):
+    """One SVTR Extractor's (params, batch_stats) trees."""
     arch = dict(_SVTR, **(opt.get("svtr") or {}))
     e0, e1, e2 = arch["embed_dim"]
     h0, w0 = opt.imgH // 4, opt.imgW // 4
@@ -92,15 +120,13 @@ def random_recognizer(rng, opt, num_classes):
     for stage, (dim, n) in enumerate(zip((e0, e1, e2), arch["depth"]), start=1):
         for i in range(n):
             feature[f"blocks{stage}_{i}"] = random_block(rng, dim)
-    params = {"extractor": {"feature": feature,
-                            "seq_linear": _torch_dense(rng, opt.output_channel,
-                                                       opt.hidden_size)},
-              "fc": _torch_dense(rng, opt.hidden_size, num_classes)}
-    stats = {"extractor": {"feature": {"patch_embed": {
+    params = {"feature": feature,
+              "seq_linear": _torch_dense(rng, opt.output_channel, opt.hidden_size)}
+    stats = {"feature": {"patch_embed": {
         "bn1": {"mean": np.zeros((e0 // 2,), np.float32),
                 "var": np.ones((e0 // 2,), np.float32)},
         "bn2": {"mean": np.zeros((e0,), np.float32),
-                "var": np.ones((e0,), np.float32)}}}}}
+                "var": np.ones((e0,), np.float32)}}}}
     return params, stats
 
 

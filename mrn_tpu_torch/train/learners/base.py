@@ -1,8 +1,27 @@
-"""The port of ``mrn_tpu/train/learners/base.py`` that SVTR-MRN needs: the
+"""The port of ``mrn_tpu/train/learners/base.py``: the base strategy
+(sequential fine-tuning) and the lifecycle every learner shares: the
 converter, the mixed-precision policy, the train-mode forward, batch
 encoding with the device image bank, the optimizer, the loop with its
 validation points, best checkpoints, ``test``, the rehearsal-memory draw
 and full-state snapshots.
+
+The base strategy, task by task (``incremental_train``): task 0 draws a
+Recognizer from ``weight_rng`` in the JAX init distributions and gives it
+the reference init pass (``build_model``, the same draws as MRN's task-0
+expert); a later task draws a fresh Recognizer, carries the extractor
+(params and BatchNorm statistics) over whole and grows the fc
+(``change_model``, ``models.surgery.grow_fc``); the optimizer starts
+afresh.  Task 0 trains on its stream (``_init_train``); a later task first
+draws the rehearsal memory when ``opt.memory`` is set (two half-batch
+loaders, ``data.manager``) and trains (``_update_representation``).
+``after_task`` keeps the reloaded best network as the old network (eval
+mode, frozen, its parameters cast once under the bf16 policy) and sets
+``_known_classes``.  ``train_aux()`` gives the loss its task-level
+constants (LwF's old network, EWC's Fisher), read at the start of every
+loop.  ``opt.start_task`` replays a task below it: its stream is built as
+training would build it (so the generators advance alike), its best
+checkpoint is loaded and ``_after_resume`` rebuilds what the skipped
+training would have left (EWC's Fisher).
 
 The loop (``_run_loop``) validates at iteration 1, every ``val_interval``
 and at the last iteration, writing a best checkpoint whenever the score
@@ -61,15 +80,19 @@ from torch import nn
 from torch.func import functional_call
 
 from mrn_tpu_torch import resolve_device
-from mrn_tpu_torch.bridge import recognizer_state, to_flax
+from mrn_tpu_torch.bridge import from_flax, to_flax
 from mrn_tpu_torch.codec import CTCLabelConverter
 from mrn_tpu_torch.data.prefetch import Prefetcher
+from mrn_tpu_torch.models.composer import build_recognizer
+from mrn_tpu_torch.models.init import random_recognizer
+from mrn_tpu_torch.models.surgery import apply_reference_init, grow_fc
+from mrn_tpu_torch.models.svtr import set_droppath_generator
 from mrn_tpu_torch.ops.ctc import ctc_loss_per_sample
 from mrn_tpu_torch.train.checkpoint import (best_model_path, load_model, load_train_state,
                                             save_model, save_train_state, train_state_path)
 from mrn_tpu_torch.train.evaluate import ValidationResult, validation
-from mrn_tpu_torch.train.optim import (adam_state_from_optax, adam_state_to_optax,
-                                       build_optimizer, build_schedule)
+from mrn_tpu_torch.train.optim import (build_optimizer, build_schedule, opt_state_from_optax,
+                                       opt_state_to_optax)
 from mrn_tpu_torch.train.steps import TrainState, make_train_step, recognition_loss
 from mrn_tpu_torch.utils import Averager, ExperimentLog, StepMeter
 
@@ -81,8 +104,10 @@ MAX_IN_FLIGHT = 64  # step losses left on the device before the oldest is read
 class BaseLearner:
     def __init__(self, opt, device: Optional[Union[str, torch.device]] = None):
         if opt.Prediction != "CTC":
-            raise NotImplementedError(f"Prediction {opt.Prediction!r}: the port "
-                                      "trains CTC heads only so far")
+            raise NotImplementedError(f"Prediction {opt.Prediction!r}: the port trains CTC "
+                                      "heads only so far; the Attn branches (teacher "
+                                      "forcing, LwF's start index 1) are ROADMAP.md §1 "
+                                      "item 7")
         self.opt = opt
         self.device = resolve_device(device)
         self.np_rng = np.random.default_rng(opt.manual_seed)
@@ -92,10 +117,12 @@ class BaseLearner:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(opt.manual_seed)
         self._cur_task = -1
+        self._known_classes = 0
         self._total_classes = 0
         self.character = None
         self.converter = None
         self.model: Optional[nn.Module] = None
+        self._old_model: Optional[nn.Module] = None   # LwF's and WA's old network
         self.state: Optional[TrainState] = None
         self._train_step = None
         self._bank = None       # (host bank, its copy on the device)
@@ -110,6 +137,32 @@ class BaseLearner:
         converter = CTCLabelConverter(self.character)
         self._total_classes = converter.num_classes
         return converter
+
+    def _build_net(self) -> nn.Module:
+        """The strategy's network at the current class count (unloaded)."""
+        return build_recognizer(self.opt, self._total_classes)
+
+    def _set_model(self, params: Mapping, stats: Mapping) -> None:
+        """The network of ``params`` / ``stats`` (flax trees) as the live
+        model, its DropPath drawn from ``generator``."""
+        model = self._build_net()
+        model.load_state_dict(from_flax(params, stats), strict=True)
+        self.model = model.to(self.device)
+        set_droppath_generator(self.model, self.generator)
+
+    def build_model(self) -> None:
+        """Task 0: drawn in the JAX init distributions from ``weight_rng``,
+        then the reference init pass."""
+        params, stats = random_recognizer(self.weight_rng, self.opt, self._total_classes)
+        self._set_model(apply_reference_init(params, self.weight_rng), stats)
+
+    def change_model(self) -> None:
+        """Task > 0: a fresh Recognizer carrying the old extractor (params
+        and statistics) whole, its fc grown over the old one."""
+        old_params, old_stats = to_flax(self.model)
+        params, _ = random_recognizer(self.weight_rng, self.opt, self._total_classes)
+        params["extractor"] = old_params["extractor"]
+        self._set_model(grow_fc(params, old_params), old_stats)
 
     def trainable_params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -143,7 +196,28 @@ class BaseLearner:
         """Train-mode predictions, float32."""
         return self._apply(self.model, params, batch["image"], train=True)["predict"].float()
 
-    def loss_fn(self, params, batch):
+    def _frozen_copy(self, module: nn.Module) -> nn.Module:
+        """``module`` in eval mode without gradients, its parameters cast
+        to bfloat16 under the bf16 policy (its statistics stay float32):
+        the JAX step casts a frozen network's params every step to the same
+        values."""
+        module = module.eval().requires_grad_(False)
+        dt = self._mp_dtype()
+        if dt is not None:
+            for p in module.parameters():
+                p.data = p.data.to(dt)
+        return module
+
+    def _eval_forward(self, module: nn.Module, image: torch.Tensor):
+        """A frozen network's eval-mode forward on the (cast) image."""
+        with torch.no_grad():
+            return module(image.to(self._mp_dtype() or image.dtype), train=False)
+
+    def train_aux(self):
+        """Task-level constants of the loss (None for the base strategy)."""
+        return None
+
+    def loss_fn(self, params, batch, aux=None):
         return recognition_loss(self._apply_train(params, batch), batch), {}
 
     def grad_transform(self) -> Optional[Callable]:
@@ -151,7 +225,9 @@ class BaseLearner:
 
     def get_train_step(self):
         if self._train_step is None:
-            self._train_step = make_train_step(self.loss_fn, self.grad_transform())
+            aux = self.train_aux()
+            self._train_step = make_train_step(
+                lambda params, batch: self.loss_fn(params, batch, aux), self.grad_transform())
         return self._train_step
 
     # ------------------------------------------------------------ batches
@@ -217,12 +293,14 @@ class BaseLearner:
 
     def _run_loop(self, taski: int, train_loader, valid_loader, num_iter: Optional[int] = None,
                   get_batch: Optional[Callable] = None, step: Optional[int] = None,
-                  val_interval: Optional[int] = None) -> None:
+                  val_interval: Optional[int] = None,
+                  val_hook: Optional[Callable] = None) -> None:
         """``num_iter`` iterations on ``get_batch`` (default
         ``train_loader.get_batch``), validated on ``valid_loader`` at
-        iteration 1, every ``val_interval`` and the last iteration; under
-        ``opt.resume_full`` a snapshot of this phase restarts the loop
-        after its iteration."""
+        iteration 1, every ``val_interval`` and the last iteration (by
+        ``val_hook(valid_loader, iteration, train_loss_avg, start_time)``
+        when given); under ``opt.resume_full`` a snapshot of this phase
+        restarts the loop after its iteration."""
         num_iter = int(num_iter or self.opt.num_iter)
         val_interval = int(val_interval or self.opt.val_interval)
         get_batch = get_batch or train_loader.get_batch
@@ -230,6 +308,7 @@ class BaseLearner:
         start_time = time.time()
         self.best_score = -1.0
         start_iter = self._maybe_resume_full(taski, step, train_loader)
+        self._train_step = None   # train_aux is read afresh for every loop
         prefetcher = None
         if self.opt.get("prefetch", True):
             prefetcher = get_batch = Prefetcher(get_batch, num_iter - start_iter, depth=2)
@@ -257,8 +336,11 @@ class BaseLearner:
                     for r in window:
                         r["seconds"] = seconds / len(window)
                     self.log.write(f"[{iteration}/{num_iter}] {meter.report(seconds)}\n")
-                    self.val(valid_loader, self.opt, self.best_score, start_time, iteration,
-                             train_loss_avg, taski, step=step)
+                    if val_hook is not None:
+                        val_hook(valid_loader, iteration, train_loss_avg, start_time)
+                    else:
+                        self.val(valid_loader, self.opt, self.best_score, start_time,
+                                 iteration, train_loss_avg, taski, step=step)
                     train_loss_avg.reset()
                     window = []
                     if self.opt.get("full_ckpt") and iteration < num_iter:
@@ -286,7 +368,13 @@ class BaseLearner:
     def _restore_trees(self, params: Mapping, batch_stats: Mapping) -> None:
         """Loads a snapshot's trees in place (the optimizer holds the
         parameter tensors)."""
-        self.model.load_state_dict(recognizer_state(params, batch_stats), strict=True)
+        self.model.load_state_dict(from_flax(params, batch_stats), strict=True)
+
+    def _frozen_moments(self) -> Dict[str, torch.Tensor]:
+        """Parameters outside the optimizer whose (zero) moments a snapshot
+        writes all the same, as optax keeps them (DER's frozen
+        extractors)."""
+        return {}
 
     def _host_state(self, train_loader=None) -> Dict:
         host = {"np_rng": self.np_rng.bit_generator.state,
@@ -329,7 +417,8 @@ class BaseLearner:
         params, stats = self._snapshot_trees()
         save_train_state(self._train_state_path(taski, step), params=params,
                          batch_stats=stats,
-                         opt_state=adam_state_to_optax(self.state.opt, list(self.state.params)),
+                         opt_state=opt_state_to_optax(self.state.opt, list(self.state.params),
+                                                      self._frozen_moments()),
                          iteration=iteration,
                          rng_key=self.generator.get_state().numpy(),
                          host_state=self._host_state(train_loader))
@@ -345,7 +434,8 @@ class BaseLearner:
             return 0
         payload = load_train_state(path)
         self._restore_trees(payload["params"], payload["batch_stats"])
-        adam_state_from_optax(self.state.opt, list(self.state.params), payload["opt_state"])
+        opt_state_from_optax(self.state.opt, list(self.state.params), payload["opt_state"],
+                             frozen=list(self._frozen_moments()))
         self.generator.set_state(torch.as_tensor(np.asarray(payload["rng_key"], np.uint8)))
         self._restore_host_state(payload["host_state"])
         iteration = payload["iteration"]
@@ -353,6 +443,54 @@ class BaseLearner:
         self._restore_stream(train_loader, payload["host_state"], taski, step, iteration)
         self.log.write(f"Task {taski} resume from {path} @ iter {iteration}.\n")
         return iteration
+
+    # ------------------------------------------------------------ train
+    def incremental_train(self, taski: int, character, train_loader, valid_loader) -> None:
+        """Task ``taski`` whose cumulative character list is ``character``,
+        validated on ``valid_loader``'s current set; below
+        ``opt.start_task`` the task is replayed from its best checkpoint."""
+        self._cur_task = taski
+        self.character = list(character)
+        self.converter = self.build_converter()
+        valid = valid_loader.create_dataset()
+        if taski > 0:
+            self.change_model()
+        else:
+            self.build_model()
+        self.count_param()
+        self.build_optimizer()
+        if float(self.opt.get("start_task", 0)) > taski:
+            if taski > 0:
+                self._build_stream(train_loader, taski)
+            self._load_best(taski)
+            self._after_resume(taski, train_loader)
+        else:
+            self.log.write(f"Task {taski} start training ------{self.opt.exp_name}------\n")
+            self._train(taski, train_loader, valid)
+
+    def _train(self, taski: int, train_loader, valid_loader) -> None:
+        if taski == 0:
+            self._init_train(taski, train_loader, valid_loader)
+        else:
+            self._build_stream(train_loader, taski)
+            self._update_representation(taski, train_loader, valid_loader)
+
+    def _init_train(self, taski: int, train_loader, valid_loader) -> None:
+        self._run_loop(taski, train_loader, valid_loader)
+
+    def _update_representation(self, taski: int, train_loader, valid_loader) -> None:
+        self._init_train(taski, train_loader, valid_loader)
+
+    def _after_resume(self, taski: int, train_loader) -> None:
+        """After a ``start_task`` replay: the state the skipped training
+        would have left (none for the base strategy)."""
+
+    def after_task(self) -> None:
+        """The reloaded best network becomes the old network."""
+        old = self._build_net()
+        old.load_state_dict(self.model.state_dict(), strict=True)
+        self._old_model = self._frozen_copy(old.to(self.device))
+        self._known_classes = self._total_classes
 
     # ------------------------------------------------------ rehearsal
     def build_rehearsal_memory(self, train_loader, taski: int) -> None:
@@ -384,8 +522,10 @@ class BaseLearner:
 
     # --------------------------------------------------------------- eval
     def _eval_logits(self, images: torch.Tensor, val_choose: str) -> torch.Tensor:
-        """The eval-mode model's logits [B, T, C]."""
-        return self.model(images, train=False)["predict"]
+        """The eval-mode model's logits [B, T, C]: its ``predict`` (a
+        Recognizer) or ``logits`` (DERNet)."""
+        out = self.model(images, train=False)
+        return out["predict"] if "predict" in out else out["logits"]
 
     @torch.no_grad()
     def eval_batch(self, images, labels_index, lengths,
@@ -445,7 +585,7 @@ class BaseLearner:
         path = self._best_path(taski, step)
         params, stats = to_flax(self.model)
         payload = load_model(path, {"params": params, "batch_stats": stats})
-        self.model.load_state_dict(recognizer_state(payload["params"], payload["batch_stats"]),
+        self.model.load_state_dict(from_flax(payload["params"], payload["batch_stats"]),
                                    strict=True)
         self.log.write(f"Task {taski} load checkpoint from {path}.\n")
 

@@ -57,13 +57,11 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from mrn_tpu_torch.bridge import (flax_tree, from_flax, recognizer_state, routed_state,
-                                  state_to_flax, to_flax)
+from mrn_tpu_torch.bridge import (flax_tree, recognizer_state, routed_state, state_to_flax,
+                                  to_flax)
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.init import random_recognizer, random_router
 from mrn_tpu_torch.models.mrn import MRNNet
-from mrn_tpu_torch.models.surgery import apply_reference_init
-from mrn_tpu_torch.models.svtr import set_droppath_generator
 from mrn_tpu_torch.ops.losses import cross_entropy_dense
 from mrn_tpu_torch.train.checkpoint import composite_experts, load_model, save_model
 from mrn_tpu_torch.train.learners.base import BaseLearner
@@ -114,24 +112,15 @@ class MRN(BaseLearner):
         self._phase = "standalone"  # "standalone" | "routed"
 
     # ------------------------------------------------------------ models
-    def _new_expert(self, params, stats) -> None:
+    def _set_model(self, params, stats) -> None:
         """The expert of ``params`` / ``stats`` (flax trees) as the current
-        standalone model."""
-        model = build_recognizer(self.opt, self._total_classes)
-        model.load_state_dict(from_flax(params, stats), strict=True)
-        self.model = model.to(self.device)
-        set_droppath_generator(self.model, self.generator)
+        standalone model (task 0's: ``BaseLearner.build_model``)."""
+        super()._set_model(params, stats)
         self._phase = "standalone"
-
-    def build_model(self) -> None:
-        """Task 0: the first expert, drawn in the JAX init distributions
-        from ``weight_rng``, then the reference init pass."""
-        params, stats = random_recognizer(self.weight_rng, self.opt, self._total_classes)
-        self._new_expert(apply_reference_init(params, self.weight_rng), stats)
 
     def change_model(self) -> None:
         """Task > 0: a fresh expert in its construction init."""
-        self._new_expert(*random_recognizer(self.weight_rng, self.opt, self._total_classes))
+        self._set_model(*random_recognizer(self.weight_rng, self.opt, self._total_classes))
 
     def _set_experts(self, states: List[Dict[str, torch.Tensor]], counts: List[int],
                      hashes: List[Optional[str]]) -> None:
@@ -207,9 +196,9 @@ class MRN(BaseLearner):
         return super().trainable_params()
 
     # ------------------------------------------------------------- loss
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, aux=None):
         if self._phase != "routed":
-            return super().loss_fn(params, batch)
+            return super().loss_fn(params, batch, aux)
         out = self._apply(self.mrn_model, params, batch["image"], is_train=True)
         loss_clf = recognition_loss(out["logits"].float(), batch)
         # CE on the softmaxed routing weights, as the reference does

@@ -286,16 +286,29 @@ def test_current_task_stream_two_epochs_and_skip(sources):
 
 
 def test_other_memory_policies_raise(sources):
-    port, _ = sources
+    """The other learners' memory policies and ``joint_start`` build the
+    JAX manager's loaders (their streams are held against it bitwise in
+    ``tests/test_torch_memory_policies.py``); the LMDB factory still
+    raises (ROADMAP.md §1 item 6)."""
+    port, jax_src = sources
     for il in ("wa", "der", "base"):
-        opt, _ = _opts(il=il)
+        opt, jopt = _opts(il=il)
         m = DatasetManager(opt, dataset_factory=port.train_factory)
+        j = JaxManager(jopt, dataset_factory=jax_src.train_factory)
         m.init_start(opt, opt.select_data, None, 0)
+        j.init_start(jopt, jopt.select_data, None, 0)
         for policy in ("random", "test_ch", "large", "total"):
-            with pytest.raises(NotImplementedError, match="item 5"):
-                m.get_dataset(1, memory=policy, index_list=[np.arange(4)])
-    with pytest.raises(NotImplementedError, match="item 5"):
+            m.get_dataset(1, memory=policy, index_list=[np.arange(4)])
+            j.get_dataset(1, memory=policy, index_list=[np.arange(4)])
+            assert [(len(lo.dataset), lo.batch_size) for lo in m.loaders] == \
+                [(len(lo.dataset), lo.batch_size) for lo in j.loaders]
+            _assert_same_batches(_draws(m, 3, False), _draws(j, 3, False))
+    for il in ("joint_mix", "joint_loader"):
+        opt, jopt = _opts(il=il)
+        m = DatasetManager(opt, dataset_factory=port.train_factory)
         m.joint_start(opt, opt.select_data, None, 0, 2)
+        m.joint_start(opt, opt.select_data, None, 1, 2)
+        assert len(m.loaders) == (1 if il == "joint_mix" else 2)
     with pytest.raises(NotImplementedError, match="item 6"):
         DatasetManager(opt).create_dataset(["root"], 0)
 

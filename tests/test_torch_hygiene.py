@@ -1,6 +1,6 @@
 """Import hygiene and device policy of the PyTorch port: no module of
-``mrn_tpu_torch``, nor ``chip_smoke.py`` or ``scripts/torch_step_reading.py``,
-imports JAX, flax, optax, msgpack (the card's machine has none of them) or
+``mrn_tpu_torch``, nor ``chip_smoke.py``, ``scripts/torch_step_reading.py``
+or ``torch_loop_reading.py``, imports JAX, flax, optax, msgpack (the card's machine has none of them) or
 the JAX package, and entry points never fall back to the CPU on their own."""
 
 import ast
@@ -22,7 +22,8 @@ FORBIDDEN = ("jax", "flax", "optax", "msgpack", "mrn_tpu")
 def _port_files():
     files = sorted((ROOT / "mrn_tpu_torch").rglob("*.py"))
     assert len(files) >= 10
-    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_step_reading.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_step_reading.py",
+                    ROOT / "torch_loop_reading.py"]
 
 
 def test_scan_covers_every_subpackage():

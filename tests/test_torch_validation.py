@@ -59,6 +59,16 @@ CONF_RTOL = 1e-4
 TIE = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch's CPU ops on one thread here: beside the other test workers,
+    more threads oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def narrow():
     """The JAX package with the narrow SVTR; every port Block with the
