@@ -98,6 +98,23 @@
    network, rows 1-2 in the live one), DER at task 2 composed and with
    ``MRN_FUSED_TRAIN=1`` (rows 5-7); prints (d) each strategy's step time
    over a window after 3 warm-up steps, its stage seconds and launches;
+9e. runs the slice's entry points on an LMDB tree it writes under
+   ``build/`` (see ``LMDB_*``: 3 tasks of the campaign's alphabets, 2,048
+   train and 256 test crops a task at natural sizes, PNG-encoded without
+   PIL): ``train_cli.main`` over the LMDB stream and again with
+   ``--device_bank``, ``evaluate_cli.main`` on the final checkpoint and
+   with ``--int8`` on task 0's, ``recognize_cli.main`` on a folder of 256
+   PNG crops, each called in this process so that every launch is counted
+   (the train runs against their expected counts); checks (a) the C++ image
+   codec against the committed PIL fixtures bitwise, (b) the LMDB stream's
+   batches against the device bank run's bitwise, (c) evaluate_cli's
+   scores against train_cli's last ``test()``, (d) the int8 run's row-3
+   launches, each served int8 Block against its plain version (beside the
+   float-products control) and the logits against the float32 recognizer
+   as close as the plain int8 path's (``INT8_VS_FLOAT_*``), (e) recognize_cli's
+   words against the eval path's on the same crops; prints the host decode
+   rate (PNG and JPEG), the step-0 windows of the LMDB stream and of the
+   bank, the LMDB window's idle share and the CLIs' crops/s;
 10. holds the w8a8 Block kernel against its plain version at the four Block
    shapes at batch 256, float32 and bfloat16, float and int8 attention, each
    Block calibrated on its input and quantized first (Local Blocks banded,
@@ -146,6 +163,7 @@ from __future__ import annotations
 import ast
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import shutil
@@ -165,7 +183,11 @@ sys.path.insert(0, ROOT)
 from mrn_tpu_torch import campaign  # noqa: E402
 from mrn_tpu_torch.bridge import quant_tree, state_to_flax, to_flax  # noqa: E402
 from mrn_tpu_torch.config import load_config  # noqa: E402
+from mrn_tpu_torch import evaluate_cli, recognize_cli, train_cli  # noqa: E402
+from mrn_tpu_torch.data import image as image_codec  # noqa: E402
+from mrn_tpu_torch.data.lmdb_store import LmdbReader  # noqa: E402
 from mrn_tpu_torch.data.manager import DatasetManager, ValDataset  # noqa: E402
+from mrn_tpu_torch.tools import create_lmdb  # noqa: E402
 from mrn_tpu_torch.data.prefetch import Prefetcher  # noqa: E402
 from mrn_tpu_torch.data.synthetic import (SyntheticTaskLoader, alphabet_of_size,  # noqa: E402
                                           synthetic_val_set)
@@ -323,6 +345,19 @@ INT8_FLIP_MAX = 0.02
 # is 2x and 1.6x that.  A kernel that skipped the activation rounding would
 # be the control, at 1.0.
 INT8_LOGIT_MEAN_SHARE = 0.75
+# The LMDB phase's (d) serves a trained checkpoint (task 0 after 20 steps),
+# whose activations carry the cascade much further: on an H100 its logits
+# read kernel vs plain 0.835 of the control's mean |c - p| with every
+# served Block within INT8_FLIP_SHARE, so the logits
+# are held instead to the float32 recognizer they approximate: the
+# kernel's mean |k - f| at most INT8_VS_FLOAT_RATIO times the plain
+# version's mean |p - f|, and its greedy picks agreeing with the float
+# model's on no fewer steps than the plain version's less
+# INT8_VS_FLOAT_PICKS of them.  A kernel that broke the rounding, the
+# scales or a Block would leave the float model far further than the
+# plain int8 path does.
+INT8_VS_FLOAT_RATIO = 1.25
+INT8_VS_FLOAT_PICKS = 0.01
 INT8_TIE = {"float32": 2e-2, "bfloat16": 5e-2}
 INT8_REQUESTS = {"float32": 5, "bfloat16": 5}
 INT8_CALIB_BATCHES = 4
@@ -378,6 +413,21 @@ STRATEGY_TASKS = 3
 STRATEGY_ITERS = 10
 STRATEGY_VAL = 5
 STRATEGY_FISHER = 3
+
+# The LMDB entry-points phase: an LMDB tree written here (the campaign's
+# first LMDB_TASKS alphabets, LMDB_TRAIN train and LMDB_TEST test crops a
+# task, rendered at natural sizes of LMDB_HEIGHTS x LMDB_WIDTHS pixels and
+# PNG-encoded, words of 1 to LMDB_MAX_LEN characters), then
+# train_cli / evaluate_cli / recognize_cli on configs/svtr_mrn.py at full
+# width, bf16, batch 256, num_iter CAMPAIGN_ITERS, val_interval CAMPAIGN_VAL,
+# memory_num CAMPAIGN_MEMORY; host decode rates over LMDB_DECODE_CALLS calls.
+LMDB_TASKS = 3
+LMDB_TRAIN = 2048
+LMDB_TEST = 256
+LMDB_HEIGHTS = (24, 48)
+LMDB_WIDTHS = (48, 320)
+LMDB_MAX_LEN = 8
+LMDB_DECODE_CALLS = 1024
 
 
 # ------------------------------------------------------------------- timing
@@ -2165,6 +2215,318 @@ def int8_block_bound_ms(b, n, c, heads, hidden, dt, pairs, attn_int8, width):
     return 1e3 * nbytes / HBM_BYTES_PER_S, ops_ms
 
 
+# ------------------------------------------------------------ LMDB entry points
+def check_codec_fixtures():
+    """(a): the C++ codec on the committed fixtures (PIL's decode and
+    32x256 resize in ``expected.npz``), bitwise.  Returns {name: bytes}."""
+    folder = os.path.join(ROOT, "tests", "fixtures", "torch_codec")
+    expected = np.load(os.path.join(folder, "expected.npz"))
+    files = {}
+    for name in sorted(n for n in os.listdir(folder) if not n.endswith(".npz")):
+        with open(os.path.join(folder, name), "rb") as f:
+            files[name] = f.read()
+        if not (np.array_equal(image_codec.decode(files[name]), expected[f"{name}:decode"])
+                and np.array_equal(image_codec.decode(files[name], (256, 32)),
+                                   expected[f"{name}:resize"])):
+            raise RuntimeError(f"(a) the codec's decode of fixture {name} differs from PIL's")
+    print(f"  (a) the C++ codec reproduces all {len(files)} committed fixtures bitwise "
+          f"(PIL's decode and its bicubic resize to 32x256)")
+    return files
+
+
+def _decode_rate(buffers, size):
+    """Crops/s of ``image.decode`` to ``size`` on this thread."""
+    t0 = time.perf_counter()
+    for buf in buffers:
+        image_codec.decode(buf, size)
+    return len(buffers) / (time.perf_counter() - t0)
+
+
+def _write_lmdb_tree(root):
+    """The phase's LMDB tree: ``{root}/{train,test}/{language}``."""
+    alphabets = campaign.task_alphabets()[:LMDB_TASKS]
+    index = {ch: i for i, ch in enumerate("".join(alphabets))}
+    for split, n, seed in (("train", LMDB_TRAIN, 0), ("test", LMDB_TEST, 100)):
+        for t, lan in enumerate(campaign.LANS[:LMDB_TASKS]):
+            create_lmdb.create_synthetic_dataset(
+                os.path.join(root, split, lan), alphabets[t], n, seed + t,
+                heights=LMDB_HEIGHTS, widths=LMDB_WIDTHS, max_len=LMDB_MAX_LEN,
+                char_to_idx=index)
+
+
+def _lmdb_config(root, name):
+    """A config file over ``configs/svtr_mrn.py`` with the phase's tree,
+    cuts and output directory."""
+    path = os.path.join(root, f"{name}.py")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(f"""import runpy
+_base = runpy.run_path({os.path.join(ROOT, "configs", "svtr_mrn.py")!r})
+common = dict(_base["common"], exp_name={name!r}, memory_num={CAMPAIGN_MEMORY},
+              output_dir={os.path.join(root, "saved")!r},
+              data_log={os.path.join(root, "data_any.txt")!r})
+model = _base["model"]
+optimizer = _base["optimizer"]
+train = dict(_base["train"], lan_list={campaign.LANS[:LMDB_TASKS]!r},
+             select_data=[{os.path.join(root, "train")!r}],
+             valid_datas=[{os.path.join(root, "test")!r}], workers=0,
+             num_iter={CAMPAIGN_ITERS}, val_interval={CAMPAIGN_VAL})
+""")
+    return path
+
+
+def lmdb_train_launches(tasks):
+    """Kernel launches of a train_cli run of ``tasks`` tasks over test sets
+    of one batch: 6 full + 6 banded attention per step-0 step; kernel 4 in
+    the FF validations (12 a batch) and task 0's ``test``, and from task 1
+    in the step-1 steps, the TF validations and ``test`` ((t + 1) experts x
+    12 per step or batch, t + 1 sets of one batch)."""
+    n0, n1 = CAMPAIGN_ITERS, CAMPAIGN_ITERS // 2
+    fused = 0
+    for t in range(tasks):
+        experts = (t + 1) * 12
+        fused += val_points(n0, CAMPAIGN_VAL) * 12
+        if t == 0:
+            fused += 12
+            continue
+        fused += n1 * experts + val_points(n1, max(1, CAMPAIGN_VAL // 5)) * (t + 1) * experts
+        fused += (t + 1) * experts
+    return dict(full=6 * n0 * tasks, banded=6 * n0 * tasks, fused=fused, train_fwd=0,
+                train_bwd_tail=0, train_bwd_head=0)
+
+
+def _recording_steps(record):
+    """Patches ``BaseLearner.train_step`` to record each batch the loop
+    takes: the sha1 of its crops (a bank batch's indices gathered from the
+    bank's host chunks), its labels and its router targets."""
+    real = BaseLearner.train_step
+
+    def train_step(self, fetched):
+        images = np.asarray(fetched[0])
+        if images.dtype != np.uint8:
+            bank = self.opt.image_bank
+            starts = np.cumsum([0] + [len(c) for c in bank.chunks])
+            which = np.searchsorted(starts, images, side="right") - 1
+            images = np.stack([bank.chunks[c][i - starts[c]] for c, i in zip(which, images)])
+        record.append((hashlib.sha1(images.tobytes()).hexdigest(), list(fetched[1]),
+                       np.asarray(fetched[2]).tobytes() if len(fetched) > 2 else None))
+        return real(self, fetched)
+    return mock.patch.object(BaseLearner, "train_step", train_step)
+
+
+def _recording_learner(module, seen):
+    """Patches ``module.load_learner`` to keep each learner it loads, its
+    seconds (``load_s``) and the results of its ``run_validation`` calls."""
+    real = module.load_learner
+
+    def load_learner(*args, **kwargs):
+        t0 = time.perf_counter()
+        learner = real(*args, **kwargs)
+        seen["load_s"] = time.perf_counter() - t0
+        run = learner.run_validation
+
+        def run_validation(loader, choose="val"):
+            res = run(loader, choose)
+            seen["results"].append(res)
+            return res
+        learner.run_validation = run_validation
+        seen["learner"] = learner
+        return learner
+    return mock.patch.object(module, "load_learner", load_learner)
+
+
+def phase_lmdb(out_dir, device):
+    """The entry points a user calls, over an LMDB tree written here (see
+    LMDB_*): train_cli (LMDB stream, then --device_bank), evaluate_cli on
+    the final checkpoint, evaluate_cli --int8 on task 0's, recognize_cli on
+    a folder of PNG crops; checks (a)-(e) and prints the decode rates, step
+    windows, an idle share and the CLIs' crops/s.  Returns the launches."""
+    root = os.path.join(out_dir, "lmdb")
+    fixtures = check_codec_fixtures()
+    t0 = time.perf_counter()
+    _write_lmdb_tree(root)
+    print(f"  wrote {LMDB_TASKS} tasks x ({LMDB_TRAIN} train + {LMDB_TEST} test) PNG crops "
+          f"of {LMDB_HEIGHTS[0]}-{LMDB_HEIGHTS[1]} x {LMDB_WIDTHS[0]}-{LMDB_WIDTHS[1]} px in "
+          f"{time.perf_counter() - t0:.1f} s")
+    env = LmdbReader(os.path.join(root, "train", campaign.LANS[0]))
+    pngs = [env.get(b"image-%09d" % (i % LMDB_TRAIN + 1)) for i in range(LMDB_DECODE_CALLS)]
+    jpegs = [b for n, b in sorted(fixtures.items()) if n.endswith(".jpg")]
+    jpegs = [jpegs[i % len(jpegs)] for i in range(LMDB_DECODE_CALLS)]
+    png_rate = _decode_rate(pngs, (256, 32))
+    jpeg_rate = _decode_rate(jpegs, (256, 32))
+    print(f"  host decode + resize to 32x256, one thread: PNG crops {png_rate:.0f} crops/s "
+          f"({1e3 * BATCH / png_rate:.1f} ms a batch of {BATCH}), JPEG fixtures (9-40 x 3-120 "
+          f"px) {jpeg_rate:.0f} crops/s ({LMDB_DECODE_CALLS} calls each)")
+
+    launches, runs, windows = {}, {}, {}
+    for tag, extra in (("lmdb", []), ("bank", ["--device_bank"])):
+        cfg = _lmdb_config(root, f"smoke_lmdb_{tag}")
+        record = []
+        with fused_train_env(False), _recording_steps(record):
+            reset_launches()
+            t0 = time.perf_counter()
+            run = train_cli.main(["--config", cfg, "--bf16", *extra])
+            wall = time.perf_counter() - t0
+            launches[tag] = read_launches()
+        expected = lmdb_train_launches(LMDB_TASKS)
+        print(f"  train_cli {' '.join(extra) or '(LMDB stream)'}: {LMDB_TASKS} tasks in "
+              f"{wall:.1f} s, {len(record)} steps, AIA per stage {run.best_scores}; launches "
+              f"{launches[tag]} (expected {expected})")
+        if launches[tag] != expected:
+            raise RuntimeError(f"train_cli {tag} did not run through the kernels as expected")
+        runs[tag] = (run, record)
+        learner = run.learner
+        learner._phase = "standalone"
+        learner.build_optimizer()
+        manager = DatasetManager(learner.opt)
+        manager.init_start(learner.opt, learner.opt.select_data, None, LMDB_TASKS - 1)
+        with fused_train_env(False):
+            windows[tag] = [_step0_window(learner, manager, True) for _ in range(2)]
+            if tag == "lmdb":
+                from torch.profiler import ProfilerActivity, profile
+                fetch = Prefetcher(manager.get_batch, TRACE_STEPS + 1)
+                try:
+                    learner.train_step(fetch())
+                    torch.cuda.synchronize()
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                 acc_events=True) as prof:
+                        t1 = time.perf_counter()
+                        for _ in range(TRACE_STEPS):
+                            learner.train_step(fetch())
+                        torch.cuda.synchronize()
+                        traced = time.perf_counter() - t1
+                finally:
+                    fetch.close()
+                idle = print_device_profile(f"bf16 step 0 on the LMDB stream, {TRACE_STEPS} "
+                                            "steps, prefetch on", prof, traced)
+        del learner, manager
+    print(f"  step-0 windows ({TIME_STEPS} steps after {TIME_WARMUP}, task "
+          f"{LMDB_TASKS - 1}, prefetch on): LMDB stream "
+          f"{', '.join(f'{1e3 * w:.2f}' for w in windows['lmdb'])} ms/step, device bank "
+          f"{', '.join(f'{1e3 * w:.2f}' for w in windows['bank'])} ms/step; idle share of the "
+          f"traced LMDB window {'not measured' if idle is None else f'{idle:.1%}'}")
+
+    # ---- (b) the LMDB stream's batches against the device bank's
+    (run, record), (_, bank_record) = runs["lmdb"], runs["bank"]
+    if record != bank_record:
+        bad = next(i for i, (a, b) in enumerate(zip(record, bank_record)) if a != b) \
+            if len(record) == len(bank_record) else "count"
+        raise RuntimeError(f"(b) the LMDB stream and the device bank's differ (at {bad})")
+    print(f"  (b) the {len(record)} batches of the LMDB stream equal the device bank run's "
+          f"bitwise (crops, labels, router targets)")
+    del runs
+
+    # ---- (c) evaluate_cli on the final checkpoint against train_cli's test
+    cfg = os.path.join(root, "smoke_lmdb_lmdb.py")
+    saved = os.path.join(root, "saved", "smoke_lmdb_lmdb")
+    last = LMDB_TASKS - 1
+    final = os.path.join(saved, f"{campaign.LANS[last]}_{last}_1_best_score.msgpack")
+    seen = {"results": []}
+    with _recording_learner(evaluate_cli, seen):
+        reset_launches()
+        t0 = time.perf_counter()
+        scores, neds = evaluate_cli.main(["--config", cfg, "--saved_model", final, "--eval_data",
+                                          os.path.join(root, "test"),
+                                          "--result_dir", os.path.join(root, "result")])
+        eval_wall = time.perf_counter() - t0
+        launches["evaluate"] = read_launches()
+    infer = sum(r.infer_time for r in seen["results"])
+    with open(os.path.join(saved, "log_train.txt"), encoding="utf-8") as f:
+        log = f.read()
+    accs = ast.literal_eval(log.rsplit(f"Task {last} accs: ", 1)[1].split("\n", 1)[0])
+    test_neds = ast.literal_eval(log.rsplit(f"Task {last} accs: ", 1)[1].split("ned: ", 1)[1]
+                                 .split("\n", 1)[0])
+    got = ([round(x, 2) for x in scores], [round(x, 2) for x in neds])
+    n_eval = LMDB_TASKS * LMDB_TEST
+    print(f"  (c) evaluate_cli on {os.path.basename(final)}: acc {got[0]} ned {got[1]}; "
+          f"train_cli's last test(): acc {accs} ned {test_neds}; {n_eval} crops in "
+          f"{eval_wall:.2f} s: {n_eval / eval_wall:.0f} crops/s with the checkpoint load "
+          f"({seen['load_s']:.2f} s), {n_eval / (eval_wall - seen['load_s']):.0f} without "
+          f"(decode included), {n_eval / infer:.0f} in its eval batches alone; launches "
+          f"{launches['evaluate']}")
+    if got != (accs, test_neds):
+        raise RuntimeError("(c) evaluate_cli's scores differ from train_cli's test()")
+    if launches["evaluate"]["fused"] < LMDB_TASKS * LMDB_TASKS * 12:
+        raise RuntimeError("(c) evaluate_cli did not run kernel 4 on every expert and set")
+    eval_words = seen["results"][-1].preds
+
+    # ---- (d) evaluate_cli --int8 on task 0's checkpoint
+    first = os.path.join(saved, f"{campaign.LANS[0]}_0_0_best_score.msgpack")
+    seen = {"results": []}
+    with _recording_learner(evaluate_cli, seen):
+        reset_launches()
+        svtr_block.int8_launches = 0
+        evaluate_cli.main(["--config", cfg, "--saved_model", first, "--taski", "0", "--int8",
+                           "--eval_data", os.path.join(root, "test"),
+                           "--result_dir", os.path.join(root, "result")])
+        launches["int8"] = svtr_block.int8_launches
+        int8_other = read_launches()
+    print(f"  (d) evaluate_cli --int8 --taski 0: acc {seen['results'][0].score:.2f} ned "
+          f"{seen['results'][0].ned:.2f}; int8 Block launches {launches['int8']} (expected "
+          f"12, one batch of {LMDB_TEST}); calibration's launches {int8_other}")
+    if launches["int8"] != 12 or int8_other["fused"]:
+        raise RuntimeError("(d) evaluate_cli --int8 did not run the int8 kernel as expected")
+    learner = seen["learner"]
+    srv = Server(learner.opt, {}, None, learner.character, device=device, model=learner.model)
+    batch = next(iter(ValDataset([os.path.join(root, "test", campaign.LANS[0])],
+                                 learner.opt).create_dataset()))[0]
+    out_k = check_served_int8_blocks("(d) int8 float32, evaluate_cli's model,", srv, batch,
+                                     torch.float32)
+    if not bool(torch.isfinite(out_k).all()):
+        raise RuntimeError("(d) the int8 evaluate_cli logits are not finite")
+    int8_logits_vs_plain("(d) int8 float32, evaluate_cli's model, (information)", srv, batch,
+                         "float32", out_k)
+    floats = Server(learner.opt, learner.float_params, learner.float_stats, learner.character,
+                    device=device)
+    with torch.inference_mode():
+        out_f = floats.forward(batch)["logits"].float()
+        configure_blocks(srv.model, plain=True)
+        out_p = srv.forward(batch)["logits"].float()
+        configure_blocks(srv.model, plain=False)
+    e_k, e_p = float((out_k - out_f).abs().mean()), float((out_p - out_f).abs().mean())
+    picks_k = float((out_k.argmax(-1) == out_f.argmax(-1)).float().mean())
+    picks_p = float((out_p.argmax(-1) == out_f.argmax(-1)).float().mean())
+    ok = e_k <= INT8_VS_FLOAT_RATIO * e_p and picks_k >= picks_p - INT8_VS_FLOAT_PICKS
+    print(f"  (d) against the float32 recognizer: kernel mean |k - f| {e_k:.3e}, plain "
+          f"{e_p:.3e} (ratio {e_k / e_p:.3f}, tol {INT8_VS_FLOAT_RATIO:g}); greedy picks equal "
+          f"to the float model's: kernel {picks_k:.2%}, plain {picks_p:.2%} (tol "
+          f"{INT8_VS_FLOAT_PICKS:.0%}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("(d) the int8 kernel path leaves the float model further than the "
+                           "plain int8 path")
+    del learner, srv, floats
+
+    # ---- (e) recognize_cli on a folder of PNG crops: the eval path's words
+    folder = os.path.join(root, "crops")
+    os.makedirs(folder, exist_ok=True)
+    env = LmdbReader(os.path.join(root, "test", campaign.LANS[last]))
+    for i in range(LMDB_TEST):
+        with open(os.path.join(folder, f"{i:05d}.png"), "wb") as f:
+            f.write(env.get(b"image-%09d" % (i + 1)))
+    reset_launches()
+    seen = {"results": []}
+    t0 = time.perf_counter()
+    with _recording_learner(recognize_cli, seen), \
+            contextlib.redirect_stdout(open(os.devnull, "w")):
+        words = recognize_cli.main(["--config", cfg, "--saved_model", final,
+                                    "--image_folder", folder])
+    rec_wall = time.perf_counter() - t0
+    launches["recognize"] = read_launches()
+    print(f"  (e) recognize_cli: {len(words)} crops in {rec_wall:.2f} s: "
+          f"{len(words) / rec_wall:.0f} crops/s with the checkpoint load "
+          f"({seen['load_s']:.2f} s), {len(words) / (rec_wall - seen['load_s']):.0f} without "
+          f"(decode included); launches {launches['recognize']}")
+    if [w for _, w, _ in words] != list(eval_words):
+        raise RuntimeError("(e) recognize_cli's words differ from the eval path's")
+    if launches["recognize"]["fused"] != LMDB_TASKS * 12:
+        raise RuntimeError("(e) recognize_cli did not run kernel 4 on every expert")
+    print(f"  (e) its {len(words)} words equal evaluate_cli's on the same crops "
+          f"(task {last}'s test set)")
+    total = {k: sum(launches[t][k] for t in ("lmdb", "bank", "evaluate", "recognize"))
+             for k in ("full", "banded", "fused")}
+    total["int8"] = launches["int8"]
+    return total
+
+
 def flip_share(got, ref, dt):
     """(share of elements beyond the float noise INT8_NOISE, max |got -
     ref|, max |ref|)."""
@@ -2262,6 +2624,60 @@ def phase_int8_blocks(device, rng):
     return totals
 
 
+def check_served_int8_blocks(what, srv, images, dt):
+    """Serves ``images`` and holds each int8 Block, on the input it was
+    served, against its plain version beside the float-products control
+    (``check_int8``).  Returns the served logits (float32)."""
+    served = []
+    hooks = [m.register_forward_hook(lambda m, a, o: served.append((m, a[0], o)))
+             for m in srv.model.modules() if isinstance(m, Block)]
+    out_k = srv.forward(images)["logits"].float()
+    for h in hooks:
+        h.remove()
+    with torch.inference_mode():
+        for i, (blk, x, out) in enumerate(served):
+            blk.plain = True
+            ref = blk(x)
+            with mock.patch.object(svtr_block, "_q8", float_products_q8):
+                control = blk(x)
+            blk.plain = False
+            check_int8(f"{what} served Block {i} [{','.join(map(str, x.shape))}]", out, ref,
+                       control, dt)
+    return out_k
+
+
+def int8_logits_vs_plain(what, srv, images, dtype, out_k, out_f=None):
+    """The served int8 logits ``out_k`` of ``images`` against the plain
+    versions' (``configure_blocks(plain=True)``) beside the float-products
+    control: their mean |diff| at most INT8_LOGIT_MEAN_SHARE of the
+    control's, and every greedy pick whose top-2 margin exceeds INT8_TIE
+    the same; ``out_f`` (the float server's logits) is printed beside.
+    Returns whether it holds."""
+    dt = getattr(torch, dtype)
+    configure_blocks(srv.model, plain=True)
+    out_p = srv.forward(images)["logits"].float()
+    with mock.patch.object(svtr_block, "_q8", float_products_q8):
+        out_c = srv.forward(images)["logits"].float()
+    configure_blocks(srv.model, plain=False)
+    share, delta, _ = flip_share(out_k, out_p, dt)
+    c_share, c_delta, _ = flip_share(out_c, out_p, dt)
+    mean, c_mean = float((out_k - out_p).abs().mean()), float((out_c - out_p).abs().mean())
+    top2 = out_p.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > INT8_TIE[dtype]
+    agree = out_k.argmax(-1) == out_p.argmax(-1)
+    ok = mean <= INT8_LOGIT_MEAN_SHARE * c_mean and bool(agree[decided].all())
+    vs_float = "" if out_f is None else \
+        f", int8 vs float {dtype} {float((out_p - out_f).abs().max()):.3e}"
+    print(f"  {what} logits, kernel vs plain: mean |diff| {mean:.3e}, "
+          f"{mean / c_mean:.3f} of the float-products control's {c_mean:.3e} (tol "
+          f"{INT8_LOGIT_MEAN_SHARE:g}); {share:.2%} beyond float noise (control {c_share:.2%}), "
+          f"max |diff| {delta:.3e} (control {c_delta:.3e}{vs_float}); greedy picks agree on "
+          f"{int(agree.sum())}/{agree.numel()} steps, all {int(decided.sum())} with a top-2 "
+          f"margin above {INT8_TIE[dtype]:g} "
+          f"{'agree' if bool(agree[decided].all()) else 'DISAGREE'} {'ok' if ok else 'FAILED'}")
+    return ok
+
+
 def phase_int8_serve(rng, base):
     """This slice's path: ``evaluate_cli --int8 --taski 0`` on one
     full-width SVTR recognizer (task 0, CLASS_COUNTS[0] classes): the float
@@ -2321,46 +2737,12 @@ def phase_int8_serve(rng, base):
     failed = []
     for dtype, srv in servers.items():
         dt = getattr(torch, dtype)
-        served = []
-        hooks = [m.register_forward_hook(lambda m, a, o: served.append((m, a[0], o)))
-                 for m in srv.model.modules() if isinstance(m, Block)]
-        out_k = srv.forward(images)["logits"].float()
-        for h in hooks:
-            h.remove()
-        with torch.inference_mode():
-            for i, (blk, x, out) in enumerate(served):
-                blk.plain = True
-                ref = blk(x)
-                with mock.patch.object(svtr_block, "_q8", float_products_q8):
-                    control = blk(x)
-                blk.plain = False
-                check_int8(f"int8 {dtype} served Block {i} [{','.join(map(str, x.shape))}]",
-                           out, ref, control, dt)
-        configure_blocks(srv.model, plain=True)
-        out_p = srv.forward(images)["logits"].float()
-        with mock.patch.object(svtr_block, "_q8", float_products_q8):
-            out_c = srv.forward(images)["logits"].float()
-        configure_blocks(srv.model, plain=False)
-        out_f = floats[dtype].forward(images)["logits"].float()
+        out_k = check_served_int8_blocks(f"int8 {dtype}", srv, images, dt)
         shape = (BATCH, base.imgW // 4, CLASS_COUNTS[0])
         if tuple(out_k.shape) != shape or not bool(torch.isfinite(out_k).all()):
             raise RuntimeError(f"int8 logits {tuple(out_k.shape)} != {shape} or not finite")
-        share, delta, _ = flip_share(out_k, out_p, dt)
-        c_share, c_delta, _ = flip_share(out_c, out_p, dt)
-        mean, c_mean = float((out_k - out_p).abs().mean()), float((out_c - out_p).abs().mean())
-        top2 = out_p.topk(2, dim=-1).values
-        decided = (top2[..., 0] - top2[..., 1]) > INT8_TIE[dtype]
-        agree = out_k.argmax(-1) == out_p.argmax(-1)
-        ok = mean <= INT8_LOGIT_MEAN_SHARE * c_mean and bool(agree[decided].all())
-        print(f"  int8 {dtype} logits, kernel vs plain: mean |diff| {mean:.3e}, "
-              f"{mean / c_mean:.3f} of the float-products control's {c_mean:.3e} (tol "
-              f"{INT8_LOGIT_MEAN_SHARE:g}); {share:.2%} beyond float noise (control {c_share:.2%}), "
-              f"max |diff| {delta:.3e} (control {c_delta:.3e}, int8 vs float {dtype} "
-              f"{float((out_p - out_f).abs().max()):.3e}); greedy picks agree on "
-              f"{int(agree.sum())}/{agree.numel()} steps, all {int(decided.sum())} with a top-2 "
-              f"margin above {INT8_TIE[dtype]:g} "
-              f"{'agree' if bool(agree[decided].all()) else 'DISAGREE'} {'ok' if ok else 'FAILED'}")
-        if not ok:
+        if not int8_logits_vs_plain(f"int8 {dtype}", srv, images, dtype, out_k,
+                                    floats[dtype].forward(images)["logits"].float()):
             failed.append(dtype)
         words = [w for w, _ in results[dtype]]
         float_words = [w for w, _ in floats[dtype].recognize(images)]
@@ -2733,6 +3115,8 @@ def main():
         print("== the other strategies, 3 tasks, full width, bf16")
         strat = phase_strategies(out_dir, device, source)
         del source
+        print("== LMDB entry points: train_cli, evaluate_cli, recognize_cli, full width, bf16")
+        lmdb = phase_lmdb(out_dir, device)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print("== w8a8 Block kernel vs plain, SVTR Block shapes")
@@ -2747,13 +3131,13 @@ def main():
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
              served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"]
-             + strat["fused"], totals[bf16]),
+             + strat["fused"] + lmdb["fused"], totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
-             trained["full"] + ckpt["full"] + camp["full"] + strat["full"],
+             trained["full"] + ckpt["full"] + camp["full"] + strat["full"] + lmdb["full"],
              attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
-             trained["banded"] + ckpt["banded"] + camp["banded"] + strat["banded"],
-             attn[("banded", bf16)]),
+             trained["banded"] + ckpt["banded"] + camp["banded"] + strat["banded"]
+             + lmdb["banded"], attn[("banded", bf16)]),
             ("svtr_train_block_forward", "svtr_train_block.cu",
              "mrn_tpu/ops/svtr_train_block.py:124", fused_trained["train_fwd"],
              train_blocks[("fwd", bf16)]),
@@ -2764,7 +3148,7 @@ def main():
              "mrn_tpu/ops/svtr_train_block.py:497", fused_trained["train_bwd_head"],
              train_blocks[("head", bf16)]),
             ("svtr_fused_block_int8", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:303",
-             int8_served, int8_totals[(bf16, False)]),
+             int8_served + lmdb["int8"], int8_totals[(bf16, False)]),
             ("grid_sample", "grid_sample.cu", "mrn_tpu/ops/grid_sample.py:140", trba_served,
              warp[("tps", bf16)])]
     record = {"kernels": [{
@@ -2784,14 +3168,16 @@ def main():
           f"expert's 12 Blocks, its launches the served requests ({served}) plus the "
           f"router steps and validations of the training runs ({trained['fused']} composed, "
           f"{fused_trained['fused']} fused), of the checkpoint phase with its test "
-          f"({ckpt['fused']}), of the campaign ({camp['fused']}) and of the strategies "
-          f"({strat['fused']}); attention times are one "
+          f"({ckpt['fused']}), of the campaign ({camp['fused']}), of the strategies "
+          f"({strat['fused']}) and of the LMDB entry points ({lmdb['fused']}: two train_cli "
+          f"runs, evaluate_cli, recognize_cli); attention times are one "
           f"expert forward's 6 Blocks of each kind, their launches the composed step-0 steps "
-          f"of the training, checkpoint, campaign and strategies phases; "
+          f"of the training, checkpoint, campaign, strategies and LMDB phases; "
           f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms "
           f"autograd's backward of the library Block's proj + LayerNorm + MLP sub-graph, "
           f"the head's of its LayerNorm + qkv product; svtr_fused_block_int8 times are one recognizer's 12 "
-          f"Blocks with float attention, its launches the int8 served requests, its "
+          f"Blocks with float attention, its launches the int8 served requests and "
+          f"evaluate_cli --int8 ({lmdb['int8']}), its "
           f"library_ms the torch._int_mm Block; grid_sample times are one warp of the "
           f"served batch's TPS grid (bf16 image, f32 grid), its launches the TRBA served "
           f"requests, its library_ms F.grid_sample on NCHW; on {smi}")

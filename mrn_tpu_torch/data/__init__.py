@@ -1,1 +1,1 @@
-"""Data of the PyTorch port (the synthetic renderer and its loader so far)."""
+"""Data of the PyTorch port: LMDB crop files, the PIL-free image codec and transform, datasets, the incremental stream and the synthetic renderer."""

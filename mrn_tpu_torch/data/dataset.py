@@ -1,28 +1,45 @@
-"""In-memory datasets (the port's copies of ``ArrayDataset``, ``Subset``,
-``ConcatDataset``, ``IndexConcatDataset``, ``BankDataset`` and
-``DeviceImageBank`` from ``mrn_tpu/data/dataset.py``).  An item is
-``(image, label)``: a uint8 crop already at ``(imgH, imgW)``, a float32
-crop already normalised, or an int32 index into the learner's image bank;
-the port applies no transform (no PIL resize).
+"""Datasets (the port's copies of ``ArrayDataset``, ``Subset``,
+``ConcatDataset``, ``IndexConcatDataset``, ``BankDataset``,
+``DeviceImageBank``, ``bank_dataset``, ``LmdbDataset``, ``RawDataset`` and
+``hierarchical_dataset`` from ``mrn_tpu/data/dataset.py``).  An item is
+``(image, label)``: a uint8 crop, a float32 crop already normalised, or an
+int32 index into the learner's image bank.
+
+``LmdbDataset`` reads the reference's LMDB crop files (``image-%09d`` /
+``label-%09d`` records, keys from 1, ``num-samples``; labels longer than
+``opt.batch_max_length`` left out) and ``RawDataset`` a folder of
+jpg/jpeg/png files (sorted paths, the path as the label).  Their items are
+the crop decoded and resized to ``(imgH, imgW)`` RGBA in one call
+(``data.image.decode``): what the JAX item, a PIL image, gives after
+``ResizeNormalize``'s resize, which then returns it as it is.  Bytes that
+cannot be read give a blank crop labelled ``[dummy_label]``, as JAX's
+``except (IOError, OSError)`` does; a valid file of a form the port does
+not decode raises.  ``hierarchical_dataset`` opens every leaf directory
+under a root (``os.walk`` order) whose path contains one of
+``select_data``'s entries, iterated as JAX iterates them (the default
+``"/"`` per character), with JAX's log text.
 
 ``DeviceImageBank`` is the growable bank: tasks ``add`` their uint8 crops
 once (the chunk's global offset comes back, and the device copy is
 dropped); ``as_device_array(device)`` concatenates the chunks onto the
-device when it is next asked for.  ``bank_dataset`` (decode and resize a
-dataset's crops into the bank) waits for the PIL-free transform (ROADMAP.md
-§1 item 6).
+device when it is next asked for.  ``bank_dataset`` resizes a dataset's
+crops once into the bank and returns the index view.
 """
 
 from __future__ import annotations
 
 import bisect
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mrn_tpu_torch.data import image as image_codec
+
 __all__ = ["ArrayDataset", "BankDataset", "ConcatDataset", "DeviceImageBank",
-           "IndexConcatDataset", "Subset"]
+           "IndexConcatDataset", "LmdbDataset", "RawDataset", "Subset", "bank_dataset",
+           "hierarchical_dataset"]
 
 
 class DeviceImageBank:
@@ -55,6 +72,24 @@ class DeviceImageBank:
             host = self.chunks[0] if len(self.chunks) == 1 else np.concatenate(self.chunks)
             self._dev = torch.as_tensor(host, device=device)
         return self._dev
+
+
+def bank_dataset(dataset, opt, bank: DeviceImageBank) -> "BankDataset":
+    """Resizes every crop of ``dataset`` once to ``(imgH, imgW)`` RGBA uint8
+    (Pillow's bicubic; LMDB items are at that size already), appends them
+    to ``bank`` and returns the index view.  Refused under ``opt.Aug``:
+    the crops are frozen when banked."""
+    if opt.get("Aug", "None") not in (None, "None"):
+        raise ValueError("device_bank is incompatible with Aug (images are resized and "
+                         "frozen once; augmentation needs per-epoch randomness)")
+    size = (opt.imgW, opt.imgH)
+    images, labels = [], []
+    for i in range(len(dataset)):
+        img, label = dataset[i]
+        images.append(image_codec.resize(img, size))
+        labels.append(label)
+    offset = bank.add(np.stack(images))
+    return BankDataset(offset, labels)
 
 
 class BankDataset:
@@ -130,3 +165,77 @@ class Subset:
 
     def __getitem__(self, idx):
         return self.dataset[self.indices[idx]]
+
+
+class LmdbDataset:
+    """The reference's LMDB crop dataset; see the module doc."""
+
+    def __init__(self, root: str, opt, mode: str = "train"):
+        from mrn_tpu_torch.data.lmdb_store import LmdbReader
+
+        self.root = root
+        self.opt = opt
+        self.mode = mode
+        self.env = LmdbReader(root)
+        n = int(self.env.get(b"num-samples").decode())
+        self.filtered_index_list: List[int] = []
+        for index in range(1, n + 1):  # the keys start at 1
+            label = self.env.get(b"label-%09d" % index)
+            if label is None or len(label.decode("utf-8")) > opt.batch_max_length:
+                continue
+            self.filtered_index_list.append(index)
+
+    def __len__(self):
+        return len(self.filtered_index_list)
+
+    def __getitem__(self, idx):
+        index = self.filtered_index_list[idx]
+        label = self.env.get(b"label-%09d" % index).decode("utf-8")
+        buf = self.env.get(b"image-%09d" % index) or b""
+        try:
+            img = image_codec.decode(buf, (self.opt.imgW, self.opt.imgH),
+                                     key=f"{self.root} image-{index:09d}")
+        except OSError:
+            img = np.zeros((self.opt.imgH, self.opt.imgW, 4), np.uint8)
+            label = "[dummy_label]"
+        return img, label
+
+
+class RawDataset:
+    """A folder of jpg/jpeg/png crops; items ``(crop, path)``."""
+
+    def __init__(self, root: str, opt):
+        self.opt = opt
+        self.image_path_list = []
+        for dirpath, _, filenames in os.walk(root):
+            for name in filenames:
+                if os.path.splitext(name)[1].lower() in (".jpg", ".jpeg", ".png"):
+                    self.image_path_list.append(os.path.join(dirpath, name))
+        self.image_path_list.sort()
+
+    def __len__(self):
+        return len(self.image_path_list)
+
+    def __getitem__(self, idx):
+        path = self.image_path_list[idx]
+        try:
+            with open(path, "rb") as f:
+                img = image_codec.decode(f.read(), (self.opt.imgW, self.opt.imgH), key=path)
+        except OSError:
+            img = np.zeros((self.opt.imgH, self.opt.imgW, 4), np.uint8)
+        return img, path
+
+
+def hierarchical_dataset(root: str, opt, select_data="/", mode: str = "train"):
+    """``(ConcatDataset of every selected leaf directory, log text)``; see
+    the module doc."""
+    dataset_list = []
+    dataset_log = f"dataset_root:  {root}\t dataset: {select_data}\n"
+    for dirpath, dirnames, _ in os.walk(root + "/"):
+        if not dirnames:
+            if any(sel in dirpath for sel in select_data):
+                ds = LmdbDataset(dirpath, opt, mode=mode)
+                dataset_log += (f"sub-directory:\t/{os.path.relpath(dirpath, root)}"
+                                f"\t num samples: {len(ds)}\n")
+                dataset_list.append(ds)
+    return ConcatDataset(dataset_list), dataset_log

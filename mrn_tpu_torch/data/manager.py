@@ -43,19 +43,25 @@ and draws everything from one generator seeded ``opt.manual_seed``:
   collating.
 
 Every loader built draws its first permutation from the generator when it
-is built, and one more at each new epoch.  The LMDB factory raises
-(ROADMAP.md §1 item 6).
+is built, and one more at each new epoch.  Without a ``dataset_factory``
+the stream reads the LMDB layout: task ``taski`` of a root is the LMDB
+directory ``{data_root}/{opt.lan_list[taski]}`` (``data.dataset.
+LmdbDataset``); with a ``DeviceImageBank`` as ``opt.image_bank`` each
+such dataset is resized into the bank once and its index view cached on
+the bank under JAX's key ``("train", data_root, taski, mode)``.
 
-``ValDataset(val_datas, opt, dataset_factory)`` builds, from
-``dataset_factory(val_data) -> dataset``, the current (last) set's loader
-(``create_dataset``, step-0 validation) and every set's, each capped at
-700 crops drawn with the ValDataset's generator (``create_list_dataset``,
-the routed validation).
+``ValDataset(val_datas, opt, dataset_factory=None)`` builds, from
+``dataset_factory(val_data) -> dataset`` (default: every LMDB leaf under
+``val_data``, ``hierarchical_dataset``, banked under ``("val",
+val_data)``), the current (last) set's loader (``create_dataset``, step-0
+validation) and every set's, each capped at 700 crops drawn with the
+ValDataset's generator (``create_list_dataset``, the routed validation).
 
-Items are uint8 crops already at ``(imgH, imgW)`` (a crop of another size
-raises: the port has no resize), float32 crops or bank indices.  uint8
-batches stay uint8 (normalised on the device), other integer batches are
-int32 bank indices, images float32.
+Items are uint8 crops, float32 crops or bank indices; every loader runs
+``data.transform.build_transform`` over them (uint8 crops of another size
+are resized as Pillow resizes them).  uint8 batches stay uint8 (normalised
+on the device), other integer batches are int32 bank indices, images
+float32.
 """
 
 from __future__ import annotations
@@ -64,7 +70,10 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
-from mrn_tpu_torch.data.dataset import ConcatDataset, IndexConcatDataset, Subset
+from mrn_tpu_torch.data.dataset import (ConcatDataset, DeviceImageBank, IndexConcatDataset,
+                                        LmdbDataset, Subset, bank_dataset,
+                                        hierarchical_dataset)
+from mrn_tpu_torch.data.transform import build_transform
 
 __all__ = ["DatasetManager", "EpochLoader", "ValDataset"]
 
@@ -144,20 +153,6 @@ class EpochLoader:
             yield self.next_batch()
 
 
-def _sized(opt) -> Callable:
-    """The training transform: uint8 crops must already be ``(imgH,
-    imgW)``; bank indices and float crops pass as they are."""
-    size = (int(opt.imgH), int(opt.imgW))
-
-    def check(image):
-        if isinstance(image, np.ndarray) and image.ndim == 3 and image.shape[:2] != size:
-            raise ValueError(f"crop of {image.shape[:2]}, expected {size}: the port "
-                             "has no resize (ROADMAP.md §1 item 6)")
-        return image
-
-    return check
-
-
 class DatasetManager:
     """The incremental stream builder; see the module doc."""
 
@@ -172,8 +167,18 @@ class DatasetManager:
 
     # ------------------------------------------------ dataset construction
     def _lmdb_factory(self, data_root: str, taski: int, mode: str):
-        raise NotImplementedError("LMDB datasets are not ported yet (ROADMAP.md §1 "
-                                  "item 6): pass a dataset_factory")
+        path = data_root + "/" + self.opt.lan_list[taski]
+        bank = self.opt.get("image_bank")
+        if isinstance(bank, DeviceImageBank):
+            # rehearsal rebuilds earlier tasks' datasets every stage: the
+            # banked view is cached on the bank (it dies with the run)
+            key = ("train", data_root, taski, mode)
+            cached = bank.datasets.get(key)
+            if cached is None:
+                cached = bank_dataset(LmdbDataset(path, self.opt, mode=mode), self.opt, bank)
+                bank.datasets[key] = cached
+            return cached
+        return LmdbDataset(path, self.opt, mode=mode)
 
     def create_dataset(self, data_list=None, taski: int = 0, mode: str = "train",
                        repeat: bool = True):
@@ -189,7 +194,7 @@ class DatasetManager:
 
     def _add_loader(self, dataset, batch_size=None, with_index=False):
         self.loaders.append(EpochLoader(
-            dataset, batch_size or self.opt.batch_size, _sized(self.opt),
+            dataset, batch_size or self.opt.batch_size, build_transform(self.opt, mode="train"),
             with_index=with_index, rng=self.rng))
 
     # -------------------------------------------------------- policies
@@ -303,17 +308,32 @@ class DatasetManager:
 
 
 class ValDataset:
-    def __init__(self, val_datas, opt, dataset_factory: Callable,
+    def __init__(self, val_datas, opt, dataset_factory: Optional[Callable] = None,
                  seed: Optional[int] = None):
         self.val_datas = list(val_datas)
         self.current_data = self.val_datas[-1]
         self.opt = opt
         self.rng = np.random.default_rng(opt.manual_seed if seed is None else seed)
-        self._factory = dataset_factory
+        self._factory = dataset_factory or self._lmdb_factory
+        self.transform = build_transform(opt, mode="test")
+
+    def _lmdb_factory(self, val_data: str):
+        bank = self.opt.get("image_bank")
+        if isinstance(bank, DeviceImageBank):
+            key = ("val", val_data)
+            cached = bank.datasets.get(key)
+            if cached is None:
+                ds, _ = hierarchical_dataset(root=val_data, opt=self.opt, mode="test")
+                cached = bank_dataset(ds, self.opt, bank)
+                bank.datasets[key] = cached
+            return cached
+        ds, _ = hierarchical_dataset(root=val_data, opt=self.opt, mode="test")
+        return ds
 
     def _loader(self, dataset) -> EpochLoader:
-        return EpochLoader(dataset, self.opt.batch_size, shuffle=False, pad_to_batch=True,
-                           rng=self.rng)
+        # dataset order, as the reference's eval loader
+        return EpochLoader(dataset, self.opt.batch_size, self.transform, shuffle=False,
+                           pad_to_batch=True, rng=self.rng)
 
     def create_dataset(self, val_data=None) -> EpochLoader:
         return self._loader(self._factory(val_data or self.current_data))

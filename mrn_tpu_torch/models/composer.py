@@ -9,11 +9,13 @@ The port covers two stage combinations:
   ``depth``, ``num_heads``, ``drop_path_rate``) narrows the backbone for
   tests, the configs leave it unset; ``quant`` ("none", "calib", "int8")
   is the SVTR Blocks' w8a8 mode (``models.svtr.Block``);
-- TPS/ResNet/BiLSTM/Attn (TRBA) in eval mode with greedy decoding: ``fc``
-  is the decoder's generator, ``text`` carries the [SOS] id and
-  ``class_count`` restricts the decoder to an expert's true vocabulary.
+- TPS/ResNet/BiLSTM/Attn (TRBA) and None/ResNet/BiLSTM/Attn (RBA, TRBA
+  without the TPS: ``evaluate_cli --model_name RBA``) in eval mode with
+  greedy decoding: ``fc`` is the decoder's generator, ``text`` carries the
+  [SOS] id and ``class_count`` restricts the decoder to an expert's true
+  vocabulary.
 
-Every other combination, and TRBA in train mode, raises
+Every other combination, and TRBA or RBA in train mode, raises
 ``NotImplementedError``.
 """
 
@@ -35,6 +37,7 @@ __all__ = ["Extractor", "Recognizer", "build_recognizer", "sequence_length"]
 
 _SVTR = ("None", "SVTR", "None", "CTC")
 _TRBA = ("TPS", "ResNet", "BiLSTM", "Attn")
+_RBA = ("None", "ResNet", "BiLSTM", "Attn")
 
 
 def sequence_length(feature_extraction: str, img_w: int) -> int:
@@ -51,11 +54,11 @@ def sequence_length(feature_extraction: str, img_w: int) -> int:
 def _check_supported(stages: Tuple[str, ...], quant: str = "none") -> None:
     """``stages``: an extractor's three, or a recognizer's four."""
     n = len(stages)
-    if stages not in (_SVTR[:n], _TRBA[:n]):
+    if stages not in (_SVTR[:n], _TRBA[:n], _RBA[:n]):
         raise NotImplementedError(
-            f"{'+'.join(stages)}: the PyTorch port serves None+SVTR+None+CTC and "
-            "TPS+ResNet+BiLSTM+Attn so far; VGG and RCNN come in later slices "
-            "(see ROADMAP.md)")
+            f"{'+'.join(stages)}: the PyTorch port serves None+SVTR+None+CTC, "
+            "TPS+ResNet+BiLSTM+Attn and None+ResNet+BiLSTM+Attn so far; VGG and RCNN "
+            "come in later slices (see ROADMAP.md)")
     if stages[1] == "ResNet" and quant != "none":
         raise NotImplementedError("w8a8 serving of TRBA (the int8 conv path) is not ported")
 
@@ -63,7 +66,8 @@ def _check_supported(stages: Tuple[str, ...], quant: str = "none") -> None:
 class Extractor(nn.Module):
     """Returns [B, T, hidden].  SVTR: SVTR -> mean over H -> ``seq_linear``
     (the "None" sequence stage still projects to ``hidden_size``).  TRBA:
-    TPS -> ResNet -> mean over H -> two BiLSTMs (``seq0``, ``seq1``)."""
+    TPS -> ResNet -> mean over H -> two BiLSTMs (``seq0``, ``seq1``); RBA
+    the same without the TPS."""
 
     def __init__(self, transformation: str = "None",
                  feature_extraction: str = "SVTR",
@@ -79,7 +83,8 @@ class Extractor(nn.Module):
                                          **dict(svtr or {}), quant=quant)
             self.seq_linear = Dense(output_channel, hidden_size)
         else:
-            self.transformation = TPSTransformer(num_fiducial, img_size, input_channel)
+            if transformation == "TPS":
+                self.transformation = TPSTransformer(num_fiducial, img_size, input_channel)
             self.feature = ResNetExtractor(input_channel, output_channel)
             self.seq0 = BidirectionalLSTM(output_channel, hidden_size, hidden_size)
             self.seq1 = BidirectionalLSTM(hidden_size, hidden_size, hidden_size)
@@ -90,7 +95,9 @@ class Extractor(nn.Module):
         if train:
             raise NotImplementedError("TRBA runs in eval mode only in the port (the TPS "
                                       "warp kernel has no backward; training is not ported)")
-        seq = self.feature(self.transformation(image)).mean(dim=1)
+        if hasattr(self, "transformation"):
+            image = self.transformation(image)
+        seq = self.feature(image).mean(dim=1)
         return self.seq1(self.seq0(seq))
 
 

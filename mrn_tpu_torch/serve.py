@@ -67,10 +67,13 @@ class Server:
                  character: Sequence[str],
                  class_counts: Optional[Sequence[int]] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 state: Optional[Mapping[str, torch.Tensor]] = None):
+                 state: Optional[Mapping[str, torch.Tensor]] = None,
+                 model: Optional[torch.nn.Module] = None):
         """``state``: an MRN ensemble's port state dict, loaded in place of
         ``from_flax(params, batch_stats)`` (``from_checkpoint``'s router over
-        experts kept apart from its params)."""
+        experts kept apart from its params).  ``model``: an eval-mode module
+        already on ``device``, served as it is (a learner's, for
+        ``evaluate_cli``'s envelope check)."""
         self.device = resolve_device(device)
         if opt.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {opt.compute_dtype!r} not in {list(_DTYPES)}")
@@ -81,7 +84,9 @@ class Server:
         # the float32 trees as given: int8 quantization starts from them
         self.params, self.batch_stats = params, batch_stats
         num_classes = self.converter.num_classes
-        if state is not None or "experts" in params:
+        if model is not None:
+            self.model = model
+        elif state is not None or "experts" in params:
             if class_counts is None:
                 raise ValueError("an MRN ensemble needs the per-expert class_counts")
             self.model = MRNNet(

@@ -64,6 +64,10 @@ LayerNorm and the rest run in bfloat16 exactly as in JAX, which
 ``torch.autocast`` would not); master parameters, Adam moments, BatchNorm
 running statistics and the losses stay float32.
 
+Only CTC heads train; with ``opt.eval_only`` (``evaluate_cli`` sets it)
+an Attn head is built for evaluation: greedy from an [SOS] column, its
+loss the cross entropy over the non-[PAD] targets.
+
 Runs on the CUDA card unless ``device="cpu"`` is passed.
 """
 
@@ -81,13 +85,14 @@ from torch.func import functional_call
 
 from mrn_tpu_torch import resolve_device
 from mrn_tpu_torch.bridge import from_flax, to_flax
-from mrn_tpu_torch.codec import CTCLabelConverter
+from mrn_tpu_torch.codec import build_converter
 from mrn_tpu_torch.data.prefetch import Prefetcher
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.init import random_recognizer
 from mrn_tpu_torch.models.surgery import apply_reference_init, grow_fc
 from mrn_tpu_torch.models.svtr import set_droppath_generator
 from mrn_tpu_torch.ops.ctc import ctc_loss_per_sample
+from mrn_tpu_torch.ops.losses import cross_entropy_ignore
 from mrn_tpu_torch.train.checkpoint import (best_model_path, load_model, load_train_state,
                                             save_model, save_train_state, train_state_path)
 from mrn_tpu_torch.train.evaluate import ValidationResult, validation
@@ -103,11 +108,11 @@ MAX_IN_FLIGHT = 64  # step losses left on the device before the oldest is read
 
 class BaseLearner:
     def __init__(self, opt, device: Optional[Union[str, torch.device]] = None):
-        if opt.Prediction != "CTC":
+        if opt.Prediction != "CTC" and not opt.get("eval_only"):
             raise NotImplementedError(f"Prediction {opt.Prediction!r}: the port trains CTC "
                                       "heads only so far; the Attn branches (teacher "
                                       "forcing, LwF's start index 1) are ROADMAP.md §1 "
-                                      "item 7")
+                                      "item 7 (opt.eval_only evaluates an Attn head)")
         self.opt = opt
         self.device = resolve_device(device)
         self.np_rng = np.random.default_rng(opt.manual_seed)
@@ -133,8 +138,8 @@ class BaseLearner:
                                  opt.get("data_log", "./data_any.txt"))
 
     # ------------------------------------------------------------ setup
-    def build_converter(self) -> CTCLabelConverter:
-        converter = CTCLabelConverter(self.character)
+    def build_converter(self):
+        converter = build_converter(self.opt.Prediction, self.character)
         self._total_classes = converter.num_classes
         return converter
 
@@ -521,10 +526,19 @@ class BaseLearner:
             train_loader.get_dataset(taski, memory=self.opt.memory)
 
     # --------------------------------------------------------------- eval
+    def _sos_column(self, images: torch.Tensor) -> Optional[torch.Tensor]:
+        """The Attn decoder's [SOS] column [B, 1] (None for CTC)."""
+        if self.opt.Prediction != "Attn":
+            return None
+        return torch.full((images.shape[0], 1), self.converter.sos_id, dtype=torch.int64,
+                          device=images.device)
+
     def _eval_logits(self, images: torch.Tensor, val_choose: str) -> torch.Tensor:
         """The eval-mode model's logits [B, T, C]: its ``predict`` (a
-        Recognizer) or ``logits`` (DERNet)."""
-        out = self.model(images, train=False)
+        Recognizer, greedy from [SOS] for Attn) or ``logits`` (DERNet)."""
+        text = self._sos_column(images)
+        out = self.model(images, train=False) if text is None else \
+            self.model(images, text, train=False)
         return out["predict"] if "predict" in out else out["logits"]
 
     @torch.no_grad()
@@ -532,18 +546,24 @@ class BaseLearner:
                    val_choose: str = "val") -> Dict[str, np.ndarray]:
         """``make_eval_batch``'s outputs for one padded batch, on the host:
         ``preds_index`` [B, T] int32, ``max_probs`` [B, T], ``loss_sum``
-        and ``loss_count``."""
+        and ``loss_count`` (CTC per sample over its length; Attn the
+        cross entropy over the non-[PAD] targets after [SOS])."""
         logits = self._eval_logits(self._device_images(images), val_choose).float()
-        lengths = torch.as_tensor(np.asarray(lengths), device=self.device)
-        per = ctc_loss_per_sample(logits, torch.as_tensor(np.asarray(labels_index),
-                                                          device=self.device), lengths)
-        per = per / lengths.clamp(min=1)
-        valid = lengths > 0
+        labels_index = torch.as_tensor(np.asarray(labels_index), device=self.device)
         out = {"preds_index": logits.argmax(dim=2).to(torch.int32),
-               "max_probs": torch.softmax(logits, dim=2).amax(dim=2),
-               "loss_sum": torch.where(valid & torch.isfinite(per), per,
-                                       torch.zeros_like(per)).sum(),
-               "loss_count": valid.sum()}
+               "max_probs": torch.softmax(logits, dim=2).amax(dim=2)}
+        if self.opt.Prediction == "Attn":
+            target = labels_index[:, 1:]
+            count = (target != self.converter.pad_id).sum()
+            out["loss_sum"] = cross_entropy_ignore(logits, target, self.converter.pad_id) * count
+            out["loss_count"] = count
+        else:
+            lengths = torch.as_tensor(np.asarray(lengths), device=self.device)
+            per = ctc_loss_per_sample(logits, labels_index, lengths) / lengths.clamp(min=1)
+            valid = lengths > 0
+            out["loss_sum"] = torch.where(valid & torch.isfinite(per), per,
+                                          torch.zeros_like(per)).sum()
+            out["loss_count"] = valid.sum()
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def run_validation(self, valid_loader, val_choose: str = "val") -> ValidationResult:

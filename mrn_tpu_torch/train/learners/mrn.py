@@ -312,7 +312,7 @@ class MRN(BaseLearner):
         """FF: the standalone expert; otherwise (TF) the hard expert pick."""
         if val_choose in ("FF", "val") and self._phase == "standalone":
             return super()._eval_logits(images, val_choose)
-        return self._eval_ensemble()(images, is_train=False)["logits"]
+        return self._eval_ensemble()(images, self._sos_column(images), is_train=False)["logits"]
 
     def val(self, valid_loader, opt, best_score, start_time, iteration,
             train_loss_avg, taski, step=None, val_choose=None):

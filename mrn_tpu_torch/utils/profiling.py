@@ -1,13 +1,36 @@
-"""Steps/s and images/s of the training loop (the port's copy of
-``StepMeter``, ``mrn_tpu/utils/profiling.py``).  The host clock runs ahead
-of the device: read a window only after the device has finished it."""
+"""Profiling hooks (the port's copies of ``mrn_tpu/utils/profiling.py``):
+
+- ``trace(logdir)``: a ``torch.profiler`` trace of the host and, with a
+  card, the device (CUPTI), written to ``logdir`` as a Chrome / TensorBoard
+  trace when the block ends; the profiler is yielded, so ``key_averages()``
+  can be read after the block;
+- ``StepMeter``: steps/s and images/s of the training loop.  The host clock
+  runs ahead of the device: read a window only after the device has
+  finished it.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
-from typing import Optional
+from typing import Iterator, Optional
 
-__all__ = ["StepMeter"]
+import torch
+
+__all__ = ["StepMeter", "trace"]
+
+
+@contextlib.contextmanager
+def trace(logdir: str = "./profile") -> Iterator[torch.profiler.profile]:
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)) as prof:
+        yield prof
 
 
 class StepMeter:

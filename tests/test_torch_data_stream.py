@@ -131,11 +131,22 @@ def test_epoch_loader_orders_match_jax_across_epochs(sources):
 
 
 def test_crop_of_another_size_raises():
+    """A uint8 crop of another size is resized as Pillow's bicubic resizes
+    it (JAX's ``ResizeNormalize``); a crop that is not an image raises."""
+    import PIL.Image
+
     opt = default_options(imgH=IMG_H, imgW=IMG_W, batch_size=2, select_data=["r"])
-    crops = ArrayDataset([np.zeros((IMG_H, IMG_W + 1, 4), np.uint8)] * 2, ["a", "b"])
+    crop = np.random.default_rng(0).integers(0, 256, (IMG_H + 3, IMG_W + 1, 4), np.uint8)
+    crops = ArrayDataset([crop] * 2, ["a", "b"])
     manager = DatasetManager(opt, dataset_factory=lambda root, taski, mode: crops)
     manager.init_start(opt, ["r"], None, 0)
-    with pytest.raises(ValueError, match="no resize"):
+    images, _ = manager.get_batch()
+    want = np.asarray(PIL.Image.fromarray(crop).resize((IMG_W, IMG_H), PIL.Image.BICUBIC))
+    assert images.dtype == np.uint8 and (images == want).all()
+    bad = ArrayDataset([np.zeros((IMG_H, IMG_W + 1, 2), np.uint8)] * 2, ["a", "b"])
+    manager = DatasetManager(opt, dataset_factory=lambda root, taski, mode: bad)
+    manager.init_start(opt, ["r"], None, 0)
+    with pytest.raises(ValueError, match="RGBA crop"):
         manager.get_batch()
 
 
@@ -288,8 +299,8 @@ def test_current_task_stream_two_epochs_and_skip(sources):
 def test_other_memory_policies_raise(sources):
     """The other learners' memory policies and ``joint_start`` build the
     JAX manager's loaders (their streams are held against it bitwise in
-    ``tests/test_torch_memory_policies.py``); the LMDB factory still
-    raises (ROADMAP.md §1 item 6)."""
+    ``tests/test_torch_memory_policies.py``); the LMDB factory raises as
+    JAX's does for a root without an LMDB."""
     port, jax_src = sources
     for il in ("wa", "der", "base"):
         opt, jopt = _opts(il=il)
@@ -309,7 +320,7 @@ def test_other_memory_policies_raise(sources):
         m.joint_start(opt, opt.select_data, None, 0, 2)
         m.joint_start(opt, opt.select_data, None, 1, 2)
         assert len(m.loaders) == (1 if il == "joint_mix" else 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(OSError, match="cannot open lmdb at root/T0"):
         DatasetManager(opt).create_dataset(["root"], 0)
 
 

@@ -1,6 +1,6 @@
 """Import hygiene and device policy of the PyTorch port: no module of
 ``mrn_tpu_torch``, nor ``chip_smoke.py``, ``scripts/torch_step_reading.py``
-or ``torch_loop_reading.py``, imports JAX, flax, optax, msgpack (the card's machine has none of them) or
+or ``torch_loop_reading.py``, imports JAX, flax, optax, msgpack, PIL or cv2 (the card's machine has none of them) or
 the JAX package, and entry points never fall back to the CPU on their own."""
 
 import ast
@@ -16,7 +16,7 @@ import torch
 from mrn_tpu_torch import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "msgpack", "mrn_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "mrn_tpu", "PIL", "cv2")
 
 
 def _port_files():
@@ -29,9 +29,11 @@ def _port_files():
 def test_scan_covers_every_subpackage():
     package = ROOT / "mrn_tpu_torch"
     parts = {p.relative_to(package).parts[0] for p in _port_files() if package in p.parents}
-    assert {"models", "ops", "train", "data", "utils"} <= parts
+    assert {"models", "ops", "train", "data", "utils", "tools"} <= parts
     learners = ROOT / "mrn_tpu_torch" / "train" / "learners"
     assert set(learners.glob("*.py")) <= set(_port_files())
+    clis = {package / f"{name}_cli.py" for name in ("train", "evaluate", "recognize")}
+    assert clis <= set(_port_files())
 
 
 def _imports(path):
