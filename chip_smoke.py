@@ -147,6 +147,23 @@
    the same batch with the warp forced through its plain version on the
    card (route scores, picks, logits and words, near-ties reported) and a
    profile of one request per dtype;
+12b. trains ``configs/trba_mrn.py`` at full width, bf16, batch 256, on
+   task 2 of 3 (2 frozen random TRBA experts and the new one, crops and
+   labels of the campaign suite's first three alphabets) through
+   ``MRN.incremental_train``: 6 step-0 steps (train-mode TPS with the
+   differentiable warp, teacher-forced decoder) and 3 step-1 steps (the
+   router over the experts, teacher-forced, in eval mode), each validated
+   on one batch, counting the warp kernel's launches (none in a step-0
+   step, one per expert in a step-1 step, 1 per FF and 3 per TF batch);
+   checks (a) one step-1 step with the kernel warp against the plain warp
+   (loss, grad norm, ``channel_route`` grad; ``TRBA_STEP_TOL``), (b) FF and
+   TF validation logits kernel against plain up to each crop's first
+   near-tie flip, (c) a finite, non-zero TPS grid gradient in step 0, the
+   new expert's localization statistics moved and the frozen experts
+   bitwise unchanged in step 1, (d) one WA step at task 1 whose
+   teacher-forced old network launches the warp once, kernel against plain
+   as (a); prints step-0 and step-1 ``StepMeter`` windows after 3 warm-up
+   steps and the idle share of a traced step-0 window;
 13. holds the TPS warp kernel against its plain version at batch 256,
    32x256x4 -> 32x256, on random grids in [-1.3, 1.3], the identity grid
    and the served batch's TPS grids, float32 and bfloat16 images (float32
@@ -182,6 +199,7 @@ sys.path.insert(0, ROOT)
 
 from mrn_tpu_torch import campaign  # noqa: E402
 from mrn_tpu_torch.bridge import quant_tree, state_to_flax, to_flax  # noqa: E402
+from mrn_tpu_torch.codec import build_converter  # noqa: E402
 from mrn_tpu_torch.config import load_config  # noqa: E402
 from mrn_tpu_torch import evaluate_cli, recognize_cli, train_cli  # noqa: E402
 from mrn_tpu_torch.data import image as image_codec  # noqa: E402
@@ -205,6 +223,8 @@ from mrn_tpu_torch.train import checkpoint  # noqa: E402
 from mrn_tpu_torch.train.learners import mrn as mrn_learner  # noqa: E402
 from mrn_tpu_torch.train.learners.base import BaseLearner  # noqa: E402
 from mrn_tpu_torch.train.learners.mrn import MRN, tree_hash  # noqa: E402
+from mrn_tpu_torch.train.learners.wa import WA  # noqa: E402
+from mrn_tpu_torch.utils import StepMeter  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet) at the full 700 W limit.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -378,6 +398,28 @@ GRID_SAMPLE_TOL = {torch.float32: (1e-6, 1e-6), torch.bfloat16: (0.0, 2.0 ** -7)
 # decode steps carry to the logits (bfloat16: a flipped rounding feeds the
 # next layer)
 TRBA_LOGIT_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-1, 5e-2)}
+
+# TRBA-MRN training (configs/trba_mrn.py at full width, bf16, batch 256):
+# task TRBA_TRAIN_TASK of 3 (2 frozen random experts and the new one), the
+# class counts of the campaign suite's first three alphabets (1895, 325 and
+# 1620 characters), CROPS_PER_TASK crops a task; num_iter TRBA_TRAIN_ITERS
+# with val_interval TRBA_VAL_INTERVAL: 6 step-0 steps validated (FF, one
+# batch) at 1, 3 and 6, and 3 step-1 steps validated (TF) at each; then
+# StepMeter windows of TRBA_WINDOW steps after TRBA_WARMUP warm-up steps
+TRBA_TRAIN_TASK = 2
+TRBA_TRAIN_ITERS = 6
+TRBA_VAL_INTERVAL = 3
+TRBA_WARMUP, TRBA_WINDOW = 3, 5
+# a training step with the TPS warp on the kernel against the same step with
+# the warp forced through its plain version, bf16: (loss rtol, grad-norm
+# rtol, gradient atol as a share of the leaf's largest |grad|).  The two
+# warps agree to one bf16 ulp of a warped pixel (GRID_SAMPLE_TOL); a pixel
+# rounded one ulp apart feeds the ResNet's 29 bf16 convs and BatchNorms,
+# whose roundings then flip in turn, so the loss and the grads agree to a few
+# ulps of the bf16 activations (TRAIN_STEP_TOL's reasoning), not to float32
+# noise.  Step 1's experts and WA's old network warp on the kernel; the live
+# model of a step 0 warps with the training warp on both sides.
+TRBA_STEP_TOL = TRAIN_STEP_TOL["bf16"]
 
 # The 6-task campaign phase: mrn_tpu_torch.campaign's run_incremental at
 # full width, bf16, batch 256, prefetch on, seed 111, cut against the
@@ -3068,6 +3110,247 @@ def phase_grid_sample(device, rng, tps_grids, images):
     return totals
 
 
+# ------------------------------------------------------------ TRBA training
+def _routed_tf(learner, images):
+    """The learner's "TF" ensemble output on ``images`` (greedy from [SOS])."""
+    with torch.no_grad():
+        return learner._eval_ensemble()(images, learner._sos_column(images), is_train=False)
+
+
+def _trba_step_pair(what, learner, model, batch, grad_key, optimizer):
+    """One training step of ``learner`` from the same weights and batch with
+    the TPS warp on the kernel and forced through its plain version: the
+    loss, the global grad norm and the gradient ``grad_key`` within
+    TRBA_STEP_TOL.  ``model`` holds the trained weights, ``optimizer()``
+    rebuilds the optimizer."""
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    captured = {}
+
+    def keep_grad(grads):
+        captured["g"] = grads[grad_key].detach().clone()
+        return grads
+
+    learner.grad_transform = lambda: keep_grad
+    results = []
+    for plain in (False, True):
+        model.load_state_dict(start)
+        optimizer()
+        warp = (mock.patch.object(tps, "grid_sample", grid_sample.grid_sample_reference)
+                if plain else contextlib.nullcontext())
+        with warp:
+            metrics = learner.train_step(batch)
+        results.append((float(metrics["loss"]), float(metrics["grad_norm"]), captured["g"]))
+    model.load_state_dict(start)
+    learner.grad_transform = lambda: None
+    optimizer()
+    (lk, gk, fk), (lp, gp, fp) = results
+    loss_rtol, norm_rtol, share = TRBA_STEP_TOL
+    largest = float(fp.abs().max())
+    dg = float((fk - fp).abs().max())
+    print(f"  {what}: loss {lk:.7f} vs {lp:.7f} (rel {abs(lk - lp) / abs(lp):.2e}, tol "
+          f"{loss_rtol:g}), grad_norm {gk:.6f} vs {gp:.6f} (rel {abs(gk - gp) / gp:.2e}, tol "
+          f"{norm_rtol:g}), {grad_key} grad max |diff| {dg:.3e} of max |grad| {largest:.3e} "
+          f"(tol {share:g} of it)")
+    if not all(np.isfinite(v) for v in (lk, lp, gk, gp)) or abs(lk - lp) > loss_rtol * abs(lp) \
+            or abs(gk - gp) > norm_rtol * gp or dg > share * largest:
+        raise RuntimeError(f"{what}: the kernel and plain warps' steps disagree")
+
+
+def _trba_window(learner, get_batch, n_warm, n_steps):
+    """A ``StepMeter`` window of ``n_steps`` steps after ``n_warm``, synced
+    at both ends; returns (mean step s, warp launches in the window)."""
+    for _ in range(n_warm):
+        learner.train_step(get_batch())
+    torch.cuda.synchronize()
+    launches = grid_sample.launches
+    meter = StepMeter()
+    for _ in range(n_steps):
+        meter.tick(BATCH)
+        learner.train_step(get_batch())
+    torch.cuda.synchronize()
+    return meter.seconds() / n_steps, grid_sample.launches - launches
+
+
+def phase_trba_train(rng, out_dir):
+    """This slice's path: TRBA-MRN training of ``configs/trba_mrn.py`` at
+    full width, bf16, batch 256, on task 2 of 3 (2 frozen random TRBA
+    experts and the new one; crops and labels of the campaign suite's first
+    three alphabets) through ``MRN.incremental_train``, validated on one
+    batch, counting warp launches (none in a step-0 step, one per expert in
+    a step-1 step, 1 per FF and 3 per TF batch); checks (a)-(d) and the
+    step windows.  Returns the counted launches."""
+    t0 = time.perf_counter()
+    alphabets = campaign.task_alphabets()[:TRBA_TRAIN_TASK + 1]
+    character = "".join(alphabets)
+    counts = [build_converter("Attn", "".join(alphabets[:t + 1])).num_classes
+              for t in range(TRBA_TRAIN_TASK + 1)]
+    loader = SyntheticTaskLoader(alphabets, TRBA_TRAIN_TASK, BATCH, CROPS_PER_TASK,
+                                 img_h=32, img_w=256, seed=SEED)
+    val_set = synthetic_val_set(alphabets, TRBA_TRAIN_TASK, BATCH, 32, 256, seed=SEED + 1)
+    base = load_config(os.path.join(ROOT, "configs", "trba_mrn.py"), output_dir=out_dir,
+                       data_log=os.path.join(out_dir, "data_trba.txt"), exp_name="trba_train",
+                       num_iter=TRBA_TRAIN_ITERS, val_interval=TRBA_VAL_INTERVAL,
+                       train_dtype="bf16", image_bank=loader.bank, manual_seed=SEED)
+    valid = ValDataset(["val"], base, {"val": val_set}.__getitem__)
+    learner = MRN(base)
+    for count in counts[:-1]:
+        learner.add_expert(*random_recognizer(rng, base, count), count)
+    print(f"  {len(loader.labels)} crops, class counts {counts}, 2 frozen experts drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) hooks: the frozen experts as step 1 starts, the warp launches of step 0
+    seen = {}
+    start_router = learner.start_router_phase
+
+    def recorded_start(router=None):
+        seen["step0_launches"] = grid_sample.launches
+        start_router(router)
+        seen["experts"] = {k: v.clone() for k, v in learner.mrn_model.experts.state_dict().items()}
+        seen["expert_states"] = [{k: v.clone() for k, v in s.items()}
+                                 for s in learner.expert_states]
+
+    learner.start_router_phase = recorded_start
+    # ---- counted run: the main path, through the entry point
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid_sample.launches = 0
+    learner.incremental_train(TRBA_TRAIN_TASK, character, loader, valid)
+    torch.cuda.synchronize()
+    launches = grid_sample.launches
+    run_s = time.perf_counter() - t0
+    n0, n1 = TRBA_TRAIN_ITERS, TRBA_TRAIN_ITERS // 2
+    ff = val_points(n0, TRBA_VAL_INTERVAL)
+    tf = val_points(n1, max(1, TRBA_VAL_INTERVAL // 5))
+    n_exp = TRBA_TRAIN_TASK + 1
+    expected0, expected1 = ff, n_exp * n1 + n_exp * tf
+    got0 = seen["step0_launches"]
+    print(f"  incremental_train of task {TRBA_TRAIN_TASK} in {run_s:.1f} s; warp launches: "
+          f"step 0 {got0} (expected {expected0} = {n0} steps x 0 + {ff} FF batches x 1), "
+          f"step 1 {launches - got0} (expected {expected1} = {n1} steps x {n_exp} + {tf} TF "
+          f"batches x {n_exp})")
+    if (got0, launches - got0) != (expected0, expected1):
+        raise RuntimeError("the TRBA training path did not run through the warp kernel as "
+                           "expected")
+    for rec in learner.history:
+        print(f"  task {rec['task']} step {rec['step']} iter {rec['iteration']}: loss "
+              f"{rec['loss']:.5f}" + (f" (clf {rec['clf']:.5f}, router {rec['router']:.5f})"
+                                      if "clf" in rec else "")
+              + f", grad_norm {rec['grad_norm']:.4g}, {1e3 * rec['seconds']:.1f} ms/step over "
+              f"its window")
+    if not all(np.isfinite(rec["loss"]) for rec in learner.history) \
+            or len(learner.history) != n0 + n1:
+        raise RuntimeError("TRBA training: non-finite loss or missing steps")
+
+    # ---- (c) step 1 left the frozen experts bitwise; step 0 moved the statistics
+    after = learner.mrn_model.experts.state_dict()
+    same = all(torch.equal(v, after[k]) for k, v in seen["experts"].items()) and all(
+        torch.equal(v, s[k]) for old, s in zip(seen["expert_states"], learner.expert_states)
+        for k, v in old.items())
+    loc = "extractor.transformation.localization.bn0."
+    new = learner.expert_states[-1]
+    moved = (float(new[loc + "mean"].abs().max()), float((new[loc + "var"] - 1).abs().max()))
+    print(f"  (c) step 1: the {n_exp} frozen experts bitwise unchanged: {same}; step 0: the new "
+          f"expert's localization bn0 running mean moved {moved[0]:.3e}, var {moved[1]:.3e} "
+          f"from their init")
+    if not same or min(moved) <= 0.0:
+        raise RuntimeError("(c) frozen experts changed in step 1 or step 0 moved no statistics")
+
+    # ---- (a) one step-1 step, kernel warp against plain warp
+    batch2 = loader.get_batch2()
+    _trba_step_pair("(a) bf16 step-1 step, kernel vs plain warp", learner, learner.mrn_model,
+                    batch2, "channel_route.kernel",
+                    lambda: learner.build_optimizer(scale=1.0, the=2))
+
+    # ---- (b) FF and TF validation logits, kernel against plain
+    images = learner._device_images(loader.get_batch()[0])
+    sos = learner._sos_column(images)
+    count = grid_sample.launches
+    with torch.no_grad():
+        ff_k = learner.model(images, sos, train=False)["predict"]
+        tf_k = _routed_tf(learner, images)
+    launched = grid_sample.launches - count
+    with mock.patch.object(tps, "grid_sample", grid_sample.grid_sample_reference), \
+            torch.no_grad():
+        ff_p = learner.model(images, sos, train=False)["predict"]
+        tf_p = _routed_tf(learner, images)
+    print(f"  (b) one FF and one TF batch launched the warp {launched} times (expected "
+          f"{1 + n_exp})")
+    if launched != 1 + n_exp:
+        raise RuntimeError("(b) the validation forwards did not launch the warp as expected")
+    atol, rtol = TRBA_LOGIT_TOL[torch.float32]
+    ff_err, _ = check_greedy("(b) FF logits, kernel vs plain warp", ff_k, ff_p,
+                             torch.full((BATCH,), counts[-1], device=ff_p.device), atol, rtol)
+    agree = tf_k["index"] == tf_p["index"]
+    print(f"  (b) TF expert picks agree on {int(agree.sum())}/{BATCH} crops")
+    if not bool(agree.all()):
+        raise RuntimeError("(b) TF expert picks differ between the kernel and plain warps")
+    tf_counts = torch.tensor(counts, device=tf_p["index"].device)[tf_p["index"]]
+    tf_err, _ = check_greedy("(b) TF logits, kernel vs plain warp", tf_k["logits"],
+                             tf_p["logits"], tf_counts, atol, rtol)
+
+    # ---- windows: step 1, then step 0 (with (c)'s grid gradient and a trace)
+    w1, l1 = _trba_window(learner, loader.get_batch2, TRBA_WARMUP, TRBA_WINDOW)
+    learner.change_model()
+    learner.build_optimizer()
+    grid_grads = []
+
+    def recording_warp(image, grid):
+        grid.register_hook(lambda g: grid_grads.append(g.detach().float()))
+        return grid_sample.grid_sample_train(image, grid)
+
+    with mock.patch.object(tps, "grid_sample_train", recording_warp):
+        learner.train_step(loader.get_batch())
+    g = grid_grads[0]
+    print(f"  (c) step 0: TPS grid gradient finite {bool(torch.isfinite(g).all())}, max |grad| "
+          f"{float(g.abs().max()):.3e}")
+    if not bool(torch.isfinite(g).all()) or float(g.abs().max()) <= 0.0:
+        raise RuntimeError("(c) the step-0 TPS grid gradient is not finite and non-zero")
+    w0, l0 = _trba_window(learner, loader.get_batch, TRBA_WARMUP, TRBA_WINDOW)
+    print(f"  StepMeter windows of {TRBA_WINDOW} steps after {TRBA_WARMUP} warm-up steps, bf16, "
+          f"batch {BATCH}: step 0 {1e3 * w0:.2f} ms/step ({BATCH / w0:.1f} images/s, {l0} warp "
+          f"launches), step 1 {1e3 * w1:.2f} ms/step ({BATCH / w1:.1f} images/s, {l1} warp "
+          f"launches)")
+    if (l0, l1) != (0, n_exp * TRBA_WINDOW):
+        raise RuntimeError("the step windows did not launch the warp as expected")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t1 = time.perf_counter()
+        for _ in range(TRACE_STEPS):
+            learner.train_step(loader.get_batch())
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t1
+    idle = print_device_profile(f"bf16 TRBA step 0, {TRACE_STEPS} steps", prof, traced)
+    print(f"  idle share of the traced step-0 window: "
+          f"{'not measured' if idle is None else f'{idle:.1%}'}")
+    del learner
+
+    # ---- (d) one WA step at task 1: the teacher-forced old network warps once
+    wa = WA(base.replace(il="wa", exp_name="trba_wa"))
+    wa.character = list(alphabets[0])
+    wa.converter = wa.build_converter()
+    wa._set_model(*random_recognizer(rng, base, counts[0]))
+    wa._cur_task = 0
+    wa.after_task()
+    wa._cur_task, wa.character = 1, list(alphabets[0] + alphabets[1])
+    wa.converter = wa.build_converter()
+    wa.change_model()
+    wa.build_optimizer()
+    batch = loader.get_batch()
+    count = grid_sample.launches
+    metrics = wa.train_step(batch)
+    torch.cuda.synchronize()
+    wa_launches = grid_sample.launches - count
+    print(f"  (d) WA task 1 step: loss {float(metrics['loss']):.5f}, kd "
+          f"{float(metrics['kd']):.5f}; warp launches {wa_launches} (expected 1: the old "
+          f"network's eval-mode TPS; the live model warps with the training warp)")
+    if wa_launches != 1 or not float(metrics["kd"]) > 0.0:
+        raise RuntimeError("(d) the WA step's old network did not warp through the kernel once")
+    _trba_step_pair("(d) bf16 WA step, kernel vs plain warp", wa, wa.model, batch, "fc.kernel",
+                    wa.build_optimizer)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3125,6 +3408,12 @@ def main():
     int8_served = phase_int8_serve(rng, base)
     print("== TRBA-MRN serving, 6 experts, full width")
     trba_served, _, tps_grids, trba_images = phase_trba_serve(rng)
+    print("== TRBA-MRN training, task 2 of 3, full width, bf16")
+    trba_dir = tempfile.mkdtemp(prefix="smoke_trba_", dir=os.path.join(ROOT, "build"))
+    try:
+        trba_trained = phase_trba_train(rng, trba_dir)
+    finally:
+        shutil.rmtree(trba_dir, ignore_errors=True)
     print("== TPS warp kernel vs plain, TRBA shape")
     warp = phase_grid_sample(device, rng, tps_grids, trba_images)
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
@@ -3149,8 +3438,8 @@ def main():
              train_blocks[("head", bf16)]),
             ("svtr_fused_block_int8", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:303",
              int8_served + lmdb["int8"], int8_totals[(bf16, False)]),
-            ("grid_sample", "grid_sample.cu", "mrn_tpu/ops/grid_sample.py:140", trba_served,
-             warp[("tps", bf16)])]
+            ("grid_sample", "grid_sample.cu", "mrn_tpu/ops/grid_sample.py:140",
+             trba_served + trba_trained, warp[("tps", bf16)])]
     record = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -3180,7 +3469,9 @@ def main():
           f"evaluate_cli --int8 ({lmdb['int8']}), its "
           f"library_ms the torch._int_mm Block; grid_sample times are one warp of the "
           f"served batch's TPS grid (bf16 image, f32 grid), its launches the TRBA served "
-          f"requests, its library_ms F.grid_sample on NCHW; on {smi}")
+          f"requests ({trba_served}) and the TRBA training run ({trba_trained}: step 1's "
+          f"frozen experts, FF and TF validation), its library_ms F.grid_sample on NCHW; "
+          f"on {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                             "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""The 6-task synthetic incremental campaign of SVTR (the port's copy of
-``scripts/accuracy_campaign.py``), for every incremental-learning strategy
-of the port.
+"""The 6-task synthetic incremental campaign of SVTR and TRBA (the port's
+copy of ``scripts/accuracy_campaign.py``), for every incremental-learning
+strategy of the port.
 
 The suite echoes MLT17's shape: 6 tasks in the reference order with its
 class counts (1895/325/1620/1124/73/112, disjoint CJK spans) and instance
@@ -14,19 +14,24 @@ all tasks (``run_joint``) and record one row.
     python3 -m mrn_tpu_torch.campaign --il wa --tasks 6 --num_iter 1000 \
         --bf16 --out ACCURACY_RUNS_TORCH/t6
 
-writes ``<out>/svtr_<il>.json`` (best checkpoints under ``<out>/saved/``);
+writes ``<out>/<arch>_<il>.json`` (best checkpoints under
+``<out>/saved/acc_<arch>_<il>/``, the data log ``<out>/data_<arch>_<il>.txt``);
+``--arch`` is ``svtr`` (None/SVTR/None/CTC) or ``trba`` (TPS with 20
+fiducials, ResNet, two BiLSTMs, the Attn decoder: the JAX script's dims);
 ``--il`` is ``base``, ``lwf``, ``wa``, ``ewc``, ``der``, ``mrn``,
 ``joint_mix`` or ``joint_loader``; ``mrn``, ``der``, ``wa`` and
 ``joint_mix`` keep a rehearsal memory (``MEMORY_ILS``), EWC's Fisher takes
 ``num_iter // 4`` batches.  The rendered suite is cached as
 ``build/campaign/suite_<tag>.npz`` under the repository root; on the card
 the CUDA kernels are built before stage 0's clock starts.  ``--smoke``
-runs a narrow SVTR (embed 16/32/64, depth 1/2/1) on 1/80 of the data.  A
+runs on 1/80 of the data at output_channel 64 and hidden 32, as the JAX
+script's, SVTR narrowed further (embed 16/32/64, depth 1/2/1); TRBA's
+localization net keeps its fixed widths.  A
 crashed campaign goes on with ``--start_task K --eval_from K`` (tasks
 below K replay their best checkpoints; for MRN K + 0.5 also replays task
 K's step 0); ``--stop_after K`` ends after stage K, writing
-``<out>/svtr_<il>.stage<K>.json``.  Runs on the CUDA card unless
-``--device cpu``.  Only the SVTR recognizer is ported.
+``<out>/<arch>_<il>.stage<K>.json``.  Runs on the CUDA card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from mrn_tpu_torch.data.manager import DatasetManager, ValDataset
 from mrn_tpu_torch.data.synthetic import SyntheticSource, alphabet_of_size
 from mrn_tpu_torch.train.learners import build_learner
 
-__all__ = ["CLASSES", "GEN_PARAMS", "ILS", "LANS", "MEMORY_ILS", "N_TEST", "N_TRAIN",
+__all__ = ["ARCHS", "CLASSES", "GEN_PARAMS", "ILS", "LANS", "MEMORY_ILS", "N_TEST", "N_TRAIN",
            "build_source", "campaign_options", "campaign_record", "device_name", "forgetting",
            "main",
            "run_incremental", "run_joint"]
@@ -63,6 +68,11 @@ MEMORY_NUM = 2000
 SMOKE_SVTR = dict(embed_dim=(16, 32, 64), depth=(1, 2, 1), num_heads=(2, 2, 4))
 SMOKE_MEMORY_NUM = 16   # below the smallest smoke task
 ILS = ("base", "lwf", "wa", "ewc", "der", "mrn", "joint_mix", "joint_loader")
+# the recognizers' stages (reference config/{svtr,trba}_mrn.py)
+ARCHS = {"svtr": dict(Transformation="None", FeatureExtraction="SVTR",
+                      SequenceModeling="None", Prediction="CTC"),
+         "trba": dict(Transformation="TPS", FeatureExtraction="ResNet",
+                      SequenceModeling="BiLSTM", Prediction="Attn", num_fiducial=20)}
 # the strategies that keep a rehearsal memory, as the shipped configs do
 MEMORY_ILS = {"mrn", "der", "wa", "joint_mix"}
 
@@ -110,24 +120,25 @@ def build_source(opt, seed: int = 111, cache_dir: Optional[str] = None,
 
 def campaign_options(tasks: int = 6, num_iter: int = 1000, batch_size: int = 256,
                      seed: int = 111, bf16: bool = False, out: str = "ACCURACY_RUNS_TORCH",
-                     smoke: bool = False, il: str = "mrn", **overrides):
-    """The JAX script's options for SVTR under strategy ``il``
+                     smoke: bool = False, il: str = "mrn", arch: str = "svtr", **overrides):
+    """The JAX script's options for ``arch`` under strategy ``il``
     (``run_strategy``)."""
     dims = dict(output_channel=512, hidden_size=256)
     if smoke:
-        dims = dict(output_channel=64, hidden_size=32, svtr=SMOKE_SVTR)
-    opt = dict(exp_name=f"acc_svtr_{il}", il=il,
+        dims = dict(output_channel=64, hidden_size=32)
+        if arch == "svtr":
+            dims["svtr"] = SMOKE_SVTR
+    opt = dict(exp_name=f"acc_{arch}_{il}", il=il,
                memory="random" if il in MEMORY_ILS else None,
                fisher_num_iter=max(1, num_iter // 4),
                memory_num=SMOKE_MEMORY_NUM if smoke else MEMORY_NUM,
                batch_size=batch_size, num_iter=num_iter,
                val_interval=max(1, num_iter // 2), batch_max_length=25, imgH=32, imgW=256,
                lan_list=LANS[:tasks], select_data=["synth_train"],
-               Transformation="None", FeatureExtraction="SVTR", SequenceModeling="None",
-               Prediction="CTC", valid_datas=["synth_test"], workers=0, NED=True,
+               valid_datas=["synth_test"], workers=0, NED=True,
                manual_seed=seed, train_dtype="bf16" if bf16 else None,
                output_dir=os.path.join(out, "saved"),
-               data_log=os.path.join(out, f"data_svtr_{il}.txt"), **dims)
+               data_log=os.path.join(out, f"data_{arch}_{il}.txt"), **ARCHS[arch], **dims)
     opt.update(overrides)
     return default_options(**opt)
 
@@ -243,9 +254,9 @@ def device_name(device) -> str:
 def campaign_record(il: str, num_iter: int, bf16: bool, batch_size: int, seed: int,
                     n_train: Sequence[int], n_test: Sequence[int], aia: List[float],
                     matrix: List[List[float]], times: List[float], total: float,
-                    card: str) -> dict:
+                    card: str, arch: str = "svtr") -> dict:
     """The fields of the JAX campaign's ``ACCURACY_RUNS/t6/svtr_<il>.json``
-    plus the card's ``device``."""
+    (``ACCURACY_RUNS/trba_<il>.json``) plus the card's ``device``."""
     return {
         "il": il, "num_iter": num_iter, "train_dtype": "bf16" if bf16 else "f32",
         "batch_size": batch_size, "seed": seed,
@@ -255,14 +266,14 @@ def campaign_record(il: str, num_iter: int, bf16: bool, batch_size: int, seed: i
         "acc_matrix": matrix, "final_row": matrix[-1] if matrix else None,
         "avg_forgetting": forgetting(matrix) if matrix else None,
         "stage_seconds": times, "total_seconds": total,
-        "arch": "svtr", "recycled": False, "device": card,
+        "arch": arch, "recycled": False, "device": card,
     }
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--il", default="mrn", choices=ILS)
-    ap.add_argument("--arch", default="svtr")
+    ap.add_argument("--arch", default="svtr", choices=tuple(ARCHS))
     ap.add_argument("--tasks", type=int, default=6)
     ap.add_argument("--num_iter", type=int, default=2500)
     ap.add_argument("--batch_size", type=int, default=256)
@@ -270,19 +281,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--out", default="ACCURACY_RUNS_TORCH")
     ap.add_argument("--smoke", action="store_true",
-                    help="narrow SVTR and 1/80 of the data (a wiring check)")
+                    help="narrow recognizer and 1/80 of the data (a wiring check)")
     ap.add_argument("--start_task", type=float, default=0,
                     help="replay phases below this from their best checkpoints "
                          "under <out>/saved/ (K.5 also replays task K's step 0)")
     ap.add_argument("--eval_from", type=int, default=0,
                     help="skip the evaluation of stages below this")
     ap.add_argument("--stop_after", type=int, default=-1,
-                    help="end after this stage, writing <out>/svtr_<il>.stage<K>.json")
+                    help="end after this stage, writing <out>/<arch>_<il>.stage<K>.json")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
-    if args.arch != "svtr":
-        raise NotImplementedError(f"arch={args.arch!r}: the port's campaign runs SVTR only "
-                                  "(ROADMAP.md §1 items 7-9)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # the kernels' nvcc builds stay out of stage 0's seconds
@@ -295,7 +303,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         n_train = [max(8, n // 80) for n in N_TRAIN]
         n_test = [max(8, n // 80) for n in N_TEST]
     opt = campaign_options(args.tasks, args.num_iter, args.batch_size, args.seed, args.bf16,
-                           args.out, args.smoke, il=args.il, start_task=args.start_task,
+                           args.out, args.smoke, il=args.il, arch=args.arch,
+                           start_task=args.start_task,
                            eval_from=args.eval_from, stop_after=args.stop_after)
     os.makedirs(args.out, exist_ok=True)
     t_build = time.time()
@@ -313,11 +322,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.stop_after >= 0:
         record = {"stage": args.stop_after, "eval_from": args.eval_from, "rows": matrix,
                   "aia": aia, "stage_seconds": times, "total_seconds": total, "device": card}
-        path = os.path.join(args.out, f"svtr_{args.il}.stage{args.stop_after}.json")
+        path = os.path.join(args.out, f"{args.arch}_{args.il}.stage{args.stop_after}.json")
     else:
         record = campaign_record(args.il, args.num_iter, args.bf16, args.batch_size, args.seed,
-                                 n_train, n_test, aia, matrix, times, total, card)
-        path = os.path.join(args.out, f"svtr_{args.il}.json")
+                                 n_train, n_test, aia, matrix, times, total, card, args.arch)
+        path = os.path.join(args.out, f"{args.arch}_{args.il}.json")
     with open(path, "w", encoding="utf-8") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({k: record[k] for k in ("final_aia", "avg_forgetting", "final_row",

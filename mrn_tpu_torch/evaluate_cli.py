@@ -88,7 +88,6 @@ def load_learner(opt, saved_model: str, last_task: int, device=None):
         for data_path in opt.select_data:
             opt.character, char = load_dict(os.path.join(data_path, opt.lan_list[taski]),
                                             char)
-    opt.eval_only = True      # an Attn head is evaluated, not trained
     learner = build_learner(opt, device=device)
     learner._cur_task = last_task
     learner.character = list(opt.character)

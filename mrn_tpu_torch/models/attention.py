@@ -1,19 +1,27 @@
 """Additive-attention LSTM decoder, the Attn prediction head (mirrors
-``mrn_tpu/models/attention.py``), greedy decoding only.
+``mrn_tpu/models/attention.py``).
 
-The decoder runs ``batch_max_length + 1`` steps.  Each step embeds the
-previous pick (``char_embeddings``, OOV ids clamped to 0), attends over the
-feature sequence, steps the LSTM cell and classifies with the ``generator``:
-the parent Recognizer's growable ``fc``, passed to ``forward`` so that its
-weights stay one leaf (``fc``) as in JAX.  ``class_count`` (an expert's true
-vocabulary inside a padded class space) restricts both the OOV clamp and
-the greedy argmax, so a padded expert decodes as its original-size self.
+The decoder runs ``batch_max_length + 1`` steps, each attending over the
+feature sequence and stepping the LSTM cell; the classifier is the
+``generator``: the parent's growable ``fc``, passed to ``forward`` so that
+its weights stay one leaf (``fc``) as in JAX.  Two modes:
+
+- greedy (``is_train=False``): each step embeds the previous pick
+  (``char_embeddings``, OOV ids clamped to 0) and classifies its hidden
+  state; ``class_count`` (an expert's true vocabulary inside a padded
+  class space) restricts both the OOV clamp and the argmax, so a padded
+  expert decodes as its original-size self;
+- teacher-forced (``is_train=True``): ``text`` [B, num_steps] ([SOS] and
+  the characters, ``label[:, :-1]``) is embedded at once (OOV ids clamped
+  to 0 against ``class_count``), the steps run over its columns, and the
+  generator classifies the stacked hiddens [B, S, H] in one product, as
+  JAX's scan does (a product per step would round differently under
+  bfloat16).
 
 Greedy feedback amplifies a near-tie: a top-2 logit pair within float noise
 can flip one pick, and every later step of that crop then differs.
 Comparisons between two implementations therefore read a crop's steps up to
-its first near-tie.  The teacher-forced path belongs to TRBA training,
-which is not ported.
+its first near-tie.
 """
 
 from __future__ import annotations
@@ -61,14 +69,24 @@ class AttentionDecoder(nn.Module):
         self.char_embeddings = nn.Parameter(torch.zeros(num_classes, num_char_embeddings))
 
     def forward(self, batch_H: torch.Tensor, text: torch.Tensor, generator: nn.Module,
-                class_count: Optional[int] = None) -> torch.Tensor:
-        """batch_H [B, T, input_size]; ``text`` [B, 1] or [B] whose first
-        entry is the [SOS] id (the whole batch starts from it, as in JAX);
-        returns the logits [B, num_steps, num_classes]."""
+                class_count: Optional[int] = None, is_train: bool = False) -> torch.Tensor:
+        """batch_H [B, T, input_size]; ``text``: greedy, [B, 1] or [B]
+        whose first entry is the [SOS] id (the whole batch starts from it,
+        as in JAX); teacher-forced, [B, >= num_steps] ids.  Returns the
+        logits [B, num_steps, num_classes]."""
         if class_count is None:
             class_count = self.num_classes
         b = batch_H.shape[0]
         proj = self.attention_cell.i2h(batch_H)
+        if is_train:
+            ids = text[:, :self.num_steps].to(torch.int64)
+            emb = self.char_embeddings[torch.where(ids >= class_count, 0, ids)]
+            h = c = batch_H.new_zeros(b, self.hidden)
+            hiddens = []
+            for step in range(self.num_steps):
+                h, c = self.attention_cell(h, c, batch_H, proj, emb[:, step])
+                hiddens.append(h)
+            return generator(torch.stack(hiddens, dim=1))
         target = text.reshape(-1)[:1].to(torch.int64).expand(b)
         h = c = batch_H.new_zeros(b, self.hidden)
         outside = torch.arange(self.num_classes, device=batch_H.device) >= class_count

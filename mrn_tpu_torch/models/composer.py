@@ -2,21 +2,23 @@
 Transformation -> FeatureExtraction -> mean over height -> SequenceModeling
 -> prediction head.
 
-The port covers two stage combinations:
+The port covers three stage combinations, in eval and train mode:
 
-- None/SVTR/None/CTC in eval or train mode (``forward(image, train=...)``);
-  ``svtr`` (keyword arguments of ``SVTRExtractor``: ``embed_dim``,
-  ``depth``, ``num_heads``, ``drop_path_rate``) narrows the backbone for
-  tests, the configs leave it unset; ``quant`` ("none", "calib", "int8")
-  is the SVTR Blocks' w8a8 mode (``models.svtr.Block``);
+- None/SVTR/None/CTC (``forward(image, train=...)``); ``svtr`` (keyword
+  arguments of ``SVTRExtractor``: ``embed_dim``, ``depth``, ``num_heads``,
+  ``drop_path_rate``) narrows the backbone for tests, the configs leave it
+  unset; ``quant`` ("none", "calib", "int8") is the SVTR Blocks' w8a8 mode
+  (``models.svtr.Block``);
 - TPS/ResNet/BiLSTM/Attn (TRBA) and None/ResNet/BiLSTM/Attn (RBA, TRBA
-  without the TPS: ``evaluate_cli --model_name RBA``) in eval mode with
-  greedy decoding: ``fc`` is the decoder's generator, ``text`` carries the
-  [SOS] id and ``class_count`` restricts the decoder to an expert's true
-  vocabulary.
+  without the TPS: ``evaluate_cli --model_name RBA``): ``fc`` is the
+  decoder's generator.  ``train`` drives BatchNorm (and the TPS warp: the
+  kernel in eval mode, the differentiable warp in train mode);
+  ``is_train`` drives the decoder, teacher-forced on ``text`` ([SOS] and
+  the characters) or greedy from its [SOS] column, and defaults to
+  ``train``, JAX's split; ``class_count`` restricts the decoder to an
+  expert's true vocabulary.
 
-Every other combination, and TRBA or RBA in train mode, raises
-``NotImplementedError``.
+Every other combination raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -92,12 +94,9 @@ class Extractor(nn.Module):
     def forward(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
         if isinstance(self.feature, SVTRExtractor):
             return self.seq_linear(self.feature(image, train).mean(dim=1))
-        if train:
-            raise NotImplementedError("TRBA runs in eval mode only in the port (the TPS "
-                                      "warp kernel has no backward; training is not ported)")
         if hasattr(self, "transformation"):
-            image = self.transformation(image)
-        seq = self.feature(image).mean(dim=1)
+            image = self.transformation(image, train)
+        seq = self.feature(image, train).mean(dim=1)
         return self.seq1(self.seq0(seq))
 
 
@@ -124,16 +123,20 @@ class Recognizer(nn.Module):
                            if prediction == "Attn" else None)
 
     def forward(self, image: torch.Tensor, text: Optional[torch.Tensor] = None,
-                train: bool = False,
+                train: bool = False, is_train: Optional[bool] = None,
                 class_count: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """``text`` (Attn): [B, 1] whose first entry is the [SOS] id;
-        ``class_count`` (Attn): the decoder's true vocabulary size."""
+        """``text`` (Attn): [B, 1] whose first entry is the [SOS] id
+        (greedy), or [B, batch_max_length + 1] ids (teacher-forced,
+        ``is_train``, which defaults to ``train``); ``class_count`` (Attn):
+        the decoder's true vocabulary size."""
         feature = self.extractor(image, train)
         if self.prediction is None:
             return {"predict": self.fc(feature), "feature": feature}
         if text is None:
-            raise ValueError("the Attn decoder needs text: the [SOS] column")
-        return {"predict": self.prediction(feature, text, self.fc, class_count),
+            raise ValueError("the Attn decoder needs text: [SOS] and, teacher-forced, the "
+                             "characters")
+        return {"predict": self.prediction(feature, text, self.fc, class_count,
+                                           train if is_train is None else is_train),
                 "feature": feature}
 
 

@@ -15,8 +15,11 @@ the flax layout (bridged into the port with ``bridge.from_flax``).
 
 A new expert is drawn this way (the JAX learner's ``change_model``); task
 0's expert then gets ``models.surgery.apply_reference_init``.  A DERNet
-(``random_der``) stacks SVTR extractors drawn one after another, then its
-``fc`` and ``aux_fc``.
+(``random_der``) stacks SVTR or TRBA extractors drawn one after another,
+then its heads: CTC ``fc`` (over the concatenated features) and
+``aux_fc``; Attn ``fc`` and ``aux_fc`` (both ``[hidden, C]``, the
+generators), ``prediction`` (a decoder over the concatenation) and
+``aux_prediction`` (over one extractor's features).
 """
 
 from __future__ import annotations
@@ -76,17 +79,20 @@ def random_block(rng, c, hidden=None):
 def random_recognizer(rng, opt, num_classes):
     """One Recognizer's (params, batch_stats) trees: SVTR (``opt.svtr`` may
     narrow the backbone: ``embed_dim``, ``depth``) or TRBA."""
-    if opt.FeatureExtraction == "ResNet":
-        return _random_trba(rng, opt, num_classes)
     extractor, stats = random_extractor(rng, opt)
-    return ({"extractor": extractor, "fc": _torch_dense(rng, opt.hidden_size, num_classes)},
-            {"extractor": stats})
+    params = {"extractor": extractor, "fc": _torch_dense(rng, opt.hidden_size, num_classes)}
+    if opt.Prediction == "Attn":
+        params["prediction"] = _random_decoder(rng, opt.hidden_size, opt.hidden_size,
+                                               num_classes)
+    return params, {"extractor": stats}
 
 
 def random_der(rng, opt, n_extractors, num_classes):
-    """A DERNet's trees: ``n_extractors`` SVTR extractors stacked under
-    ``extractors`` (drawn one after another), ``fc`` over their concatenated
-    features and ``aux_fc`` over one extractor's."""
+    """A DERNet's trees: ``n_extractors`` extractors stacked under
+    ``extractors`` (drawn one after another), then the heads (CTC: ``fc``
+    over the concatenated features and ``aux_fc`` over one extractor's;
+    Attn: the generators ``fc`` and ``aux_fc``, the decoders
+    ``prediction`` over the concatenation and ``aux_prediction``)."""
     trees = [random_extractor(rng, opt) for _ in range(n_extractors)]
 
     def stack(*xs):
@@ -95,14 +101,22 @@ def random_der(rng, opt, n_extractors, num_classes):
         return np.stack(xs)
 
     h = opt.hidden_size
-    params = {"extractors": stack(*(p for p, _ in trees)),
-              "fc": _torch_dense(rng, n_extractors * h, num_classes),
-              "aux_fc": _torch_dense(rng, h, num_classes)}
+    params = {"extractors": stack(*(p for p, _ in trees))}
+    if opt.Prediction == "Attn":
+        params.update(fc=_torch_dense(rng, h, num_classes),
+                      aux_fc=_torch_dense(rng, h, num_classes),
+                      prediction=_random_decoder(rng, n_extractors * h, h, num_classes),
+                      aux_prediction=_random_decoder(rng, h, h, num_classes))
+    else:
+        params.update(fc=_torch_dense(rng, n_extractors * h, num_classes),
+                      aux_fc=_torch_dense(rng, h, num_classes))
     return params, {"extractors": stack(*(s for _, s in trees))}
 
 
 def random_extractor(rng, opt):
-    """One SVTR Extractor's (params, batch_stats) trees."""
+    """One Extractor's (params, batch_stats) trees: SVTR or TRBA."""
+    if opt.FeatureExtraction == "ResNet":
+        return _random_trba_extractor(rng, opt)
     arch = dict(_SVTR, **(opt.get("svtr") or {}))
     e0, e1, e2 = arch["embed_dim"]
     h0, w0 = opt.imgH // 4, opt.imgW // 4
@@ -157,19 +171,32 @@ class _Trees:
         self._at(self.stats, path)[bn] = {"mean": np.zeros(cout, np.float32),
                                           "var": np.ones(cout, np.float32)}
 
-    def lstm(self, in_size, hidden):
-        """One LSTM direction (or cell) in torch's layout, U(+-1/sqrt(H))."""
-        g = 4 * hidden
-        return {name: _uniform(self.rng, shape, hidden) for name, shape in
-                (("w_ih", (g, in_size)), ("w_hh", (g, hidden)), ("b_ih", (g,)),
-                 ("b_hh", (g,)))}
+
+def _lstm(rng, in_size, hidden):
+    """One LSTM direction (or cell) in torch's layout, U(+-1/sqrt(H))."""
+    g = 4 * hidden
+    return {name: _uniform(rng, shape, hidden) for name, shape in
+            (("w_ih", (g, in_size)), ("w_hh", (g, hidden)), ("b_ih", (g,)),
+             ("b_hh", (g,)))}
 
 
-def _random_trba(rng, opt, num_classes):
-    """One TPS/ResNet/BiLSTM/Attn Recognizer's (params, batch_stats)."""
+def _random_decoder(rng, input_size, h, num_classes):
+    """An Attn decoder over features of ``input_size``: the attention cell
+    (its LSTM on the context and a 256-wide embedding) and
+    ``char_embeddings``."""
+    cell = dict(_lstm(rng, input_size + 256, h),
+                i2h={"kernel": _uniform(rng, (input_size, h), input_size)},
+                h2h=_torch_dense(rng, h, h),
+                score={"kernel": _uniform(rng, (h, 1), h)})
+    return {"attention_cell": cell,
+            "char_embeddings": rng.standard_normal((num_classes, 256)).astype(np.float32)}
+
+
+def _random_trba_extractor(rng, opt):
+    """One TPS/ResNet/BiLSTM Extractor's (params, batch_stats)."""
     t = _Trees(rng)
     h, oc, f = opt.hidden_size, opt.output_channel, opt.num_fiducial
-    loc = ("extractor", "transformation", "localization")
+    loc = ("transformation", "localization")
     chans = (opt.input_channel, 64, 128, 256, 512)
     for i in range(4):
         t.conv_bn(loc, f"conv{i}", f"bn{i}", 3, chans[i], chans[i + 1])
@@ -177,7 +204,7 @@ def _random_trba(rng, opt, num_classes):
         localization_fc1=_torch_dense(rng, 512, 256),
         localization_fc2={"kernel": np.zeros((256, 2 * f), np.float32),
                           "bias": _fc2_bias(f)})
-    feat = ("extractor", "feature")
+    feat = ("feature",)
     widths = (oc // 4, oc // 2, oc, oc)
     t.conv_bn(feat, "conv0_1", "bn0_1", 3, opt.input_channel, oc // 16)
     t.conv_bn(feat, "conv0_2", "bn0_2", 3, oc // 16, oc // 8)
@@ -196,17 +223,8 @@ def _random_trba(rng, opt, num_classes):
     t.conv_bn(feat, "conv4_1", "bn4_1", 2, oc, oc)
     t.conv_bn(feat, "conv4_2", "bn4_2", 2, oc, oc)
     for name, in_size in (("seq0", oc), ("seq1", h)):
-        t.params["extractor"][name] = {
-            "rnn": {"fwd": t.lstm(in_size, h), "bwd": t.lstm(in_size, h)},
-            "linear": _torch_dense(rng, 2 * h, h)}
-    t.params["fc"] = _torch_dense(rng, h, num_classes)
-    cell = dict(t.lstm(h + 256, h),
-                i2h={"kernel": _uniform(rng, (h, h), h)},
-                h2h=_torch_dense(rng, h, h),
-                score={"kernel": _uniform(rng, (h, 1), h)})
-    t.params["prediction"] = {
-        "attention_cell": cell,
-        "char_embeddings": rng.standard_normal((num_classes, 256)).astype(np.float32)}
+        t.params[name] = {"rnn": {"fwd": _lstm(rng, in_size, h), "bwd": _lstm(rng, in_size, h)},
+                          "linear": _torch_dense(rng, 2 * h, h)}
     return t.params, t.stats
 
 

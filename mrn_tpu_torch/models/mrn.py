@@ -21,8 +21,11 @@ the reference:
   ``einsum("ibtc,bi->btc")`` in float32 over the ones-padded expert logits.
 
 The experts always run in eval mode and without gradients: every expert is
-frozen while the router trains.  Router training over Attn experts (their
-teacher-forced decoders) is not ported.
+frozen while the router trains (JAX's pinned mode).  In router training
+(``is_train=True``) Attn experts decode teacher-forced on ``text``
+(``label[:, :-1]``, each with its own ``class_counts[i]`` for the OOV
+clamp); in serving and validation they decode greedily from the [SOS]
+column.
 """
 
 from __future__ import annotations
@@ -92,12 +95,11 @@ class MRNNet(nn.Module):
                 is_train: bool = False) -> Dict[str, torch.Tensor]:
         """Returns {"logits" [B, T, C], "index", "aux_logits": None}: the
         expert pick [B] (``is_train=False``) or the routing weights [B, I]
-        (``is_train=True``).  ``text`` (Attn experts): the [SOS] column."""
-        if self.attn and is_train:
-            raise NotImplementedError("router training over Attn experts (teacher-forced "
-                                      "decoders) is not ported")
+        (``is_train=True``).  ``text`` (Attn experts): the [SOS] column, or
+        under ``is_train`` the teacher-forcing ids [B, batch_max_length +
+        1]."""
         with torch.no_grad():  # frozen experts: the JAX learner's stop_gradient
-            outs = [expert(image, text, class_count=count)
+            outs = [expert(image, text, train=False, is_train=is_train, class_count=count)
                     for expert, count in zip(self.experts, self.class_counts)]
             preds = torch.stack([o["predict"] for o in outs])      # [I, B, T, C]
             features = torch.stack([o["feature"] for o in outs])   # [I, B, T, H]

@@ -7,7 +7,8 @@ output_channel].  At 32x256 the spatial sizes run 32x256 -> 16x128 -> 8x64
 -> 4x65 (the third pool's (2, 1) stride over one -inf column each side)
 -> 2x66 (``conv4_1``, 2x2, stride (2, 1), padding (0, 1)) -> 1x65
 (``conv4_2``): T = 65, ``composer.sequence_length``, the router's patch
-count.
+count.  ``train`` puts every BatchNorm on batch statistics and moves its
+running statistics (``common.BatchNorm``).
 """
 
 from __future__ import annotations
@@ -41,10 +42,10 @@ class BasicBlock(nn.Module):
         else:
             self.down_conv = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = x if self.down_conv is None else self.down_bn(self.down_conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = self.bn2(self.conv2(out), train)
+        residual = x if self.down_conv is None else self.down_bn(self.down_conv(x), train)
         return F.relu(out + residual)
 
 
@@ -55,9 +56,9 @@ class _Layer(nn.Module):
             setattr(self, f"block{i}", BasicBlock(inplanes if i == 0 else planes, planes))
         self.blocks = blocks
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(self.blocks):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, train)
         return x
 
 
@@ -82,16 +83,16 @@ class ResNetExtractor(nn.Module):
         self.conv4_2 = TorchConv(oc[3], oc[3], (2, 2))
         self.bn4_2 = BatchNorm(oc[3])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = to_nchw(x)
-        x = F.relu(self.bn0_1(self.conv0_1(x)))
-        x = F.relu(self.bn0_2(self.conv0_2(x)))
+        x = F.relu(self.bn0_1(self.conv0_1(x), train))
+        x = F.relu(self.bn0_2(self.conv0_2(x), train))
         pools = (((2, 2), (0, 0)), ((2, 2), (0, 0)), ((2, 1), (0, 1)))
         for i, (stride, pad) in enumerate(pools, start=1):
             x = max_pool(x, (2, 2), stride, pad)
-            x = getattr(self, f"layer{i}")(x)
-            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
-        x = self.layer4(x)
-        x = F.relu(self.bn4_1(self.conv4_1(x)))
-        x = F.relu(self.bn4_2(self.conv4_2(x)))
+            x = getattr(self, f"layer{i}")(x, train)
+            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x), train))
+        x = self.layer4(x, train)
+        x = F.relu(self.bn4_1(self.conv4_1(x), train))
+        x = F.relu(self.bn4_2(self.conv4_2(x), train))
         return to_nhwc(x)

@@ -1,5 +1,4 @@
-"""RARE-style TPS spatial transformer (mirrors ``mrn_tpu/models/tps.py``),
-eval mode only: the warp kernel has no backward, as in JAX.
+"""RARE-style TPS spatial transformer (mirrors ``mrn_tpu/models/tps.py``).
 
 - ``LocalizationNetwork``: four bias-free 3x3 convs (64, 128, 256, 512) with
   BatchNorm and ReLU, max-pooled after the first three, a global average
@@ -8,15 +7,21 @@ eval mode only: the warp kernel has no backward, as in JAX.
   layout (``_fc2_bias``).
 - ``TPSTransformer``: the host constants ``inv_delta_C [F+3, F+3]`` and
   ``P_hat [H*W, F+3]`` (numpy, float64, as the JAX package builds them,
-  then float32), the grid from two float32 products, and the warp
-  ``ops.grid_sample``.
+  then float32), the grid from two float32 products, and the warp: in
+  eval mode ``ops.grid_sample`` (the CUDA kernel on the card, forward
+  only, as in JAX), in train mode ``ops.grid_sample.grid_sample_train``
+  (differentiable in the image and the grid, JAX's XLA training warp).
+  ``train`` also puts the localization net's BatchNorms on batch
+  statistics.
 
 The grid stays float32 under a bfloat16 model, as in JAX (``tps.py:114-117``
 takes both products with ``preferred_element_type=float32``): the constants
 are plain attributes, which ``Module.to`` does not cast, the predicted
 fiducials are promoted to float32 before the products, and the products run
-without TF32.  A bfloat16 grid would move the taps by up to half a pixel at
-W = 256.  The module is NHWC at its boundary and NCHW inside.
+without TF32, in the backward too (``_f32_product``).  A bfloat16 grid would
+move the taps by up to half a pixel at W = 256.  The gradient reaches the
+fiducials through the cast and the products.  The module is NHWC at its
+boundary and NCHW inside.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from torch import nn
 
 from mrn_tpu_torch.models.common import (BatchNorm, Dense, TorchConv, global_avg_pool,
                                          max_pool, to_nchw)
-from mrn_tpu_torch.ops.grid_sample import grid_sample
+from mrn_tpu_torch.ops.grid_sample import grid_sample, grid_sample_train
 
 __all__ = ["LocalizationNetwork", "TPSTransformer", "build_C", "build_P_hat",
            "build_inv_delta_C"]
@@ -97,6 +102,28 @@ def _no_tf32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+class _F32Product(torch.autograd.Function):
+    """``const @ x`` for a constant [M, K] and x [B, K, 2], float32 without
+    TF32 in the forward and in the backward (which autograd would run
+    outside ``_no_tf32``)."""
+
+    @staticmethod
+    def forward(ctx, const, x):
+        ctx.save_for_backward(const)
+        with _no_tf32():
+            return torch.matmul(const, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (const,) = ctx.saved_tensors
+        with _no_tf32():
+            return None, torch.matmul(const.T, grad)
+
+
+def _f32_product(const: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return _F32Product.apply(const, x)
+
+
 class LocalizationNetwork(nn.Module):
     """NCHW image -> predicted fiducials [B, F, 2]."""
 
@@ -110,9 +137,9 @@ class LocalizationNetwork(nn.Module):
         self.localization_fc1 = Dense(512, 256)
         self.localization_fc2 = Dense(256, 2 * num_fiducial)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(4):
-            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x), train))
             if i < 3:
                 x = max_pool(x, (2, 2), (2, 2))
         x = F.relu(self.localization_fc1(global_avg_pool(x)))
@@ -132,18 +159,20 @@ class TPSTransformer(nn.Module):
         self.P_hat = torch.tensor(build_P_hat(num_fiducial, C, self.out_size),
                                   dtype=torch.float32)
 
-    def grid(self, image: torch.Tensor) -> torch.Tensor:
+    def grid(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
         """The float32 sampling grid [B, H, W, 2] for an NHWC image."""
         if self.P_hat.device != image.device:
             self.inv_delta_C = self.inv_delta_C.to(image.device)
             self.P_hat = self.P_hat.to(image.device)
-        c_prime = self.localization(to_nchw(image)).float()
+        c_prime = self.localization(to_nchw(image), train).float()
         b = c_prime.shape[0]
         c_prime_pad = torch.cat([c_prime, c_prime.new_zeros(b, 3, 2)], dim=1)
-        with _no_tf32():
-            T = torch.matmul(self.inv_delta_C, c_prime_pad)   # [B, F+3, 2]
-            grid = torch.matmul(self.P_hat, T)                # [B, H*W, 2]
+        T = _f32_product(self.inv_delta_C, c_prime_pad)   # [B, F+3, 2]
+        grid = _f32_product(self.P_hat, T)                # [B, H*W, 2]
         return grid.reshape(b, *self.out_size, 2)
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
-        return grid_sample(image.contiguous(), self.grid(image))
+    def forward(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
+        grid = self.grid(image, train)
+        if train:
+            return grid_sample_train(image, grid)
+        return grid_sample(image.contiguous(), grid)

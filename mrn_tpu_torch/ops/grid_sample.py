@@ -13,7 +13,15 @@ vertical one, rounded to the image's dtype once.
 ``grid_sample(image, grid)`` launches the CUDA kernel (``csrc/
 grid_sample.cu``) for CUDA tensors and runs the plain version
 (``grid_sample_reference``) for CPU tensors; there is no fallback between
-the two.  Forward only, as in JAX: the TPS warp runs in eval mode.
+the two.  The kernel is forward only, as in JAX: eval-mode TPS warps
+through it.
+
+``grid_sample_train(image, grid)`` is the train-mode TPS warp:
+differentiable in the image and the grid, plain PyTorch on either device,
+never counted.  It is the port of the JAX package's XLA training warp (the
+four-tap gather of ``grid_sample_gather``), not the kernel's plain version.
+No kernel is written for it because JAX has none: the Pallas warp defines
+no VJP, and JAX's train-mode TPS differentiates XLA ops.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import functools
 
 import torch
 
-__all__ = ["grid_sample", "grid_sample_reference", "launches"]
+__all__ = ["grid_sample", "grid_sample_reference", "grid_sample_train", "launches"]
 
 # CUDA launches (the plain version never counts).
 launches = 0
@@ -57,10 +65,12 @@ def _corners(ix: torch.Tensor, size: int):
     return x0i, (x0i + 1).clamp(max=size - 1), fx
 
 
-def grid_sample_reference(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Plain version of the kernel: ``grid_sample_gather``'s four taps with
-    the Pallas kernel's rounding (float32 throughout, one rounding to the
-    image's dtype)."""
+def _four_taps(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``grid_sample_gather``'s four taps with the Pallas kernel's rounding
+    (float32 throughout, one rounding to the image's dtype).  Autograd
+    reaches the image through the gathers and the grid through ``fx`` /
+    ``fy`` (the floor and the integer taps carry no gradient; the border
+    clamp passes it inside the range)."""
     _check(image, grid)
     b, h, w, c = image.shape
     _, ho, wo, _ = grid.shape
@@ -76,6 +86,19 @@ def grid_sample_reference(image: torch.Tensor, grid: torch.Tensor) -> torch.Tens
     top = take(y0, x0) * (1.0 - fx) + take(y0, x1) * fx
     bot = take(y1, x0) * (1.0 - fx) + take(y1, x1) * fx
     return (top * (1.0 - fy) + bot * fy).to(image.dtype)
+
+
+def grid_sample_reference(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel (its arithmetic, for tests and checks)."""
+    return _four_taps(image, grid)
+
+
+def grid_sample_train(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The train-mode warp, differentiable in ``image`` and ``grid``: the
+    four taps in plain PyTorch on any device (on the card ``gather``'s
+    backward is an atomic ``scatter_add``, so image gradients are not
+    bitwise repeatable)."""
+    return _four_taps(image, grid)
 
 
 # --------------------------------------------------------------- CUDA kernel

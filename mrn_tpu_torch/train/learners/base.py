@@ -64,9 +64,13 @@ LayerNorm and the rest run in bfloat16 exactly as in JAX, which
 ``torch.autocast`` would not); master parameters, Adam moments, BatchNorm
 running statistics and the losses stay float32.
 
-Only CTC heads train; with ``opt.eval_only`` (``evaluate_cli`` sets it)
-an Attn head is built for evaluation: greedy from an [SOS] column, its
-loss the cross entropy over the non-[PAD] targets.
+CTC and Attn heads train.  An Attn head trains teacher-forced on
+``label[:, :-1]`` ([SOS] and the characters), its loss the cross entropy
+over the targets after [SOS] that are not [PAD]; it evaluates greedily from
+an [SOS] column, with the same loss.  A frozen Attn network (LwF's and
+WA's old one, MRN's experts) runs in eval mode, teacher-forced
+(``train=False, is_train=True``).  The decoder is drawn afresh at every
+task (``change_model``), as the reference builds a new one.
 
 Runs on the CUDA card unless ``device="cpu"`` is passed.
 """
@@ -108,11 +112,6 @@ MAX_IN_FLIGHT = 64  # step losses left on the device before the oldest is read
 
 class BaseLearner:
     def __init__(self, opt, device: Optional[Union[str, torch.device]] = None):
-        if opt.Prediction != "CTC" and not opt.get("eval_only"):
-            raise NotImplementedError(f"Prediction {opt.Prediction!r}: the port trains CTC "
-                                      "heads only so far; the Attn branches (teacher "
-                                      "forcing, LwF's start index 1) are ROADMAP.md §1 "
-                                      "item 7 (opt.eval_only evaluates an Attn head)")
         self.opt = opt
         self.device = resolve_device(device)
         self.np_rng = np.random.default_rng(opt.manual_seed)
@@ -163,7 +162,8 @@ class BaseLearner:
 
     def change_model(self) -> None:
         """Task > 0: a fresh Recognizer carrying the old extractor (params
-        and statistics) whole, its fc grown over the old one."""
+        and statistics) whole, its fc grown over the old one (an Attn
+        decoder stays as freshly drawn)."""
         old_params, old_stats = to_flax(self.model)
         params, _ = random_recognizer(self.weight_rng, self.opt, self._total_classes)
         params["extractor"] = old_params["extractor"]
@@ -197,9 +197,20 @@ class BaseLearner:
         image = image.to(self._mp_dtype() or image.dtype)
         return functional_call(module, self._mp_cast(params), (image,), kwargs)
 
+    def _teacher_text(self, batch) -> Dict[str, torch.Tensor]:
+        """``{"text": label[:, :-1]}`` (teacher forcing) for an Attn head,
+        else ``{}``."""
+        return {"text": batch["label"][:, :-1]} if self.opt.Prediction == "Attn" else {}
+
+    def _recognition_loss(self, preds: torch.Tensor, batch) -> torch.Tensor:
+        """CTC, or the Attn cross entropy without [PAD]."""
+        pad_id = self.converter.pad_id if self.opt.Prediction == "Attn" else None
+        return recognition_loss(preds, batch, pad_id)
+
     def _apply_train(self, params, batch) -> torch.Tensor:
-        """Train-mode predictions, float32."""
-        return self._apply(self.model, params, batch["image"], train=True)["predict"].float()
+        """Train-mode predictions (teacher-forced for Attn), float32."""
+        return self._apply(self.model, params, batch["image"], train=True,
+                           **self._teacher_text(batch))["predict"].float()
 
     def _frozen_copy(self, module: nn.Module) -> nn.Module:
         """``module`` in eval mode without gradients, its parameters cast
@@ -213,17 +224,17 @@ class BaseLearner:
                 p.data = p.data.to(dt)
         return module
 
-    def _eval_forward(self, module: nn.Module, image: torch.Tensor):
+    def _eval_forward(self, module: nn.Module, image: torch.Tensor, **kwargs):
         """A frozen network's eval-mode forward on the (cast) image."""
         with torch.no_grad():
-            return module(image.to(self._mp_dtype() or image.dtype), train=False)
+            return module(image.to(self._mp_dtype() or image.dtype), train=False, **kwargs)
 
     def train_aux(self):
         """Task-level constants of the loss (None for the base strategy)."""
         return None
 
     def loss_fn(self, params, batch, aux=None):
-        return recognition_loss(self._apply_train(params, batch), batch), {}
+        return self._recognition_loss(self._apply_train(params, batch), batch), {}
 
     def grad_transform(self) -> Optional[Callable]:
         return None

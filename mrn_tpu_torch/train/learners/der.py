@@ -5,8 +5,10 @@
   (``models.init.random_der``), then the reference init pass with the
   stacked fan-in rule (``stacked=("extractors",)``);
 - ``change_model``: the new extractor is a copy of the last one (params
-  and statistics), the fc grows over the old one with its input
-  (``grow_fc_der``), ``aux_fc`` is fresh;
+  and statistics); CTC: the fc grows over the old one with its input
+  (``grow_fc_der``), ``aux_fc`` is fresh; Attn: the fc (the main
+  decoder's generator, ``[hidden, C]``) grows over its outputs only
+  (``grow_fc``), and both decoders and ``aux_fc`` are fresh;
 - training: the old extractors are frozen.  JAX zeroes their slices'
   gradients; here they are left out of the optimizer, which gives the same
   update (a fresh optimizer each task, zero gradients add nothing to the
@@ -14,8 +16,9 @@
   zero state is zero).  They run in eval mode without gradients (the fused
   inference Block on the card), their parameters cast once per loop under
   the bf16 policy; only the newest runs in train mode and updates its
-  statistics.  The loss is CLF alone: the aux head's CTC is logged and left
-  out (``aux_fc`` gets a zero gradient);
+  statistics.  The loss is CLF alone (CTC, or the Attn cross entropy of
+  the teacher-forced main decoder): the aux head's loss is logged and left
+  out (``aux_fc`` and an Attn ``aux_prediction`` get zero gradients);
 - the fc is aligned (``wa.align_fc``) at the end of
   ``_update_representation``, before ``test`` reloads the best checkpoint;
   ``after_task`` only sets ``_known_classes``.
@@ -35,11 +38,10 @@ from mrn_tpu_torch.bridge import to_flax
 from mrn_tpu_torch.models.composer import Extractor
 from mrn_tpu_torch.models.der import DERNet
 from mrn_tpu_torch.models.init import random_der
-from mrn_tpu_torch.models.surgery import apply_reference_init, grow_fc_der
+from mrn_tpu_torch.models.surgery import apply_reference_init, grow_fc, grow_fc_der
 from mrn_tpu_torch.models.svtr import Block
 from mrn_tpu_torch.train.learners.base import BaseLearner
 from mrn_tpu_torch.train.learners.wa import align_fc
-from mrn_tpu_torch.train.steps import recognition_loss
 
 __all__ = ["DER"]
 
@@ -59,7 +61,8 @@ class DER(BaseLearner):
                       sequence_modeling=opt.SequenceModeling,
                       input_channel=opt.input_channel, output_channel=opt.output_channel,
                       hidden_size=opt.hidden_size, img_size=(opt.imgH, opt.imgW),
-                      svtr=opt.get("svtr"), num_fiducial=opt.num_fiducial)
+                      svtr=opt.get("svtr"), num_fiducial=opt.num_fiducial,
+                      batch_max_length=opt.batch_max_length)
 
     def build_model(self) -> None:
         self.n_experts = 1
@@ -80,7 +83,11 @@ class DER(BaseLearner):
 
         params["extractors"] = grow(old_params["extractors"])
         stats["extractors"] = grow(old_stats["extractors"])
-        self._set_model(grow_fc_der(params, old_params, out_dim=self.opt.hidden_size), stats)
+        if self.opt.Prediction == "Attn":
+            params = grow_fc(params, old_params)
+        else:
+            params = grow_fc_der(params, old_params, out_dim=self.opt.hidden_size)
+        self._set_model(params, stats)
 
     def _frozen_names(self):
         return [k for k, _ in self.model.named_parameters()
@@ -118,18 +125,20 @@ class DER(BaseLearner):
         return copy.to(self.device)
 
     def _apply_train(self, params, batch, aux=None) -> Dict[str, torch.Tensor]:
+        text = self._teacher_text(batch)
         if aux is None:
-            out = self._apply(self.model, params, batch["image"], train=True)
+            out = self._apply(self.model, params, batch["image"], train=True, **text)
         else:
             frozen = torch.stack([self._eval_forward(e, batch["image"]) for e in aux])
-            out = self._apply(self.model, params, batch["image"], train=True, frozen=frozen)
+            out = self._apply(self.model, params, batch["image"], train=True, frozen=frozen,
+                              **text)
         return {k: out[k].float() for k in ("logits", "aux_logits")}
 
     def loss_fn(self, params, batch, aux=None):
         out = self._apply_train(params, batch, aux)
-        loss_clf = recognition_loss(out["logits"], batch)
+        loss_clf = self._recognition_loss(out["logits"], batch)
         with torch.no_grad():
-            loss_aux = recognition_loss(out["aux_logits"], batch)
+            loss_aux = self._recognition_loss(out["aux_logits"], batch)
         return loss_clf, {"clf": loss_clf.detach(), "aux": loss_aux}
 
     def _update_representation(self, taski, train_loader, valid_loader):

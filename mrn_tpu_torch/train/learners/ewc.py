@@ -33,7 +33,6 @@ import torch
 from mrn_tpu_torch.bridge import flax_tree, from_flax
 from mrn_tpu_torch.train.checkpoint import load_model, save_model
 from mrn_tpu_torch.train.learners.base import BaseLearner
-from mrn_tpu_torch.train.steps import recognition_loss
 
 __all__ = ["EWC"]
 
@@ -70,7 +69,7 @@ class EWC(BaseLearner):
                 torch.cat([self.mean[k].reshape(-1) for k, _ in heads]))
 
     def loss_fn(self, params, batch, aux=None):
-        loss_clf = recognition_loss(self._apply_train(params, batch), batch)
+        loss_clf = self._recognition_loss(self._apply_train(params, batch), batch)
         if aux is None:
             return loss_clf, {}
         heads, fisher, mean = aux
@@ -118,7 +117,7 @@ class EWC(BaseLearner):
             for _ in range(num_iter):
                 images, labels = train_loader.get_batch()[:2]
                 batch = self._encode_batch(images, labels)
-                loss = recognition_loss(self._apply_train(params, batch), batch)
+                loss = self._recognition_loss(self._apply_train(params, batch), batch)
                 grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
                                             materialize_grads=True)
                 for f, g in zip(fisher.values(), grads):

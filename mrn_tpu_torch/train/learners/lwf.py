@@ -4,18 +4,20 @@ distillation of the old network (the previous task's reloaded best,
 ``BaseLearner.after_task``) on the same batch, ``3 * KD(T=2) + CLF``.
 
 The old network runs in eval mode (running BatchNorm statistics; the fused
-inference Block on the card) without gradients, its parameters cast to
-bfloat16 under the bf16 policy and its statistics float32; its output is
-taken to float32.  KD covers the old classes ``[:, 0:known]`` of the
-``[B * T, C]`` logits (start index 0 for CTC); the old network keeps its
-own class count.
+inference Block on the card, the TPS warp kernel for TRBA) without
+gradients, its parameters cast to bfloat16 under the bf16 policy and its
+statistics float32; an Attn old network decodes teacher-forced on the
+batch's ``label[:, :-1]`` (``train=False, is_train=True``).  Its output is
+taken to float32.  KD covers the old classes ``[:, start:known]`` of the
+``[B * T, C]`` logits, ``start`` 0 for CTC and 1 for Attn (the [GO]
+column, as the reference skips it); the old network keeps its own class
+count.
 """
 
 from __future__ import annotations
 
 from mrn_tpu_torch.ops.losses import kd_loss
 from mrn_tpu_torch.train.learners.base import BaseLearner
-from mrn_tpu_torch.train.steps import recognition_loss
 
 __all__ = ["LwF", "LwFMixin", "T"]
 
@@ -34,17 +36,19 @@ class LwFMixin:
         return self._old_model
 
     def _old_forward(self, batch, old):
-        return self._eval_forward(old, batch["image"])["predict"].float()
+        return self._eval_forward(old, batch["image"], is_train=True,
+                                  **self._teacher_text(batch))["predict"].float()
 
     def loss_fn(self, params, batch, aux=None):
         preds = self._apply_train(params, batch)
-        loss_clf = recognition_loss(preds, batch)
+        loss_clf = self._recognition_loss(preds, batch)
         if aux is None:
             return loss_clf, {}
         old = self._old_forward(batch, aux)
+        start = 1 if self.opt.Prediction == "Attn" else 0
         known = self._known_classes
-        loss_kd = kd_loss(preds.reshape(-1, preds.shape[-1])[:, :known],
-                          old.reshape(-1, old.shape[-1])[:, :known], T)
+        loss_kd = kd_loss(preds.reshape(-1, preds.shape[-1])[:, start:known],
+                          old.reshape(-1, old.shape[-1])[:, start:known], T)
         return self.kd_weight * loss_kd + loss_clf, {"kd": loss_kd.detach()}
 
 

@@ -2,7 +2,8 @@
 and best checkpoints (mirrors ``mrn_tpu/train/learners/mrn.py``):
 
 - step 0: the NEW expert trains alone (train mode: DropPath, BatchNorm on
-  batch statistics, CTC) on the current task's stream
+  batch statistics; CTC, or for TRBA the train-mode TPS warp and the
+  teacher-forced decoder's cross entropy) on the current task's stream
   (``train_loader.get_dataset(taski, memory=None)``), validated "FF" (the
   standalone expert) on the current task's set; then (task > 0) it is
   frozen into the expert list.  Task 0's expert gets the reference init
@@ -15,7 +16,9 @@ and best checkpoints (mirrors ``mrn_tpu/train/learners/mrn.py``):
   over all experts stacked and frozen, for ``num_iter // 2`` updates on the
   rehearsal stream whose batches carry each sample's ``dataset_idx`` (memory
   0 / current 1, or the task id under ``router_labels="task"``), with loss
-  ``15 * CTC + CE(index, dataset_idx)`` and OneCycle over ``2 * num_iter``,
+  ``15 * CLF + CE(index, dataset_idx)`` (CLF the recognition loss: CTC,
+  or Attn's cross entropy with every expert decoding teacher-forced on
+  ``label[:, :-1]``) and OneCycle over ``2 * num_iter``,
   validated "TF" (the hard expert pick) on every seen task's set every
   ``max(1, val_interval // 5)`` iterations.  The experts run in eval mode,
   so their BatchNorm statistics stay pinned (``mrn_pin_expert_stats=True``;
@@ -65,7 +68,6 @@ from mrn_tpu_torch.models.mrn import MRNNet
 from mrn_tpu_torch.ops.losses import cross_entropy_dense
 from mrn_tpu_torch.train.checkpoint import composite_experts, load_model, save_model
 from mrn_tpu_torch.train.learners.base import BaseLearner
-from mrn_tpu_torch.train.steps import recognition_loss
 
 __all__ = ["MRN", "PI", "tree_hash"]
 
@@ -154,7 +156,8 @@ class MRN(BaseLearner):
                        sequence_modeling=opt.SequenceModeling,
                        input_channel=opt.input_channel,
                        output_channel=opt.output_channel, hidden_size=opt.hidden_size,
-                       img_size=(opt.imgH, opt.imgW), svtr=opt.get("svtr"))
+                       img_size=(opt.imgH, opt.imgW), svtr=opt.get("svtr"),
+                       num_fiducial=opt.num_fiducial, batch_max_length=opt.batch_max_length)
         model.load_state_dict(routed_state(self.expert_states, router,
                                            self._total_classes), strict=True)
         model.to(self.device)
@@ -199,11 +202,12 @@ class MRN(BaseLearner):
     def loss_fn(self, params, batch, aux=None):
         if self._phase != "routed":
             return super().loss_fn(params, batch, aux)
-        out = self._apply(self.mrn_model, params, batch["image"], is_train=True)
-        loss_clf = recognition_loss(out["logits"].float(), batch)
+        out = self._apply(self.mrn_model, params, batch["image"], is_train=True,
+                          **self._teacher_text(batch))
+        loss_clf = self._recognition_loss(out["logits"].float(), batch)
         # CE on the softmaxed routing weights, as the reference does
         loss_router = cross_entropy_dense(out["index"].float(), batch["dataset_idx"])
-        # the log's train loss is the CTC part, as the reference's Train_loss_clf
+        # the log's train loss is the recognition part, as the reference's Train_loss_clf
         return PI * loss_clf + loss_router, {"clf": loss_clf.detach(),
                                              "router": loss_router.detach(),
                                              "log_loss": loss_clf.detach()}

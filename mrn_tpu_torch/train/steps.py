@@ -15,6 +15,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from mrn_tpu_torch.ops.ctc import ctc_loss
+from mrn_tpu_torch.ops.losses import cross_entropy_ignore
 
 __all__ = ["TrainState", "make_train_step", "recognition_loss"]
 
@@ -26,9 +27,14 @@ class TrainState:
     step: int = 0
 
 
-def recognition_loss(preds: torch.Tensor, batch) -> torch.Tensor:
-    """CTC on the full-T predictions (the port trains CTC heads only);
-    ``batch`` carries ``label`` [B, N] and ``length`` [B]."""
+def recognition_loss(preds: torch.Tensor, batch, pad_id: Optional[int] = None
+                     ) -> torch.Tensor:
+    """CTC on the full-T predictions, or, given the Attn converter's
+    ``pad_id``, the cross entropy over the targets after [SOS]
+    (``label[:, 1:]``) that are not [PAD]; ``batch`` carries ``label``
+    [B, N] and ``length`` [B]."""
+    if pad_id is not None:
+        return cross_entropy_ignore(preds, batch["label"][:, 1:], pad_id)
     return ctc_loss(preds, batch["label"], batch["length"])
 
 

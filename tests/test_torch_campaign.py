@@ -82,11 +82,19 @@ def test_smoke_campaign_record_and_replay(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("il", ["wa", "base", "der"])
 def test_other_strategies_raise(il, tmp_path):
-    """The other strategies are ported for the CTC head; what they still
-    refuse is an Attn head (ROADMAP.md §1 item 7) and another backbone."""
+    """The other strategies are ported for the CTC and the Attn head (SVTR
+    and TRBA); what they still refuse is another backbone (VGG, RCNN)."""
     learner = build_learner(default_options(il=il, output_dir=str(tmp_path)), device="cpu")
     assert type(learner).__name__ == {"wa": "WA", "base": "BaseLearner", "der": "DER"}[il]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_learner(default_options(il=il, Prediction="Attn"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        campaign.main(["--il", il, "--arch", "trba", "--device", "cpu"])
+    attn = build_learner(default_options(il=il, Prediction="Attn", output_dir=str(tmp_path)),
+                         device="cpu")
+    assert type(attn) is type(learner)
+    vgg = build_learner(default_options(il=il, FeatureExtraction="VGG",
+                                        SequenceModeling="BiLSTM", output_dir=str(tmp_path)),
+                        device="cpu")
+    vgg.character = list("abc")
+    vgg.converter = vgg.build_converter()
+    with pytest.raises(NotImplementedError, match="VGG"):
+        vgg.build_model()
+    with pytest.raises(SystemExit):
+        campaign.main(["--il", il, "--arch", "crnn", "--device", "cpu"])

@@ -87,3 +87,36 @@ def test_kernel_refuses_what_it_does_not_take(device):
         grid_sample.grid_sample(img.to(torch.float16), grid)
     with pytest.raises(ValueError, match="contiguous"):
         grid_sample.grid_sample(img.transpose(1, 2), grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_tps_warps_on_the_kernel_in_eval_mode_and_differentiably_in_train_mode(device, dt):
+    """TRBA's TPS at 32x256: an eval-mode forward launches the kernel once,
+    a train-mode forward none (the training warp, which equals the kernel's
+    output on the same grid and gives the localization net a gradient)."""
+    from mrn_tpu_torch.models.tps import TPSTransformer
+
+    torch.manual_seed(0)
+    model = TPSTransformer(20, (32, 256), 4).to(device)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    model.to(dt)
+    img = torch.randn((8, 32, 256, 4), device=device).to(dt)
+    before = grid_sample.launches
+    with torch.no_grad():
+        grid = model.grid(img)
+        out_eval = model(img)
+    torch.cuda.synchronize()
+    assert grid_sample.launches == before + 1
+    out_train = grid_sample.grid_sample_train(img, grid)
+    atol, rtol = TOL[dt]
+    torch.testing.assert_close(out_eval.float(), out_train.float(), atol=atol, rtol=rtol)
+    before = grid_sample.launches
+    out = model(img, train=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert grid_sample.launches == before
+    grad = model.localization.localization_fc2.kernel.grad
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
