@@ -168,7 +168,33 @@
    32x256x4 -> 32x256, on random grids in [-1.3, 1.3], the identity grid
    and the served batch's TPS grids, float32 and bfloat16 images (float32
    grids), timed beside the plain version, ``F.grid_sample`` on NCHW
-   (timed only) and the bound.
+   (timed only) and the bound;
+14. serves ``configs/crnn_mrn.py`` at full width (VGG at 512 channels, two
+   BiLSTMs of 256, CTC) as a 6-expert CRNN-MRN ensemble over the SVTR
+   phase's class counts (random weights, BatchNorm statistics and route
+   biases set on the batch): requests of 256 crops in bfloat16 and float32
+   through ``serve.Server``, launching none of the port's kernels, then
+   the first crops against the same ensemble on the CPU in float32 (route
+   scores, picks outside near-ties, logits; ``CRNN_LOGIT_TOL``);
+15. trains task 5 of 6 of ``configs/crnn_mrn.py`` at full width through
+   ``MRN.incremental_train`` in bf16 and f32 (5 frozen random CRNN
+   experts and the new one; 4 step-0 and 2 step-1 steps, validated on one
+   batch), checks that step 1 left the experts' statistics bitwise
+   (pinned), prints step-0 and step-1 ``StepMeter`` windows after warm-up
+   steps and a traced bf16 step-0 window's idle share, then one router
+   step with ``mrn_pin_expert_stats=False`` over the f32 run's 6 experts,
+   whose running statistics must all move;
+16. ``configs/grcnn_mrn.py`` at full width: a bf16 step-0 window of a new
+   GRCNN expert and requests of one GRCNN recognizer;
+17. the int8 conv path: one CRNN, one TRBA and one GRCNN recognizer at full
+   width quantized by ``serve.quantize_int8`` (as ``evaluate_cli --int8``),
+   every conv geometry of VGG, ResNet and RCNN at batch 256 through
+   ``torch._int_mm`` held bitwise against the exact float64 conv and timed
+   beside it; requests of the float and the int8 CRNN and TRBA servers in
+   float32 and bfloat16, counting ``_int_mm`` convs (7 and 32 a request)
+   and TPS warp launches (1 a TRBA request); the served int8 logits
+   against the same servers on the plain convs beside the float-products
+   control, which must fail (``check_int8``).
 
 Any failed check raises (exit code != 0).  The line before the last is the
 per-kernel JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -212,7 +238,7 @@ from mrn_tpu_torch.data.synthetic import (SyntheticTaskLoader, alphabet_of_size,
 from mrn_tpu_torch.models.init import (random_block, random_mrn,  # noqa: E402
                                        random_recognizer, random_router)
 from mrn_tpu_torch.models import tps  # noqa: E402
-from mrn_tpu_torch.models.common import BatchNorm  # noqa: E402
+from mrn_tpu_torch.models.common import BatchNorm, TorchConv  # noqa: E402
 from mrn_tpu_torch.models.svtr import (Block, configure_blocks,  # noqa: E402
                                        local_attention_mask_col_major)
 from mrn_tpu_torch.ops import _build, int8, metrics, svtr_attention, svtr_block  # noqa: E402
@@ -470,6 +496,30 @@ LMDB_HEIGHTS = (24, 48)
 LMDB_WIDTHS = (48, 320)
 LMDB_MAX_LEN = 8
 LMDB_DECODE_CALLS = 1024
+
+
+# CRNN (configs/crnn_mrn.py) and GRCNN (configs/grcnn_mrn.py) at full
+# width (VGG / RCNN at 512 channels, two BiLSTMs of 256, CTC), batch 256,
+# random weights whose BatchNorm statistics (and an ensemble's route
+# biases) are set on the served batch (calibrate_random_trba): a 6-expert
+# CRNN-MRN ensemble over CLASS_COUNTS served CRNN_REQUESTS times per dtype;
+# its first CRNN_REF_CROPS crops against the same ensemble on the CPU in
+# float32: route scores and the logits of crops with the same pick within
+# CRNN_LOGIT_TOL (float32: both float32, TF32 off, other conv algorithms
+# and summation orders; bfloat16 against float32: bf16 rounding through 7
+# convs, 126 BiLSTM steps and the router), picks equal outside near-ties.
+CRNN_REQUESTS = {"bfloat16": 3, "float32": 2}
+CRNN_REF_CROPS = 8
+CRNN_LOGIT_TOL = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (2.5e-1, 1e-1)}
+# task TRAIN_TASK of 6 through MRN.incremental_train, bf16 and f32:
+# CRNN_TRAIN_ITERS step-0 steps validated (FF, one batch) at 1, 2 and 4,
+# 2 step-1 steps validated (TF) at each; then step windows of TIME_STEPS
+# after TIME_WARMUP (GRCNN: GRCNN_WINDOW)
+CRNN_TRAIN_ITERS, CRNN_VAL_INTERVAL = 4, 2
+GRCNN_WINDOW = 5
+# the int8 conv path: INT8_CONV_REQUESTS requests per dtype of one CRNN and
+# one TRBA recognizer (CLASS_COUNTS[0] classes), float and int8
+INT8_CONV_REQUESTS = 3
 
 
 # ------------------------------------------------------------------- timing
@@ -2815,8 +2865,8 @@ def cuda_ms_queued(fn, reps):
 
 
 def calibrate_random_trba(model, images, text):
-    """Random TRBA weights in the JAX init distributions hardly tell crops
-    apart: each U(+-1/sqrt(fan_in)) conv shrinks its input's second moment
+    """Random TRBA (and CRNN, GRCNN) weights in the JAX init distributions
+    hardly tell crops apart: each U(+-1/sqrt(fan_in)) conv shrinks its input's second moment
     about threefold and BatchNorm's initial statistics (0, 1) do not undo
     it, so after the localization net's 4 and the ResNet's 29 convs every
     crop's features are about the biases', every crop takes one expert and
@@ -3351,6 +3401,405 @@ def phase_trba_train(rng, out_dir):
     return launches
 
 
+# ------------------------------------------------------- CRNN, GRCNN, int8 convs
+def _conv_trees(rng, base, images, class_counts=None):
+    """Random full-width CRNN or GRCNN trees in the JAX init distributions
+    (an MRN ensemble over ``class_counts``, else one recognizer of
+    ``CLASS_COUNTS[0]`` classes), their BatchNorm statistics and an
+    ensemble's route biases set on ``images`` (``calibrate_random_trba``).
+    Returns (params, batch_stats, characters)."""
+    n_classes = max(class_counts or CLASS_COUNTS[:1])
+    chars = [chr(0x4E00 + i) for i in range(n_classes - 4)]   # 4 CTC specials
+    params, stats = (random_mrn(rng, base, class_counts) if class_counts
+                     else random_recognizer(rng, base, n_classes))
+    calib = Server(base.replace(compute_dtype="float32"), params, stats, chars,
+                   class_counts=class_counts)
+    calibrate_random_trba(calib.model, calib.images(images), None)
+    params, stats = to_flax(calib.model)
+    return params, stats, chars
+
+
+def _timed_requests(server, images, n):
+    """``n`` requests through ``Server.recognize``; returns (seconds each,
+    the last result)."""
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = server.recognize(images)
+        ts.append(time.perf_counter() - t0)
+        if len(result) != BATCH or not all(np.isfinite(c) for _, c in result):
+            raise RuntimeError("recognize returned a malformed batch")
+    return ts, result
+
+
+def _print_requests(what, ts):
+    print(f"  {what}: request seconds {[round(t, 4) for t in ts]}, crops/s "
+          f"{[round(BATCH / t, 1) for t in ts]} (first request includes warm-up)")
+
+
+def phase_crnn_serve(rng):
+    """This slice's path: 6-expert CRNN-MRN serving of ``configs/crnn_mrn.py``
+    at full width, bf16 and f32, counting launches of the port's kernels
+    (none on this path), then the first CRNN_REF_CROPS crops against the
+    same ensemble on the CPU in float32.  Returns the request times."""
+    t0 = time.perf_counter()
+    base = load_config(os.path.join(ROOT, "configs", "crnn_mrn.py"))
+    images = rng.integers(0, 256, (BATCH, base.imgH, base.imgW, base.input_channel),
+                          dtype=np.uint8)
+    params, stats, chars = _conv_trees(rng, base, images, CLASS_COUNTS)
+    servers = {dtype: Server(base.replace(compute_dtype=dtype), params, stats, chars,
+                             class_counts=CLASS_COUNTS) for dtype in CRNN_REQUESTS}
+    torch.cuda.synchronize()
+    print(f"  weights drawn, calibrated on the batch and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    grid_sample.launches = 0
+    timings = {}
+    for dtype, n_req in CRNN_REQUESTS.items():
+        timings[dtype], result = _timed_requests(servers[dtype], images, n_req)
+        _print_requests(f"CRNN-MRN {dtype}", timings[dtype])
+        print(f"  {dtype}: sample words {[w for w, _ in result[:3]]}, "
+              f"{len(set(w for w, _ in result))} distinct words in {BATCH}")
+    launched = dict(read_launches(), grid_sample=grid_sample.launches)
+    print(f"  port kernel launches in the CRNN requests: {launched} (expected none: the "
+          f"VGG convs are cuDNN's, the BiLSTMs and the router PyTorch's)")
+    if any(launched.values()):
+        raise RuntimeError("the CRNN served path launched an SVTR or TRBA kernel")
+
+    cpu = Server(base.replace(compute_dtype="float32"), params, stats, chars,
+                 class_counts=CLASS_COUNTS, device="cpu")
+    t0 = time.perf_counter()
+    ref, ref_scores = _served_with_scores(cpu, images[:CRNN_REF_CROPS])
+    print(f"  the CPU reference on {CRNN_REF_CROPS} crops in {time.perf_counter() - t0:.1f} s")
+    shape = (BATCH, base.imgW // 4 - 1, max(CLASS_COUNTS))
+    for dtype, srv in servers.items():
+        out, scores = _served_with_scores(srv, images)
+        if tuple(out["logits"].shape) != shape or not bool(torch.isfinite(out["logits"]).all()):
+            raise RuntimeError(f"CRNN logits {tuple(out['logits'].shape)} != {shape} or not "
+                               "finite")
+        atol, rtol = CRNN_LOGIT_TOL[srv.dtype]
+        err = check_close(f"CRNN {dtype} route scores vs the CPU",
+                          scores[:CRNN_REF_CROPS].cpu(), ref_scores, atol, rtol)
+        top2 = ref_scores.topk(2, dim=1).values
+        near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * err
+        agree = out["index"][:CRNN_REF_CROPS].cpu() == ref["index"]
+        print(f"  CRNN {dtype} on the card vs float32 on the CPU: expert picks agree on "
+              f"{int(agree.sum())}/{CRNN_REF_CROPS}, {int(near_tie.sum())} near-ties (picks per "
+              f"expert on the card {torch.bincount(out['index'], minlength=N_EXPERTS).tolist()})")
+        if bool((~agree & ~near_tie).any()):
+            raise RuntimeError(f"CRNN {dtype}: expert picks differ from the CPU reference "
+                               "beyond near-ties")
+        check_close(f"CRNN {dtype} served logits vs the CPU (same pick)",
+                    out["logits"][:CRNN_REF_CROPS].cpu()[agree], ref["logits"][agree], atol, rtol)
+
+    # ---- where a request's time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    for dtype, srv in servers.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            t0 = time.perf_counter()
+            srv.recognize(images)
+            wall = time.perf_counter() - t0
+        print_device_profile(f"CRNN-MRN {dtype}, one request", prof, wall)
+    del cpu, servers
+    return timings
+
+
+def _served_with_scores(server, images):
+    """``Server.forward`` of ``images`` and the router's scores [B, I]."""
+    scores = []
+    hook = server.model.route.register_forward_hook(
+        lambda mod, inp, out: scores.append(out[..., 0].float()))
+    try:
+        out = server.forward(images)
+    finally:
+        hook.remove()
+    return {k: v.float() if k == "logits" else v for k, v in out.items()}, scores[0]
+
+
+def _conv_window(learner, get_batch, n_warm, n_steps):
+    """A StepMeter window of ``n_steps`` steps after ``n_warm``, synced at
+    both ends; returns the mean step (s)."""
+    for _ in range(n_warm):
+        learner.train_step(get_batch())
+    torch.cuda.synchronize()
+    meter = StepMeter()
+    for _ in range(n_steps):
+        meter.tick(BATCH)
+        learner.train_step(get_batch())
+    torch.cuda.synchronize()
+    return meter.seconds() / n_steps
+
+
+def _expert_buffers(model):
+    return {k: v.clone() for k, v in model.experts.named_buffers()}
+
+
+def phase_crnn_train(rng, out_dir):
+    """This slice's path: CRNN-MRN training of ``configs/crnn_mrn.py`` at full
+    width, batch 256, task TRAIN_TASK of 6 (5 frozen random CRNN experts
+    and the new one) through ``MRN.incremental_train``, bf16 and f32; the
+    frozen experts' statistics bitwise unchanged in step 1 (pinned); step
+    windows and a traced bf16 step-0 window; then one router step in the
+    drifting mode (``mrn_pin_expert_stats=False``), whose experts'
+    statistics move.  Returns {dtype: (step 0 s, step 1 s)}."""
+    t0 = time.perf_counter()
+    alphabets = _task_alphabets()
+    character = "".join(alphabets)
+    loader = SyntheticTaskLoader(alphabets, TRAIN_TASK, BATCH, CROPS_PER_TASK, img_h=32,
+                                 img_w=256, seed=SEED)
+    val_set = synthetic_val_set(alphabets, TRAIN_TASK, BATCH, 32, 256, seed=SEED + 1)
+    base = load_config(os.path.join(ROOT, "configs", "crnn_mrn.py"), output_dir=out_dir,
+                       data_log=os.path.join(out_dir, "data_crnn.txt"), exp_name="crnn_train",
+                       num_iter=CRNN_TRAIN_ITERS, val_interval=CRNN_VAL_INTERVAL,
+                       image_bank=loader.bank, manual_seed=SEED)
+    valid = ValDataset(["val"], base, {"val": val_set}.__getitem__)
+    experts = [random_recognizer(rng, base, count) for count in CLASS_COUNTS[:TRAIN_TASK]]
+    print(f"  {len(loader.labels)} crops, {TRAIN_TASK} frozen experts drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    windows = {}
+    for dtype in TRAIN_DTYPES:
+        opt = base.replace(train_dtype=dtype, exp_name=f"crnn_{dtype}")
+        learner = MRN(opt)
+        for (p, s), count in zip(experts, CLASS_COUNTS):
+            learner.add_expert(p, s, count)
+        seen = {}
+        start_router = learner.start_router_phase
+
+        def recorded_start(router=None, learner=learner, start_router=start_router):
+            start_router(router)
+            seen["experts"] = _expert_buffers(learner.mrn_model)
+
+        learner.start_router_phase = recorded_start
+        reset_launches()
+        grid_sample.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner.incremental_train(TRAIN_TASK, character, loader, valid)
+        torch.cuda.synchronize()
+        launched = dict(read_launches(), grid_sample=grid_sample.launches)
+        for rec in learner.history:
+            print(f"  {dtype} task {rec['task']} step {rec['step']} iter {rec['iteration']}: "
+                  f"loss {rec['loss']:.5f}" + (f" (clf {rec['clf']:.5f}, router "
+                                               f"{rec['router']:.5f})" if "clf" in rec else "")
+                  + f", grad_norm {rec['grad_norm']:.4g}")
+        n0, n1 = CRNN_TRAIN_ITERS, CRNN_TRAIN_ITERS // 2
+        if not all(np.isfinite(rec["loss"]) for rec in learner.history) \
+                or len(learner.history) != n0 + n1:
+            raise RuntimeError(f"CRNN {dtype} training: non-finite loss or missing steps")
+        after = _expert_buffers(learner.mrn_model)
+        pinned = all(torch.equal(v, after[k]) for k, v in seen["experts"].items())
+        print(f"  {dtype}: incremental_train of task {TRAIN_TASK} in "
+              f"{time.perf_counter() - t0:.1f} s; port kernel launches {launched} (expected "
+              f"none); step 1 left the {N_EXPERTS} experts' statistics bitwise unchanged "
+              f"(pinned): {pinned}")
+        if any(launched.values()) or not pinned:
+            raise RuntimeError(f"CRNN {dtype}: a port kernel ran or a pinned expert's "
+                               "statistics moved")
+        w1 = _conv_window(learner, loader.get_batch2, TIME_WARMUP, TIME_STEPS)
+        learner.change_model()
+        learner.build_optimizer()
+        w0 = _conv_window(learner, loader.get_batch, TIME_WARMUP, TIME_STEPS)
+        windows[dtype] = (w0, w1)
+        print(f"  CRNN {dtype} StepMeter windows of {TIME_STEPS} steps after {TIME_WARMUP} "
+              f"warm-up steps, batch {BATCH}: step 0 {1e3 * w0:.2f} ms/step ({BATCH / w0:.1f} "
+              f"images/s), step 1 over {N_EXPERTS} experts {1e3 * w1:.2f} ms/step "
+              f"({BATCH / w1:.1f} images/s)")
+        if dtype == "bf16":
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t1 = time.perf_counter()
+                for _ in range(TRACE_STEPS):
+                    learner.train_step(loader.get_batch())
+                torch.cuda.synchronize()
+                traced = time.perf_counter() - t1
+            idle = print_device_profile(f"bf16 CRNN step 0, {TRACE_STEPS} steps", prof, traced)
+            print(f"  idle share of the traced CRNN step-0 window: "
+                  f"{'not measured' if idle is None else f'{idle:.1%}'}")
+        last = learner
+    # ---- one router step in the drifting mode over the f32 run's experts
+    quirk = MRN(base.replace(mrn_pin_expert_stats=False, exp_name="crnn_quirk"))
+    for state, count in zip(last.expert_states, last.class_counts):
+        quirk.add_expert(*state_to_flax(state), count)
+    quirk._cur_task = TRAIN_TASK
+    quirk.character = list(character)
+    quirk.converter = quirk.build_converter()
+    quirk.start_router_phase()
+    before = _expert_buffers(quirk.mrn_model)
+    metrics = quirk.train_step(loader.get_batch2())
+    torch.cuda.synchronize()
+    after = _expert_buffers(quirk.mrn_model)
+    moved = [k for k, v in before.items() if not torch.equal(v, after[k])]
+    print(f"  drifting mode: one router step (loss {float(metrics['loss']):.5f}) moved "
+          f"{len(moved)}/{len(before)} running-statistic tensors of the {N_EXPERTS} experts "
+          f"(expected all: bn4 and bn5 mean and var of each)")
+    if len(moved) != len(before) or len(before) != N_EXPERTS * 4:
+        raise RuntimeError("the drifting mode's router step did not move every expert's "
+                           "statistics")
+    return windows
+
+
+def phase_grcnn(rng):
+    """``configs/grcnn_mrn.py`` at full width: one bf16 step-0 StepMeter
+    window of a new expert (79 train-mode BatchNorms) and served requests
+    of one recognizer.  Returns (step 0 s, request seconds)."""
+    base = load_config(os.path.join(ROOT, "configs", "grcnn_mrn.py"), train_dtype="bf16",
+                       manual_seed=SEED, exp_name="grcnn", output_dir=os.path.join(
+                           ROOT, "build", "smoke_grcnn"))
+    alphabet = _task_alphabets()[0]
+    loader = SyntheticTaskLoader([alphabet], 0, BATCH, CROPS_PER_TASK, img_h=32, img_w=256,
+                                 seed=SEED)
+    learner = MRN(base.replace(image_bank=loader.bank))
+    learner.character = list(alphabet)
+    learner.converter = learner.build_converter()
+    learner._cur_task = 0
+    learner.build_model()
+    learner.build_optimizer()
+    w0 = _conv_window(learner, loader.get_batch, TIME_WARMUP, GRCNN_WINDOW)
+    print(f"  GRCNN bf16 step 0, StepMeter window of {GRCNN_WINDOW} steps after "
+          f"{TIME_WARMUP} warm-up steps: {1e3 * w0:.2f} ms/step ({BATCH / w0:.1f} images/s)")
+    images = loader.bank[loader.get_batch()[0]]
+    params, stats = to_flax(learner.model)
+    server = Server(base.replace(compute_dtype="bfloat16"), params, stats, alphabet)
+    ts, result = _timed_requests(server, images, 2)
+    _print_requests("GRCNN recognizer bfloat16", ts)
+    logits = server.forward(images)["logits"]
+    if tuple(logits.shape) != (BATCH, base.imgW // 4 + 1, len(alphabet) + 4) \
+            or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"GRCNN logits {tuple(logits.shape)} malformed or not finite")
+    shutil.rmtree(base.output_dir, ignore_errors=True)
+    return w0, ts
+
+
+def _float_products_act(x, amax):
+    """Control for the int8 conv checks: activations scaled into the int8
+    range but not rounded."""
+    scale = torch.clamp(torch.as_tensor(amax).float(), min=1e-12) / 127.0
+    return torch.clamp(x.float() / scale, -127, 127), scale
+
+
+def _float64_conv(x, w, stride=(1, 1), padding=(0, 0)):
+    """Control for the int8 conv checks: the conv of unrounded activations."""
+    return F.conv2d(x.permute(0, 3, 1, 2).double(), w.permute(3, 2, 0, 1).double(),
+                    stride=tuple(stride), padding=tuple(padding)).permute(0, 2, 3, 1)
+
+
+def _conv_geometries(model, images, text):
+    """Each w8a8 conv's (NHWC input shape, HWIO kernel shape, stride,
+    padding), in order of first use, from one served forward."""
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, args: seen.setdefault(
+            (tuple(args[0].permute(0, 2, 3, 1).shape), tuple(m.Conv_0.weight.permute(
+                2, 3, 1, 0).shape), tuple(m.Conv_0.stride), tuple(m.Conv_0.padding)), None))
+        for m in model.modules() if isinstance(m, TorchConv) and m.quant == "int8"]
+    try:
+        with torch.inference_mode():
+            model(images, text)
+    finally:
+        for h in hooks:
+            h.remove()
+    return list(seen)
+
+
+def check_int8_convs(what, geometries, g):
+    """``torch._int_mm`` conv against its float64 plain version, bitwise, at
+    each geometry on random int8 operands; prints both times."""
+    for x_shape, w_shape, stride, padding in geometries:
+        x = torch.randint(-127, 128, x_shape, generator=g, dtype=torch.int8, device="cuda")
+        w = torch.randint(-127, 128, w_shape, generator=g, dtype=torch.int8, device="cuda")
+        got = int8.conv_int8(x, w, stride, padding)
+        ref = int8.conv_int8_reference(x, w, stride, padding)
+        same = torch.equal(got, ref)
+        ms = cuda_ms(lambda: int8.conv_int8(x, w, stride, padding), 3)
+        plain_ms = cuda_ms(lambda: int8.conv_int8_reference(x, w, stride, padding), 3)
+        print(f"  {what} int8 conv {list(x_shape)} x {list(w_shape)} stride {stride} pad "
+              f"{padding}: _int_mm {ms:.3f} ms, float64 plain {plain_ms:.3f} ms, bitwise "
+              f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise RuntimeError(f"{what}: the _int_mm conv disagrees with its float64 version")
+
+
+def phase_int8_convs(rng):
+    """The w8a8 conv path: one CRNN and one TRBA recognizer at full width
+    (``configs/crnn_mrn.py``, ``configs/trba_mrn.py``; the GRCNN's convs
+    too) quantized by ``serve.quantize_int8`` on INT8_CALIB_BATCHES
+    batches; every conv geometry of VGG, ResNet and RCNN at batch 256 held
+    bitwise against the float64 plain conv; INT8_CONV_REQUESTS requests per
+    dtype of the float and the int8 servers, counting ``_int_mm`` convs and
+    TPS warp launches; the served int8 logits against the plain convs'
+    beside the float-products control (``check_int8``).  Returns the warp
+    launches of the counted int8 requests."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    warp_launches = 0
+    for name, config in (("CRNN", "crnn_mrn.py"), ("TRBA", "trba_mrn.py"),
+                         ("GRCNN", "grcnn_mrn.py")):
+        t0 = time.perf_counter()
+        base = load_config(os.path.join(ROOT, "configs", config))
+        images = rng.integers(0, 256, (BATCH, base.imgH, base.imgW, base.input_channel),
+                              dtype=np.uint8)
+        calib = [rng.integers(0, 256, images.shape, dtype=np.uint8)
+                 for _ in range(INT8_CALIB_BATCHES)]
+        params, stats, chars = (_trba_trees(rng, base, images) if name == "TRBA"
+                                else _conv_trees(rng, base, images))
+        floats, servers = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            opt = base.replace(compute_dtype=dtype)
+            floats[dtype] = Server(opt, params, stats, chars)
+            servers[dtype] = quantize_int8(Server(opt, params, stats, chars), iter(calib),
+                                           n_batches=INT8_CALIB_BATCHES)
+        torch.cuda.synchronize()
+        n_convs = sum(isinstance(m, TorchConv) and m.quant == "int8"
+                      for m in servers["float32"].model.modules())
+        print(f"  {name}: drawn, calibrated on {INT8_CALIB_BATCHES} batches and quantized "
+              f"({n_convs} int8 convs) in {time.perf_counter() - t0:.1f} s")
+        srv = servers["float32"]
+        x = srv.images(images)
+        geometries = _conv_geometries(srv.model, x, srv.sos_column(x))
+        check_int8_convs(name, geometries, g)
+        if name == "GRCNN":
+            continue
+        # ---- counted requests, float and int8
+        for dtype in ("float32", "bfloat16"):
+            ts, _ = _timed_requests(floats[dtype], images, INT8_CONV_REQUESTS)
+            _print_requests(f"{name} float {dtype}", ts)
+            before, launches = int8.int_mm_convs, grid_sample.launches
+            ts, result = _timed_requests(servers[dtype], images, INT8_CONV_REQUESTS)
+            convs = int8.int_mm_convs - before
+            warps = grid_sample.launches - launches
+            warp_launches += warps
+            _print_requests(f"{name} int8 {dtype}", ts)
+            expect_warps = INT8_CONV_REQUESTS if name == "TRBA" else 0
+            print(f"  {name} int8 {dtype}: {convs} _int_mm convs (expected "
+                  f"{INT8_CONV_REQUESTS * n_convs} = {INT8_CONV_REQUESTS} requests x {n_convs}), "
+                  f"{warps} TPS warp launches (expected {expect_warps}); sample words "
+                  f"{[w for w, _ in result[:3]]}")
+            if convs != INT8_CONV_REQUESTS * n_convs or warps != expect_warps:
+                raise RuntimeError(f"{name} int8 {dtype}: the served path did not run the "
+                                   "int8 convs or the warp kernel as expected")
+            # ---- the same batch on the plain convs, and the control
+            with torch.inference_mode():
+                out_k = servers[dtype].forward(images)["logits"].float()
+                with mock.patch.object(int8, "conv_int8", int8.conv_int8_reference):
+                    out_p = servers[dtype].forward(images)["logits"].float()
+                with mock.patch.object(int8, "quantize_act", _float_products_act), \
+                        mock.patch.object(int8, "conv_int8", _float64_conv):
+                    out_c = servers[dtype].forward(images)["logits"].float()
+                out_f = floats[dtype].forward(images)["logits"].float()
+            check_int8(f"{name} int8 {dtype} served logits, _int_mm vs plain convs", out_k,
+                       out_p, out_c, getattr(torch, dtype))
+            print(f"  {name} int8 {dtype} vs float {dtype}: max |diff| of the logits "
+                  f"{float((out_k - out_f).abs().max()):.3e}, greedy picks agree on "
+                  f"{float((out_k.argmax(-1) == out_f.argmax(-1)).float().mean()):.2%} of the "
+                  f"steps (random weights: information)")
+        del floats, servers
+    return warp_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3416,6 +3865,20 @@ def main():
         shutil.rmtree(trba_dir, ignore_errors=True)
     print("== TPS warp kernel vs plain, TRBA shape")
     warp = phase_grid_sample(device, rng, tps_grids, trba_images)
+    print("== CRNN-MRN serving, 6 experts, full width")
+    crnn_served = phase_crnn_serve(rng)
+    print("== CRNN-MRN training, task 5 of 6, full width, bf16 and f32; a drifting-mode step")
+    crnn_dir = tempfile.mkdtemp(prefix="smoke_crnn_", dir=os.path.join(ROOT, "build"))
+    try:
+        crnn_trained = phase_crnn_train(rng, crnn_dir)
+    finally:
+        shutil.rmtree(crnn_dir, ignore_errors=True)
+    print("== GRCNN, full width: a bf16 step-0 window and a served recognizer")
+    grcnn_step, grcnn_served = phase_grcnn(rng)
+    print("== the int8 conv path: CRNN, TRBA and GRCNN recognizers, full width")
+    int8_warps = phase_int8_convs(rng)
+    print(f"  CRNN-MRN requests {crnn_served}; CRNN step windows (step 0, step 1) "
+          f"{crnn_trained}; GRCNN step 0 {grcnn_step:.4f} s, requests {grcnn_served}")
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
@@ -3439,7 +3902,7 @@ def main():
             ("svtr_fused_block_int8", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:303",
              int8_served + lmdb["int8"], int8_totals[(bf16, False)]),
             ("grid_sample", "grid_sample.cu", "mrn_tpu/ops/grid_sample.py:140",
-             trba_served + trba_trained, warp[("tps", bf16)])]
+             trba_served + trba_trained + int8_warps, warp[("tps", bf16)])]
     record = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -3469,8 +3932,9 @@ def main():
           f"evaluate_cli --int8 ({lmdb['int8']}), its "
           f"library_ms the torch._int_mm Block; grid_sample times are one warp of the "
           f"served batch's TPS grid (bf16 image, f32 grid), its launches the TRBA served "
-          f"requests ({trba_served}) and the TRBA training run ({trba_trained}: step 1's "
-          f"frozen experts, FF and TF validation), its library_ms F.grid_sample on NCHW; "
+          f"requests ({trba_served}), the TRBA training run ({trba_trained}: step 1's "
+          f"frozen experts, FF and TF validation) and the int8 TRBA requests ({int8_warps}), "
+          f"its library_ms F.grid_sample on NCHW; "
           f"on {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

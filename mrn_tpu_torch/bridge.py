@@ -11,9 +11,11 @@ tree to dotted paths and applies three rules:
   ``scale``/``bias`` params.
 
 Dense kernels stay ``[in, out]`` and LayerNorm/Block leaves keep their
-names.  A TRBA tree needs no further rule: its convs are the JAX package's
-``TorchConv``, whose flax child ``Conv_0`` the port names alike
-(``conv0.Conv_0.kernel`` -> ``conv0.Conv_0.weight``); the LSTM leaves
+names.  A TRBA, CRNN or GRCNN tree needs no further rule: its convs are
+the JAX package's ``TorchConv``, whose flax child ``Conv_0`` the port names
+alike (``conv0.Conv_0.kernel`` -> ``conv0.Conv_0.weight``, a VGG conv's
+``Conv_0.bias`` as it is; a GRCL's ``wgf_u`` / ``wf_u`` / ``wgr_x`` /
+``wr_x`` and ``u{i}_bn_*`` keep their names); the LSTM leaves
 (``rnn.fwd``/``rnn.bwd`` and the attention cell's ``w_ih``, ``w_hh``,
 ``b_ih``, ``b_hh``) are in torch's layout already; ``localization_fc2``
 (a flax ``nn.Dense``), the cell's ``i2h``/``h2h``/``score`` and
@@ -38,8 +40,9 @@ tests can hold updated weights and statistics against the JAX package's
 leaf by leaf.
 
 A w8a8 recognizer (``quant="int8"``) also has the JAX ``quant`` collection:
-per Block ``act_amax_*`` and ``w_scale_*`` (float32), with its projection
-kernels int8 in ``params``.  ``from_flax(params, batch_stats, quant)`` loads
+per Block ``act_amax_*`` and ``w_scale_*``, per conv ``act_amax`` and
+``w_scale`` (float32, beside the conv's ``Conv_0``), with its projection or
+conv kernels int8 in ``params``.  ``from_flax(params, batch_stats, quant)`` loads
 it; ``to_flax`` puts the int8 kernels back into ``params`` and
 ``quant_tree`` gives the collection (a ``quant="calib"`` model's recorded
 amaxes too).
@@ -55,10 +58,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from mrn_tpu_torch.models.svtr import is_quant_scale
+from mrn_tpu_torch.models.common import is_quant_scale
 
 __all__ = ["der_state", "flax_tree", "from_flax", "mrn_state", "pad_expert_state",
-           "quant_tree", "recognizer_state", "routed_state", "state_to_flax", "to_flax"]
+           "quant_tree", "recognizer_state", "routed_state", "state_to_flax", "to_flax",
+           "unstack"]
 
 # subtrees stacked on a leading axis in the JAX layout, a ModuleList here
 STACKED = ("experts", "extractors")
@@ -114,6 +118,12 @@ def _unstacked(params: Mapping, batch_stats: Optional[Mapping], key: str
         state.update(recognizer_state(take(stack, i), take(stack_stats, i),
                                       prefix=f"{key}.{i}."))
     return state
+
+
+def unstack(tree: Mapping, key: str) -> Dict[str, torch.Tensor]:
+    """Port-named tensors ``<key>.<i>.<path>`` of the subtree stacked under
+    ``key`` (a drifting MRN snapshot's expert statistics)."""
+    return _unstacked(tree, None, key)
 
 
 def mrn_state(params: Mapping, batch_stats: Optional[Mapping] = None

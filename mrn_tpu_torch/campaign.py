@@ -1,6 +1,6 @@
-"""The 6-task synthetic incremental campaign of SVTR and TRBA (the port's
-copy of ``scripts/accuracy_campaign.py``), for every incremental-learning
-strategy of the port.
+"""The 6-task synthetic incremental campaign of SVTR, CRNN and TRBA (the
+port's copy of ``scripts/accuracy_campaign.py``), for every
+incremental-learning strategy of the port.
 
 The suite echoes MLT17's shape: 6 tasks in the reference order with its
 class counts (1895/325/1620/1124/73/112, disjoint CJK spans) and instance
@@ -16,8 +16,11 @@ all tasks (``run_joint``) and record one row.
 
 writes ``<out>/<arch>_<il>.json`` (best checkpoints under
 ``<out>/saved/acc_<arch>_<il>/``, the data log ``<out>/data_<arch>_<il>.txt``);
-``--arch`` is ``svtr`` (None/SVTR/None/CTC) or ``trba`` (TPS with 20
-fiducials, ResNet, two BiLSTMs, the Attn decoder: the JAX script's dims);
+``--arch`` is ``svtr`` (None/SVTR/None/CTC), ``crnn`` (None/VGG/BiLSTM/CTC,
+whose files drop the ``<arch>_`` prefix as the JAX script's do:
+``<out>/<il>.json``, ``acc_<il>/``, ``data_<il>.txt``) or ``trba`` (TPS
+with 20 fiducials, ResNet, two BiLSTMs, the Attn decoder: the JAX script's
+dims);
 ``--il`` is ``base``, ``lwf``, ``wa``, ``ewc``, ``der``, ``mrn``,
 ``joint_mix`` or ``joint_loader``; ``mrn``, ``der``, ``wa`` and
 ``joint_mix`` keep a rehearsal memory (``MEMORY_ILS``), EWC's Fisher takes
@@ -30,8 +33,10 @@ localization net keeps its fixed widths.  A
 crashed campaign goes on with ``--start_task K --eval_from K`` (tasks
 below K replay their best checkpoints; for MRN K + 0.5 also replays task
 K's step 0); ``--stop_after K`` ends after stage K, writing
-``<out>/<arch>_<il>.stage<K>.json``.  Runs on the CUDA card unless
-``--device cpu``.
+``<out>/<arch>_<il>.stage<K>.json``.  The record states the TF32 switches
+the run had (``tf32``: PyTorch's defaults, which this module leaves alone,
+let cuDNN convs, not matmuls, run float32 in TF32).  Runs on the CUDA card
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -52,8 +57,7 @@ from mrn_tpu_torch.train.learners import build_learner
 
 __all__ = ["ARCHS", "CLASSES", "GEN_PARAMS", "ILS", "LANS", "MEMORY_ILS", "N_TEST", "N_TRAIN",
            "build_source", "campaign_options", "campaign_record", "device_name", "forgetting",
-           "main",
-           "run_incremental", "run_joint"]
+           "main", "prefix", "run_incremental", "run_joint", "tf32_switches"]
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CACHE_DIR = os.path.join(ROOT, "build", "campaign")
@@ -68,13 +72,28 @@ MEMORY_NUM = 2000
 SMOKE_SVTR = dict(embed_dim=(16, 32, 64), depth=(1, 2, 1), num_heads=(2, 2, 4))
 SMOKE_MEMORY_NUM = 16   # below the smallest smoke task
 ILS = ("base", "lwf", "wa", "ewc", "der", "mrn", "joint_mix", "joint_loader")
-# the recognizers' stages (reference config/{svtr,trba}_mrn.py)
+# the recognizers' stages (reference config/{svtr,crnn,trba}_mrn.py)
 ARCHS = {"svtr": dict(Transformation="None", FeatureExtraction="SVTR",
                       SequenceModeling="None", Prediction="CTC"),
+         "crnn": dict(Transformation="None", FeatureExtraction="VGG",
+                      SequenceModeling="BiLSTM", Prediction="CTC"),
          "trba": dict(Transformation="TPS", FeatureExtraction="ResNet",
                       SequenceModeling="BiLSTM", Prediction="Attn", num_fiducial=20)}
 # the strategies that keep a rehearsal memory, as the shipped configs do
 MEMORY_ILS = {"mrn", "der", "wa", "joint_mix"}
+
+
+def prefix(arch: str) -> str:
+    """The file-name prefix of ``arch``'s records: none for CRNN, the JAX
+    script's default architecture."""
+    return "" if arch == "crnn" else f"{arch}_"
+
+
+def tf32_switches() -> dict:
+    """Whether float32 cuDNN convs and float32 matmuls may run in TF32."""
+    import torch
+    return {"cudnn_conv": bool(torch.backends.cudnn.allow_tf32),
+            "matmul": bool(torch.backends.cuda.matmul.allow_tf32)}
 
 
 def task_alphabets() -> List[str]:
@@ -128,7 +147,7 @@ def campaign_options(tasks: int = 6, num_iter: int = 1000, batch_size: int = 256
         dims = dict(output_channel=64, hidden_size=32)
         if arch == "svtr":
             dims["svtr"] = SMOKE_SVTR
-    opt = dict(exp_name=f"acc_{arch}_{il}", il=il,
+    opt = dict(exp_name=f"acc_{prefix(arch)}{il}", il=il,
                memory="random" if il in MEMORY_ILS else None,
                fisher_num_iter=max(1, num_iter // 4),
                memory_num=SMOKE_MEMORY_NUM if smoke else MEMORY_NUM,
@@ -138,7 +157,7 @@ def campaign_options(tasks: int = 6, num_iter: int = 1000, batch_size: int = 256
                valid_datas=["synth_test"], workers=0, NED=True,
                manual_seed=seed, train_dtype="bf16" if bf16 else None,
                output_dir=os.path.join(out, "saved"),
-               data_log=os.path.join(out, f"data_{arch}_{il}.txt"), **ARCHS[arch], **dims)
+               data_log=os.path.join(out, f"data_{prefix(arch)}{il}.txt"), **ARCHS[arch], **dims)
     opt.update(overrides)
     return default_options(**opt)
 
@@ -256,7 +275,8 @@ def campaign_record(il: str, num_iter: int, bf16: bool, batch_size: int, seed: i
                     matrix: List[List[float]], times: List[float], total: float,
                     card: str, arch: str = "svtr") -> dict:
     """The fields of the JAX campaign's ``ACCURACY_RUNS/t6/svtr_<il>.json``
-    (``ACCURACY_RUNS/trba_<il>.json``) plus the card's ``device``."""
+    (``ACCURACY_RUNS/<il>.json``, ``ACCURACY_RUNS/trba_<il>.json``) plus the
+    card's ``device`` and the run's ``tf32`` switches."""
     return {
         "il": il, "num_iter": num_iter, "train_dtype": "bf16" if bf16 else "f32",
         "batch_size": batch_size, "seed": seed,
@@ -266,7 +286,7 @@ def campaign_record(il: str, num_iter: int, bf16: bool, batch_size: int, seed: i
         "acc_matrix": matrix, "final_row": matrix[-1] if matrix else None,
         "avg_forgetting": forgetting(matrix) if matrix else None,
         "stage_seconds": times, "total_seconds": total,
-        "arch": arch, "recycled": False, "device": card,
+        "arch": arch, "recycled": False, "device": card, "tf32": tf32_switches(),
     }
 
 
@@ -321,12 +341,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     total = round(time.time() - t0, 1)
     if args.stop_after >= 0:
         record = {"stage": args.stop_after, "eval_from": args.eval_from, "rows": matrix,
-                  "aia": aia, "stage_seconds": times, "total_seconds": total, "device": card}
-        path = os.path.join(args.out, f"{args.arch}_{args.il}.stage{args.stop_after}.json")
+                  "aia": aia, "stage_seconds": times, "total_seconds": total, "device": card,
+                  "tf32": tf32_switches()}
+        path = os.path.join(args.out,
+                            f"{prefix(args.arch)}{args.il}.stage{args.stop_after}.json")
     else:
         record = campaign_record(args.il, args.num_iter, args.bf16, args.batch_size, args.seed,
                                  n_train, n_test, aia, matrix, times, total, card, args.arch)
-        path = os.path.join(args.out, f"{args.arch}_{args.il}.json")
+        path = os.path.join(args.out, f"{prefix(args.arch)}{args.il}.json")
     with open(path, "w", encoding="utf-8") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({k: record[k] for k in ("final_aia", "avg_forgetting", "final_row",

@@ -16,10 +16,13 @@ reports word accuracy and NED.
 ``benchmark_all_eval`` ``{result_dir}/{exp}/log_all_evaluation.txt`` and
 ``evaluation_log/log_{all_model_evaluation,multiple_test}_<date>.txt``,
 line for line as the JAX CLI writes them.  ``--calculate_infer_time``
-evaluates at batch 1.  ``--int8`` serves a single SVTR recognizer w8a8
-(``serve.quantize_int8``, calibrated on the first batches of the first
-eval root's first language); conv extractors raise (ROADMAP.md §1 item 8).
-``--model_name RBA`` (None/ResNet/BiLSTM/Attn) and TRBA evaluate Attn heads.
+evaluates at batch 1.  ``--int8`` serves a single SVTR, CRNN, GRCNN, TRBA
+or RBA recognizer w8a8 (``serve.quantize_int8``, calibrated on the first
+batches of the first eval root's first language: the SVTR Block
+projections, or every conv of VGG, RCNN and ResNet); an MRN or DER ensemble
+after task 0 is refused, as the JAX CLI refuses it.  ``--model_name CRNN``
+(None/VGG/BiLSTM/CTC), ``RBA`` (None/ResNet/BiLSTM/Attn) and ``TRBA`` set
+the stages.
 
 An MRN checkpoint evaluates "TF" (the routed ensemble) after task 0 and
 "FF" (the standalone expert) at task 0; JAX's CLI asks for "test" there,
@@ -144,13 +147,10 @@ def _calibration_batches(calib_loader):
 
 
 def quantize_learner_int8(learner, opt, calib_loader, n_batches: int = 4):
-    """``--int8``: the learner's single SVTR recognizer served w8a8
+    """``--int8``: the learner's single recognizer served w8a8
     (``serve.quantize_int8``: calibrated in float32 on up to ``n_batches``
-    batches of ``calib_loader``, quantized, rebuilt with int8 Blocks), in
-    place of its model."""
-    if opt.FeatureExtraction != "SVTR":
-        raise NotImplementedError(f"--int8 of a {opt.FeatureExtraction} extractor (the int8 "
-                                  "conv path) is not ported (ROADMAP.md §1 item 8)")
+    batches of ``calib_loader``, quantized, rebuilt with int8 Blocks or
+    int8 convs), in place of its model."""
     params, stats = to_flax(learner.model)
     server = Server(opt, params, stats, learner.character, device=learner.device)
     quantize_int8(server, _calibration_batches(calib_loader), n_batches)
@@ -309,8 +309,8 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--device_bank", action="store_true",
                         help="resize the eval sets once into a uint8 bank on the device")
     parser.add_argument("--int8", action="store_true",
-                        help="w8a8 serving of a single SVTR recognizer, calibrated on the "
-                             "first eval batches")
+                        help="w8a8 serving of a single recognizer (SVTR Blocks or the "
+                             "VGG/ResNet/RCNN convs), calibrated on the first eval batches")
     parser.add_argument("--device", default=None, help="default: the CUDA card")
     args = parser.parse_args(argv)
 
@@ -343,7 +343,8 @@ def main(argv: Optional[Sequence[str]] = None):
         calib_loader = ValDataset([os.path.join(calib_root, opt.lan_list[0])],
                                   opt).create_dataset()
         quantize_learner_int8(learner, opt, calib_loader)
-        print("# int8: quantized w8a8 (per-channel weights; SVTR block projections)")
+        print("# int8: quantized w8a8 (per-channel weights; conv extractors + SVTR block "
+              "projections)")
 
     print(f"# parameters: {count_params(_params_tree(learner, last_task)) / 1e6:.2f} M")
     if args.eval_type:

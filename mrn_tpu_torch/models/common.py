@@ -6,9 +6,13 @@
 - ``Conv2d`` holds its weight as ``[out, in, kh, kw]`` (the bridge transposes
   flax's HWIO) and runs ``F.conv2d`` on NCHW tensors; ``to_nchw``/``to_nhwc``
   convert at the boundaries, since public functions take NHWC images.
-  ``TorchConv`` is the JAX package's ``TorchConv``: its bias-free
-  ``Conv2d`` sits in a child named ``Conv_0``, the flax scope of the
-  ``nn.Conv`` it creates, so its weight bridges by name.
+  ``TorchConv`` is the JAX package's ``TorchConv``: its ``Conv2d`` (with
+  a bias where ``bias=True``) sits in a child named ``Conv_0``, the flax
+  scope of the ``nn.Conv`` it creates, so its weight bridges by name.  Its
+  ``quant`` mode is the w8a8 PTQ of ``ops.int8``: ``"calib"`` keeps a
+  running max of ``|x|`` at the conv input in ``act_amax``; ``"int8"``
+  holds an int8 weight and the ``act_amax`` / ``w_scale`` buffers (the JAX
+  ``quant`` leaves, ``is_quant_scale``) and runs ``ops.int8.conv_w8a8``.
 - ``max_pool`` pads with ``-inf`` (flax's ``max_pool`` with explicit
   padding, torch's ``MaxPool2d``); ``global_avg_pool`` is
   ``AdaptiveAvgPool2d(1)``, both on NCHW tensors.
@@ -28,8 +32,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BatchNorm", "Conv2d", "Dense", "LayerNorm", "TorchConv", "global_avg_pool",
-           "max_pool", "to_nchw", "to_nhwc"]
+from mrn_tpu_torch.ops.int8 import conv_w8a8
+
+__all__ = ["BatchNorm", "Conv2d", "Dense", "LayerNorm", "QUANT_MODES", "TorchConv",
+           "global_avg_pool", "is_quant_scale", "max_pool", "to_nchw", "to_nhwc"]
+
+QUANT_MODES = ("none", "calib", "int8")
+
+
+def is_quant_scale(name: str) -> bool:
+    """Whether a buffer name (dotted or bare) belongs to the JAX ``quant``
+    collection: a conv's ``act_amax`` / ``w_scale``, a Block's
+    ``act_amax_*`` / ``w_scale_*``."""
+    last = name.rsplit(".", 1)[-1]
+    return last in ("act_amax", "w_scale") or last.startswith(("act_amax_", "w_scale_"))
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -68,16 +84,44 @@ class Conv2d(nn.Module):
 
 
 class TorchConv(nn.Module):
-    """A bias-free ``Conv2d`` in the child ``Conv_0`` (every TPS and ResNet
-    conv of the JAX package is a ``TorchConv(use_bias=False)``)."""
+    """A ``Conv2d`` in the child ``Conv_0`` on NCHW tensors, bias-free unless
+    ``bias`` (every TPS, ResNet and GRCL conv of the JAX package is a
+    ``TorchConv(use_bias=False)``; VGG's carry biases), in w8a8 mode
+    ``quant``.  The quant scales stay float32 under ``Module.to``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: Tuple[int, int],
-                 stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0)):
+                 stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0),
+                 bias: bool = False, quant: str = "none"):
         super().__init__()
-        self.Conv_0 = Conv2d(in_ch, out_ch, kernel, stride, padding, bias=False)
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, not {quant!r}")
+        self.Conv_0 = Conv2d(in_ch, out_ch, kernel, stride, padding, bias=bias)
+        self.quant = quant
+        if quant == "int8":
+            del self.Conv_0.weight
+            self.Conv_0.register_buffer("weight", torch.zeros((out_ch, in_ch, *kernel),
+                                                              dtype=torch.int8))
+            self.register_buffer("w_scale", torch.ones(out_ch))
+        if quant != "none":
+            self.register_buffer("act_amax", torch.zeros(()), persistent=quant == "int8")
+
+    def _apply(self, fn, recurse=True):
+        scales = {k: self._buffers.pop(k) for k in list(self._buffers) if is_quant_scale(k)}
+        try:
+            super()._apply(fn, recurse)
+        finally:
+            for key, t in scales.items():
+                self._buffers[key] = t.to(fn(t).device)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Conv_0(x)
+        conv = self.Conv_0
+        if self.quant == "int8":
+            return conv_w8a8(x, conv.weight, self.w_scale, self.act_amax, conv.bias,
+                             conv.stride, conv.padding)
+        if self.quant == "calib":
+            self.act_amax = torch.maximum(self.act_amax, x.detach().abs().amax().float())
+        return conv(x)
 
 
 def max_pool(x: torch.Tensor, window: Tuple[int, int], strides: Tuple[int, int],

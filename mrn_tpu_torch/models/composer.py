@@ -2,13 +2,14 @@
 Transformation -> FeatureExtraction -> mean over height -> SequenceModeling
 -> prediction head.
 
-The port covers three stage combinations, in eval and train mode:
+The port covers five stage combinations, in eval and train mode:
 
 - None/SVTR/None/CTC (``forward(image, train=...)``); ``svtr`` (keyword
   arguments of ``SVTRExtractor``: ``embed_dim``, ``depth``, ``num_heads``,
   ``drop_path_rate``) narrows the backbone for tests, the configs leave it
-  unset; ``quant`` ("none", "calib", "int8") is the SVTR Blocks' w8a8 mode
-  (``models.svtr.Block``);
+  unset;
+- None/VGG/BiLSTM/CTC (CRNN) and None/RCNN/BiLSTM/CTC (GRCNN): the conv
+  backbone, two BiLSTMs (``seq0``, ``seq1``) and the CTC ``fc``;
 - TPS/ResNet/BiLSTM/Attn (TRBA) and None/ResNet/BiLSTM/Attn (RBA, TRBA
   without the TPS: ``evaluate_cli --model_name RBA``): ``fc`` is the
   decoder's generator.  ``train`` drives BatchNorm (and the TPS warp: the
@@ -18,7 +19,11 @@ The port covers three stage combinations, in eval and train mode:
   ``train``, JAX's split; ``class_count`` restricts the decoder to an
   expert's true vocabulary.
 
-Every other combination raises ``NotImplementedError``.
+``quant`` ("none", "calib", "int8") is the w8a8 mode of the SVTR Blocks
+(``models.svtr.Block``) or of every conv of VGG, ResNet and RCNN
+(``models.common.TorchConv``); the TPS localization net, the BiLSTMs and
+the heads stay float, as in JAX.  Every other combination raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,15 +36,18 @@ from torch import nn
 from mrn_tpu_torch.models.attention import AttentionDecoder
 from mrn_tpu_torch.models.common import Dense
 from mrn_tpu_torch.models.lstm import BidirectionalLSTM
+from mrn_tpu_torch.models.rcnn import RCNNExtractor
 from mrn_tpu_torch.models.resnet import ResNetExtractor
 from mrn_tpu_torch.models.svtr import SVTRExtractor
 from mrn_tpu_torch.models.tps import TPSTransformer
+from mrn_tpu_torch.models.vgg import VGGExtractor
 
 __all__ = ["Extractor", "Recognizer", "build_recognizer", "sequence_length"]
 
-_SVTR = ("None", "SVTR", "None", "CTC")
-_TRBA = ("TPS", "ResNet", "BiLSTM", "Attn")
-_RBA = ("None", "ResNet", "BiLSTM", "Attn")
+_SUPPORTED = (("None", "SVTR", "None", "CTC"), ("None", "VGG", "BiLSTM", "CTC"),
+              ("None", "RCNN", "BiLSTM", "CTC"), ("TPS", "ResNet", "BiLSTM", "Attn"),
+              ("None", "ResNet", "BiLSTM", "Attn"))
+_CONV_EXTRACTORS = {"VGG": VGGExtractor, "ResNet": ResNetExtractor, "RCNN": RCNNExtractor}
 
 
 def sequence_length(feature_extraction: str, img_w: int) -> int:
@@ -53,23 +61,20 @@ def sequence_length(feature_extraction: str, img_w: int) -> int:
     raise ValueError(feature_extraction)
 
 
-def _check_supported(stages: Tuple[str, ...], quant: str = "none") -> None:
+def _check_supported(stages: Tuple[str, ...]) -> None:
     """``stages``: an extractor's three, or a recognizer's four."""
     n = len(stages)
-    if stages not in (_SVTR[:n], _TRBA[:n], _RBA[:n]):
+    if stages not in {s[:n] for s in _SUPPORTED}:
         raise NotImplementedError(
-            f"{'+'.join(stages)}: the PyTorch port serves None+SVTR+None+CTC, "
-            "TPS+ResNet+BiLSTM+Attn and None+ResNet+BiLSTM+Attn so far; VGG and RCNN "
-            "come in later slices (see ROADMAP.md)")
-    if stages[1] == "ResNet" and quant != "none":
-        raise NotImplementedError("w8a8 serving of TRBA (the int8 conv path) is not ported")
+            f"{'+'.join(stages)}: the PyTorch port builds "
+            + ", ".join("+".join(s) for s in _SUPPORTED))
 
 
 class Extractor(nn.Module):
     """Returns [B, T, hidden].  SVTR: SVTR -> mean over H -> ``seq_linear``
-    (the "None" sequence stage still projects to ``hidden_size``).  TRBA:
-    TPS -> ResNet -> mean over H -> two BiLSTMs (``seq0``, ``seq1``); RBA
-    the same without the TPS."""
+    (the "None" sequence stage still projects to ``hidden_size``).  CRNN,
+    GRCNN and TRBA: (TPS ->) VGG, RCNN or ResNet -> mean over H -> two
+    BiLSTMs (``seq0``, ``seq1``)."""
 
     def __init__(self, transformation: str = "None",
                  feature_extraction: str = "SVTR",
@@ -79,7 +84,7 @@ class Extractor(nn.Module):
                  svtr: Optional[Mapping] = None, quant: str = "none",
                  num_fiducial: int = 20):
         super().__init__()
-        _check_supported((transformation, feature_extraction, sequence_modeling), quant)
+        _check_supported((transformation, feature_extraction, sequence_modeling))
         if feature_extraction == "SVTR":
             self.feature = SVTRExtractor(input_channel, output_channel, img_size,
                                          **dict(svtr or {}), quant=quant)
@@ -87,7 +92,8 @@ class Extractor(nn.Module):
         else:
             if transformation == "TPS":
                 self.transformation = TPSTransformer(num_fiducial, img_size, input_channel)
-            self.feature = ResNetExtractor(input_channel, output_channel)
+            self.feature = _CONV_EXTRACTORS[feature_extraction](input_channel, output_channel,
+                                                                quant=quant)
             self.seq0 = BidirectionalLSTM(output_channel, hidden_size, hidden_size)
             self.seq1 = BidirectionalLSTM(hidden_size, hidden_size, hidden_size)
 
@@ -142,7 +148,7 @@ class Recognizer(nn.Module):
 
 def build_recognizer(opt, num_classes: int, quant: str = "none") -> Recognizer:
     """Recognizer from a flat options namespace (``configs/*.py``), its SVTR
-    Blocks in w8a8 mode ``quant``."""
+    Blocks or convs in w8a8 mode ``quant``."""
     return Recognizer(
         num_classes=num_classes, prediction=opt.Prediction,
         transformation=opt.Transformation,

@@ -6,16 +6,18 @@ the flax layout (bridged into the port with ``bridge.from_flax``).
   1 (the reference SVTR quirk), BatchNorm scale 1 / bias 0 / mean 0 / var 1;
 - ``seq_linear``, ``fc`` and the router's Dense layers the torch default
   ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, the router's LayerNorms 1 / 0;
-- TRBA (``FeatureExtraction="ResNet"``): every conv kernel and Dense layer
-  ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` (convs bias-free), the BiLSTMs'
-  and the attention cell's LSTM weights and biases ``U(-1/sqrt(H),
-  1/sqrt(H))``, ``char_embeddings`` ``N(0, 1)``, BatchNorm 1 / 0 / 0 / 1,
-  and ``localization_fc2`` a zero kernel with the RARE fiducial bias (so
+- CRNN (``FeatureExtraction="VGG"``), GRCNN (``"RCNN"``) and TRBA
+  (``"ResNet"``): every conv kernel, conv bias (VGG's ``conv0``-``conv3``
+  and ``conv6``, GRCNN's ``conv0``; the other convs are bias-free) and
+  Dense layer ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, the BiLSTMs' and the
+  attention cell's LSTM weights and biases ``U(-1/sqrt(H), 1/sqrt(H))``,
+  ``char_embeddings`` ``N(0, 1)``, BatchNorm 1 / 0 / 0 / 1, and TRBA's
+  ``localization_fc2`` a zero kernel with the RARE fiducial bias (so
   every crop starts from the same near-identity grid).
 
 A new expert is drawn this way (the JAX learner's ``change_model``); task
 0's expert then gets ``models.surgery.apply_reference_init``.  A DERNet
-(``random_der``) stacks SVTR or TRBA extractors drawn one after another,
+(``random_der``) stacks extractors drawn one after another,
 then its heads: CTC ``fc`` (over the concatenated features) and
 ``aux_fc``; Attn ``fc`` and ``aux_fc`` (both ``[hidden, C]``, the
 generators), ``prediction`` (a decoder over the concatenation) and
@@ -78,7 +80,7 @@ def random_block(rng, c, hidden=None):
 
 def random_recognizer(rng, opt, num_classes):
     """One Recognizer's (params, batch_stats) trees: SVTR (``opt.svtr`` may
-    narrow the backbone: ``embed_dim``, ``depth``) or TRBA."""
+    narrow the backbone: ``embed_dim``, ``depth``), CRNN, GRCNN or TRBA."""
     extractor, stats = random_extractor(rng, opt)
     params = {"extractor": extractor, "fc": _torch_dense(rng, opt.hidden_size, num_classes)}
     if opt.Prediction == "Attn":
@@ -114,9 +116,12 @@ def random_der(rng, opt, n_extractors, num_classes):
 
 
 def random_extractor(rng, opt):
-    """One Extractor's (params, batch_stats) trees: SVTR or TRBA."""
-    if opt.FeatureExtraction == "ResNet":
-        return _random_trba_extractor(rng, opt)
+    """One Extractor's (params, batch_stats) trees: SVTR, CRNN, GRCNN or
+    TRBA."""
+    conv_extractors = {"ResNet": _random_trba_extractor, "VGG": _random_vgg_extractor,
+                       "RCNN": _random_rcnn_extractor}
+    if opt.FeatureExtraction in conv_extractors:
+        return conv_extractors[opt.FeatureExtraction](rng, opt)
     arch = dict(_SVTR, **(opt.get("svtr") or {}))
     e0, e1, e2 = arch["embed_dim"]
     h0, w0 = opt.imgH // 4, opt.imgW // 4
@@ -161,15 +166,32 @@ class _Trees:
             tree = tree.setdefault(key, {})
         return tree
 
-    def conv_bn(self, path, conv, bn, k, cin, cout, kw=None):
-        """A bias-free ``TorchConv`` (k x kw) and its BatchNorm under ``path``."""
-        kw = kw or k
-        self._at(self.params, path)[conv] = {"Conv_0": {
-            "kernel": _uniform(self.rng, (k, kw, cin, cout), k * kw * cin)}}
-        self._at(self.params, path)[bn] = {"scale": np.ones(cout, np.float32),
-                                           "bias": np.zeros(cout, np.float32)}
-        self._at(self.stats, path)[bn] = {"mean": np.zeros(cout, np.float32),
-                                          "var": np.ones(cout, np.float32)}
+    def conv(self, path, name, k, cin, cout, bias=False):
+        """A ``TorchConv`` (k x k) under ``path``, bias-free unless ``bias``."""
+        fan_in = k * k * cin
+        leaf = {"kernel": _uniform(self.rng, (k, k, cin, cout), fan_in)}
+        if bias:
+            leaf["bias"] = _uniform(self.rng, (cout,), fan_in)
+        self._at(self.params, path)[name] = {"Conv_0": leaf}
+
+    def bn(self, path, name, c):
+        """A BatchNorm: scale 1, bias 0, mean 0, var 1."""
+        self._at(self.params, path)[name] = {"scale": np.ones(c, np.float32),
+                                             "bias": np.zeros(c, np.float32)}
+        self._at(self.stats, path)[name] = {"mean": np.zeros(c, np.float32),
+                                            "var": np.ones(c, np.float32)}
+
+    def conv_bn(self, path, conv, bn, k, cin, cout):
+        """A bias-free ``TorchConv`` (k x k) and its BatchNorm under ``path``."""
+        self.conv(path, conv, k, cin, cout)
+        self.bn(path, bn, cout)
+
+    def bilstms(self, oc, h):
+        """The sequence stage: ``seq0`` (``oc`` -> ``h``) and ``seq1``."""
+        for name, in_size in (("seq0", oc), ("seq1", h)):
+            self.params[name] = {"rnn": {"fwd": _lstm(self.rng, in_size, h),
+                                         "bwd": _lstm(self.rng, in_size, h)},
+                                 "linear": _torch_dense(self.rng, 2 * h, h)}
 
 
 def _lstm(rng, in_size, hidden):
@@ -222,9 +244,46 @@ def _random_trba_extractor(rng, opt):
         inplanes = planes
     t.conv_bn(feat, "conv4_1", "bn4_1", 2, oc, oc)
     t.conv_bn(feat, "conv4_2", "bn4_2", 2, oc, oc)
-    for name, in_size in (("seq0", oc), ("seq1", h)):
-        t.params[name] = {"rnn": {"fwd": _lstm(rng, in_size, h), "bwd": _lstm(rng, in_size, h)},
-                          "linear": _torch_dense(rng, 2 * h, h)}
+    t.bilstms(oc, h)
+    return t.params, t.stats
+
+
+def _random_vgg_extractor(rng, opt):
+    """One None/VGG/BiLSTM Extractor's (params, batch_stats)."""
+    t = _Trees(rng)
+    oc = opt.output_channel
+    o = (oc // 8, oc // 4, oc // 2, oc)
+    feat = ("feature",)
+    for name, cin, cout in (("conv0", opt.input_channel, o[0]), ("conv1", o[0], o[1]),
+                            ("conv2", o[1], o[2]), ("conv3", o[2], o[2])):
+        t.conv(feat, name, 3, cin, cout, bias=True)
+    t.conv_bn(feat, "conv4", "bn4", 3, o[2], o[3])
+    t.conv_bn(feat, "conv5", "bn5", 3, o[3], o[3])
+    t.conv(feat, "conv6", 2, o[3], o[3], bias=True)
+    t.bilstms(oc, opt.hidden_size)
+    return t.params, t.stats
+
+
+def _random_rcnn_extractor(rng, opt):
+    """One None/RCNN/BiLSTM Extractor's (params, batch_stats): ``conv0``,
+    three GRCLs of 5 steps and ``conv1`` / ``bn1``."""
+    t = _Trees(rng)
+    oc = opt.output_channel
+    o = (oc // 8, oc // 4, oc // 2, oc)
+    feat = ("feature",)
+    t.conv(feat, "conv0", 3, opt.input_channel, o[0], bias=True)
+    for g, (cin, cout) in enumerate(((o[0], o[0]), (o[0], o[1]), (o[1], o[2]))):
+        grcl = feat + (f"grcl{g}",)
+        t.conv(grcl, "wgf_u", 1, cin, cout)
+        t.conv(grcl, "wf_u", 3, cin, cout)
+        t.conv(grcl, "wgr_x", 1, cout, cout)
+        t.conv(grcl, "wr_x", 3, cout, cout)
+        t.bn(grcl, "bn_x_init", cout)
+        for i in range(5):
+            for name in ("gfu", "grx", "rx", "fu", "gx"):
+                t.bn(grcl, f"u{i}_bn_{name}", cout)
+    t.conv_bn(feat, "conv1", "bn1", 2, o[2], o[3])
+    t.bilstms(oc, opt.hidden_size)
     return t.params, t.stats
 
 

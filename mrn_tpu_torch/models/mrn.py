@@ -20,8 +20,12 @@ the reference:
   (the learner's router CE is taken on it); the logits are
   ``einsum("ibtc,bi->btc")`` in float32 over the ones-padded expert logits.
 
-The experts always run in eval mode and without gradients: every expert is
-frozen while the router trains (JAX's pinned mode).  In router training
+The experts always run without gradients: every expert is frozen while
+the router trains.  They run in eval mode (JAX's pinned mode) unless
+``train=True`` (the drifting mode, ``mrn_pin_expert_stats=False``): then
+each expert's BatchNorms normalise with the batch statistics and move
+their running statistics in place, and SVTR DropPath draws its masks, as
+JAX's ``train=True`` router step does.  In router training
 (``is_train=True``) Attn experts decode teacher-forced on ``text``
 (``label[:, :-1]``, each with its own ``class_counts[i]`` for the OOV
 clamp); in serving and validation they decode greedily from the [SOS]
@@ -92,14 +96,14 @@ class MRNNet(nn.Module):
                                                     device=logits.device))
 
     def forward(self, image: torch.Tensor, text: Optional[torch.Tensor] = None,
-                is_train: bool = False) -> Dict[str, torch.Tensor]:
+                is_train: bool = False, train: bool = False) -> Dict[str, torch.Tensor]:
         """Returns {"logits" [B, T, C], "index", "aux_logits": None}: the
         expert pick [B] (``is_train=False``) or the routing weights [B, I]
         (``is_train=True``).  ``text`` (Attn experts): the [SOS] column, or
         under ``is_train`` the teacher-forcing ids [B, batch_max_length +
-        1]."""
+        1].  ``train``: the experts' BatchNorm and DropPath mode."""
         with torch.no_grad():  # frozen experts: the JAX learner's stop_gradient
-            outs = [expert(image, text, train=False, is_train=is_train, class_count=count)
+            outs = [expert(image, text, train=train, is_train=is_train, class_count=count)
                     for expert, count in zip(self.experts, self.class_counts)]
             preds = torch.stack([o["predict"] for o in outs])      # [I, B, T, C]
             features = torch.stack([o["feature"] for o in outs])   # [I, B, T, H]

@@ -24,20 +24,20 @@ from mrn_tpu_torch.models.common import BatchNorm, TorchConv, max_pool, to_nchw,
 __all__ = ["BasicBlock", "ResNetExtractor"]
 
 
-def _conv3(cin: int, cout: int) -> TorchConv:
-    return TorchConv(cin, cout, (3, 3), padding=(1, 1))
+def _conv3(cin: int, cout: int, quant: str) -> TorchConv:
+    return TorchConv(cin, cout, (3, 3), padding=(1, 1), quant=quant)
 
 
 class BasicBlock(nn.Module):
     """Two 3x3 convs; a 1x1 conv and BatchNorm on the shortcut when the
     width changes."""
 
-    def __init__(self, inplanes: int, planes: int):
+    def __init__(self, inplanes: int, planes: int, quant: str = "none"):
         super().__init__()
-        self.conv1, self.bn1 = _conv3(inplanes, planes), BatchNorm(planes)
-        self.conv2, self.bn2 = _conv3(planes, planes), BatchNorm(planes)
+        self.conv1, self.bn1 = _conv3(inplanes, planes, quant), BatchNorm(planes)
+        self.conv2, self.bn2 = _conv3(planes, planes, quant), BatchNorm(planes)
         if inplanes != planes:
-            self.down_conv = TorchConv(inplanes, planes, (1, 1))
+            self.down_conv = TorchConv(inplanes, planes, (1, 1), quant=quant)
             self.down_bn = BatchNorm(planes)
         else:
             self.down_conv = None
@@ -50,10 +50,11 @@ class BasicBlock(nn.Module):
 
 
 class _Layer(nn.Module):
-    def __init__(self, inplanes: int, planes: int, blocks: int):
+    def __init__(self, inplanes: int, planes: int, blocks: int, quant: str = "none"):
         super().__init__()
         for i in range(blocks):
-            setattr(self, f"block{i}", BasicBlock(inplanes if i == 0 else planes, planes))
+            setattr(self, f"block{i}", BasicBlock(inplanes if i == 0 else planes, planes,
+                                                  quant))
         self.blocks = blocks
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -64,23 +65,24 @@ class _Layer(nn.Module):
 
 class ResNetExtractor(nn.Module):
     def __init__(self, input_channel: int = 4, output_channel: int = 512,
-                 layers: Sequence[int] = (1, 2, 5, 3)):
+                 layers: Sequence[int] = (1, 2, 5, 3), quant: str = "none"):
         super().__init__()
         oc = (output_channel // 4, output_channel // 2, output_channel, output_channel)
         inplanes = output_channel // 8
-        self.conv0_1 = _conv3(input_channel, output_channel // 16)
+        self.conv0_1 = _conv3(input_channel, output_channel // 16, quant)
         self.bn0_1 = BatchNorm(output_channel // 16)
-        self.conv0_2 = _conv3(output_channel // 16, inplanes)
+        self.conv0_2 = _conv3(output_channel // 16, inplanes, quant)
         self.bn0_2 = BatchNorm(inplanes)
         ins = (inplanes,) + oc[:3]
         for i in range(4):
-            setattr(self, f"layer{i + 1}", _Layer(ins[i], oc[i], layers[i]))
+            setattr(self, f"layer{i + 1}", _Layer(ins[i], oc[i], layers[i], quant))
             if i < 3:
-                setattr(self, f"conv{i + 1}", _conv3(oc[i], oc[i]))
+                setattr(self, f"conv{i + 1}", _conv3(oc[i], oc[i], quant))
                 setattr(self, f"bn{i + 1}", BatchNorm(oc[i]))
-        self.conv4_1 = TorchConv(oc[3], oc[3], (2, 2), stride=(2, 1), padding=(0, 1))
+        self.conv4_1 = TorchConv(oc[3], oc[3], (2, 2), stride=(2, 1), padding=(0, 1),
+                                 quant=quant)
         self.bn4_1 = BatchNorm(oc[3])
-        self.conv4_2 = TorchConv(oc[3], oc[3], (2, 2))
+        self.conv4_2 = TorchConv(oc[3], oc[3], (2, 2), quant=quant)
         self.bn4_2 = BatchNorm(oc[3])
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:

@@ -37,8 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrn_tpu_torch.models.common import (BatchNorm, Conv2d, LayerNorm,
-                                         to_nchw, to_nhwc)
+from mrn_tpu_torch.models.common import (QUANT_MODES, BatchNorm, Conv2d, LayerNorm,
+                                         is_quant_scale, to_nchw, to_nhwc)
 from mrn_tpu_torch.ops.svtr_attention import attention_forward, attention_reference, mha_small_n
 from mrn_tpu_torch.ops.svtr_block import (SCORE_CLAMP, FoldCache, Int8Weights, _band_spec,
                                           fused_block, fused_block_int8,
@@ -50,17 +50,10 @@ __all__ = ["Block", "DropPath", "PatchEmbed", "QUANT_MODES", "SVTRExtractor",
            "SubSampleConv", "configure_blocks", "is_quant_scale", "local_attention_mask",
            "local_attention_mask_col_major", "score_envelope", "set_droppath_generator"]
 
-QUANT_MODES = ("none", "calib", "int8")
 _PROJ = ("qkv", "proj", "fc1", "fc2")
 # calibrated activation absmax per projection input, plus the post-scale q
 # and k and v for the int8-attention mode
 _AMAX_NAMES = _PROJ + ("q", "k", "v")
-
-
-def is_quant_scale(name: str) -> bool:
-    """Whether a buffer name (dotted or bare) is an ``act_amax_*`` or
-    ``w_scale_*`` of the quant collection."""
-    return name.rsplit(".", 1)[-1].startswith(("act_amax_", "w_scale_"))
 
 
 def _manual_layer_norm(x, scale, bias, eps=1e-6):

@@ -1,6 +1,6 @@
 """Serving entry point: recognise word crops with a recognizer or an MRN
-routed ensemble of SVTR (None/SVTR/None/CTC) or TRBA (TPS/ResNet/BiLSTM/Attn)
-experts.
+routed ensemble of SVTR (None/SVTR/None/CTC), CRNN (None/VGG/BiLSTM/CTC),
+GRCNN (None/RCNN/BiLSTM/CTC) or TRBA (TPS/ResNet/BiLSTM/Attn) experts.
 
     server = Server(opt, params, batch_stats, character, class_counts=counts)
     for word, conf in server.recognize(images): ...
@@ -19,10 +19,11 @@ Runs on the CUDA card unless ``device="cpu"`` is passed, in
 ``opt.compute_dtype`` (float32 or bfloat16; bfloat16 casts every weight and
 the images, as the JAX serving path does).
 
-w8a8 serving (``evaluate_cli.py --int8``) of a single SVTR recognizer::
+w8a8 serving (``evaluate_cli.py --int8``) of a single SVTR, CRNN, GRCNN,
+TRBA or RBA recognizer::
 
     quantize_int8(server, calibration_batches)   # calibrate, quantize, rebuild
-    server.recognize(images)                     # 12 int8 Blocks per request
+    server.recognize(images)                     # int8 Blocks or int8 convs
 
 ``server.check_score_envelope(images)`` is the float path's check of the
 fused Block's score clamp (``evaluate_cli.check_svtr_envelope``).
@@ -50,6 +51,7 @@ import torch
 from mrn_tpu_torch import resolve_device
 from mrn_tpu_torch.bridge import from_flax, quant_tree, recognizer_state, routed_state
 from mrn_tpu_torch.codec import build_converter
+from mrn_tpu_torch.models.common import TorchConv
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.mrn import MRNNet
 from mrn_tpu_torch.models.svtr import Block, score_envelope
@@ -139,8 +141,9 @@ class Server:
 
     @property
     def quantized(self) -> bool:
-        """Whether the model serves w8a8 int8 Blocks."""
-        return any(isinstance(m, Block) and m.quant == "int8" for m in self.model.modules())
+        """Whether the model serves w8a8 int8 Blocks or convs."""
+        return any(isinstance(m, (Block, TorchConv)) and m.quant == "int8"
+                   for m in self.model.modules())
 
     def images(self, images, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """NHWC images (float already normalised, or uint8) on the device in
@@ -166,16 +169,19 @@ class Server:
         print(f"# svtr score envelope: max |score| {mx:.1f} (fused-kernel clamp {SCORE_CLAMP:g})")
         return mx
 
+    def sos_column(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """make_eval_batch's [SOS] column [B, 1] for an Attn head, else None."""
+        if not self.attn:
+            return None
+        return torch.full((x.shape[0], 1), self.converter.sos_id, dtype=torch.int64,
+                          device=x.device)
+
     @torch.inference_mode()
     def forward(self, images) -> Dict[str, torch.Tensor]:
         """{"logits" [B, T, C], "index" [B] (MRN expert pick, else None)} on
         the device."""
         x = self.images(images)
-        text = None
-        if self.attn:  # make_eval_batch's [SOS] column
-            text = torch.full((x.shape[0], 1), self.converter.sos_id, dtype=torch.int64,
-                              device=self.device)
-        out = self.model(x, text)
+        out = self.model(x, self.sos_column(x))
         if "logits" in out:
             return {"logits": out["logits"], "index": out["index"]}
         return {"logits": out["predict"], "index": None}
@@ -215,8 +221,9 @@ def quantize_int8(server: Server, batches: Iterable, n_batches: int = 4) -> Serv
     """w8a8 post-training quantization of a single-recognizer server
     (``evaluate_cli.quantize_learner_int8``): the float32 recognizer runs in
     eval mode with ``quant="calib"`` on up to ``n_batches`` image batches of
-    ``batches`` (NHWC, uint8 or normalised float) and records each Block
-    projection's input range; its float32 weights are quantized
+    ``batches`` (NHWC, uint8 or normalised float; an Attn head decodes
+    greedily from [SOS]) and records each conv's or Block projection's input
+    range; its float32 weights are quantized
     (``ops.int8.quantize_variables``) and the server's model is rebuilt with
     ``quant="int8"`` in its own dtype.  An MRN ensemble is refused, as the
     JAX CLI refuses it.  Returns the server."""
@@ -227,7 +234,8 @@ def quantize_int8(server: Server, batches: Iterable, n_batches: int = 4) -> Serv
     seen = 0
     with torch.inference_mode():
         for images in itertools.islice(batches, n_batches):
-            calib(server.images(images, torch.float32))
+            x = server.images(images, torch.float32)
+            calib(x, server.sos_column(x))
             seen += 1
     if seen == 0:
         raise ValueError("int8 calibration saw no batches -- the calibration "

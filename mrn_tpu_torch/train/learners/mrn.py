@@ -20,17 +20,27 @@ and best checkpoints (mirrors ``mrn_tpu/train/learners/mrn.py``):
   or Attn's cross entropy with every expert decoding teacher-forced on
   ``label[:, :-1]``) and OneCycle over ``2 * num_iter``,
   validated "TF" (the hard expert pick) on every seen task's set every
-  ``max(1, val_interval // 5)`` iterations.  The experts run in eval mode,
-  so their BatchNorm statistics stay pinned (``mrn_pin_expert_stats=True``;
-  the reference's drifting mode is not ported, ROADMAP.md §1 item 4), and
-  without gradients.
+  ``max(1, val_interval // 5)`` iterations.  The experts run without
+  gradients and, by default, in eval mode, so their BatchNorm statistics
+  stay pinned (``mrn_pin_expert_stats=True``).  With
+  ``mrn_pin_expert_stats=False`` (the reference's drifting mode, as JAX
+  runs it) the router step runs the experts with ``train=True``: BatchNorm
+  on batch statistics, its running statistics drifting toward the
+  rehearsal stream (the TF validation reads them), SVTR DropPath from
+  ``generator``; after the router phase the drifted statistics are written
+  back into the frozen experts and their blob hashes invalidated, so the
+  next best save writes new blobs.  A router-phase snapshot then carries
+  the drifted statistics and a resume restores them.  The best files of
+  the router phase keep the statistics the phase started from (the JAX
+  learner's ``expert_stats``), and a payload's stats supersede its blobs'
+  on load.
 
 ``opt.start_task`` replays what a crashed run finished: a phase below it
 (task ``i`` step 0 below ``i``, step 1 below ``i + 0.5``) builds its
 stream as training would (so the generators advance alike) and loads its
 best checkpoint instead of training.  A router-phase snapshot keeps the
-router, its Adam state and the host state, not the frozen experts, which
-the replay rebuilds.
+router, its Adam state and the host state (and, drifting, the experts'
+statistics), not the frozen experts, which the replay rebuilds.
 
 Validation runs float32 experts: under the bf16 policy the training
 ensemble holds bfloat16 expert copies, so "TF" runs a float32 ensemble
@@ -61,10 +71,12 @@ import numpy as np
 import torch
 
 from mrn_tpu_torch.bridge import (flax_tree, recognizer_state, routed_state, state_to_flax,
-                                  to_flax)
+                                  to_flax, unstack)
+from mrn_tpu_torch.models.common import BatchNorm
 from mrn_tpu_torch.models.composer import build_recognizer
 from mrn_tpu_torch.models.init import random_recognizer, random_router
 from mrn_tpu_torch.models.mrn import MRNNet
+from mrn_tpu_torch.models.svtr import set_droppath_generator
 from mrn_tpu_torch.ops.losses import cross_entropy_dense
 from mrn_tpu_torch.train.checkpoint import composite_experts, load_model, save_model
 from mrn_tpu_torch.train.learners.base import BaseLearner
@@ -100,11 +112,8 @@ def tree_hash(*trees: Mapping) -> str:
 class MRN(BaseLearner):
 
     def __init__(self, opt, device=None):
-        if not opt.get("mrn_pin_expert_stats", True):
-            raise NotImplementedError("mrn_pin_expert_stats=False (experts' statistics "
-                                      "drifting in the router phase) is not ported "
-                                      "(ROADMAP.md §1 item 4)")
         super().__init__(opt, device)
+        self.pinned = bool(opt.get("mrn_pin_expert_stats", True))
         self.expert_states: List[Dict[str, torch.Tensor]] = []  # frozen, unpadded
         self.class_counts: List[int] = []
         self._expert_hashes: List[Optional[str]] = []  # blob names, None until written
@@ -189,6 +198,11 @@ class MRN(BaseLearner):
                 model = self._routed_model(self._router_tree())
                 for key in ROUTER_KEYS:
                     setattr(model, key, getattr(self.mrn_model, key))
+                if not self.pinned:   # the drifting statistics, shared
+                    for mine, live in zip(model.experts.modules(),
+                                          self.mrn_model.experts.modules()):
+                        if isinstance(mine, BatchNorm):
+                            mine.mean, mine.var = live.mean, live.var
                 self._eval_mrn = model
         return self._eval_mrn
 
@@ -203,7 +217,7 @@ class MRN(BaseLearner):
         if self._phase != "routed":
             return super().loss_fn(params, batch, aux)
         out = self._apply(self.mrn_model, params, batch["image"], is_train=True,
-                          **self._teacher_text(batch))
+                          train=not self.pinned, **self._teacher_text(batch))
         loss_clf = self._recognition_loss(out["logits"].float(), batch)
         # CE on the softmaxed routing weights, as the reference does
         loss_router = cross_entropy_dense(out["index"].float(), batch["dataset_idx"])
@@ -223,6 +237,7 @@ class MRN(BaseLearner):
         if router is None:
             router = random_router(self.weight_rng, self.opt, len(self.expert_states))
         self.mrn_model = self._routed_model(router, self._mp_dtype())
+        set_droppath_generator(self.mrn_model, self.generator)
         self._eval_mrn = None
         self.build_optimizer(scale=1.0, the=2)
 
@@ -271,6 +286,24 @@ class MRN(BaseLearner):
         self.router_state = {k: v.detach().clone()
                              for k, v in self.mrn_model.state_dict().items()
                              if not k.startswith("experts.")}
+        if not self.pinned:
+            self._write_back_stats()
+
+    def _expert_stats_tree(self) -> Dict:
+        """The training ensemble's expert statistics, stacked under
+        ``experts`` (the JAX router state's ``batch_stats``)."""
+        return flax_tree((k, b) for k, b in self.mrn_model.named_buffers()
+                         if k.startswith("experts."))
+
+    def _write_back_stats(self) -> None:
+        """The drifted statistics into the frozen experts; their blobs are
+        written anew at the next best save."""
+        states = []
+        for state, expert in zip(self.expert_states, self.mrn_model.experts):
+            live = dict(expert.named_buffers())
+            states.append({k: (live[k].detach().clone() if k in live else v)
+                           for k, v in state.items()})
+        self._set_experts(states, self.class_counts, [None] * len(states))
 
     def build_rehearsal_memory(self, train_loader, taski: int) -> None:
         """MRN's memory: ``memory_num >= 5000`` keeps full-size memories."""
@@ -291,18 +324,22 @@ class MRN(BaseLearner):
                                      index_list=self.memory_index)
 
     def _snapshot_trees(self):
-        """Step 1 keeps the router only: the frozen experts are rebuilt by
-        the replay, and their statistics stay pinned."""
+        """Step 1 keeps the router, and the experts' statistics when they
+        drift: the frozen experts are rebuilt by the replay."""
         if self._phase != "routed":
             return super()._snapshot_trees()
-        return self._router_tree(), {}
+        return self._router_tree(), ({} if self.pinned else self._expert_stats_tree())
 
     def _restore_trees(self, params, batch_stats) -> None:
         if self._phase != "routed":
             return super()._restore_trees(params, batch_stats)
         live = dict(self.mrn_model.named_parameters())
+        live.update(self.mrn_model.named_buffers())
+        state = recognizer_state({k: params[k] for k in ROUTER_KEYS})
+        if batch_stats:   # drifting mode: the experts' statistics
+            state.update(unstack(batch_stats, "experts"))
         with torch.no_grad():
-            for name, value in recognizer_state({k: params[k] for k in ROUTER_KEYS}).items():
+            for name, value in state.items():
                 live[name].copy_(value)
 
     def after_task(self) -> None:

@@ -55,7 +55,7 @@ def test_smoke_campaign_record_and_replay(tmp_path, monkeypatch):
         assert json.load(f) == record
     with open(os.path.join(ROOT, "ACCURACY_RUNS", "t6", "svtr_mrn.json"), encoding="utf-8") as f:
         t6 = json.load(f)
-    assert set(t6) | {"device"} == set(record)
+    assert set(t6) | {"device", "tf32"} == set(record)
     assert record["device"] == "cpu" and record["il"] == "mrn" and record["arch"] == "svtr"
     matrix = record["acc_matrix"]
     assert [len(row) for row in matrix] == [1, 2] and record["final_row"] == matrix[-1]
@@ -82,19 +82,21 @@ def test_smoke_campaign_record_and_replay(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("il", ["wa", "base", "der"])
 def test_other_strategies_raise(il, tmp_path):
-    """The other strategies are ported for the CTC and the Attn head (SVTR
-    and TRBA); what they still refuse is another backbone (VGG, RCNN)."""
+    """The other strategies are ported for the CTC and the Attn head (SVTR,
+    CRNN, GRCNN and TRBA); what they still refuse is a stage combination
+    the port does not build (a TPS in front of VGG), and the campaign an
+    architecture it has no dims for."""
     learner = build_learner(default_options(il=il, output_dir=str(tmp_path)), device="cpu")
     assert type(learner).__name__ == {"wa": "WA", "base": "BaseLearner", "der": "DER"}[il]
     attn = build_learner(default_options(il=il, Prediction="Attn", output_dir=str(tmp_path)),
                          device="cpu")
     assert type(attn) is type(learner)
-    vgg = build_learner(default_options(il=il, FeatureExtraction="VGG",
-                                        SequenceModeling="BiLSTM", output_dir=str(tmp_path)),
-                        device="cpu")
-    vgg.character = list("abc")
-    vgg.converter = vgg.build_converter()
-    with pytest.raises(NotImplementedError, match="VGG"):
-        vgg.build_model()
+    tps_vgg = build_learner(default_options(il=il, Transformation="TPS", FeatureExtraction="VGG",
+                                            SequenceModeling="BiLSTM",
+                                            output_dir=str(tmp_path)), device="cpu")
+    tps_vgg.character = list("abc")
+    tps_vgg.converter = tps_vgg.build_converter()
+    with pytest.raises(NotImplementedError, match="TPS\\+VGG"):
+        tps_vgg.build_model()
     with pytest.raises(SystemExit):
-        campaign.main(["--il", il, "--arch", "crnn", "--device", "cpu"])
+        campaign.main(["--il", il, "--arch", "grcnn", "--device", "cpu"])

@@ -124,7 +124,9 @@ def test_bridge_layouts(rng):
 
 def test_unsupported_stage_combination_raises():
     with pytest.raises(NotImplementedError):
-        Recognizer(10, feature_extraction="VGG", sequence_modeling="BiLSTM")
+        Recognizer(10, transformation="TPS", feature_extraction="VGG", sequence_modeling="BiLSTM")
+    with pytest.raises(NotImplementedError):
+        Recognizer(10, feature_extraction="VGG", sequence_modeling="None")
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

@@ -122,7 +122,7 @@ def test_strategy_writes_the_t6_record(runs, il):
                              [24, 20], [6, 6], aia, matrix, seconds, sum(seconds), "cpu")
     with open(os.path.join(ROOT, "ACCURACY_RUNS", "t6", "svtr_wa.json"), encoding="utf-8") as f:
         t6 = json.load(f)
-    assert set(t6) | {"device"} == set(record) and record["il"] == il
+    assert set(t6) | {"device", "tf32"} == set(record) and record["il"] == il
     json.dumps(record)
     if il.startswith("joint"):
         assert [len(r) for r in matrix] == [2] and record["avg_forgetting"] is None
