@@ -194,7 +194,28 @@
    float32 and bfloat16, counting ``_int_mm`` convs (7 and 32 a request)
    and TPS warp launches (1 a TRBA request); the served int8 logits
    against the same servers on the plain convs beside the float-products
-   control, which must fail (``check_int8``).
+   control, which must fail (``check_int8``);
+18. the tanh-GELU serving mode (``models.svtr.set_gelu_approximate(True)``,
+   the JAX package's switch): the 6-expert SVTR-MRN servers of phase 4 and
+   one int8 SVTR recognizer calibrated with the switch on, served with it
+   on (counted: 12 tanh-form launches of row 4 per expert and request, 12
+   of row 3 per int8 request); every served Block against its plain version
+   on its own input (row 4 at ``BLOCK_TOL``, row 3 beside its control), the
+   routed outputs against the plain path, the greedy picks against the
+   degree-9 form's on the same batch; then rows 4 and 3 in the tanh form
+   at the four Block shapes, f32 and bf16, against their plain versions,
+   timed beside the degree-9 form, the plain version, the library Block
+   with ``F.gelu(approximate="tanh")`` and the bound;
+19. the host cost of a custom op's dispatch (``torch.ops.mrn_tpu_torch.*``
+   against its CUDA implementation called directly);
+20. ``export_cli``'s path: the 6-expert SVTR-MRN, the int8 SVTR recognizer
+   of phase 11, the TRBA recognizer of phase 12 and one CRNN recognizer,
+   bf16, each exported at batch 256 (``export_cli.export_inference``),
+   saved and loaded (``torch.export``) and served, counting the kernels'
+   launches (the export's one eager call and the requests); each loaded
+   program's logits equal the eager server's bitwise; prints the export,
+   save and load seconds, the ``.pt2`` bytes and the first and warm request
+   seconds.
 
 Any failed check raises (exit code != 0).  The line before the last is the
 per-kernel JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -214,6 +235,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
 import numpy as np
@@ -227,7 +249,7 @@ from mrn_tpu_torch import campaign  # noqa: E402
 from mrn_tpu_torch.bridge import quant_tree, state_to_flax, to_flax  # noqa: E402
 from mrn_tpu_torch.codec import build_converter  # noqa: E402
 from mrn_tpu_torch.config import load_config  # noqa: E402
-from mrn_tpu_torch import evaluate_cli, recognize_cli, train_cli  # noqa: E402
+from mrn_tpu_torch import evaluate_cli, export_cli, recognize_cli, train_cli  # noqa: E402
 from mrn_tpu_torch.data import image as image_codec  # noqa: E402
 from mrn_tpu_torch.data.lmdb_store import LmdbReader  # noqa: E402
 from mrn_tpu_torch.data.manager import DatasetManager, ValDataset  # noqa: E402
@@ -240,10 +262,11 @@ from mrn_tpu_torch.models.init import (random_block, random_mrn,  # noqa: E402
 from mrn_tpu_torch.models import tps  # noqa: E402
 from mrn_tpu_torch.models.common import BatchNorm, TorchConv  # noqa: E402
 from mrn_tpu_torch.models.svtr import (Block, configure_blocks,  # noqa: E402
-                                       local_attention_mask_col_major)
+                                       local_attention_mask_col_major, set_gelu_approximate)
 from mrn_tpu_torch.ops import _build, int8, metrics, svtr_attention, svtr_block  # noqa: E402
 from mrn_tpu_torch.ops import grid_sample, svtr_train_block  # noqa: E402
 from mrn_tpu_torch.ops.ctc import ctc_loss_per_sample  # noqa: E402
+from mrn_tpu_torch.ops.svtr_block import GELU_TANH  # noqa: E402
 from mrn_tpu_torch.serve import Server, quantize_int8  # noqa: E402
 from mrn_tpu_torch.train import checkpoint  # noqa: E402
 from mrn_tpu_torch.train.learners import mrn as mrn_learner  # noqa: E402
@@ -520,6 +543,18 @@ GRCNN_WINDOW = 5
 # the int8 conv path: INT8_CONV_REQUESTS requests per dtype of one CRNN and
 # one TRBA recognizer (CLASS_COUNTS[0] classes), float and int8
 INT8_CONV_REQUESTS = 3
+# The tanh-GELU serving mode (models.svtr.set_gelu_approximate(True)) and
+# the export phase draw from their own generator, so the earlier phases
+# see the draws they always saw.  Requests of the 6-expert SVTR-MRN per
+# dtype and of one int8 SVTR recognizer (bf16) with the switch on, and of
+# each exported program.
+TANH_SEED = SEED + 16
+TANH_REQUESTS = {"bfloat16": 2, "float32": 1}
+TANH_INT8_REQUESTS = 2
+EXPORT_REQUESTS = 3
+# host cost of a custom op's dispatch: calls of the op and of its CUDA
+# implementation directly, on a tiny input (host-bound), in turns
+DISPATCH_CALLS = 2000
 
 
 # ------------------------------------------------------------------- timing
@@ -553,9 +588,10 @@ def block_bound_ms(b, n, c, heads, hidden, dt, mask, width):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_FLOPS[dt]
 
 
-def library_block(x, p, mask, heads, scale):
+def library_block(x, p, mask, heads, scale, approximate="none"):
     """Yardstick: the same Block composed from library calls (LayerNorm,
-    cuBLAS matmuls, SDPA, exact GELU) in x's dtype.  Timed only."""
+    cuBLAS matmuls, SDPA, exact GELU, or its tanh form with ``approximate=
+    "tanh"``) in x's dtype.  Timed only."""
     b, n, c = x.shape
     d = c // heads
     h = F.layer_norm(x, (c,), p["norm1_scale"], p["norm1_bias"], 1e-6)
@@ -564,7 +600,7 @@ def library_block(x, p, mask, heads, scale):
     o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
     x = x + o.transpose(1, 2).reshape(b, n, c) @ p["proj_kernel"] + p["proj_bias"]
     h = F.layer_norm(x, (c,), p["norm2_scale"], p["norm2_bias"], 1e-6)
-    h = F.gelu(h @ p["fc1_kernel"] + p["fc1_bias"])
+    h = F.gelu(h @ p["fc1_kernel"] + p["fc1_bias"], approximate=approximate)
     return x + h @ p["fc2_kernel"] + p["fc2_bias"]
 
 
@@ -642,13 +678,40 @@ def phase_build():
         print_ptxas(name)
 
 
-def phase_blocks(device, rng):
+@contextlib.contextmanager
+def gelu_tanh():
+    """The JAX package's serving switch ``set_gelu_approximate(True)``: every
+    Block MLP takes the tanh-form GELU while it is on."""
+    set_gelu_approximate(True)
+    try:
+        yield
+    finally:
+        set_gelu_approximate(False)
+
+
+@contextlib.contextmanager
+def gelu_off():
+    """The switch off inside a ``gelu_tanh`` block (the degree-9 form)."""
+    set_gelu_approximate(False)
+    try:
+        yield
+    finally:
+        set_gelu_approximate(True)
+
+
+def phase_blocks(device, rng, gelu=9):
     """Kernel vs plain at the four Block shapes; returns per-dtype sums over
-    one expert's 12 Blocks."""
+    one expert's 12 Blocks.  ``gelu=GELU_TANH`` runs them with the serving
+    switch on (the tanh form), each timed beside the degree-9 form on the
+    same Block, the library Block with ``F.gelu(approximate="tanh")``."""
+    tanh = gelu == GELU_TANH
+    label = "tanh " if tanh else ""
     totals = {}
     for dt in (torch.float32, torch.bfloat16):
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                    max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0)
+        if tanh:
+            tot["ms_degree9"] = 0.0
         for name, hw, c, heads, mixer, count in BLOCK_SHAPES:
             n = hw[0] * hw[1]
             blk = Block(c, heads, mixer, hw, col_major=(mixer == "Local"))
@@ -663,10 +726,14 @@ def phase_blocks(device, rng):
             blk = blk.to(device=device, dtype=dt).eval()
             x = torch.from_numpy(rng.standard_normal((BATCH, n, c)).astype(np.float32)
                                  ).to(device=device, dtype=dt)
-            with torch.inference_mode():
+            with gelu_tanh() if tanh else contextlib.nullcontext(), torch.inference_mode():
                 blk.plain = False
-                out_k = _launch_twice(f"{name} {str(dt)[6:]} Block", lambda: blk(x))
+                out_k = _launch_twice(f"{label}{name} {str(dt)[6:]} Block", lambda: blk(x))
                 ms = cuda_ms(lambda: blk(x), 5)
+                if tanh:
+                    with gelu_off():
+                        ms9 = cuda_ms(lambda: blk(x), 5)
+                    tot["ms_degree9"] += count * ms9
                 blk.plain = True
                 out_p = blk(x)
                 plain_ms = cuda_ms(lambda: blk(x), 3)
@@ -674,16 +741,18 @@ def phase_blocks(device, rng):
                 params = {k: v for k, v in blk.named_parameters()}
                 full_mask = (None if blk.mask is None
                              else blk.mask.to(device=device, dtype=dt))
-                lib_ms = cuda_ms(lambda: library_block(x, params, full_mask, heads,
-                                                       blk.scale), 5)
+                lib_ms = cuda_ms(lambda: library_block(
+                    x, params, full_mask, heads, blk.scale,
+                    approximate="tanh" if tanh else "none"), 5)
             plan = svtr_block._Plan(n, blk.mask, blk.band, x.device)
             bytes_ms, ops_ms = block_bound_ms(BATCH, n, c, heads, 4 * c, dt,
                                               plan.mask, plan.width)
             bound = max(bytes_ms, ops_ms)
             atol, rtol = BLOCK_TOL[dt]
-            err = check_close(f"{name} {str(dt)[6:]} [{BATCH},{n},{c}] qb {plan.qb} "
+            err = check_close(f"{label}{name} {str(dt)[6:]} [{BATCH},{n},{c}] qb {plan.qb} "
                               f"width {plan.width}", out_k, out_p, atol, rtol)
-            print(f"    ms {ms:.3f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.3f}  "
+            print(f"    ms {ms:.3f}" + (f" (degree 9 {ms9:.3f})" if tanh else "")
+                  + f"  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.3f}  "
                   f"bound_ms {bound:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'})  "
                   f"({bound / ms:.1%} of bound); two launches bitwise equal; "
                   + _block_plan_text(svtr_block._kernel_plan(dt, n, c, heads, 4 * c, plan.qb,
@@ -695,7 +764,7 @@ def phase_blocks(device, rng):
             tot["bytes_ms"] += count * bytes_ms
             tot["ops_ms"] += count * ops_ms
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        print(f"  one expert's 12 Blocks, {str(dt)[6:]}, batch {BATCH}: "
+        print(f"  {label}one expert's 12 Blocks, {str(dt)[6:]}, batch {BATCH}: "
               + ", ".join(f"{k} {v:.4g}" for k, v in tot.items()))
         totals[dt] = tot
     return totals
@@ -817,7 +886,7 @@ def phase_serve(rng):
         wall = time.perf_counter() - t0
     print_device_profile(f"bf16 {N_EXPERTS}-expert SVTR request of {BATCH} crops, warm",
                          prof, wall)
-    return launches, timings
+    return launches, timings, servers, images
 
 
 def attention_bound_ms(b, heads, n, d, dt, pairs, mask_bytes):
@@ -2197,13 +2266,14 @@ def int8_block(rng, c, heads, mixer, hw, x32, device, dt):
     return blk.to(device=device, dtype=dt).eval()
 
 
-def library_block_int8(x, blk):
+def library_block_int8(x, blk, approximate="none"):
     """Yardstick: the w8a8 Block from library calls in x's dtype --
     ``torch._int_mm`` (cuBLASLt int8, B column-major as its int8 path takes
     it) for the four projections with the activation quantization and
     dequant as PyTorch ops, ``F.layer_norm``, SDPA held to its fused
     backends (flash, or memory-efficient with the full mask in x's dtype),
-    exact GELU.  Timed only.  Returns a function of no arguments."""
+    exact GELU (or its tanh form with ``approximate="tanh"``).  Timed only.
+    Returns a function of no arguments."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     b, n, c = x.shape
@@ -2225,7 +2295,7 @@ def library_block_int8(x, blk):
             o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=blk.scale)
         x1 = x.float() + proj(1, o.transpose(1, 2).reshape(b, n, c))
         h = F.layer_norm(x1, (c,), blk.norm2_scale.float(), blk.norm2_bias.float(), 1e-6)
-        return (x1 + proj(3, F.gelu(proj(2, h)))).to(x.dtype)
+        return (x1 + proj(3, F.gelu(proj(2, h), approximate=approximate))).to(x.dtype)
     return run
 
 
@@ -2655,51 +2725,62 @@ def check_int8(what, got, ref, control, dt):
     return mx
 
 
-def phase_int8_blocks(device, rng):
+def phase_int8_blocks(device, rng, gelu=9):
     """The w8a8 Block kernel vs its plain version at the four Block shapes,
     f32 and bf16, float and int8 attention, with the float-products control;
     profiles the library yardstick once; returns sums over one expert's 12
-    Blocks per (dtype, attn_int8)."""
+    Blocks per (dtype, attn_int8).  ``gelu=GELU_TANH`` calibrates and runs
+    each Block with the serving switch on (the tanh form), with float
+    attention, each timed beside the degree-9 form on the same Block, the
+    library Block with ``F.gelu(approximate="tanh")``, and no profile."""
+    tanh = gelu == GELU_TANH
+    label = "tanh " if tanh else ""
     totals, yardsticks = {}, []
-    print_ptxas("svtr_block_int8")
+    if not tanh:
+        print_ptxas("svtr_block_int8")
     for dt in (torch.float32, torch.bfloat16):
-        for attn_int8 in (False, True):
+        for attn_int8 in (False,) if tanh else (False, True):
             tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                        ops_ms=0.0, max_abs_err=0.0)
+            if tanh:
+                tot["ms_degree9"] = 0.0
             for name, hw, c, heads, mixer, count in BLOCK_SHAPES:
                 n = hw[0] * hw[1]
                 x32 = torch.from_numpy(rng.standard_normal((BATCH, n, c)).astype(np.float32)
                                        ).to(device)
-                blk = int8_block(rng, c, heads, mixer, hw, x32, device, dt)
-                blk.attn_int8 = attn_int8
                 x = x32.to(dt)
-                with torch.inference_mode():
-                    out_k = blk(x)
-                    again = blk(x)
-                    torch.cuda.synchronize()
-                    if not torch.equal(out_k, again):
-                        raise RuntimeError(f"int8 {name}: two kernel launches differ")
-                    ms = cuda_ms(lambda: blk(x), 5)
-                    print_int8_launches(lambda: blk(x))
-                    blk.plain = True
-                    out_p = blk(x)
-                    plain_ms = cuda_ms(lambda: blk(x), 3)
-                    with mock.patch.object(svtr_block, "_q8", float_products_q8):
-                        out_c = blk(x)
-                    blk.plain = False
-                    yardstick = library_block_int8(x, blk)
-                    lib_ms = cuda_ms(yardstick, 5)
-                    if dt == torch.bfloat16 and not attn_int8:
-                        yardsticks.append(yardstick)
+                with gelu_tanh() if tanh else contextlib.nullcontext():
+                    blk = int8_block(rng, c, heads, mixer, hw, x32, device, dt)
+                    blk.attn_int8 = attn_int8
+                    with torch.inference_mode():
+                        out_k = _launch_twice(f"{label}int8 {name}", lambda: blk(x))
+                        ms = cuda_ms(lambda: blk(x), 5)
+                        if tanh:
+                            with gelu_off():
+                                ms9 = cuda_ms(lambda: blk(x), 5)
+                            tot["ms_degree9"] += count * ms9
+                        print_int8_launches(lambda: blk(x))
+                        blk.plain = True
+                        out_p = blk(x)
+                        plain_ms = cuda_ms(lambda: blk(x), 3)
+                        with mock.patch.object(svtr_block, "_q8", float_products_q8):
+                            out_c = blk(x)
+                        blk.plain = False
+                        yardstick = library_block_int8(x, blk,
+                                                       approximate="tanh" if tanh else "none")
+                        lib_ms = cuda_ms(yardstick, 5)
+                        if dt == torch.bfloat16 and not attn_int8 and not tanh:
+                            yardsticks.append(yardstick)
                 pairs = n * n if blk.mask is None else int((blk.mask == 0).sum())
                 plan = svtr_block._Plan(n, blk.mask, blk.band, device)
                 bytes_ms, ops_ms = int8_block_bound_ms(BATCH, n, c, heads, 4 * c, dt, pairs,
                                                        attn_int8, plan.width)
                 bound = max(bytes_ms, ops_ms)
-                err = check_int8(f"int8 {name} {str(dt)[6:]} attn_int8={attn_int8} "
+                err = check_int8(f"{label}int8 {name} {str(dt)[6:]} attn_int8={attn_int8} "
                                  f"[{BATCH},{n},{c}] qb {plan.qb} width {plan.width}",
                                  out_k, out_p, out_c, dt)
-                print(f"    ms {ms:.3f}  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.3f}  "
+                print(f"    ms {ms:.3f}" + (f" (degree 9 {ms9:.3f})" if tanh else "")
+                      + f"  plain_ms {plain_ms:.3f}  library_ms {lib_ms:.3f}  "
                       f"bound_ms {bound:.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}, "
                       f"{bound / ms:.1%} of bound); two launches bitwise equal; "
                       + _block_plan_text(svtr_block._int8_kernel_plan(
@@ -2708,34 +2789,44 @@ def phase_int8_blocks(device, rng):
                                  ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
                     tot[key] += count * val
                 tot["max_abs_err"] = max(tot["max_abs_err"], err)
-            print(f"  int8 Blocks, one expert's 12, {str(dt)[6:]} attn_int8={attn_int8}, batch "
-                  f"{BATCH}: " + ", ".join(f"{k} {v:.4g}" for k, v in tot.items()))
+            print(f"  {label}int8 Blocks, one expert's 12, {str(dt)[6:]} attn_int8={attn_int8}, "
+                  f"batch {BATCH}: " + ", ".join(f"{k} {v:.4g}" for k, v in tot.items()))
             totals[(dt, attn_int8)] = tot
-    with torch.inference_mode():
-        profile_int8_yardstick(yardsticks)
+    if yardsticks:
+        with torch.inference_mode():
+            profile_int8_yardstick(yardsticks)
     return totals
+
+
+def _served_blocks(srv, images):
+    """(Block, input, output) of every Block in one ``srv.forward`` of
+    ``images``, and that forward's output."""
+    served = []
+    hooks = [m.register_forward_hook(lambda m, a, o: served.append((m, a[0], o)))
+             for m in srv.model.modules() if isinstance(m, Block)]
+    try:
+        out = srv.forward(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return served, out
 
 
 def check_served_int8_blocks(what, srv, images, dt):
     """Serves ``images`` and holds each int8 Block, on the input it was
     served, against its plain version beside the float-products control
     (``check_int8``).  Returns the served logits (float32)."""
-    served = []
-    hooks = [m.register_forward_hook(lambda m, a, o: served.append((m, a[0], o)))
-             for m in srv.model.modules() if isinstance(m, Block)]
-    out_k = srv.forward(images)["logits"].float()
-    for h in hooks:
-        h.remove()
+    served, out = _served_blocks(srv, images)
     with torch.inference_mode():
-        for i, (blk, x, out) in enumerate(served):
+        for i, (blk, x, out_i) in enumerate(served):
             blk.plain = True
             ref = blk(x)
             with mock.patch.object(svtr_block, "_q8", float_products_q8):
                 control = blk(x)
             blk.plain = False
-            check_int8(f"{what} served Block {i} [{','.join(map(str, x.shape))}]", out, ref,
+            check_int8(f"{what} served Block {i} [{','.join(map(str, x.shape))}]", out_i, ref,
                        control, dt)
-    return out_k
+    return out["logits"].float()
 
 
 def int8_logits_vs_plain(what, srv, images, dtype, out_k, out_f=None):
@@ -2844,7 +2935,7 @@ def phase_int8_serve(rng, base):
               f"mean NED {ned:.4f}")
     if failed:
         raise RuntimeError(f"int8 {failed}: served logits disagree with the plain path")
-    return launches
+    return launches, servers["bfloat16"], images
 
 
 def cuda_ms_queued(fn, reps):
@@ -3100,7 +3191,7 @@ def phase_trba_serve(rng):
         print_device_profile(f"TRBA {dtype}, one request", prof, wall)
         print(f"    peak device memory of the request {torch.cuda.max_memory_allocated() / 2**30:.2f} "
               f"GiB (weights of both servers included)")
-    return launches, timings, grids, torch.from_numpy(images).cuda()
+    return launches, timings, grids, torch.from_numpy(images).cuda(), single
 
 
 def grid_sample_bound_ms(image, grid):
@@ -3800,6 +3891,217 @@ def phase_int8_convs(rng):
     return warp_launches
 
 
+# ------------------------------------------------- the tanh-GELU serving mode
+def phase_gelu_tanh(device, servers, images, base):
+    """The tanh-GELU serving mode: the 6-expert SVTR-MRN servers of the
+    serving phase and one int8 SVTR recognizer calibrated with the switch
+    on, served through ``Server.recognize`` with the switch on (counted);
+    every served Block against its plain version on its own input (row 4 at
+    BLOCK_TOL, row 3 beside its control), the routed outputs against the
+    plain path, the greedy picks against the degree-9 form on the same
+    batch (bench.py's gelu-approx agreement); then the Blocks alone
+    (``phase_blocks`` and ``phase_int8_blocks`` in the tanh form).  Returns
+    (row-4 launches, row-3 launches, and the two Blocks' totals)."""
+    rng = np.random.default_rng(TANH_SEED)
+    alphabet = _task_alphabets()[0]
+    params, stats = random_recognizer(rng, base, CLASS_COUNTS[0])
+    loader = SyntheticTaskLoader([alphabet], 0, BATCH, BATCH * (INT8_CALIB_BATCHES + 1),
+                                 img_h=base.imgH, img_w=base.imgW, seed=TANH_SEED)
+    calib = [loader.bank[loader.get_batch()[0]] for _ in range(INT8_CALIB_BATCHES)]
+    int8_images = loader.bank[loader.get_batch()[0]]
+    with gelu_tanh():
+        int8_srv = quantize_int8(Server(base.replace(compute_dtype="bfloat16"), params, stats,
+                                        alphabet), iter(calib), n_batches=INT8_CALIB_BATCHES)
+        torch.cuda.synchronize()
+
+        # ---- counted run: the main path with the switch on, through the entry points
+        svtr_block.launches = svtr_block.int8_launches = 0
+        for dtype, n_req in TANH_REQUESTS.items():
+            ts, result = _timed_requests(servers[dtype], images, n_req)
+            _print_requests(f"tanh-GELU SVTR-MRN {dtype}", ts)
+        ts, _ = _timed_requests(int8_srv, int8_images, TANH_INT8_REQUESTS)
+        _print_requests("tanh-GELU int8 SVTR recognizer bfloat16", ts)
+        launches, int8_launches = svtr_block.launches, svtr_block.int8_launches
+        expected = (sum(TANH_REQUESTS.values()) * N_EXPERTS * 12, TANH_INT8_REQUESTS * 12)
+        print(f"  tanh-form launches in the served requests: row 4 {launches}, row 3 "
+              f"{int8_launches} (expected {expected[0]} = {sum(TANH_REQUESTS.values())} requests x "
+              f"{N_EXPERTS} experts x 12 Blocks, {expected[1]} = {TANH_INT8_REQUESTS} x 12)")
+        if (launches, int8_launches) != expected:
+            raise RuntimeError("the tanh-GELU served path did not run through the kernels "
+                               "as expected")
+
+        # ---- each served Block on its own input, the routed outputs, the int8 Blocks
+        with torch.inference_mode():
+            for dtype, srv in servers.items():
+                err = 0.0
+                for blk, x, out in _served_blocks(srv, images)[0]:
+                    blk.plain = True
+                    ref = blk(x)
+                    blk.plain = False
+                    tol = BLOCK_TOL[srv.dtype]
+                    if not bool(((out.float() - ref.float()).abs()
+                                 <= tol[0] + tol[1] * ref.float().abs()).all()):
+                        check_close(f"tanh {dtype} served Block {tuple(x.shape)}", out, ref, *tol)
+                    err = max(err, float((out.float() - ref.float()).abs().max()))
+                print(f"  tanh {dtype}: each of the {N_EXPERTS * 12} served Blocks within "
+                      f"BLOCK_TOL {BLOCK_TOL[srv.dtype]} of its plain version on its own input, "
+                      f"max_abs_err {err:.3e}")
+                routed_vs_plain(srv.model, srv.images(images), LOGIT_TOL[srv.dtype],
+                                f"tanh {dtype}")
+        check_served_int8_blocks("tanh int8 bfloat16", int8_srv, int8_images, torch.bfloat16)
+        picks = {dtype: srv.eval_batch(images)["preds_index"] for dtype, srv in servers.items()}
+        logits = {dtype: srv.forward(images)["logits"].float() for dtype, srv in servers.items()}
+    for dtype, srv in servers.items():
+        degree9 = srv.eval_batch(images)["preds_index"]
+        delta = float((logits[dtype] - srv.forward(images)["logits"].float()).abs().max())
+        print(f"  {dtype}: greedy picks of the tanh form agree with the degree-9 form's on "
+              f"{float((picks[dtype] == degree9).mean()):.4f} of the steps (bench.py's "
+              f"gelu-approx agreement; random weights), max |logit delta| {delta:.3e}")
+    print("== tanh-form Block kernels vs plain, SVTR Block shapes")
+    return (launches, int8_launches, phase_blocks(device, rng, GELU_TANH),
+            phase_int8_blocks(device, rng, GELU_TANH))
+
+
+# --------------------------------------------------------------- export phase
+def dispatch_cost(device, rng):
+    """Host microseconds per call of the fused-Block and warp custom ops
+    against their CUDA implementations called directly, on tiny
+    host-bound inputs, in turns (op, direct, direct, op)."""
+    c = 64
+    params = {k: torch.from_numpy(v).to(device) for k, v in random_block(rng, c).items()}
+    x = torch.from_numpy(rng.standard_normal((1, 32, c)).astype(np.float32)).to(device)
+    weights = list(svtr_block._fold(params, 0.25, torch.float32))
+    image = torch.zeros((1, 8, 16, 4), device=device)
+    grid = torch.zeros((1, 8, 16, 2), device=device)
+    pairs = {"fused_block": (lambda: svtr_block._fused_block_op(x, weights, None, [], 2, 9),
+                             lambda: svtr_block._fused_block_op_cuda(x, weights, None, [], 2, 9)),
+             "grid_sample": (lambda: grid_sample._grid_sample_op(image, grid),
+                             lambda: grid_sample._grid_sample_cuda(image, grid))}
+    out = {}
+    with torch.inference_mode():
+        for name, (op, direct) in pairs.items():
+            times = {"op": [], "direct": []}
+            for kind, fn in (("op", op), ("direct", direct), ("direct", direct), ("op", op)):
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DISPATCH_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                times[kind].append(1e6 * (time.perf_counter() - t0) / DISPATCH_CALLS)
+            op_us, direct_us = np.mean(times["op"]), np.mean(times["direct"])
+            out[name] = op_us - direct_us
+            print(f"  {name}: {op_us:.2f} us per call through torch.ops.mrn_tpu_torch."
+                  f"{name}, {direct_us:.2f} us calling its CUDA implementation directly "
+                  f"({times}): dispatch {op_us - direct_us:.2f} us per call")
+    return out
+
+
+def _export_and_serve(what, learner, opt, dtype_name, x, out_dir):
+    """``export_cli.export_inference`` at batch ``BATCH``, ``torch.export.save``,
+    ``torch.export.load``, then EXPORT_REQUESTS requests of the loaded
+    program on ``x`` (float32 NHWC on the card); prints the seconds and the
+    ``.pt2`` bytes; returns the last logits."""
+    t0 = time.perf_counter()
+    program, shape = export_cli.export_inference(learner, opt, BATCH, dtype_name)
+    t_export = time.perf_counter() - t0
+    path = os.path.join(out_dir, f"{what.replace(' ', '_')}.pt2")
+    t0 = time.perf_counter()
+    torch.export.save(program, path)
+    t_save = time.perf_counter() - t0
+    del program
+    t0 = time.perf_counter()
+    module = torch.export.load(path).module()
+    t_load = time.perf_counter() - t0
+    ts = []
+    with torch.inference_mode():
+        for _ in range(EXPORT_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = module(x)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+    if tuple(logits.shape) != shape or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{what}: the loaded program gave {tuple(logits.shape)} "
+                           f"{logits.dtype}, expected finite float32 {shape}")
+    print(f"  {what}: export {t_export:.2f} s, save {t_save:.2f} s, {os.path.getsize(path)} "
+          f"bytes, load {t_load:.2f} s; requests of {BATCH}: first {ts[0]:.4f} s, warm "
+          f"{[round(t, 4) for t in ts[1:]]} s; logits {list(shape)}")
+    return logits
+
+
+def phase_export(rng, programs):
+    """``export_cli``'s path on the card: each of ``programs`` -- (name, a
+    server, the learner attributes ``export_inference`` reads, images) --
+    exported in the server's dtype at batch BATCH, saved, loaded and served
+    (counted: the export's one eager call and the requests), then its
+    logits held against the eager server on the same images (the same
+    kernels in the same order: bitwise).  Returns the launches of rows 4,
+    3 and 8."""
+    out_dir = tempfile.mkdtemp(prefix="smoke_export_", dir=os.path.join(ROOT, "build"))
+    counted = {"fused": 0, "int8": 0, "grid_sample": 0}
+    try:
+        for what, srv, learner, images, expected in programs:
+            dtype_name = "bf16" if srv.dtype == torch.bfloat16 else "f32"
+            x = srv.images(images, torch.float32)
+            svtr_block.launches = svtr_block.int8_launches = grid_sample.launches = 0
+            reset_launches()
+            logits = _export_and_serve(what, learner, srv.opt, dtype_name, x, out_dir)
+            launched = {"fused": svtr_block.launches, "int8": svtr_block.int8_launches,
+                        "grid_sample": grid_sample.launches}
+            other = {k: v for k, v in read_launches().items() if k != "fused" and v}
+            per_call = {k: v // (EXPORT_REQUESTS + 1) for k, v in launched.items()}
+            print(f"  {what}: launches {launched} (expected {expected} per call x "
+                  f"{EXPORT_REQUESTS + 1} calls: the export's eager call and the requests)")
+            if per_call != expected or any(v % (EXPORT_REQUESTS + 1) for v in launched.values()) \
+                    or other:
+                raise RuntimeError(f"{what}: the exported program did not run through the "
+                                   "kernels as expected")
+            for k, v in launched.items():
+                counted[k] += v
+            with torch.inference_mode():
+                eager = srv.forward(images)["logits"].float()
+            if not torch.equal(logits, eager):
+                diff = float((logits - eager).abs().max())
+                raise RuntimeError(f"{what}: the loaded program's logits differ from the eager "
+                                   f"server's (max |diff| {diff:.3e})")
+            print(f"  {what}: loaded program's logits equal the eager server's bitwise")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return counted
+
+
+def export_programs(rng, mrn_server, int8_server, int8_images, trba_single, trba_images,
+                    images):
+    """The four programs of the export phase: the 6-expert SVTR-MRN (bf16),
+    the int8 SVTR recognizer of the int8 phase (bf16), the TRBA recognizer
+    of the TRBA phase (bf16) and one CRNN recognizer drawn here (bf16),
+    with their expected kernel launches per call."""
+    crnn_base = load_config(os.path.join(ROOT, "configs", "crnn_mrn.py"))
+    crnn_images = rng.integers(0, 256, (BATCH, crnn_base.imgH, crnn_base.imgW,
+                                        crnn_base.input_channel), dtype=np.uint8)
+    params, stats, chars = _conv_trees(rng, crnn_base, crnn_images)
+    crnn = Server(crnn_base.replace(compute_dtype="bfloat16"), params, stats, chars)
+
+    def single(srv):
+        return types.SimpleNamespace(opt=srv.opt, model=srv.model, _cur_task=0,
+                                     converter=srv.converter, device=srv.device)
+
+    ensemble = types.SimpleNamespace(opt=mrn_server.opt, _cur_task=N_EXPERTS - 1,
+                                     _eval_ensemble=lambda: mrn_server.model,
+                                     converter=mrn_server.converter, device=mrn_server.device)
+    none = {"fused": 0, "int8": 0, "grid_sample": 0}
+    return [(f"SVTR-MRN {N_EXPERTS} experts bf16", mrn_server, ensemble, images,
+             dict(none, fused=N_EXPERTS * 12)),
+            ("int8 SVTR recognizer bf16", int8_server, single(int8_server), int8_images,
+             dict(none, int8=12)),
+            ("TRBA recognizer bf16", trba_single, single(trba_single), trba_images,
+             dict(none, grid_sample=1)),
+            ("CRNN recognizer bf16", crnn, single(crnn), crnn_images, none)]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3816,7 +4118,7 @@ def main():
     print("== kernel vs plain, SVTR Block shapes")
     totals = phase_blocks(device, rng)
     print("== SVTR-MRN serving, 6 experts, full width")
-    served, _ = phase_serve(rng)
+    served, _, mrn_servers, mrn_images = phase_serve(rng)
     print("== attention kernels vs plain, SVTR training shapes")
     attn = phase_attention(device, rng)
     # best checkpoints and expert blobs of the training phases, removed at the end
@@ -3854,9 +4156,9 @@ def main():
     print("== w8a8 Block kernel vs plain, SVTR Block shapes")
     int8_totals = phase_int8_blocks(device, rng)
     print("== int8 serving, one SVTR recognizer (task 0), full width")
-    int8_served = phase_int8_serve(rng, base)
+    int8_served, int8_server, int8_images = phase_int8_serve(rng, base)
     print("== TRBA-MRN serving, 6 experts, full width")
-    trba_served, _, tps_grids, trba_images = phase_trba_serve(rng)
+    trba_served, _, tps_grids, trba_images, trba_single = phase_trba_serve(rng)
     print("== TRBA-MRN training, task 2 of 3, full width, bf16")
     trba_dir = tempfile.mkdtemp(prefix="smoke_trba_", dir=os.path.join(ROOT, "build"))
     try:
@@ -3879,11 +4181,26 @@ def main():
     int8_warps = phase_int8_convs(rng)
     print(f"  CRNN-MRN requests {crnn_served}; CRNN step windows (step 0, step 1) "
           f"{crnn_trained}; GRCNN step 0 {grcnn_step:.4f} s, requests {grcnn_served}")
+    t_new = time.perf_counter()
+    print("== the tanh-GELU serving mode: SVTR-MRN, 6 experts, and one int8 recognizer, "
+          "full width")
+    tanh_served, tanh_int8_served, tanh_totals, tanh_int8_totals = phase_gelu_tanh(
+        device, mrn_servers, mrn_images, base)
+    print("== custom-op dispatch cost")
+    dispatch_cost(device, np.random.default_rng(TANH_SEED + 1))
+    print("== export: SVTR-MRN, int8 SVTR, TRBA and CRNN programs, full width, bf16")
+    export_rng = np.random.default_rng(TANH_SEED + 2)
+    exported = phase_export(export_rng, export_programs(
+        export_rng, mrn_servers["bfloat16"], int8_server, int8_images, trba_single, trba_images,
+        mrn_images))
+    print(f"  the tanh-GELU, dispatch and export phases took {time.perf_counter() - t_new:.1f} s")
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
              served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"]
-             + strat["fused"] + lmdb["fused"], totals[bf16]),
+             + strat["fused"] + lmdb["fused"] + exported["fused"], totals[bf16]),
+            ("svtr_fused_block_tanh", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:289",
+             tanh_served, tanh_totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
              trained["full"] + ckpt["full"] + camp["full"] + strat["full"] + lmdb["full"],
              attn[("full", bf16)]),
@@ -3900,9 +4217,12 @@ def main():
              "mrn_tpu/ops/svtr_train_block.py:497", fused_trained["train_bwd_head"],
              train_blocks[("head", bf16)]),
             ("svtr_fused_block_int8", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:303",
-             int8_served + lmdb["int8"], int8_totals[(bf16, False)]),
+             int8_served + lmdb["int8"] + exported["int8"], int8_totals[(bf16, False)]),
+            ("svtr_fused_block_int8_tanh", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:378",
+             tanh_int8_served, tanh_int8_totals[(bf16, False)]),
             ("grid_sample", "grid_sample.cu", "mrn_tpu/ops/grid_sample.py:140",
-             trba_served + trba_trained + int8_warps, warp[("tps", bf16)])]
+             trba_served + trba_trained + int8_warps + exported["grid_sample"],
+             warp[("tps", bf16)])]
     record = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -3922,18 +4242,26 @@ def main():
           f"{fused_trained['fused']} fused), of the checkpoint phase with its test "
           f"({ckpt['fused']}), of the campaign ({camp['fused']}), of the strategies "
           f"({strat['fused']}) and of the LMDB entry points ({lmdb['fused']}: two train_cli "
-          f"runs, evaluate_cli, recognize_cli); attention times are one "
+          f"runs, evaluate_cli, recognize_cli) and of the exported SVTR-MRN program "
+          f"({exported['fused']}: its export's eager call and {EXPORT_REQUESTS} requests); "
+          f"svtr_fused_block_tanh and svtr_fused_block_int8_tanh are the same kernels in the "
+          f"tanh-GELU form (set_gelu_approximate), their launches the tanh phase's served "
+          f"requests ({tanh_served}, {tanh_int8_served}), their library_ms the library Blocks "
+          f"with F.gelu(approximate='tanh'), their bound the degree-9 rows'; attention times "
+          f"are one "
           f"expert forward's 6 Blocks of each kind, their launches the composed step-0 steps "
           f"of the training, checkpoint, campaign, strategies and LMDB phases; "
           f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms "
           f"autograd's backward of the library Block's proj + LayerNorm + MLP sub-graph, "
           f"the head's of its LayerNorm + qkv product; svtr_fused_block_int8 times are one recognizer's 12 "
-          f"Blocks with float attention, its launches the int8 served requests and "
-          f"evaluate_cli --int8 ({lmdb['int8']}), its "
+          f"Blocks with float attention, its launches the int8 served requests, "
+          f"evaluate_cli --int8 ({lmdb['int8']}) and the exported int8 program "
+          f"({exported['int8']}), its "
           f"library_ms the torch._int_mm Block; grid_sample times are one warp of the "
           f"served batch's TPS grid (bf16 image, f32 grid), its launches the TRBA served "
           f"requests ({trba_served}), the TRBA training run ({trba_trained}: step 1's "
-          f"frozen experts, FF and TF validation) and the int8 TRBA requests ({int8_warps}), "
+          f"frozen experts, FF and TF validation), the int8 TRBA requests ({int8_warps}) and "
+          f"the exported TRBA program ({exported['grid_sample']}), "
           f"its library_ms F.grid_sample on NCHW; "
           f"on {smi}")
     print(json.dumps(record))

@@ -21,13 +21,22 @@ Every module takes ``train``:
   its droppath masks drawn as the composed path draws them.
 
 Stages 1-2 run on column-major tokens, so the Local 7x11 window is a
-diagonal band all kernels compute banded.  The composed path's GELU
-(PatchEmbed and the Block MLP) is the exact erf, the reference's own; the
-fused training Block's is the degree-15 erf polynomial, as in JAX.
+diagonal band all kernels compute banded.
+
+GELU, as in JAX (``svtr.py:38-100``): ``set_gelu_approximate(True)`` is the
+serving switch to the tanh form (``jax.nn.gelu(approximate=True)``); every
+Block reads it at forward time (so ``torch.export`` bakes in the form set
+when it traces), in its fused inference Blocks (rows 3-4) and in the
+composed path's Block MLP (int8 calibration, training), never in
+PatchEmbed's GELUs nor in the fused training Block, which keeps the
+degree-15 erf polynomial.  Without the switch the inference Blocks take
+their ``gelu_degree`` fit and the composed path the exact erf (the
+reference's own, and JAX's off the TPU).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 from typing import Optional, Sequence, Tuple
@@ -40,20 +49,36 @@ from torch import nn
 from mrn_tpu_torch.models.common import (QUANT_MODES, BatchNorm, Conv2d, LayerNorm,
                                          is_quant_scale, to_nchw, to_nhwc)
 from mrn_tpu_torch.ops.svtr_attention import attention_forward, attention_reference, mha_small_n
-from mrn_tpu_torch.ops.svtr_block import (SCORE_CLAMP, FoldCache, Int8Weights, _band_spec,
-                                          fused_block, fused_block_int8,
+from mrn_tpu_torch.ops.svtr_block import (GELU_TANH, SCORE_CLAMP, FoldCache, Int8Weights,
+                                          _band_spec, fused_block, fused_block_int8,
                                           fused_block_int8_reference, fused_block_reference,
-                                          prepare_int8)
+                                          gelu_tanh, prepare_int8)
 from mrn_tpu_torch.ops.svtr_train_block import PARAM_KEYS, fused_block_train
 
 __all__ = ["Block", "DropPath", "PatchEmbed", "QUANT_MODES", "SVTRExtractor",
-           "SubSampleConv", "configure_blocks", "is_quant_scale", "local_attention_mask",
-           "local_attention_mask_col_major", "score_envelope", "set_droppath_generator"]
+           "SubSampleConv", "configure_blocks", "frozen_folds", "is_quant_scale",
+           "local_attention_mask",
+           "local_attention_mask_col_major", "score_envelope", "set_droppath_generator",
+           "set_gelu_approximate"]
 
 _PROJ = ("qkv", "proj", "fc1", "fc2")
 # calibrated activation absmax per projection input, plus the post-scale q
 # and k and v for the int8-attention mode
 _AMAX_NAMES = _PROJ + ("q", "k", "v")
+
+# Serving switch: the tanh-form GELU in every Block MLP (svtr.py:45-60).
+_GELU_APPROX = False
+
+
+def set_gelu_approximate(flag: bool) -> None:
+    global _GELU_APPROX
+    _GELU_APPROX = bool(flag)
+
+
+def _mlp_gelu(x: torch.Tensor) -> torch.Tensor:
+    """The composed Block MLP's GELU (``svtr.py:83-100``): the tanh form
+    under the serving switch, else the exact erf."""
+    return gelu_tanh(x) if _GELU_APPROX else F.gelu(x)
 
 
 def _manual_layer_norm(x, scale, bias, eps=1e-6):
@@ -166,7 +191,8 @@ class Block(nn.Module):
 
     ``plain`` runs the kernels' plain versions on any device (the card's
     reference in checks; the fused training Block's too),
-    ``gelu_degree`` picks the inference kernels' erf fit and ``attn_int8``
+    ``gelu_degree`` picks the inference kernels' erf fit (the serving switch
+    ``set_gelu_approximate`` takes precedence) and ``attn_int8``
     also runs the w8a8 Block's QK^T and PV int8 (the JAX package's
     ``set_attention_int8``); all three are set for a whole model with
     ``configure_blocks``.  ``score_max`` is set only while
@@ -252,18 +278,19 @@ class Block(nn.Module):
             return self._forward_train(x)
         if self.quant == "calib" or self.score_max is not None:
             return self._composed(x, train=False)
+        gelu = GELU_TANH if _GELU_APPROX else self.gelu_degree
         if self.quant == "int8":
             args = (x, self.int8_weights, self.mask, self.num_heads, self.scale,
-                    self.attn_int8, self.gelu_degree)
+                    self.attn_int8, gelu)
             if self.plain:
                 return fused_block_int8_reference(*args)
             return fused_block_int8(*args, band=self.band)
         params = {name: getattr(self, name) for name in PARAM_KEYS}
         if self.plain:
             return fused_block_reference(x, params, self.mask, self.num_heads, self.scale,
-                                         band=self.band, gelu_degree=self.gelu_degree)
+                                         band=self.band, gelu=gelu)
         return fused_block(x, params, self.mask, self.num_heads, self.scale, band=self.band,
-                           gelu_degree=self.gelu_degree, cache=self.fold_cache)
+                           gelu=gelu, cache=self.fold_cache)
 
     def fused_train_ok(self, n: int) -> bool:
         """Whether ``MRN_FUSED_TRAIN=1`` sends this Block to the fused
@@ -319,7 +346,7 @@ class Block(nn.Module):
         x = x + self.drop_path(attn @ self.proj_kernel + self.proj_bias, train)
         h = _manual_layer_norm(x, self.norm2_scale, self.norm2_bias)
         self._record("fc1", h)
-        h = F.gelu(h @ self.fc1_kernel + self.fc1_bias)
+        h = _mlp_gelu(h @ self.fc1_kernel + self.fc1_bias)
         self._record("fc2", h)
         return x + self.drop_path(h @ self.fc2_kernel + self.fc2_bias, train)
 
@@ -337,6 +364,23 @@ def configure_blocks(model: nn.Module, plain: Optional[bool] = None,
                 m.gelu_degree = gelu_degree
             if attn_int8 is not None:
                 m.attn_int8 = attn_int8
+
+
+@contextlib.contextmanager
+def frozen_folds(model: nn.Module, dtype: torch.dtype):
+    """Within: a trace of ``model`` at ``dtype`` takes each float inference
+    Block's folded weights as constants of the graph, folded on entry from
+    the weights as they are then (``FoldCache.freeze``); outside, a trace
+    folds inside the graph."""
+    blocks = [m for m in model.modules() if isinstance(m, Block) and m.quant == "none"]
+    with torch.no_grad():
+        for m in blocks:
+            m.fold_cache.freeze({name: getattr(m, name) for name in PARAM_KEYS}, m.scale, dtype)
+    try:
+        yield
+    finally:
+        for m in blocks:
+            m.fold_cache.thaw()
 
 
 def score_envelope(model: nn.Module, x: torch.Tensor) -> float:

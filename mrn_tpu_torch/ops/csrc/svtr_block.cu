@@ -12,7 +12,8 @@
 // by the caller, matmul operands rounded to T with float32 accumulation,
 // softmax as exp(min(s, 60)) without max-subtract, P rounded to T, the row-sum
 // over the rounded P and the normalise after PV with +1e-30, GELU through the
-// degree-9 (or 15) minimax erf polynomial, and banded windows for Local
+// degree-9 (or 15) minimax erf polynomial or, under the serving switch
+// set_gelu_approximate(True), the tanh form (tanhf), and banded windows for Local
 // blocks (query block a of qb rows attends to keys [starts[a], starts[a] +
 // width) with the [N, width] band mask).
 //
@@ -89,13 +90,13 @@ template <typename T>
 struct Fc1Out {  // g = gelu(acc + b) (T)
   const float* bias;
   T* g;
-  int ld, degree;
+  int ld, form;
   __device__ void prefetch(int, int, float (&)[8]) const {}
   __device__ void operator()(int i, int j, float (&v)[8], const float (&)[8]) const {
     float b[8];
     load8(bias + j, b);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = gelu_poly(v[e] + b[e], degree);
+    for (int e = 0; e < 8; ++e) v[e] = gelu_form(v[e] + b[e], form);
     store8(g + (size_t)i * ld + j, v);
   }
 };
@@ -121,13 +122,13 @@ int block_forward(const T* x, const T* qkv_w, const float* qkv_b, const T* proj_
                   const float* proj_b, const T* fc1_w, const float* fc1_b, const T* fc2_w,
                   const float* fc2_b, const float* mask, const int* starts, T* qkv, T* attn,
                   float* x1, T* g, T* out, int B, int N, int C, int heads, int hidden, int qb,
-                  int width, int gelu_degree, cudaStream_t s) {
+                  int width, int gelu, cudaStream_t s) {
   const int M = B * N;
   TRY(proj(LayerNormRows<T>{x, C, M}, qkv_w, QkvOut<T>{qkv_b, qkv, 3 * C}, M, 3 * C, C, s));
   TRY((attention_tc<T, kClampExp, false>(qkv, 3 * C, qkv + C, qkv + 2 * C, 3 * C, attn, C, mask,
                                   starts, B, heads, N, C / heads, qb, width, s)));
   TRY(proj(Mat<T>{attn, C}, proj_w, ProjOut<T>{proj_b, x, x1, C}, M, C, C, s));
-  TRY(proj(LayerNormRows<float>{x1, C, M}, fc1_w, Fc1Out<T>{fc1_b, g, hidden, gelu_degree}, M,
+  TRY(proj(LayerNormRows<float>{x1, C, M}, fc1_w, Fc1Out<T>{fc1_b, g, hidden, gelu}, M,
            hidden, C, s));
   TRY(proj(Mat<T>{g, hidden}, fc2_w, Fc2Out<T>{fc2_b, x1, out, C}, M, C, hidden, s));
   return 0;
@@ -140,25 +141,26 @@ extern "C" {
 // dtype: 0 float32, 1 bfloat16.  Weights are [in, out] in the working type,
 // biases float32.  mask: [N, width] float32 or NULL; starts: int32 [N / qb]
 // device array or NULL (single window at key 0).  qkv/attn/g are scratch in
-// the working type, x1 float32 scratch; out [B, N, C].  Returns the CUDA
-// error code of the first failed launch, 0 on success.
+// the working type, x1 float32 scratch; out [B, N, C].  gelu: 9 or 15, the
+// erf polynomial of that degree, or 0 (kGeluTanh), the tanh form.  Returns
+// the CUDA error code of the first failed launch, 0 on success.
 int svtr_block_forward(int dtype, const void* x, const void* qkv_w,
                        const float* qkv_b, const void* proj_w, const float* proj_b,
                        const void* fc1_w, const float* fc1_b, const void* fc2_w,
                        const float* fc2_b, const float* mask, const int* starts,
                        void* qkv, void* attn, float* x1, void* g, void* out, int B,
                        int N, int C, int heads, int hidden, int qb, int width,
-                       int gelu_degree, void* stream) {
+                       int gelu, void* stream) {
   if (B <= 0 || N <= 0 || C <= 0 || heads <= 0 || C % heads || hidden <= 0)
     return (int)cudaErrorInvalidValue;
-  if (gelu_degree != 9 && gelu_degree != 15) return (int)cudaErrorInvalidValue;
+  if (!gelu_form_ok(gelu)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BLOCK_ARGS(T)                                                                       \
   static_cast<const T*>(x), static_cast<const T*>(qkv_w), qkv_b,                           \
       static_cast<const T*>(proj_w), proj_b, static_cast<const T*>(fc1_w), fc1_b,          \
       static_cast<const T*>(fc2_w), fc2_b, mask, starts, static_cast<T*>(qkv),             \
       static_cast<T*>(attn), x1, static_cast<T*>(g), static_cast<T*>(out), B, N, C, heads, \
-      hidden, qb, width, gelu_degree, s
+      hidden, qb, width, gelu, s
   if (dtype == 0) return block_forward<float>(BLOCK_ARGS(float));
   if (dtype == 1) return block_forward<__nv_bfloat16>(BLOCK_ARGS(__nv_bfloat16));
 #undef BLOCK_ARGS

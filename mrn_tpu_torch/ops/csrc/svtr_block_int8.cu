@@ -22,8 +22,9 @@
 //       ATTN_INT8 true: q8(q*scale), q8(k), q8(v) with their calibrated
 //       scales, int32 QK^T times 1 / (inv_q inv_k), P quantized as
 //       rint(p * 127), int32 PV times 1 / (inv_v 127);
-//   - GELU through the degree-9 (or 15) erf polynomial, residual stream in
-//     float32, output rounded to T.
+//   - GELU through the degree-9 (or 15) erf polynomial or, under the serving
+//     switch set_gelu_approximate(True), the tanh form (tanhf), before the
+//     q8 of fc2's input; residual stream in float32, output rounded to T.
 // Local Blocks on column-major tokens attend banded: query block a of qb
 // rows sees the keys [starts[a], starts[a] + width) with the [N, width] band
 // mask (the row-4 plan).  That is exact, though the Pallas kernel attends
@@ -252,12 +253,12 @@ struct Fc1Out {  // g = q8(gelu(v)) with fc2's scale inv[3]
   Dequant dq;
   int8_t* g;
   const float* inv;
-  int hidden, degree;
+  int hidden, form;
   __device__ void prefetch(int, int, float (&)[8]) const {}
   __device__ void operator()(int i, int j, float (&v)[8], const float (&)[8]) const {
     dq(j, v);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = gelu_poly(v[e], degree);
+    for (int e = 0; e < 8; ++e) v[e] = gelu_form(v[e], form);
     store_q8(g + (size_t)i * hidden + j, v, __ldg(inv + 3));
   }
 };
@@ -715,7 +716,7 @@ struct BlockArgs {
   float* x1;              // [M, C]
   int8_t* g;              // [M, hidden]: q8(gelu(fc1)) with fc2's scale
   void* out;              // [M, C] in T
-  int N, C, heads, hidden, qb, width, gelu_degree;
+  int N, C, heads, hidden, qb, width, gelu;  // gelu: 9, 15 or kGeluTanh
   float scale;
 };
 
@@ -738,7 +739,7 @@ int block_forward(const BlockArgs& a, int B, cudaStream_t s) {
   TRY(proj_i8(MapRows<float, false>{a.attn, C, nullptr, nullptr, a.inv, 1}, a.wt[1],
               ProjOut<T>{{a.deq[1], a.bias[1]}, x, a.x1, C}, M, C, C, s));
   TRY(proj_i8(MapRows<float, true>{a.x1, C, a.norm[2], a.norm[3], a.inv, 2}, a.wt[2],
-              Fc1Out{{a.deq[2], a.bias[2]}, a.g, a.inv, a.hidden, a.gelu_degree}, M, a.hidden,
+              Fc1Out{{a.deq[2], a.bias[2]}, a.g, a.inv, a.hidden, a.gelu}, M, a.hidden,
               C, s));
   TRY(proj_i8(Int8Rows{a.g, a.hidden}, a.wt[3],
               Fc2Out<T>{{a.deq[3], a.bias[3]}, a.x1, static_cast<T*>(a.out), C}, M, C,
@@ -758,7 +759,8 @@ extern "C" {
 // multiple of 32), mask [N, width].  Scratch: qkv [B N, 3C] (working type,
 // or int8 with attn_int8), attn and x1 [B N, C] float32, g [B N, hidden]
 // int8.  C a multiple of 16 up to 256, head dim 8, 16, 32 or 64, hidden a
-// multiple of 16; every pointer 16-byte aligned.  Returns 0 or the CUDA
+// multiple of 16; every pointer 16-byte aligned.  gelu: 9 or 15, the erf
+// polynomial of that degree, or 0 (kGeluTanh), the tanh form.  Returns 0 or the CUDA
 // error code of the first failed launch (cudaErrorInvalidValue /
 // cudaErrorMisalignedAddress for arguments the kernels do not take).
 int svtr_block_int8_forward(int dtype, int attn_int8, const void* x, const float* n1s,
@@ -769,10 +771,10 @@ int svtr_block_int8_forward(int dtype, int attn_int8, const void* x, const float
                             const int8_t* fc2_wt, const float* fc2_b, const float* fc2_deq,
                             const float* inv, const float* mask, const int* starts, void* qkv,
                             float* attn, float* x1, int8_t* g, void* out, int B, int N, int C,
-                            int heads, int hidden, int qb, int width, int gelu_degree,
+                            int heads, int hidden, int qb, int width, int gelu,
                             float scale, void* stream) {
   if (B <= 0 || N <= 0 || heads <= 0 || C % heads != 0 || C % 16 != 0 || C > kMaxMapK ||
-      hidden <= 0 || hidden % 16 != 0 || (gelu_degree != 9 && gelu_degree != 15))
+      hidden <= 0 || hidden % 16 != 0 || !gelu_form_ok(gelu))
     return (int)cudaErrorInvalidValue;
   const int D = C / heads;
   if (D != 8 && D != 16 && D != 32 && D != 64) return (int)cudaErrorInvalidValue;
@@ -803,7 +805,7 @@ int svtr_block_int8_forward(int dtype, int attn_int8, const void* x, const float
                     hidden,
                     qb,
                     width,
-                    gelu_degree,
+                    gelu,
                     scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

@@ -7,7 +7,9 @@
 //   - warp reductions;
 //   - the minimax erf polynomials of the GELU, degree 15 (the JAX package's
 //     _ERF_COEFS; |erf error| < 1.9e-7) and degree 9 (_ERF9_COEFS, the
-//     inference Blocks' default; |erf error| < 1.4e-4);
+//     inference Blocks' default; |erf error| < 1.4e-4), and the tanh form of
+//     jax.nn.gelu(approximate=True), the JAX package's serving switch
+//     set_gelu_approximate(True);
 //   - Mat, a row-major matrix as the loader of the projection and
 //     weight-gradient main loops (svtr_gemm_tc.cuh, svtr_wgrad_tc.cuh);
 //   - the names of the three softmax forms of the Pallas kernels (the tile
@@ -83,10 +85,25 @@ __constant__ float kErf9[10] = {
     0.021168399249059538f, -0.011215921240360423f, 0.05439620276621701f,
     -0.03381804338264774f};
 
-// the inference Blocks' GELU: degree 9 (default) or 15
-__device__ __forceinline__ float gelu_poly(float x, int degree) {
-  return degree == 15 ? gelu15(x) : gelu_erf<10>(x, kErf9);
+// jax.nn.gelu(x, approximate=True) in its operation order, with the
+// accurate tanhf: the hardware tanh.approx.f32 (~2^-11 relative error) would
+// leave the float32 tolerance of the kernels' checks against the plain
+// version
+__device__ __forceinline__ float gelu_tanh(float x) {
+  constexpr float kSqrt2OverPi = 0.7978845608028654f;
+  return x * (0.5f * (1.0f + tanhf(kSqrt2OverPi * (x + 0.044715f * (x * x * x)))));
 }
+
+// The inference Blocks' GELU by its code: 9 (default) or 15, the erf
+// polynomial of that degree; kGeluTanh, the tanh form
+constexpr int kGeluTanh = 0;
+
+__device__ __forceinline__ float gelu_form(float x, int form) {
+  if (form == kGeluTanh) return gelu_tanh(x);
+  return form == 15 ? gelu15(x) : gelu_erf<10>(x, kErf9);
+}
+
+inline bool gelu_form_ok(int form) { return form == 9 || form == 15 || form == kGeluTanh; }
 
 // ---------------------------------------------------------------- matrices
 struct NoRow {};   // the row state of a map that reads nothing per row

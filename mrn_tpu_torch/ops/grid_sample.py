@@ -13,8 +13,11 @@ vertical one, rounded to the image's dtype once.
 ``grid_sample(image, grid)`` launches the CUDA kernel (``csrc/
 grid_sample.cu``) for CUDA tensors and runs the plain version
 (``grid_sample_reference``) for CPU tensors; there is no fallback between
-the two.  The kernel is forward only, as in JAX: eval-mode TPS warps
-through it.
+the two.  Both go through the PyTorch custom op
+``torch.ops.mrn_tpu_torch.grid_sample`` (registered when this module is
+imported, with a fake implementation for shapes), so ``torch.export``
+traces the warp as one node.  The kernel is forward only, as in JAX:
+eval-mode TPS warps through it.
 
 ``grid_sample_train(image, grid)`` is the train-mode TPS warp:
 differentiable in the image and the grid, plain PyTorch on either device,
@@ -116,15 +119,8 @@ def _lib():
     return lib
 
 
-def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """The warp: the plain version on the CPU, the CUDA kernel on the card
-    (or raises)."""
+def _grid_sample_cuda(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     global launches
-    if image.device.type == "cpu":
-        return grid_sample_reference(image, grid)
-    if image.device.type != "cuda":
-        raise ValueError(f"grid_sample: unsupported device {image.device}")
-    _check(image, grid)
     if not (image.is_contiguous() and grid.is_contiguous()):
         raise ValueError("grid_sample kernel takes contiguous tensors")
     b, h, w, c = image.shape
@@ -141,3 +137,26 @@ def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
                            + lib.grid_sample_error_string(rc).decode())
     launches += 1
     return out
+
+
+@torch.library.custom_op("mrn_tpu_torch::grid_sample", mutates_args=(), device_types="cpu")
+def _grid_sample_op(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The warp; CPU: the plain version."""
+    return grid_sample_reference(image, grid)
+
+
+_grid_sample_op.register_kernel("cuda")(_grid_sample_cuda)
+
+
+@_grid_sample_op.register_fake
+def _grid_sample_op_fake(image, grid):
+    return image.new_empty((image.shape[0], grid.shape[1], grid.shape[2], image.shape[3]))
+
+
+def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The warp: the plain version on the CPU, the CUDA kernel on the card
+    (or raises)."""
+    if image.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grid_sample: unsupported device {image.device}")
+    _check(image, grid)
+    return _grid_sample_op(image, grid)

@@ -18,14 +18,22 @@ _make_kernel`` does:
 - reduction-free softmax: ``exp(min(s, 60))`` without a max-subtract, P
   rounded to ``dt``, the row-sum taken over the rounded P (the Pallas
   kernel's ones-column of V), normalised after PV with ``+1e-30``;
-- GELU through the degree-9 minimax erf polynomial (``gelu_degree=15`` gives
-  the degree-15 fit, the JAX kernel's ``SVTR_GELU_DEG=15``);
+- GELU through the degree-9 minimax erf polynomial (``gelu=15`` gives the
+  degree-15 fit, the JAX kernel's ``SVTR_GELU_DEG=15``; ``gelu=GELU_TANH``
+  (0) the tanh form of ``jax.nn.gelu(approximate=True)``, the JAX package's
+  ``set_gelu_approximate(True)`` serving mode);
 - Local blocks on column-major tokens run banded: each ``qb``-row query
   block attends to its ``width``-key window (``_band_spec``).
 
 ``fused_block`` takes the plain version for a tensor on the CPU and launches
 the CUDA kernel (``csrc/svtr_block.cu``) for a CUDA tensor; there is no
-fallback between the two.
+fallback between the two.  Both go through the PyTorch custom op
+``torch.ops.mrn_tpu_torch.fused_block`` (CPU: the plain version, CUDA: the
+kernel, a fake implementation for shapes), so ``torch.export`` traces the
+Block as one node; ``fused_block_int8`` goes through
+``mrn_tpu_torch::fused_block_int8`` the same way.  Importing this module
+registers both, so a saved ``.pt2`` program loads after ``import
+mrn_tpu_torch.ops``.
 
 ``fused_block_int8`` is the w8a8 Block (``_make_kernel_int8``): LN1/LN2 keep
 their affine (no folding), each projection quantizes its input per tensor
@@ -44,14 +52,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["FoldCache", "Int8Weights", "PARAM_KEYS", "SCORE_CLAMP", "folds", "fused_block",
-           "fused_block_int8", "fused_block_int8_reference", "fused_block_reference", "int8_launches", "launches",
-           "prepare_int8"]
+__all__ = ["FoldCache", "GELU_TANH", "Int8Weights", "PARAM_KEYS", "SCORE_CLAMP", "folds",
+           "fused_block", "fused_block_int8", "fused_block_int8_reference",
+           "fused_block_reference", "gelu_tanh", "int8_launches", "launches", "prepare_int8"]
 
 # erf(z) = z * P(u), u an affine map of clamp(z^2): odd minimax polynomial in
 # the shifted monomial basis, coefficients low -> high (copied from the JAX
@@ -74,6 +82,14 @@ _ERF9_COEFS = (
     -0.03381804338264774)
 
 _GELU_COEFS = {9: _ERF9_COEFS, 15: _ERF_COEFS}
+
+# A GELU form is one int, in Python, the custom ops and the C interfaces
+# alike: 9 or 15, the erf fit of that degree, or GELU_TANH, the tanh form
+# (``jax.nn.gelu(approximate=True)``) that the Blocks take under
+# ``models.svtr.set_gelu_approximate(True)``.
+GELU_TANH = 0
+# jax.nn.gelu's sqrt(2 / pi), rounded to float32
+_SQRT_2_OVER_PI = float(np.float32(np.sqrt(2.0 / np.pi)))
 
 # Reduction-free-softmax score clamp: exp runs without the max-subtract,
 # relying on every real checkpoint's attention scores staying below this.
@@ -101,6 +117,22 @@ def _erf_poly(z: torch.Tensor, coefs=_ERF9_COEFS) -> torch.Tensor:
 
 def _gelu_poly(x: torch.Tensor, degree: int) -> torch.Tensor:
     return 0.5 * x * (1.0 + _erf_poly(x * (2.0 ** -0.5), _GELU_COEFS[degree]))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` with its operation order:
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))))``."""
+    return x * (0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x)))))
+
+
+def _check_gelu(gelu: int) -> int:
+    if gelu != GELU_TANH and gelu not in _GELU_COEFS:
+        raise ValueError(f"gelu must be 9, 15 or GELU_TANH ({GELU_TANH}), not {gelu!r}")
+    return gelu
+
+
+def _gelu_form(x: torch.Tensor, gelu: int) -> torch.Tensor:
+    return gelu_tanh(x) if gelu == GELU_TANH else _gelu_poly(x, gelu)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -228,18 +260,38 @@ class FoldCache:
     ``Module.to`` and ``functional_call`` with other tensors each fold anew.
     A write through a tensor obtained by ``.data`` bypasses the version
     counter and is not seen: the port writes weights only through the
-    tensors themselves."""
+    tensors themselves.
+
+    A trace (``torch.export``) has no storage addresses to key on, so it
+    folds inside the graph, unless ``freeze`` has made the weights the
+    constants of the trace to come: ``freeze`` folds eagerly (anew if a
+    weight changed) and holds until ``thaw`` or the next eager fold."""
 
     def __init__(self):
         self.key = self.leaves = self.weights = None
+        self.frozen = False
 
     def weights_for(self, params: Dict[str, torch.Tensor], scale: float, dt: torch.dtype):
+        if torch.compiler.is_compiling():
+            if self.frozen and self.key[:2] == (float(scale), dt):
+                return self.weights
+            return _fold(params, scale, dt)
         leaves = tuple(params[k] for k in PARAM_KEYS)
         key = (float(scale), dt) + tuple(_leaf_key(t) for t in leaves)
         if key != self.key or None in key:
             self.weights = _fold(params, scale, dt)
             self.key, self.leaves = key, leaves
+            self.frozen = False
         return self.weights
+
+    def freeze(self, params: Dict[str, torch.Tensor], scale: float, dt: torch.dtype) -> None:
+        """Folds ``params`` now, eagerly, and lets a trace of them at
+        ``scale`` and ``dt`` take the folded weights as constants."""
+        self.weights_for(params, scale, dt)
+        self.frozen = True
+
+    def thaw(self) -> None:
+        self.frozen = False
 
 
 def _ln_bare(x: torch.Tensor) -> torch.Tensor:
@@ -248,7 +300,7 @@ def _ln_bare(x: torch.Tensor) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + 1e-6)
 
 
-def _block_plain(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
+def _block_plain(x, weights, plan: _Plan, num_heads: int, gelu: int):
     """The kernel's arithmetic in plain PyTorch (float32 with ``dt``
     rounding at the same points)."""
     qkv_w, qkv_b, proj_w, proj_b, fc1_w, fc1_b, fc2_w, fc2_b = weights
@@ -275,7 +327,7 @@ def _block_plain(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
                                                        + 1e-30))
     attn = attn.transpose(1, 2).reshape(b, n, c)
     x1 = xf + (mm(attn, proj_w) + proj_b)
-    h = _gelu_poly(mm(_ln_bare(x1), fc1_w) + fc1_b, gelu_degree)
+    h = _gelu_form(mm(_ln_bare(x1), fc1_w) + fc1_b, gelu)
     out = x1 + (mm(h, fc2_w) + fc2_b)
     return out.to(dt)
 
@@ -291,7 +343,7 @@ def _lib():
     lib = _build.load("svtr_block")
     p, i = ctypes.c_void_p, ctypes.c_int
     # dtype; x, 8 weights, mask, starts, 5 buffers; B N C heads hidden qb
-    # width gelu_degree; stream
+    # width gelu (9, 15 or 0: tanh); stream
     lib.svtr_block_forward.argtypes = [i] + [p] * 16 + [i] * 8 + [p]
     lib.svtr_block_forward.restype = i
     # dtype, N, C, heads, hidden, qb, width; int32 out[9]
@@ -314,7 +366,7 @@ def _kernel_plan(dtype, n, c, heads, hidden, qb, width):
     return tuple(out)
 
 
-def _block_cuda(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
+def _block_cuda(x, weights, plan: _Plan, num_heads: int, gelu: int):
     global launches
     b, n, c = x.shape
     d = c // num_heads
@@ -327,8 +379,6 @@ def _block_cuda(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
     if plan.qb != n and plan.qb % _QUERY_TILE:
         raise ValueError(f"svtr_block kernel: band rows {plan.qb} not a "
                          f"multiple of {_QUERY_TILE}")
-    if gelu_degree not in _GELU_COEFS:
-        raise ValueError(f"gelu_degree must be 9 or 15, not {gelu_degree}")
     for t in weights:
         if t.device != x.device:
             raise ValueError("svtr_block kernel: weights and x on different devices")
@@ -349,7 +399,7 @@ def _block_cuda(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
             1 if dt == torch.bfloat16 else 0,
             ptr(x), *(ptr(t) for t in weights), ptr(mask), ptr(plan.starts_dev),
             ptr(qkv), ptr(attn), ptr(x1), ptr(g), ptr(out),
-            b, n, c, num_heads, hidden, plan.qb, plan.width, gelu_degree,
+            b, n, c, num_heads, hidden, plan.qb, plan.width, gelu,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("svtr_block kernel launch failed: "
@@ -358,43 +408,74 @@ def _block_cuda(x, weights, plan: _Plan, num_heads: int, gelu_degree: int):
     return out
 
 
-def _prepare(x, params, mask, num_heads, scale, band, cache=None):
-    b, n, c = x.shape
-    if c % num_heads:
-        raise ValueError(f"dim {c} not divisible by {num_heads} heads")
-    weights = (_fold(params, scale, x.dtype) if cache is None
-               else cache.weights_for(params, scale, x.dtype))
-    return weights, _Plan(n, mask, band, x.device)
+def _band_arg(band: Optional[tuple]) -> List[int]:
+    """A Local mask's geometry (h, w, hk, wk) as the custom ops take it; []
+    for none."""
+    return [] if band is None else [int(v) for v in band]
+
+
+def _mask_arg(x: torch.Tensor, mask) -> Optional[torch.Tensor]:
+    return None if mask is None else torch.as_tensor(mask, dtype=torch.float32,
+                                                     device=x.device)
+
+
+def _weights(x, params, num_heads, scale, cache=None):
+    if x.shape[2] % num_heads:
+        raise ValueError(f"dim {x.shape[2]} not divisible by {num_heads} heads")
+    return (_fold(params, scale, x.dtype) if cache is None
+            else cache.weights_for(params, scale, x.dtype))
+
+
+@torch.library.custom_op("mrn_tpu_torch::fused_block", mutates_args=(), device_types="cpu")
+def _fused_block_op(x: torch.Tensor, weights: List[torch.Tensor], mask: Optional[torch.Tensor],
+                    band: List[int], num_heads: int, gelu: int) -> torch.Tensor:
+    """The fused Block on folded ``weights`` (``_fold``'s eight) over the
+    additive ``mask`` [N, N] (or None), banded by the Local geometry ``band``
+    (h, w, hk, wk; [] for none) where ``_band_spec`` finds a plan; ``gelu``
+    the form (9, 15 or ``GELU_TANH``).  CPU: the plain version."""
+    plan = _Plan(x.shape[1], mask, band or None, x.device)
+    return _block_plain(x, weights, plan, num_heads, gelu)
+
+
+@_fused_block_op.register_kernel("cuda")
+def _fused_block_op_cuda(x, weights, mask, band, num_heads, gelu):
+    plan = _Plan(x.shape[1], mask, band or None, x.device)
+    return _block_cuda(x, weights, plan, num_heads, gelu)
+
+
+@_fused_block_op.register_fake
+def _fused_block_op_fake(x, weights, mask, band, num_heads, gelu):
+    return x.new_empty(x.shape)
 
 
 def fused_block_reference(x: torch.Tensor, params: Dict[str, torch.Tensor],
                           mask, num_heads: int, scale: float,
-                          band: Optional[tuple] = None,
-                          gelu_degree: int = 9) -> torch.Tensor:
+                          band: Optional[tuple] = None, gelu: int = 9) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device.  Same arguments as
     ``fused_block``."""
-    weights, plan = _prepare(x, params, mask, num_heads, scale, band)
-    return _block_plain(x, weights, plan, num_heads, gelu_degree)
+    weights = _weights(x, params, num_heads, scale)
+    plan = _Plan(x.shape[1], _mask_arg(x, mask), band, x.device)
+    return _block_plain(x, weights, plan, num_heads, _check_gelu(gelu))
 
 
 def fused_block(x: torch.Tensor, params: Dict[str, torch.Tensor], mask,
                 num_heads: int, scale: float, band: Optional[tuple] = None,
-                gelu_degree: int = 9, cache: Optional[FoldCache] = None) -> torch.Tensor:
+                gelu: int = 9, cache: Optional[FoldCache] = None) -> torch.Tensor:
     """x: [B, N, C]; params: the Block's parameters under the JAX names
     (kernels [in, out]); mask: additive [N, N] (tensor or numpy) or None;
     ``band`` (h, w, hk, wk): geometry of a COLUMN-major Local mask, which
-    enables the banded path when ``_band_spec`` finds a plan; ``cache``: the
-    caller's ``FoldCache``, which folds the weights once per set of weights
-    (None folds on every call).
+    enables the banded path when ``_band_spec`` finds a plan; ``gelu``: the
+    GELU form, 9, 15 or ``GELU_TANH``; ``cache``: the caller's ``FoldCache``, which
+    folds the weights once per set of weights (None folds on every call).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (or raises).  Other devices raise."""
+    (or raises), both through ``torch.ops.mrn_tpu_torch.fused_block``.
+    Other devices raise."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block: unsupported device {x.device}")
-    weights, plan = _prepare(x, params, mask, num_heads, scale, band, cache)
-    if x.device.type == "cpu":
-        return _block_plain(x, weights, plan, num_heads, gelu_degree)
-    return _block_cuda(x, weights, plan, num_heads, gelu_degree)
+    weights = _weights(x, params, num_heads, scale, cache)
+    return _fused_block_op(x.contiguous(), list(weights), _mask_arg(x, mask), _band_arg(band),
+                           num_heads, _check_gelu(gelu))
 
 
 # ------------------------------------------------------------ w8a8 int8 Block
@@ -450,7 +531,7 @@ def _q8(h: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 
 
 def _block_int8_plain(x, w: Int8Weights, mask, num_heads: int, scale: float,
-                      attn_int8: bool, gelu_degree: int):
+                      attn_int8: bool, gelu: int):
     """The w8a8 kernel's arithmetic in plain PyTorch (``_make_kernel_int8``):
     LN with affine, int8 products exact in float32, ``acc * deq + bias``,
     max-subtract softmax normalised before PV, float32 attention output."""
@@ -482,7 +563,7 @@ def _block_int8_plain(x, w: Int8Weights, mask, num_heads: int, scale: float,
     else:
         o = p.to(dt).float() @ v.to(dt).float()
     x1 = xf + proj(1, o.transpose(1, 2).reshape(b, n, c))
-    h = _gelu_poly(proj(2, _ln_bare(x1) * n2s + n2b), gelu_degree)
+    h = _gelu_form(proj(2, _ln_bare(x1) * n2s + n2b), gelu)
     return (x1 + proj(3, h)).to(dt)
 
 
@@ -493,7 +574,8 @@ def _lib_int8():
     lib = _build.load("svtr_block_int8")
     p, i = ctypes.c_void_p, ctypes.c_int
     # dtype attn_int8; x, 4 norms, 4 x (kernel^T, bias, deq), inv, mask,
-    # starts, 5 buffers; B N C heads hidden qb width gelu_degree; scale; stream
+    # starts, 5 buffers; B N C heads hidden qb width gelu (9, 15 or 0: tanh);
+    # scale; stream
     lib.svtr_block_int8_forward.argtypes = [i, i] + [p] * 25 + [i] * 8 + [ctypes.c_float, p]
     lib.svtr_block_int8_forward.restype = i
     # dtype attn_int8 N C heads hidden qb width; int32 out[9]
@@ -516,7 +598,7 @@ def _int8_kernel_plan(dtype, attn_int8, n, c, heads, hidden, qb, width):
 
 
 def _block_int8_cuda(x, w: Int8Weights, plan: _Plan, num_heads: int, scale: float,
-                     attn_int8: bool, gelu_degree: int):
+                     attn_int8: bool, gelu: int):
     global int8_launches
     from mrn_tpu_torch.ops.int8 import MAX_EXACT_K
 
@@ -536,8 +618,6 @@ def _block_int8_cuda(x, w: Int8Weights, plan: _Plan, num_heads: int, scale: floa
     if plan.qb != n and plan.qb % _QUERY_TILE:
         raise ValueError(f"svtr_block_int8 kernel: band rows {plan.qb} not a "
                          f"multiple of {_QUERY_TILE}")
-    if gelu_degree not in _GELU_COEFS:
-        raise ValueError(f"gelu_degree must be 9 or 15, not {gelu_degree}")
     for wt, shape in zip(kernels_t, ((3 * c, c), (c, c), (hidden, c), (c, hidden))):
         if wt.dtype != torch.int8 or tuple(wt.shape) != shape or not wt.is_contiguous():
             raise ValueError(f"svtr_block_int8 kernel: transposed projection kernel "
@@ -566,7 +646,7 @@ def _block_int8_cuda(x, w: Int8Weights, plan: _Plan, num_heads: int, scale: floa
             1 if dt == torch.bfloat16 else 0, int(attn_int8), ptr(x),
             *(ptr(t) for t in norms), *per_proj, ptr(inv), ptr(plan.mask),
             ptr(plan.starts_dev), ptr(qkv), ptr(attn), ptr(x1), ptr(g), ptr(out),
-            b, n, c, num_heads, hidden, plan.qb, plan.width, gelu_degree, scale,
+            b, n, c, num_heads, hidden, plan.qb, plan.width, gelu, scale,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("svtr_block_int8 kernel launch failed: "
@@ -578,38 +658,70 @@ def _block_int8_cuda(x, w: Int8Weights, plan: _Plan, num_heads: int, scale: floa
 def _int8_mask(x, mask, num_heads):
     if x.shape[2] % num_heads:
         raise ValueError(f"dim {x.shape[2]} not divisible by {num_heads} heads")
-    return None if mask is None else torch.as_tensor(mask, dtype=torch.float32,
-                                                     device=x.device)
+    return _mask_arg(x, mask)
+
+
+@torch.library.custom_op("mrn_tpu_torch::fused_block_int8", mutates_args=(),
+                         device_types="cpu")
+def _fused_block_int8_op(x: torch.Tensor, norms: List[torch.Tensor],
+                         kernels: List[torch.Tensor], biases: List[torch.Tensor],
+                         deqs: List[torch.Tensor], inv: torch.Tensor,
+                         kernels_t: List[torch.Tensor], mask: Optional[torch.Tensor],
+                         band: List[int], num_heads: int, scale: float, attn_int8: bool,
+                         gelu: int) -> torch.Tensor:
+    """The w8a8 Block on ``Int8Weights``' fields over the full additive
+    ``mask`` (or None); the kernel bands a Local Block by ``band`` (h, w, hk,
+    wk; [] for none); ``gelu`` the form.  CPU: the plain version."""
+    w = Int8Weights(tuple(norms), tuple(kernels), tuple(biases), tuple(deqs), inv,
+                    tuple(kernels_t))
+    return _block_int8_plain(x, w, mask, num_heads, scale, attn_int8, gelu)
+
+
+@_fused_block_int8_op.register_kernel("cuda")
+def _fused_block_int8_op_cuda(x, norms, kernels, biases, deqs, inv, kernels_t, mask, band,
+                              num_heads, scale, attn_int8, gelu):
+    w = Int8Weights(tuple(norms), tuple(kernels), tuple(biases), tuple(deqs), inv,
+                    tuple(kernels_t))
+    plan = _Plan(x.shape[1], mask, band or None, x.device)
+    return _block_int8_cuda(x, w, plan, num_heads, scale, attn_int8, gelu)
+
+
+@_fused_block_int8_op.register_fake
+def _fused_block_int8_op_fake(x, norms, kernels, biases, deqs, inv, kernels_t, mask, band,
+                              num_heads, scale, attn_int8, gelu):
+    return x.new_empty(x.shape)
 
 
 def fused_block_int8_reference(x: torch.Tensor, weights: Int8Weights, mask,
                                num_heads: int, scale: float, attn_int8: bool = False,
-                               gelu_degree: int = 9) -> torch.Tensor:
+                               gelu: int = 9) -> torch.Tensor:
     """Plain PyTorch version of the w8a8 kernel, on any device, over the full
     mask as the Pallas kernel attends.  The arguments of
     ``fused_block_int8`` but ``band``."""
     mask = _int8_mask(x, mask, num_heads)
-    return _block_int8_plain(x, weights, mask, num_heads, scale, attn_int8, gelu_degree)
+    return _block_int8_plain(x, weights, mask, num_heads, scale, attn_int8, _check_gelu(gelu))
 
 
 def fused_block_int8(x: torch.Tensor, weights: Int8Weights, mask, num_heads: int,
-                     scale: float, attn_int8: bool = False, gelu_degree: int = 9,
+                     scale: float, attn_int8: bool = False, gelu: int = 9,
                      band: Optional[tuple] = None) -> torch.Tensor:
     """w8a8 inference Block (``_make_kernel_int8``).  x: [B, N, C] float32 or
     bfloat16; weights: the Block's ``prepare_int8`` operands; mask: the
     additive ``[N, N]`` mask or None; ``attn_int8`` also runs QK^T and PV
-    int8 (``set_attention_int8``); ``band`` (h, w, hk, wk): geometry of a
-    COLUMN-major Local mask, with which the kernel attends only to each
-    query block's window (``_band_spec``; exact: the keys it skips have p =
-    0).
+    int8 (``set_attention_int8``); ``gelu``: the GELU form, 9, 15 or ``GELU_TANH``;
+    ``band`` (h, w, hk, wk): geometry of a COLUMN-major Local mask, with
+    which the kernel attends only to each query block's window
+    (``_band_spec``; exact: the keys it skips have p = 0).
 
     A CPU tensor takes the plain version over the full mask; a CUDA tensor
-    launches the kernel (``csrc/svtr_block_int8.cu``) or raises.  Other
-    devices raise."""
+    launches the kernel (``csrc/svtr_block_int8.cu``) or raises, both
+    through ``torch.ops.mrn_tpu_torch.fused_block_int8``.  Other devices
+    raise."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_block_int8: unsupported device {x.device}")
     mask = _int8_mask(x, mask, num_heads)
-    if x.device.type == "cpu":
-        return _block_int8_plain(x, weights, mask, num_heads, scale, attn_int8, gelu_degree)
-    plan = _Plan(x.shape[1], mask, band, x.device)
-    return _block_int8_cuda(x, weights, plan, num_heads, scale, attn_int8, gelu_degree)
+    norms, kernels, biases, deqs, inv, kernels_t = weights
+    return _fused_block_int8_op(x.contiguous(), list(norms), list(kernels), list(biases),
+                                list(deqs), inv, list(kernels_t), mask, _band_arg(band),
+                                num_heads, float(scale), bool(attn_int8),
+                                _check_gelu(gelu))

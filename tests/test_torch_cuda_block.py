@@ -71,11 +71,11 @@ def test_kernel_matches_plain(device, dt, mixer, hw, c, heads):
     for degree in (9, 15):
         before = svtr_block.launches
         got = svtr_block.fused_block(x, params, mask, heads, scale, band=band,
-                                     gelu_degree=degree)
+                                     gelu=degree)
         torch.cuda.synchronize()
         assert svtr_block.launches == before + 1
         ref = svtr_block.fused_block_reference(x, params, mask, heads, scale,
-                                               band=band, gelu_degree=degree)
+                                               band=band, gelu=degree)
         atol, rtol = TOL[dt]
         torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
 

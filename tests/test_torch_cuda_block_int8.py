@@ -113,7 +113,7 @@ def test_local_blocks_band_and_full_mask_agree(device, attn_int8, dt, hw, c, hea
     assert svtr_block._int8_kernel_plan(dt, attn_int8, n, c, heads, 4 * c, qb, width)[0] == qb
     x = x32.to(dt)
     w, args = blk.int8_weights, (blk.mask, heads, blk.scale)
-    kw = dict(attn_int8=attn_int8, gelu_degree=blk.gelu_degree)
+    kw = dict(attn_int8=attn_int8, gelu=blk.gelu_degree)
     with torch.inference_mode():
         banded = svtr_block.fused_block_int8(x, w, *args, band=blk.band, **kw)
         full = svtr_block.fused_block_int8(x, w, *args, **kw)

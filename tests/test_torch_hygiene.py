@@ -32,7 +32,7 @@ def test_scan_covers_every_subpackage():
     assert {"models", "ops", "train", "data", "utils", "tools"} <= parts
     learners = ROOT / "mrn_tpu_torch" / "train" / "learners"
     assert set(learners.glob("*.py")) <= set(_port_files())
-    clis = {package / f"{name}_cli.py" for name in ("train", "evaluate", "recognize")}
+    clis = {package / f"{name}_cli.py" for name in ("train", "evaluate", "recognize", "export")}
     assert clis <= set(_port_files())
 
 

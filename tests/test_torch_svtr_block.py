@@ -55,7 +55,7 @@ def _run_both(rng, mixer, hw, heads, c, degree, monkeypatch, dt="float32"):
                                 interpret=True, band=band)
     tp = {k: torch.from_numpy(v).to(tdt) for k, v in params.items()}
     got = svtr_block.fused_block(torch.from_numpy(x).to(tdt), tp, mask, heads,
-                                 scale, band=band, gelu_degree=degree)
+                                 scale, band=band, gelu=degree)
     assert got.dtype == tdt and got.shape == x.shape
     return got.float().numpy(), np.asarray(ref).astype(np.float32)
 
