@@ -115,6 +115,21 @@
    words against the eval path's on the same crops; prints the host decode
    rate (PNG and JPEG), the step-0 windows of the LMDB stream and of the
    bank, the LMDB window's idle share and the CLIs' crops/s;
+9f. trains data- and expert-parallel through ``train_cli`` on that tree
+   (see ``PAR_*``: 2 tasks, float32, batch 256, ``--device_bank``): once
+   without a process group, then (a) under torchrun's environment in a
+   1-rank NCCL world in this process (``--data_parallel 1``: every
+   collective runs), compared bitwise with the run without a group and
+   beside a second run without a group (the card's own run-to-run
+   spread), its NCCL all-reduce shown by a profile of one more step; (b)
+   ``torchrun --nproc_per_node 2`` of this script's ``--parallel-rank``
+   mode, gloo with both ranks on cuda:0, ``--data_parallel 2`` and then
+   ``--expert_parallel 2``, each rank's gradient norms step by step and
+   leaf by leaf, step losses, experts, router (leaf by leaf), scores and
+   validation losses against the run without a group; (c) every run's and rank's launches of rows 1, 2 and 4 against
+   their expected counts (an expert rank holds half the experts); (d) the
+   step-0 and router step windows of each with the gradient buckets'
+   bytes (two ranks on one card share it: no scaling figure);
 10. holds the w8a8 Block kernel against its plain version at the four Block
    shapes at batch 256, float32 and bfloat16, float and int8 attention, each
    Block calibrated on its input and quantized first (Local Blocks banded,
@@ -230,7 +245,9 @@ import copy
 import hashlib
 import json
 import os
+import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -519,6 +536,44 @@ LMDB_HEIGHTS = (24, 48)
 LMDB_WIDTHS = (48, 320)
 LMDB_MAX_LEN = 8
 LMDB_DECODE_CALLS = 1024
+
+# The parallel-training phase: train_cli --device_bank on the LMDB phase's
+# tree, its first PAR_TASKS tasks, configs/svtr_mrn.py at full width,
+# float32 (TF32 off), global batch 256, PAR_ITERS step-0 steps a task
+# validated at 1 and PAR_ITERS, PAR_ITERS // 2 router steps validated at
+# each; once without a process group, then (a) in a 1-rank NCCL world in
+# this process, then (b) in 2-rank gloo worlds with both ranks on cuda:0
+# (torchrun, --data_parallel 2 and --expert_parallel 2).  A world sums in
+# another order, and so does a second run on the card (F.ctc_loss's CUDA
+# backward adds atomically), and Adam turns the noise of a gradient whose
+# exact value is 0 (biases before BatchNorm, the patch embedding's weights
+# on the crops' constant alpha channel, the route bias) into steps of up to
+# its learning rate: parameters are held within two learning rates a step
+# (PAR_ADAM_NOISE) with at most PAR_STRAY of their elements outside
+# tests/test_torch_parallel.py's PAR_RTOL / PAR_ATOL (tests/test_torch_
+# parallel.py's JAX_STRAY) in every leaf, validation and step losses at
+# PAR_LOSS_RTOL (the torchrun train_cli test's), scores equal.  Adam hides
+# the scale of a gradient, so the gradient each optimizer step sees (after
+# the world's all-reduce) is held too: leaf by leaf and step by step, its
+# norm within PAR_GRAD_RTOL of the run without a group's, measured against
+# that norm plus PAR_GRAD_FLOOR of the step's largest leaf norm (a leaf
+# below the floor carries the float noise of an exact-0 gradient).  A
+# second run without a group gives the card's own spread (6.1e-5 and
+# 1.14e-4 in two runs on an H100 80GB HBM3 at 700 W), which must stay
+# PAR_GRAD_MARGIN times under the bound for the bound to tell a fault (a
+# sum for a mean reads 1.0) from noise.
+PAR_TASKS = 2
+PAR_ITERS = 4
+PAR_RTOL, PAR_ATOL = 5e-5, 1e-6
+PAR_ADAM_NOISE = 2 * (2 * PAR_ITERS + PAR_ITERS // 2) * 5e-4
+PAR_LOSS_RTOL = 1e-3
+PAR_STRAY = 1e-3
+PAR_GRAD_RTOL, PAR_GRAD_FLOOR, PAR_GRAD_MARGIN = 1e-2, 1e-4, 4
+# the running means of the BatchNorms after a conv bias whose exact
+# gradient is 0 (tests/test_torch_parallel.py's ZERO_GRAD)
+PAR_ZERO_GRAD = ("patch_embed.bn1.mean", "patch_embed.bn2.mean")
+PAR_TIMEOUT = 300
+PAR_DEVICE = "cuda:0"   # every run's --device (the 1-rank world's backend follows it)
 
 
 # CRNN (configs/crnn_mrn.py) and GRCNN (configs/grcnn_mrn.py) at full
@@ -2689,6 +2744,380 @@ def phase_lmdb(out_dir, device):
     return total
 
 
+def _parallel_config(root, name):
+    """A config file over ``configs/svtr_mrn.py`` with the LMDB phase's tree
+    (its first PAR_TASKS tasks), float32, the phase's cuts and its own
+    output directory."""
+    path = os.path.join(root, f"{name}.py")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(f"""import runpy
+_base = runpy.run_path({os.path.join(ROOT, "configs", "svtr_mrn.py")!r})
+common = dict(_base["common"], exp_name={name!r}, memory_num={CAMPAIGN_MEMORY},
+              output_dir={os.path.join(root, name)!r},
+              data_log={os.path.join(root, name, "data_any.txt")!r})
+model = _base["model"]
+optimizer = _base["optimizer"]
+train = dict(_base["train"], lan_list={campaign.LANS[:PAR_TASKS]!r},
+             select_data=[{os.path.join(root, "train")!r}],
+             valid_datas=[{os.path.join(root, "test")!r}], workers=0,
+             num_iter={PAR_ITERS}, val_interval={PAR_ITERS})
+""")
+    return path
+
+
+def parallel_launches(tasks, expert_shards=1):
+    """Each rank's launches of rows 1, 2 and 4 in a train_cli run of
+    ``tasks`` tasks (test sets of one batch): 6 full and 6 banded attention
+    launches a step-0 step; kernel 4 in the FF validations (one set) and
+    task 0's ``test``, and from task 1 in the router steps, the TF
+    validations and ``test`` (t + 1 sets), 12 per expert this rank holds
+    (its block of ``expert_shards``, all of them when the count does not
+    divide).  A data shard launches as often as the whole batch."""
+    n0, n1 = PAR_ITERS, PAR_ITERS // 2
+    fused = 0
+    for t in range(tasks):
+        fused += val_points(n0, PAR_ITERS) * 12
+        if t == 0:
+            fused += 12
+            continue
+        held = (t + 1) // expert_shards if (t + 1) % expert_shards == 0 else t + 1
+        fused += (n1 + val_points(n1, max(1, PAR_ITERS // 5)) * (t + 1) + (t + 1)) * held * 12
+    return dict(full=6 * n0 * tasks, banded=6 * n0 * tasks, fused=fused)
+
+
+@contextlib.contextmanager
+def grad_log():
+    """Yields ``(calls, quiet)``.  ``calls`` gets, for every optimizer step
+    inside the block, the names of its leaves and the norms of the gradient
+    it steps on (after the world's all-reduce and any grad_transform,
+    before the clip), left on the device.  ``quiet`` gets, from the first
+    step of each optimizer, a mask of the elements whose gradient is at
+    most PAR_GRAD_FLOOR of the step's largest: float noise on an exact 0
+    (a conv bias before BatchNorm, the key part of a qkv bias, the route
+    bias), which Adam turns into steps of up to its learning rate, by the
+    key the parameter has in the phase's records.  The names come from the
+    learner train_cli builds, caught on its way out of ``build_learner``."""
+    from mrn_tpu_torch.train import optim
+
+    calls, quiet, learners = [], {}, []
+    real_step, real_build = optim._Clipped.step, train_cli.build_learner
+
+    def build(*args, **kwargs):
+        learners.append(real_build(*args, **kwargs))
+        return learners[-1]
+
+    def step(self, grads):
+        learner = learners[-1]
+        if learner.state.opt is not self:
+            raise RuntimeError("an optimizer step outside the learner's state")
+        names = list(learner.state.params)
+        calls.append((names, torch.stack(torch._foreach_norm(list(grads)))))
+        if not getattr(self, "_grad_logged", False):
+            self._grad_logged = True
+            prefix = "" if learner._phase == "routed" else f"experts.{learner._cur_task}."
+            floor = PAR_GRAD_FLOOR * max(float(g.abs().max()) for g in grads if g.numel())
+            quiet.update({prefix + n: (g.abs() <= floor).cpu() for n, g in zip(names, grads)})
+        return real_step(self, grads)
+
+    optim._Clipped.step, train_cli.build_learner = step, build
+    try:
+        yield calls, quiet
+    finally:
+        optim._Clipped.step, train_cli.build_learner = real_step, real_build
+
+
+def _run_record(run, wall, grads):
+    """What the phase compares of a train_cli run: the frozen experts' and
+    the router's tensors (port names, on the host), the scores, the logged
+    and step losses, the gradient norms of ``grad_log``, the step windows'
+    seconds (step 0 of the last task from its second iteration, the router
+    steps from their second) and the gradient buckets' bytes (float32: the
+    trainable parameters and the step's scalar metrics)."""
+    learner = run.learner
+    state = {f"experts.{i}.{k}": v.detach().cpu().clone()
+             for i, s in enumerate(learner.expert_states) for k, v in s.items()}
+    state.update({k: v.detach().cpu().clone() for k, v in learner.router_state.items()})
+    last = PAR_TASKS - 1
+    hist = [r for r in learner.history if r["task"] == last]
+    step0 = [r["seconds"] for r in hist if r["step"] == 0 and r["iteration"] > 1]
+    router = [r["seconds"] for r in hist if r["step"] == 1 and r["iteration"] > 1]
+    expert_n = sum(v.numel() for v in learner.model.parameters())
+    router_n = sum(v.numel() for v in learner.router_state.values()
+                   if v.is_floating_point())
+    return dict(state=state, best=run.best_scores, ned=run.ned_scores,
+                loss=[r["loss"] for r in learner.history],
+                valid_loss=[float(x) for x in re.findall(
+                    r"Valid_loss: ([-0-9.e]+)", open(learner.log.train_log_path,
+                                                     encoding="utf-8").read())],
+                step0_ms=1e3 * sum(step0) / len(step0), router_ms=1e3 * sum(router) / len(router),
+                grads=[(names, norms.double().cpu()) for names, norms in grads[0]],
+                quiet=grads[1],
+                bucket=(4 * (expert_n + 1), 4 * (router_n + 4)), launches=read_launches(),
+                wall=wall)
+
+
+def parallel_rank(out_dir, argv):
+    """One rank of a torchrun world of the parallel phase: ``train_cli.main``
+    of ``argv`` (TF32 off, its launches counted) in a gloo group joined
+    first (NCCL, train_cli's backend on the card, refuses two ranks on one
+    card; train_cli joins the group it finds), its record saved as
+    ``{out_dir}/rank{r}.pt``."""
+    from mrn_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(argv[argv.index("--device") + 1], "gloo")
+    reset_launches()
+    with grad_log() as grads:
+        t0 = time.perf_counter()
+        run = train_cli.main(argv)
+        record = _run_record(run, time.perf_counter() - t0, grads)
+    rank = torch.distributed.get_rank()
+    torch.save(record, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _parallel_diff(got, ref, quiet):
+    """``got`` against ``ref`` (port-named tensors): the largest difference,
+    the share of all elements outside PAR_RTOL / PAR_ATOL, and the worst
+    leaf's share and name, leaving out the ``quiet`` elements (``grad_log``)
+    and the PAR_ZERO_GRAD statistics, which are held only at PAR_ADAM_NOISE
+    through the largest difference."""
+    largest, stray, total, worst = 0.0, 0, 0, (0.0, "none")
+    for key, r in ref.items():
+        g, r = got[key].double(), r.double()
+        out = (g - r).abs() > PAR_ATOL + PAR_RTOL * r.abs()
+        largest = max(largest, float((g - r).abs().max()) if r.numel() else 0.0)
+        stray, total = stray + int(out.sum()), total + r.numel()
+        loud = ~quiet[key] if key in quiet else torch.ones_like(out)
+        share = int((out & loud).sum()) / max(int(loud.sum()), 1)
+        if share > worst[0] and not key.endswith(PAR_ZERO_GRAD):
+            worst = (share, key)
+    return largest, stray / total, worst[0], worst[1]
+
+
+def _grad_diff(got, ref):
+    """``got``'s gradient norms (``grad_log``) against ``ref``'s, step by
+    step: the worst leaf's |difference| / (ref's norm + PAR_GRAD_FLOOR of
+    the step's largest), with the step's index and the leaf's name."""
+    if [names for names, _ in got] != [names for names, _ in ref]:
+        raise RuntimeError("the runs stepped on other leaves")
+    worst = (0.0, -1, "")
+    for k, ((names, g), (_, r)) in enumerate(zip(got, ref)):
+        rel = (g - r).abs() / (r + PAR_GRAD_FLOOR * r.max())
+        j = int(rel.argmax())
+        worst = max(worst, (float(rel[j]), k, names[j]))
+    return worst
+
+
+def _loss_diff(got, ref):
+    """The largest relative difference of the step losses."""
+    if len(got["loss"]) != len(ref["loss"]):
+        raise RuntimeError("the runs took different numbers of steps")
+    return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got["loss"], ref["loss"]))
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _world(tag, root, cfg, extra):
+    """``torchrun --nproc_per_node 2`` of ``parallel_rank`` on cuda:0 with
+    gloo; returns the ranks' records, or None (and the reason) when gloo
+    refuses the CUDA collectives."""
+    out = os.path.join(root, f"ranks_{tag}")
+    os.makedirs(out, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           os.path.join(ROOT, "chip_smoke.py"), "--parallel-rank", out, "--config", cfg,
+           "--device", PAR_DEVICE, "--device_bank", *extra]
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, capture_output=True, text=True, timeout=PAR_TIMEOUT,
+                          env=dict(os.environ, OMP_NUM_THREADS="4"))
+    wall = time.perf_counter() - t0
+    if done.returncode != 0:
+        text = done.stdout[-3000:] + done.stderr[-6000:]
+        if re.search(r"gloo.*(not supported|unsupported|Unsupported)|"
+                     r"(not supported|unsupported|Unsupported).*[Gg]loo", text):
+            return None, text.strip().splitlines()[-1], wall
+        raise RuntimeError(f"(b) the {tag} world failed:\n{text}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(2)], None, wall
+
+
+def phase_parallel(out_dir):
+    """train_cli's data- and expert-parallel path at full width (see PAR_*):
+    the run without a process group, (a) a 1-rank NCCL world in this process
+    (bitwise the same, its NCCL all-reduce in a profile), (b) 2-rank gloo
+    worlds on cuda:0 held against the run without a group, (c) each rank's
+    launches of rows 1, 2 and 4 against the expected counts, (d) step
+    windows with the gradient buckets' bytes.  Returns the launches."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrn_tpu_torch.parallel import mesh
+
+    root = os.path.join(out_dir, "lmdb")
+    t_phase = time.perf_counter()
+    launches, records = {}, {}
+
+    def cli_run(tag, world):
+        """train_cli in this process, without a group or in a 1-rank world
+        (then one more step-0 step is profiled); returns the names of the
+        profile's collectives and the world's backend."""
+        argv = ["--config", _parallel_config(root, f"par_{tag}"), "--device", PAR_DEVICE,
+                "--device_bank"]
+        saved, names, backend = {}, [], None
+        if world:
+            saved = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                                                     "WORLD_SIZE", "LOCAL_RANK")}
+            os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+                              WORLD_SIZE="1", LOCAL_RANK="0")
+            argv += ["--data_parallel", "1"]
+        try:
+            with fused_train_env(False), grad_log() as grads:
+                reset_launches()
+                t0 = time.perf_counter()
+                run = train_cli.main(argv)
+                records[tag] = _run_record(run, time.perf_counter() - t0, grads)
+                launches[tag] = records[tag]["launches"]
+            if world:
+                backend = dist.get_backend()
+                if backend != ("nccl" if PAR_DEVICE.startswith("cuda") else "gloo") \
+                        or mesh.get_mesh().shape != {"data": 1}:
+                    raise RuntimeError(f"(a) train_cli installed a {backend} world, "
+                                       f"mesh {mesh.get_mesh()}")
+                learner = run.learner
+                learner._phase = "standalone"
+                learner.build_optimizer()
+                manager = DatasetManager(learner.opt)
+                manager.init_start(learner.opt, learner.opt.select_data, None, PAR_TASKS - 1)
+                learner.train_step(manager.get_batch())
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    learner.train_step(manager.get_batch())
+                    torch.cuda.synchronize()
+                events = [e for e in prof.key_averages()
+                          if "nccl" in e.key.lower() or "allreduce" in e.key.lower()]
+                names = sorted({e.key for e in events})
+                records[tag]["collective_ms"] = sum(
+                    e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+                records[tag]["collective_launches"] = sum(
+                    e.count for e in events if e.device_type == DeviceType.CUDA)
+        finally:
+            if world:
+                mesh.clear()
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        return names, backend
+
+    def same(a, b):
+        return (a["best"], a["ned"], a["loss"]) == (b["best"], b["ned"], b["loss"]) \
+            and all(torch.equal(a["state"][k], v) for k, v in b["state"].items())
+
+    def hold(label, rec):
+        """Prints ``rec`` against the run without a group; whether it is
+        within the phase's bounds."""
+        largest, share, leaf_share, leaf = _parallel_diff(rec["state"], alone["state"],
+                                                          alone["quiet"])
+        grad, step, grad_leaf = _grad_diff(rec["grads"], alone["grads"])
+        loss = _loss_diff(rec, alone)
+        scores = (rec["best"], rec["ned"]) == (alone["best"], alone["ned"])
+        vloss = max(abs(a - b) / max(abs(b), 1e-12)
+                    for a, b in zip(rec["valid_loss"], alone["valid_loss"]))
+        print(f"  {label}: gradient norms of {len(rec['grads'])} optimizer steps within "
+              f"{grad:.3g} relative (worst: step {step}, {grad_leaf}; bound {PAR_GRAD_RTOL:g}); "
+              f"step losses within {loss:.2e} and validation losses within {vloss:.2e} "
+              f"relative; scores equal: {scores}; parameters: largest difference "
+              f"{largest:.3g}, {share:.4%} of all elements and {leaf_share:.3%} of the worst "
+              f"leaf's ({leaf}, its elements with a gradient above the floor) outside rtol "
+              f"{PAR_RTOL:g} / atol {PAR_ATOL:g}; bitwise: "
+              f"{same(rec, alone)}")
+        return largest <= PAR_ADAM_NOISE and leaf_share <= PAR_STRAY and scores \
+            and grad <= PAR_GRAD_RTOL and loss <= PAR_LOSS_RTOL and vloss <= PAR_LOSS_RTOL \
+            and len(rec["valid_loss"]) == len(alone["valid_loss"])
+
+    # a second run without a group gives the card's own run-to-run spread
+    # (CTC's backward adds atomically on CUDA)
+    cli_run("alone", False)
+    cli_run("alone2", False)
+    names, backend = cli_run("nccl1", True)
+    alone, again, nccl1 = records["alone"], records["alone2"], records["nccl1"]
+    expected = parallel_launches(PAR_TASKS)
+    print(f"  train_cli without a process group: {PAR_TASKS} tasks in {alone['wall']:.1f} s, "
+          f"AIA per stage {alone['best']}; launches {launches['alone']} (expected {expected})")
+    repeat = same(again, alone)
+    spread = _grad_diff(again["grads"], alone["grads"])[0]
+    hold("a second run without a group against the first", again)
+    if spread * PAR_GRAD_MARGIN > PAR_GRAD_RTOL:
+        raise RuntimeError(f"the card's own spread of the gradient norms, {spread:.3g}, is not "
+                           f"{PAR_GRAD_MARGIN} times under the bound {PAR_GRAD_RTOL:g}")
+    bitwise = same(nccl1, alone)
+    print(f"  (a) 1-rank {backend} world (torchrun's environment, --data_parallel 1): "
+          f"{nccl1['wall']:.1f} s; {len(alone['state'])} expert and router tensors, scores and "
+          f"{len(alone['loss'])} step losses bitwise equal to the run without a group: "
+          f"{bitwise} (a second run without a group: {repeat}); collectives in the profile of "
+          f"one more step: {names}, their device kernels {nccl1['collective_launches']} "
+          f"launches, {nccl1['collective_ms']:.3f} ms")
+    if not hold(f"(a) the 1-rank {backend} world", nccl1) or (repeat and not bitwise):
+        raise RuntimeError("(a) the 1-rank NCCL world differs from the run without a group")
+    # the collective's op, and under NCCL an NCCL record or kernel beside it
+    if not any("allreduce" in n.lower() for n in names) or \
+            (backend == "nccl" and not any("nccl" in n.lower() for n in names)):
+        raise RuntimeError(f"(a) the profile shows no {backend} all-reduce")
+
+    # ---- (b) 2-rank gloo worlds on cuda:0, against the run without a group
+    torch.cuda.empty_cache()   # the ranks share the card with this process
+    worlds = {}
+    for tag, extra, shards in (("data2", ["--data_parallel", "2"], 1),
+                               ("expert2", ["--expert_parallel", "2"], 2)):
+        ranks, refused, wall = _world(tag, root, _parallel_config(root, f"par_{tag}"), extra)
+        if ranks is None:
+            print(f"  (b) {tag}: gloo refused a CUDA collective, so the 2-rank world on one "
+                  f"card was not run: {refused}")
+            continue
+        worlds[tag] = ranks
+        expected_rank = parallel_launches(PAR_TASKS, shards)
+        for r, rec in enumerate(ranks):
+            got = {k: rec["launches"][k] for k in expected_rank}
+            ok = hold(f"(b) {tag} rank {r} ({rec['wall']:.1f} s in train_cli, {wall:.1f} s "
+                      "for torchrun)", rec)
+            print(f"  (c) {tag} rank {r}: launches {got} (expected {expected_rank})")
+            if not ok:
+                raise RuntimeError(f"(b) the {tag} world differs from the run without a group")
+            if got != expected_rank:
+                raise RuntimeError(f"(c) the {tag} world's rank {r} did not run through the "
+                                   "kernels as expected")
+            for k in got:
+                launches[f"{tag}{r}"] = dict(launches.get(f"{tag}{r}", {}), **{k: got[k]})
+    if launches["nccl1"] != launches["alone"] or \
+            {k: launches["alone"][k] for k in expected} != expected:
+        raise RuntimeError("(c) the runs in this process did not run through the kernels "
+                           "as expected")
+
+    # ---- (d) step windows
+    rows = [("no group", alone, 1), (f"1-rank {backend}", nccl1, 1)]
+    rows += [(f"{tag} (2 gloo ranks on cuda:0, rank {r})", rec, 2)
+             for tag, ranks in worlds.items() for r, rec in enumerate(ranks)]
+    for label, rec, _ in rows:
+        print(f"  (d) {label}: step 0 {rec['step0_ms']:.2f} ms/step (task {PAR_TASKS - 1}, "
+              f"iterations 2-{PAR_ITERS}), router step {rec['router_ms']:.2f} ms; gradient "
+              f"buckets {rec['bucket'][0]:,} B (step 0) and {rec['bucket'][1]:,} B (router)")
+    print("  (d) two ranks that share one card split its time: these windows are no "
+          "multi-GPU scaling figure")
+    print(f"  the parallel phase took {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(v.get(k, 0) for v in launches.values()) for k in ("full", "banded", "fused")}
+
+
 def flip_share(got, ref, dt):
     """(share of elements beyond the float noise INT8_NOISE, max |got -
     ref|, max |ref|)."""
@@ -4151,6 +4580,9 @@ def main():
         del source
         print("== LMDB entry points: train_cli, evaluate_cli, recognize_cli, full width, bf16")
         lmdb = phase_lmdb(out_dir, device)
+        print("== parallel training: train_cli without a process group, in a 1-rank NCCL "
+              "world and in 2-rank gloo worlds on one card, full width, f32")
+        par = phase_parallel(out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     print("== w8a8 Block kernel vs plain, SVTR Block shapes")
@@ -4198,15 +4630,15 @@ def main():
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
              served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"]
-             + strat["fused"] + lmdb["fused"] + exported["fused"], totals[bf16]),
+             + strat["fused"] + lmdb["fused"] + par["fused"] + exported["fused"], totals[bf16]),
             ("svtr_fused_block_tanh", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:289",
              tanh_served, tanh_totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
-             trained["full"] + ckpt["full"] + camp["full"] + strat["full"] + lmdb["full"],
-             attn[("full", bf16)]),
+             trained["full"] + ckpt["full"] + camp["full"] + strat["full"] + lmdb["full"]
+             + par["full"], attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
              trained["banded"] + ckpt["banded"] + camp["banded"] + strat["banded"]
-             + lmdb["banded"], attn[("banded", bf16)]),
+             + lmdb["banded"] + par["banded"], attn[("banded", bf16)]),
             ("svtr_train_block_forward", "svtr_train_block.cu",
              "mrn_tpu/ops/svtr_train_block.py:124", fused_trained["train_fwd"],
              train_blocks[("fwd", bf16)]),
@@ -4242,7 +4674,9 @@ def main():
           f"{fused_trained['fused']} fused), of the checkpoint phase with its test "
           f"({ckpt['fused']}), of the campaign ({camp['fused']}), of the strategies "
           f"({strat['fused']}) and of the LMDB entry points ({lmdb['fused']}: two train_cli "
-          f"runs, evaluate_cli, recognize_cli) and of the exported SVTR-MRN program "
+          f"runs, evaluate_cli, recognize_cli), of the parallel phase ({par['fused']}: "
+          f"train_cli without a group, in 1-rank NCCL worlds and on each rank of the 2-rank "
+          f"gloo worlds) and of the exported SVTR-MRN program "
           f"({exported['fused']}: its export's eager call and {EXPORT_REQUESTS} requests); "
           f"svtr_fused_block_tanh and svtr_fused_block_int8_tanh are the same kernels in the "
           f"tanh-GELU form (set_gelu_approximate), their launches the tanh phase's served "
@@ -4250,7 +4684,7 @@ def main():
           f"with F.gelu(approximate='tanh'), their bound the degree-9 rows'; attention times "
           f"are one "
           f"expert forward's 6 Blocks of each kind, their launches the composed step-0 steps "
-          f"of the training, checkpoint, campaign, strategies and LMDB phases; "
+          f"of the training, checkpoint, campaign, strategies, LMDB and parallel phases; "
           f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms "
           f"autograd's backward of the library Block's proj + LayerNorm + MLP sub-graph, "
           f"the head's of its LayerNorm + qkv product; svtr_fused_block_int8 times are one recognizer's 12 "
@@ -4271,4 +4705,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:   # one rank of the parallel phase's worlds
+        parallel_rank(sys.argv[2], sys.argv[3:])
+    else:
+        main()

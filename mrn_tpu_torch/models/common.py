@@ -22,6 +22,10 @@
   back to the input dtype.  In train mode BatchNorm normalises with the batch
   statistics and moves its running stats as flax does (momentum 0.9, with
   the biased variance, so not ``F.batch_norm``); the update is in place.
+  Under a data mesh (``parallel.mesh``) the train-mode moments ``E[x]`` and
+  ``E[x^2]`` are the global batch's (``mesh.data_mean``, whose gradient is
+  global too), as in JAX's partitioned program, so the running statistics
+  move alike on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mrn_tpu_torch.ops.int8 import conv_w8a8
+from mrn_tpu_torch.parallel import mesh
 
 __all__ = ["BatchNorm", "Conv2d", "Dense", "LayerNorm", "QUANT_MODES", "TorchConv",
            "global_avg_pool", "is_quant_scale", "max_pool", "to_nchw", "to_nhwc"]
@@ -157,8 +162,10 @@ class BatchNorm(nn.Module):
         shape = (1, -1, 1, 1)
         xf = x.float()
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, sq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            if mesh.get_mesh() is not None:   # the global batch's moments
+                mean, sq = mesh.data_mean(torch.stack([mean, sq])).unbind(0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -54,6 +54,7 @@ from mrn_tpu_torch.ops.svtr_block import (GELU_TANH, SCORE_CLAMP, FoldCache, Int
                                           fused_block_int8_reference, fused_block_reference,
                                           gelu_tanh, prepare_int8)
 from mrn_tpu_torch.ops.svtr_train_block import PARAM_KEYS, fused_block_train
+from mrn_tpu_torch.parallel import mesh
 
 __all__ = ["Block", "DropPath", "PatchEmbed", "QUANT_MODES", "SVTRExtractor",
            "SubSampleConv", "configure_blocks", "frozen_folds", "is_quant_scale",
@@ -137,9 +138,11 @@ class DropPath(nn.Module):
         self.generator: Optional[torch.Generator] = None
 
     def _draw(self, batch: int, device) -> torch.Tensor:
-        """One keep decision per image, [B, 1] float32 of 0 and 1."""
-        return torch.bernoulli(torch.full((batch, 1), 1.0 - self.rate, device=device),
-                               generator=self.generator)
+        """One keep decision per image, [B, 1] float32 of 0 and 1.  Under a
+        data mesh the global batch's decisions are drawn and this rank keeps
+        its rows, so the masks and the generator are the single process's."""
+        keep = torch.full((batch * mesh.data_size(), 1), 1.0 - self.rate, device=device)
+        return mesh.shard_batch(torch.bernoulli(keep, generator=self.generator))
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if self.rate == 0.0 or not train:

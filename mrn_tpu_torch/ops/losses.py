@@ -10,6 +10,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -23,14 +25,16 @@ def cross_entropy_dense(logits: torch.Tensor, targets: torch.Tensor) -> torch.Te
 
 
 def cross_entropy_ignore(logits: torch.Tensor, targets: torch.Tensor,
-                         ignore_index: int) -> torch.Tensor:
+                         ignore_index: int, count: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """logits [..., C]; targets [...] int.  Mean CE over the positions whose
-    target is not ``ignore_index`` (0 when there are none)."""
+    target is not ``ignore_index`` (0 when there are none); ``count``, when
+    given, replaces their number as the divisor."""
     logp = F.log_softmax(logits.reshape(-1, logits.shape[-1]), dim=-1)
     targets = targets.reshape(-1).long()
     picked = logp.gather(1, targets[:, None])[:, 0]
     keep = (targets != ignore_index).to(logp.dtype)
-    return -(picked * keep).sum() / keep.sum().clamp(min=1.0)
+    return -(picked * keep).sum() / (keep.sum().clamp(min=1.0) if count is None else count)
 
 
 def kd_loss(pred_logits: torch.Tensor, soft_logits: torch.Tensor,

@@ -13,6 +13,9 @@ An MRN best checkpoint references its frozen experts by content hash:
 ``expert_refs`` names blobs ``experts/{ref}.msgpack`` beside it, each one
 expert's ``params`` / ``batch_stats`` plus its ``class_count``; older files
 hold the experts inline (``experts``).  ``composite_experts`` reads both.
+
+In a process group only rank 0 writes (``parallel.mesh.is_main``); the
+learners wait at a barrier before they read a file back.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from mrn_tpu_torch.parallel import mesh
 from mrn_tpu_torch.train.msgpack_codec import msgpack_restore, msgpack_serialize
 
 __all__ = ["best_model_path", "composite_experts", "deep_merge", "load_model",
@@ -41,7 +45,9 @@ def best_model_path(output_dir: str, exp_name: str, lan: str, taski: int,
 def save_model(path: str, params: Any, batch_stats: Any,
                extra: Optional[dict] = None) -> int:
     """Writes ``{"params", "batch_stats", **extra}``; returns the bytes
-    written."""
+    written (0 on a rank other than 0, which writes nothing)."""
+    if not mesh.is_main():
+        return 0
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {"params": params, "batch_stats": batch_stats}
     if extra:
@@ -113,7 +119,10 @@ def save_train_state(path: str, *, params: Any, batch_stats: Any,
                      host_state: dict, extra: Optional[dict] = None) -> None:
     """Atomic (write, then rename) rolling snapshot of the full training
     state.  ``opt_state`` is a state-dict tree; ``host_state`` any picklable
-    dict (numpy Generator state, memory indices, ...), stored pickled."""
+    dict (numpy Generator state, memory indices, ...), stored pickled.
+    Rank 0 alone writes."""
+    if not mesh.is_main():
+        return
     os.makedirs(os.path.dirname(path), exist_ok=True)
     payload = {"params": params, "batch_stats": batch_stats, "opt_state": opt_state,
                "iteration": iteration, "rng_key": rng_key}

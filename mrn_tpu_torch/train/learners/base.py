@@ -72,6 +72,18 @@ WA's old one, MRN's experts) runs in eval mode, teacher-forced
 (``train=False, is_train=True``).  The decoder is drawn afresh at every
 task (``change_model``), as the reference builds a new one.
 
+Under a mesh (``parallel.mesh``, installed by ``train_cli`` under
+torchrun) every rank draws the same global stream from the same seed (the
+prefetcher runs per rank) and ``_encode_batch`` keeps its rows of the
+images, labels and ``dataset_idx``; the step's loss, gradient and BatchNorm
+moments are the global batch's (``train.steps``, ``models.common``);
+``eval_batch`` scores its rows and gathers ``preds_index``, ``max_probs``
+and the loss sums over the data shards, so scores and best-file choices
+agree on every rank.  A built, grown or reloaded network is broadcast from
+rank 0 (``mesh.replicate``).  Rank 0 alone writes logs, best files,
+snapshots and blobs, and every rank waits at a barrier before it reads a
+best file back.
+
 Runs on the CUDA card unless ``device="cpu"`` is passed.
 """
 
@@ -97,6 +109,7 @@ from mrn_tpu_torch.models.surgery import apply_reference_init, grow_fc
 from mrn_tpu_torch.models.svtr import set_droppath_generator
 from mrn_tpu_torch.ops.ctc import ctc_loss_per_sample
 from mrn_tpu_torch.ops.losses import cross_entropy_ignore
+from mrn_tpu_torch.parallel import mesh
 from mrn_tpu_torch.train.checkpoint import (best_model_path, load_model, load_train_state,
                                             save_model, save_train_state, train_state_path)
 from mrn_tpu_torch.train.evaluate import ValidationResult, validation
@@ -151,7 +164,7 @@ class BaseLearner:
         model, its DropPath drawn from ``generator``."""
         model = self._build_net()
         model.load_state_dict(from_flax(params, stats), strict=True)
-        self.model = model.to(self.device)
+        self.model = mesh.replicate(model.to(self.device))
         set_droppath_generator(self.model, self.generator)
 
     def build_model(self) -> None:
@@ -280,6 +293,9 @@ class BaseLearner:
         return (img.float() / 255.0 - 0.5) / 0.5
 
     def _encode_batch(self, images, labels) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a host batch (all of it without a mesh),
+        encoded and on the device."""
+        images, labels = mesh.shard_batch(images), mesh.shard_batch(list(labels))
         index, lengths = self.converter.encode(
             labels, batch_max_length=self.opt.batch_max_length)
         return {"image": self._device_images(images),
@@ -290,7 +306,7 @@ class BaseLearner:
         """One step on a loader batch ``(images, labels[, dataset_idx])``."""
         batch = self._encode_batch(fetched[0], fetched[1])
         if len(fetched) > 2:
-            batch["dataset_idx"] = torch.as_tensor(np.asarray(fetched[2]),
+            batch["dataset_idx"] = torch.as_tensor(mesh.shard_batch(np.asarray(fetched[2])),
                                                    device=self.device)
         return self.get_train_step()(self.state, batch)
 
@@ -369,7 +385,7 @@ class BaseLearner:
             # a completed stage drops its rolling snapshot, so a later resume
             # cannot rewind into it
             path = self._train_state_path(taski, step)
-            if os.path.exists(path):
+            if mesh.is_main() and os.path.exists(path):
                 os.remove(path)
 
     # ------------------------------------------------ full-state snapshots
@@ -558,9 +574,13 @@ class BaseLearner:
         """``make_eval_batch``'s outputs for one padded batch, on the host:
         ``preds_index`` [B, T] int32, ``max_probs`` [B, T], ``loss_sum``
         and ``loss_count`` (CTC per sample over its length; Attn the
-        cross entropy over the non-[PAD] targets after [SOS])."""
+        cross entropy over the non-[PAD] targets after [SOS]).  Under a
+        mesh this rank scores its rows and the outputs are gathered over the
+        data shards."""
+        images, labels_index, lengths = (mesh.shard_batch(np.asarray(a))
+                                         for a in (images, labels_index, lengths))
         logits = self._eval_logits(self._device_images(images), val_choose).float()
-        labels_index = torch.as_tensor(np.asarray(labels_index), device=self.device)
+        labels_index = torch.as_tensor(labels_index, device=self.device)
         out = {"preds_index": logits.argmax(dim=2).to(torch.int32),
                "max_probs": torch.softmax(logits, dim=2).amax(dim=2)}
         if self.opt.Prediction == "Attn":
@@ -575,7 +595,7 @@ class BaseLearner:
             out["loss_sum"] = torch.where(valid & torch.isfinite(per), per,
                                           torch.zeros_like(per)).sum()
             out["loss_count"] = valid.sum()
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return {k: v.cpu().numpy() for k, v in mesh.gather_for_host(out).items()}
 
     def run_validation(self, valid_loader, val_choose: str = "val") -> ValidationResult:
         return validation(functools.partial(self.eval_batch, val_choose=val_choose),
@@ -613,11 +633,13 @@ class BaseLearner:
         save_model(self._best_path(taski, step), *to_flax(self.model))
 
     def _load_best(self, taski: int, step: Optional[int] = None) -> None:
+        mesh.barrier()   # rank 0's writes are done
         path = self._best_path(taski, step)
         params, stats = to_flax(self.model)
         payload = load_model(path, {"params": params, "batch_stats": stats})
         self.model.load_state_dict(from_flax(payload["params"], payload["batch_stats"]),
                                    strict=True)
+        mesh.replicate(self.model)
         self.log.write(f"Task {taski} load checkpoint from {path}.\n")
 
     # ------------------------------------------------------------- test

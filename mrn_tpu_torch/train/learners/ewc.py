@@ -21,6 +21,11 @@ penalty.  Without that file (a checkpoint of the JAX learner) the replay
 recomputes the Fisher from the best checkpoint on the task's stream, as
 the JAX learner does; the unbroken run's Fisher came from the last
 iterate and from the batches after the loop's, so that one differs.
+
+Under a data mesh each Fisher batch's gradient is the global batch's,
+averaged over the world before it is squared, as JAX's jitted ``grad_sq``
+computes it under its mesh; the penalty, a function of the parameters
+alone, is counted once by the step's mean over the world.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Dict, Optional
 import torch
 
 from mrn_tpu_torch.bridge import flax_tree, from_flax
+from mrn_tpu_torch.parallel import mesh
 from mrn_tpu_torch.train.checkpoint import load_model, save_model
 from mrn_tpu_torch.train.learners.base import BaseLearner
 
@@ -118,8 +124,8 @@ class EWC(BaseLearner):
                 images, labels = train_loader.get_batch()[:2]
                 batch = self._encode_batch(images, labels)
                 loss = self._recognition_loss(self._apply_train(params, batch), batch)
-                grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True,
-                                            materialize_grads=True)
+                grads = mesh.all_reduce_grads(torch.autograd.grad(
+                    loss, list(params.values()), allow_unused=True, materialize_grads=True))
                 for f, g in zip(fisher.values(), grads):
                     f.add_(g * g)
         finally:

@@ -59,6 +59,15 @@ reloaded task-0 expert.
 its ``get_dataset``, ``rehearsal_prev_model``, ``get_batch`` and
 ``get_batch2``); images may be indices into ``opt.image_bank``.
 ``valid_loader`` is a ``data.manager.ValDataset``.
+
+Under an expert mesh (``parallel.mesh.set_expert_parallel``) the routed
+ensembles hold only this rank's block of experts (``mesh.shard_experts``,
+all of them when the count does not divide), as JAX's
+``_routed_variables`` shards the stacked experts; the learner keeps every
+frozen expert's state all the same, for its files.  The router's gradient
+is averaged over the whole world: each data shard appears on ``E`` ranks
+alike.  The drifting statistics of the whole stack are gathered over the
+``expert`` group when they are written back or snapshotted.
 """
 
 from __future__ import annotations
@@ -78,6 +87,7 @@ from mrn_tpu_torch.models.init import random_recognizer, random_router
 from mrn_tpu_torch.models.mrn import MRNNet
 from mrn_tpu_torch.models.svtr import set_droppath_generator
 from mrn_tpu_torch.ops.losses import cross_entropy_dense
+from mrn_tpu_torch.parallel import mesh
 from mrn_tpu_torch.train.checkpoint import composite_experts, load_model, save_model
 from mrn_tpu_torch.train.learners.base import BaseLearner
 
@@ -156,9 +166,11 @@ class MRN(BaseLearner):
     def _routed_model(self, router: Mapping, expert_dtype: Optional[torch.dtype] = None
                       ) -> MRNNet:
         """MRNNet over every frozen expert (fc padded to the current class
-        count) plus the ``router`` stack (flax tree), its experts frozen and
-        cast to ``expert_dtype`` (their BatchNorm statistics stay float32)."""
+        count; under an expert mesh this rank's block of them) plus the
+        ``router`` stack (flax tree), its experts frozen and cast to
+        ``expert_dtype`` (their BatchNorm statistics stay float32)."""
         opt = self.opt
+        block = mesh.shard_experts(len(self.expert_states))
         model = MRNNet(len(self.expert_states), self._total_classes, self.class_counts,
                        prediction=opt.Prediction, transformation=opt.Transformation,
                        feature_extraction=opt.FeatureExtraction,
@@ -166,8 +178,9 @@ class MRN(BaseLearner):
                        input_channel=opt.input_channel,
                        output_channel=opt.output_channel, hidden_size=opt.hidden_size,
                        img_size=(opt.imgH, opt.imgW), svtr=opt.get("svtr"),
-                       num_fiducial=opt.num_fiducial, batch_max_length=opt.batch_max_length)
-        model.load_state_dict(routed_state(self.expert_states, router,
+                       num_fiducial=opt.num_fiducial, batch_max_length=opt.batch_max_length,
+                       expert_block=block)
+        model.load_state_dict(routed_state([self.expert_states[i] for i in block], router,
                                            self._total_classes), strict=True)
         model.to(self.device)
         for p in model.experts.parameters():
@@ -289,18 +302,28 @@ class MRN(BaseLearner):
         if not self.pinned:
             self._write_back_stats()
 
+    def _expert_buffers(self) -> List[Dict[str, torch.Tensor]]:
+        """Every expert's live buffers in the training ensemble, by expert;
+        under an expert mesh the other ranks' blocks are gathered."""
+        experts = self.mrn_model.experts
+        local = [dict(e.named_buffers()) for e in experts]
+        if len(experts) == len(self.expert_states):
+            return local
+        gathered = {k: mesh.gather_experts(torch.stack([b[k] for b in local]))
+                    for k in local[0]}
+        return [{k: v[i] for k, v in gathered.items()} for i in range(len(self.expert_states))]
+
     def _expert_stats_tree(self) -> Dict:
         """The training ensemble's expert statistics, stacked under
         ``experts`` (the JAX router state's ``batch_stats``)."""
-        return flax_tree((k, b) for k, b in self.mrn_model.named_buffers()
-                         if k.startswith("experts."))
+        return flax_tree((f"experts.{i}.{k}", b) for i, bufs in enumerate(self._expert_buffers())
+                         for k, b in bufs.items())
 
     def _write_back_stats(self) -> None:
         """The drifted statistics into the frozen experts; their blobs are
         written anew at the next best save."""
         states = []
-        for state, expert in zip(self.expert_states, self.mrn_model.experts):
-            live = dict(expert.named_buffers())
+        for state, live in zip(self.expert_states, self._expert_buffers()):
             states.append({k: (live[k].detach().clone() if k in live else v)
                            for k, v in state.items()})
         self._set_experts(states, self.class_counts, [None] * len(states))
@@ -336,8 +359,12 @@ class MRN(BaseLearner):
         live = dict(self.mrn_model.named_parameters())
         live.update(self.mrn_model.named_buffers())
         state = recognizer_state({k: params[k] for k in ROUTER_KEYS})
-        if batch_stats:   # drifting mode: the experts' statistics
-            state.update(unstack(batch_stats, "experts"))
+        if batch_stats:   # drifting mode: the statistics of this rank's experts
+            stats = unstack(batch_stats, "experts")
+            for j, i in enumerate(self.mrn_model.expert_block):
+                head = f"experts.{i}."
+                state.update({f"experts.{j}.{k[len(head):]}": v for k, v in stats.items()
+                              if k.startswith(head)})
         with torch.no_grad():
             for name, value in state.items():
                 live[name].copy_(value)
@@ -417,19 +444,24 @@ class MRN(BaseLearner):
         stats = stats or [{}] * len(params)
         states = [{k: v.to(self.device) for k, v in recognizer_state(p, s).items()}
                   for p, s in zip(params, stats)]
+        mesh.replicate(v for state in states for v in state.values())
         counts = [int(np.shape(p["fc"]["kernel"])[-1]) for p in params]
         self._set_experts(states, counts, refs or [None] * len(states))
         router = payload.get("router")
         self.router_state = ({k: v.to(self.device) for k, v in recognizer_state(router).items()}
                              if router else None)
+        if self.router_state:
+            mesh.replicate(self.router_state.values())
         self.mrn_model = None
         if not any(k in payload["params"] for k in ROUTER_KEYS):
             if self.model is None:
                 self.model = build_recognizer(self.opt, self._total_classes).to(self.device)
             self.model.load_state_dict(recognizer_state(payload["params"],
                                                         payload["batch_stats"]), strict=True)
+            mesh.replicate(self.model)
 
     def _load_best(self, taski: int, step: Optional[int] = None) -> None:
+        mesh.barrier()   # rank 0's writes are done
         path = self._best_path(taski, step)
         self.restore_composite(load_model(path))
         self.log.write(f"Task {taski} load checkpoint from {path}.\n")

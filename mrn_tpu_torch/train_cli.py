@@ -8,14 +8,26 @@ Average Incremental Accuracy.
 
     python3 -m mrn_tpu_torch.train_cli --config configs/svtr_mrn.py [--bf16] \\
         [--device_bank] [--profile DIR] [--device cpu]
+    torchrun --nproc_per_node N -m mrn_tpu_torch.train_cli --config ... \\
+        [--data_parallel D] [--expert_parallel E] [--multihost]
 
 Runs on the CUDA card unless ``--device`` names another (the tests pass
 ``cpu``); without a card and without ``--device`` it raises.  On the card
 the kernels are built before the first task.  ``--device_bank`` resizes
 each task's crops once into a uint8 bank on the device and streams bank
 indices.  ``--profile DIR`` writes a ``torch.profiler`` trace of the whole
-run.  Data parallel, expert parallel and multi-host training are not ported
-(ROADMAP.md §1 item 10): their flags raise.
+run.
+
+Under torchrun (one process per card; ``parallel.multihost``) the process
+group is joined and a ``data x expert`` mesh installed over the world
+(``parallel.mesh``): ``--expert_parallel E`` shards MRN's experts over E
+ranks, ``--data_parallel D`` (default ``WORLD_SIZE // E``) the batch over
+D, and ``D x E`` must equal the world size.  ``--multihost`` asks for the
+same start-up (in PyTorch one host and many take the same call) and fails
+outside torchrun.  The backend is NCCL on the card and gloo with
+``--device cpu``.  Local rank 0 builds the CUDA kernels while the others
+wait.  More than one shard without a process group raises: nothing falls
+back to a single process.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from mrn_tpu_torch.codec import load_dict
 from mrn_tpu_torch.config import load_config
 from mrn_tpu_torch.data.dataset import DeviceImageBank
 from mrn_tpu_torch.data.manager import DatasetManager, ValDataset
+from mrn_tpu_torch.parallel import mesh, multihost
 from mrn_tpu_torch.train.learners import build_learner
 from mrn_tpu_torch.utils.logging import ExperimentLog
 
@@ -108,11 +121,13 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", required=True, help="reference-format python config file")
     parser.add_argument("--data_parallel", type=int, default=None,
-                        help="not ported (ROADMAP.md §1 item 10)")
+                        help="shard the batch over this many ranks (under torchrun; default "
+                             "WORLD_SIZE // expert_parallel)")
     parser.add_argument("--expert_parallel", type=int, default=None,
-                        help="not ported (ROADMAP.md §1 item 10)")
+                        help="shard MRN's experts over this many ranks (2-D data x expert mesh)")
     parser.add_argument("--multihost", action="store_true",
-                        help="not ported (ROADMAP.md §1 item 10)")
+                        help="join torchrun's process group (also implied under torchrun; "
+                             "one host or many)")
     parser.add_argument("--profile", default=None,
                         help="write a torch.profiler trace of the run to this directory")
     parser.add_argument("--bf16", action="store_true",
@@ -125,13 +140,18 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     args = parser.parse_args(argv)
 
     opt = load_config(args.config)
-    parallel = {"--data_parallel": args.data_parallel or opt.get("data_parallel", 1) > 1,
-                "--expert_parallel": args.expert_parallel or opt.get("expert_parallel", 1) > 1,
-                "--multihost": args.multihost or opt.get("multihost", False)}
-    for flag, asked in parallel.items():
-        if asked:
-            raise NotImplementedError(f"{flag}: multi-device training is not ported "
-                                      "(ROADMAP.md §1 item 10)")
+    expert_par = args.expert_parallel or opt.get("expert_parallel", 1) or 1
+    data_par = args.data_parallel or (opt.get("data_parallel", 1) or 1)
+    if args.multihost or opt.get("multihost", False) or multihost.launched_by_torchrun():
+        rank, world = multihost.initialize(args.device)
+        # unset (the config's default 1), the data size is the world over the experts
+        mesh.set_expert_parallel(expert_par, args.data_parallel or
+                                 (data_par if data_par > 1 else None))
+        print(f"process group: rank {rank} of {world}, mesh {mesh.get_mesh().shape}", flush=True)
+    elif data_par > 1 or expert_par > 1:
+        raise RuntimeError(f"--data_parallel {data_par} / --expert_parallel {expert_par} need "
+                           "one process per rank: launch with torchrun --nproc_per_node N -m "
+                           "mrn_tpu_torch.train_cli ...")
     device = resolve_device(args.device)
     random.seed(opt.manual_seed)
     np.random.seed(opt.manual_seed)
@@ -142,6 +162,9 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     if device.type == "cuda":
         from mrn_tpu_torch.ops import _build
         t0 = time.time()
+        if int(os.environ.get("LOCAL_RANK", 0)) == 0:
+            _build.build_all()
+        mesh.barrier()   # the other ranks load local rank 0's builds
         _build.build_all()
         print(f"kernels built in {time.time() - t0:.1f}s", flush=True)
 
@@ -152,8 +175,11 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainRun:
     if args.profile:
         from mrn_tpu_torch.utils.profiling import trace
         with trace(args.profile):
-            return TrainRun(*train(opt, log, learner=learner), learner)
-    return TrainRun(*train(opt, log, learner=learner), learner)
+            run = TrainRun(*train(opt, log, learner=learner), learner)
+    else:
+        run = TrainRun(*train(opt, log, learner=learner), learner)
+    mesh.barrier()   # rank 0's files are written
+    return run
 
 
 if __name__ == "__main__":

@@ -2,12 +2,15 @@
 (``mrn_tpu/utils/logging.py``): the per-experiment ``log_train.txt`` and
 the append-only data log shared by experiments.  Lines go to the files
 only, as the JAX learners write them (``echo_logs`` unset), and also to
-stdout with ``echo`` (the training CLI's log, as JAX's ``train.py``)."""
+stdout with ``echo`` (the training CLI's log, as JAX's ``train.py``).  In a
+process group only rank 0 writes and echoes (``parallel.mesh.is_main``)."""
 
 from __future__ import annotations
 
 import os
 import sys
+
+from mrn_tpu_torch.parallel import mesh
 
 __all__ = ["ExperimentLog"]
 
@@ -23,6 +26,8 @@ class ExperimentLog:
         self.data_log_path = data_log
 
     def write(self, line: str) -> None:
+        if not mesh.is_main():
+            return
         with open(self.train_log_path, "a", encoding="utf-8") as f:
             f.write(line)
         if self.echo:
@@ -30,5 +35,7 @@ class ExperimentLog:
             sys.stdout.flush()
 
     def write_data_log(self, line: str) -> None:
+        if not mesh.is_main():
+            return
         with open(self.data_log_path, "a+", encoding="utf-8") as f:
             f.write(line)

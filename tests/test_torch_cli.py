@@ -4,7 +4,10 @@ sizes, on the CPU, against the JAX package's CLIs:
 
 - ``train_cli`` end to end (SVTR-MRN, narrow, a few steps): checkpoint
   names, ``log_train.txt``, the AIA lines, the same run with
-  ``--device_bank``, the flags it refuses and the card it asks for;
+  ``--device_bank``, the parallel flags it refuses without a process group
+  (or against the world's size) and the card it asks for; in a 1-rank gloo
+  world the same run bitwise, and under ``torchrun --nproc_per_node 2`` the
+  one-process run's files, scores and losses;
 - ``evaluate_cli`` on checkpoints the JAX package wrote (its MRN learner's
   ``_save_best`` over experts with a spread fc and a router): Acc and Ned
   per dataset, ``log_evaluation.txt``, ``log_all_evaluation.txt`` and the
@@ -30,6 +33,8 @@ import functools
 import io
 import os
 import re
+import socket
+import subprocess
 import sys
 
 import jax
@@ -53,6 +58,7 @@ from mrn_tpu_torch.data import image
 from mrn_tpu_torch.data.synthetic import alphabet_of_size
 from mrn_tpu_torch.models.init import random_recognizer, random_router
 from mrn_tpu_torch.models.svtr import Block
+from mrn_tpu_torch.parallel import mesh, multihost
 from mrn_tpu_torch.serve import Server
 from mrn_tpu_torch.tools import create_lmdb
 
@@ -65,6 +71,7 @@ IMG_W = 64
 LANS = ["T0", "T1"]
 ALPHABETS = [alphabet_of_size(10), alphabet_of_size(6, 0x4E00 + 10)]
 N_TRAIN, N_TEST = 12, 10
+BLOCK_INIT = Block.__init__   # the Blocks' own GELU, as a launched train_cli builds them
 # tests/test_torch_int8.py's tolerance for the int8 recognizer's logits
 # against JAX's (the Pallas int8 kernel in interpret mode)
 INT8_LOGIT_ATOL, INT8_LOGIT_MEAN_ATOL = 1.5e-2, 5e-3
@@ -168,17 +175,121 @@ def test_train_cli_end_to_end(tree, capsys):
     assert runs[0].best_scores == runs[1].best_scores
 
 
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture
+def one_rank_world(monkeypatch):
+    """torchrun's environment for a 1-rank world on a free port; the group
+    and the mesh are taken down afterwards."""
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+                           WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(key, value)
+    yield
+    mesh.clear()
+    if multihost.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
 def test_train_cli_refuses_parallel_flags_and_needs_a_card(tree, monkeypatch):
     cfg = _config(tree, "refused")
+    for key in multihost.TORCHRUN_ENV:
+        monkeypatch.delenv(key, raising=False)
+    # more than one shard, or the start-up, without torchrun's process group
     for flag in (["--data_parallel", "2"], ["--expert_parallel", "2"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             train_cli.main(["--config", cfg, "--device", "cpu", *flag])
+    # a world whose size disagrees with the flags
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()), RANK="0",
+                           WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(key, value)
+    try:
+        for flag in (["--data_parallel", "2"], ["--expert_parallel", "2"]):
+            with pytest.raises(ValueError, match="the world has 1|do not split"):
+                train_cli.main(["--config", cfg, "--device", "cpu", *flag])
+    finally:
+        mesh.clear()
+        torch.distributed.destroy_process_group()
+    for key in multihost.TORCHRUN_ENV:
+        monkeypatch.delenv(key)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main, extra in ((train_cli.main, []),
                         (evaluate_cli.main, ["--saved_model", "x", "--eval_data", "y"]),
                         (recognize_cli.main, ["--saved_model", "x", "--image_folder", "y"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--config", cfg, *extra])
+
+
+def _router_and_experts(learner):
+    return ([v.clone() for s in learner.expert_states for v in s.values()]
+            + [v.clone() for v in learner.router_state.values()])
+
+
+@pytest.fixture(scope="module")
+def one_process(tree):
+    """train_cli in this process without a process group, with the Blocks'
+    own GELU, as ``python -m mrn_tpu_torch.train_cli`` runs: the reference
+    of the 1-rank world and of the torchrun launch."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(Block, "__init__", BLOCK_INIT)
+    for key in multihost.TORCHRUN_ENV + ("LOCAL_RANK",):
+        mp.delenv(key, raising=False)
+    try:
+        return train_cli.main(["--config", _config(tree, "launch_one"), "--device", "cpu"])
+    finally:
+        mp.undo()
+
+
+def test_train_cli_in_a_one_rank_world_is_bitwise_the_run_without(tree, one_process,
+                                                                  one_rank_world, monkeypatch):
+    """The parallel path (process group, 1-rank mesh, every collective) over
+    one gloo rank computes what the run without a group computes."""
+    monkeypatch.setattr(Block, "__init__", BLOCK_INIT)
+    world = train_cli.main(["--config", _config(tree, "world1"), "--device", "cpu",
+                            "--data_parallel", "1"])
+    assert mesh.get_mesh().shape == {"data": 1}
+    assert (world.best_scores, world.ned_scores) == \
+        (one_process.best_scores, one_process.ned_scores)
+    for a, b in zip(_router_and_experts(world.learner), _router_and_experts(one_process.learner)):
+        assert torch.equal(a, b)
+    assert [r["loss"] for r in world.learner.history] == \
+        [r["loss"] for r in one_process.learner.history]
+
+
+def _log_numbers(path, key):
+    text = open(path, encoding="utf-8").read()
+    return [float(x) for x in re.findall(rf"{key}: ([-0-9.e]+)", text)]
+
+
+def test_train_cli_under_torchrun_matches_one_process(tree, one_process):
+    """``torchrun --nproc_per_node 2 -m mrn_tpu_torch.train_cli --device cpu``
+    against the same run in one process: the same best files and scores,
+    and the logged losses to 1e-3 (measured 1.1e-4): the two sum in
+    another order, and Adam turns the float noise of the gradients whose
+    exact value is 0 (the patch embedding's weights on the constant alpha
+    channel, its conv biases before BatchNorm) into steps of up to its
+    learning rate either way."""
+    env = {k: v for k, v in os.environ.items() if k not in multihost.TORCHRUN_ENV}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=root + os.pathsep + env.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
+           "-m", "mrn_tpu_torch.train_cli", "--config", _config(tree, "launch_two"),
+           "--device", "cpu"]
+    done = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stdout[-3000:] + done.stderr[-3000:]
+    one, two = (tree / "saved" / f"launch_{n}" for n in ("one", "two"))
+    assert sorted(p.name for p in one.iterdir()) == sorted(p.name for p in two.iterdir())
+    for key in ("Current_score", "Ned_score", "Test AIA"):
+        assert _log_numbers(one / "log_train.txt", key) == \
+            _log_numbers(two / "log_train.txt", key), key
+    for key in ("Train_loss", "Valid_loss"):
+        np.testing.assert_allclose(_log_numbers(two / "log_train.txt", key),
+                                   _log_numbers(one / "log_train.txt", key), rtol=1e-3,
+                                   atol=1e-5, err_msg=key)
 
 
 # --------------------------------------------------- JAX-written checkpoints

@@ -29,7 +29,9 @@ def _port_files():
 def test_scan_covers_every_subpackage():
     package = ROOT / "mrn_tpu_torch"
     parts = {p.relative_to(package).parts[0] for p in _port_files() if package in p.parents}
-    assert {"models", "ops", "train", "data", "utils", "tools"} <= parts
+    assert {"models", "ops", "train", "data", "utils", "tools", "parallel"} <= parts
+    parallel = {package / "parallel" / f"{name}.py" for name in ("__init__", "mesh", "multihost")}
+    assert parallel <= set(_port_files())
     learners = ROOT / "mrn_tpu_torch" / "train" / "learners"
     assert set(learners.glob("*.py")) <= set(_port_files())
     clis = {package / f"{name}_cli.py" for name in ("train", "evaluate", "recognize", "export")}
