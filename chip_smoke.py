@@ -230,7 +230,24 @@
    launches (the export's one eager call and the requests); each loaded
    program's logits equal the eager server's bitwise; prints the export,
    save and load seconds, the ``.pt2`` bytes and the first and warm request
-   seconds.
+   seconds;
+21. stage combinations the composer builds (``COMBO_*``), each run counted
+   against its predicted launches: (a) TPS/SVTR/BiLSTM/Attn at
+   ``configs/svtr_mrn.py``'s width (SVTR-MRN's backbone inside TRBA's
+   stages) as a 6-expert ensemble served in bf16 (72 row-4 and 6 row-8
+   launches a request), the routed output against the plain versions
+   (route scores, picks, greedy logits) and its score envelope; task 1 of
+   2 through ``MRN.incremental_train``, router, composed and
+   ``MRN_FUSED_TRAIN=1`` step windows, and one f32 step-0 step of each
+   route on the kernels against the plain versions, the TPS
+   localization's gradient among what is held (it comes back through
+   every SVTR Block); one int8 recognizer served and its Blocks held
+   against the plain version beside the control; (b) None/VGG/None/Attn
+   at ``configs/crnn_mrn.py``'s widths as a 6-expert ensemble in bf16
+   against float32 on the CPU, and a step-0 window; (c) all 32
+   combinations narrow (``COMBO_SWEEP``, batch ``COMBO_SWEEP_BATCH``): an
+   f32 eval forward on the kernels against the plain versions and one
+   bf16 step with a finite loss and finite gradients.
 
 Any failed check raises (exit code != 0).  The line before the last is the
 per-kernel JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -243,6 +260,7 @@ import ast
 import contextlib
 import copy
 import hashlib
+import itertools
 import json
 import os
 import re
@@ -607,6 +625,37 @@ TANH_SEED = SEED + 16
 TANH_REQUESTS = {"bfloat16": 2, "float32": 1}
 TANH_INT8_REQUESTS = 2
 EXPORT_REQUESTS = 3
+# Stage combinations (models/composer.py builds every one of {None, TPS} x
+# {VGG, ResNet, RCNN, SVTR} x {None, BiLSTM} x {CTC, Attn}), from a
+# generator of their own: TPS/SVTR/BiLSTM/Attn at SVTR-MRN's full width
+# (configs/svtr_mrn.py, its stage fields overridden) as a 6-expert
+# ensemble served COMBO_REQUESTS times in bf16 (6 x 12 row-4 and 6 row-8
+# launches a request), task 1 of 2 through MRN.incremental_train
+# (COMBO_TRAIN_ITERS step-0 steps validated at 1 and the last, half as
+# many router steps validated at each), step windows of COMBO_WINDOW after
+# COMBO_WARMUP (router, composed, MRN_FUSED_TRAIN=1) and one int8
+# recognizer served COMBO_INT8_REQUESTS times; None/VGG/None/Attn at
+# CRNN-MRN's widths (configs/crnn_mrn.py) served COMBO_REQUESTS times and
+# a step-0 window; every combination at COMBO_SWEEP widths (SVTR at its
+# embed widths, depth 2/4/2: 6 Local and 2 Global Blocks) and batch
+# COMBO_SWEEP_BATCH.
+COMBO_SEED = SEED + 17
+COMBO_REQUESTS = 3
+COMBO_INT8_REQUESTS = 2
+COMBO_TRAIN_ITERS, COMBO_VAL_INTERVAL = 4, 4
+COMBO_WARMUP, COMBO_WINDOW = 3, 3
+COMBO_SWEEP = dict(output_channel=64, hidden_size=32, svtr=dict(depth=(2, 4, 2)))
+COMBO_SWEEP_BATCH = 8
+# One f32 step-0 step of TPS/SVTR/BiLSTM/Attn on the kernels against the
+# plain versions (composed and fused): the loss and the grad norm at
+# TRAIN_STEP_TOL's f32 values; the TPS localization_fc2 gradient, which
+# comes back through 12 Blocks, the warp's grid gradient (a difference of
+# neighbouring pixels at each tap) and the localization net's 4 train-mode
+# BatchNorms, whose cancelling moments leave it float32 summation noise of
+# ~1e-4 of its largest value, which does not repeat (the training warp's
+# image gradient is an atomic scatter_add): two runs on an H100 80GB HBM3
+# read 6.1e-5 and 4.0e-5 composed, 1.2e-4 and 1.7e-4 fused; 1e-3 of it
+COMBO_STEP_TOL = (1e-4, 1e-4, 1e-3)
 # host cost of a custom op's dispatch: calls of the op and of its CUDA
 # implementation directly, on a tiny input (host-bound), in turns
 DISPATCH_CALLS = 2000
@@ -3479,27 +3528,30 @@ def print_device_profile(label, prof, wall):
     return 1 - busy / (1e3 * wall)
 
 
-def _trba_trees(rng, base, images, class_counts=None):
-    """Random full-width TRBA trees in the JAX init distributions: an MRN
-    ensemble over ``class_counts``, else one recognizer of
-    ``CLASS_COUNTS[0]`` classes; ``localization_fc2`` perturbed
-    (TRBA_FC2_SCALE) and the model calibrated on ``images`` in float32
-    (``calibrate_random_trba``).  Returns (params, batch_stats, characters)."""
+def _random_trees(rng, base, images, class_counts=None):
+    """Random full-width trees of ``base``'s stages in the JAX init
+    distributions: an MRN ensemble over ``class_counts``, else one
+    recognizer of ``CLASS_COUNTS[0]`` classes; a TPS's ``localization_fc2``
+    perturbed (TRBA_FC2_SCALE) and the model calibrated on ``images`` in
+    float32 (``calibrate_random_trba``).  Returns (params, batch_stats,
+    characters)."""
     n_classes = max(class_counts or CLASS_COUNTS[:1])
-    chars = [chr(0x4E00 + i) for i in range(n_classes - 5)]   # 5 Attn specials
+    specials = 5 if base.Prediction == "Attn" else 4
+    chars = [chr(0x4E00 + i) for i in range(n_classes - specials)]
     if class_counts:
         params, stats = random_mrn(rng, base, class_counts)
         expert = params["experts"]
     else:
         params, stats = random_recognizer(rng, base, n_classes)
         expert = params
-    fc2 = expert["extractor"]["transformation"]["localization"]["localization_fc2"]
-    fc2["kernel"] = (TRBA_FC2_SCALE * rng.standard_normal(fc2["kernel"].shape)).astype(np.float32)
+    if base.Transformation == "TPS":
+        fc2 = expert["extractor"]["transformation"]["localization"]["localization_fc2"]
+        fc2["kernel"] = (TRBA_FC2_SCALE * rng.standard_normal(fc2["kernel"].shape)
+                         ).astype(np.float32)
     calib = Server(base.replace(compute_dtype="float32"), params, stats, chars,
                    class_counts=class_counts)
-    calibrate_random_trba(calib.model, calib.images(images),
-                          torch.full((len(images), 1), calib.converter.sos_id,
-                                     device=calib.device))
+    x = calib.images(images)
+    calibrate_random_trba(calib.model, x, calib.sos_column(x))
     params, stats = to_flax(calib.model)
     return params, stats, chars
 
@@ -3514,10 +3566,10 @@ def phase_trba_serve(rng):
     base = load_config(os.path.join(ROOT, "configs", "trba_mrn.py"))
     images = rng.integers(0, 256, (BATCH, base.imgH, base.imgW, base.input_channel),
                           dtype=np.uint8)
-    params, stats, chars = _trba_trees(rng, base, images, CLASS_COUNTS)
+    params, stats, chars = _random_trees(rng, base, images, CLASS_COUNTS)
     servers = {dtype: Server(base.replace(compute_dtype=dtype), params, stats, chars,
                              class_counts=CLASS_COUNTS) for dtype in TRBA_REQUESTS}
-    params, stats, chars = _trba_trees(rng, base, images)
+    params, stats, chars = _random_trees(rng, base, images)
     single = Server(base.replace(compute_dtype="bfloat16"), params, stats, chars)
     torch.cuda.synchronize()
     print(f"  weights drawn, calibrated on the batch and loaded in "
@@ -3687,13 +3739,14 @@ def _routed_tf(learner, images):
         return learner._eval_ensemble()(images, learner._sos_column(images), is_train=False)
 
 
-def _trba_step_pair(what, learner, model, batch, grad_key, optimizer):
-    """One training step of ``learner`` from the same weights and batch with
-    the TPS warp on the kernel and forced through its plain version: the
-    loss, the global grad norm and the gradient ``grad_key`` within
-    TRBA_STEP_TOL.  ``model`` holds the trained weights, ``optimizer()``
-    rebuilds the optimizer."""
+def _trba_step_pair(what, learner, model, batch, grad_key, optimizer, tol=TRBA_STEP_TOL):
+    """One training step of ``learner`` from the same weights, batch and
+    DropPath masks on the kernels (the TPS warp, the SVTR Blocks') and
+    forced through their plain versions: the loss, the global grad norm
+    and the gradient ``grad_key`` within ``tol``.  ``model`` holds the
+    trained weights, ``optimizer()`` rebuilds the optimizer."""
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gen_state = learner.generator.get_state()
     captured = {}
 
     def keep_grad(grads):
@@ -3704,17 +3757,20 @@ def _trba_step_pair(what, learner, model, batch, grad_key, optimizer):
     results = []
     for plain in (False, True):
         model.load_state_dict(start)
+        learner.generator.set_state(gen_state)
         optimizer()
         warp = (mock.patch.object(tps, "grid_sample", grid_sample.grid_sample_reference)
                 if plain else contextlib.nullcontext())
+        configure_blocks(model, plain=plain)
         with warp:
             metrics = learner.train_step(batch)
+        configure_blocks(model, plain=False)
         results.append((float(metrics["loss"]), float(metrics["grad_norm"]), captured["g"]))
     model.load_state_dict(start)
     learner.grad_transform = lambda: None
     optimizer()
     (lk, gk, fk), (lp, gp, fp) = results
-    loss_rtol, norm_rtol, share = TRBA_STEP_TOL
+    loss_rtol, norm_rtol, share = tol
     largest = float(fp.abs().max())
     dg = float((fk - fp).abs().max())
     print(f"  {what}: loss {lk:.7f} vs {lp:.7f} (rel {abs(lk - lp) / abs(lp):.2e}, tol "
@@ -3922,23 +3978,6 @@ def phase_trba_train(rng, out_dir):
 
 
 # ------------------------------------------------------- CRNN, GRCNN, int8 convs
-def _conv_trees(rng, base, images, class_counts=None):
-    """Random full-width CRNN or GRCNN trees in the JAX init distributions
-    (an MRN ensemble over ``class_counts``, else one recognizer of
-    ``CLASS_COUNTS[0]`` classes), their BatchNorm statistics and an
-    ensemble's route biases set on ``images`` (``calibrate_random_trba``).
-    Returns (params, batch_stats, characters)."""
-    n_classes = max(class_counts or CLASS_COUNTS[:1])
-    chars = [chr(0x4E00 + i) for i in range(n_classes - 4)]   # 4 CTC specials
-    params, stats = (random_mrn(rng, base, class_counts) if class_counts
-                     else random_recognizer(rng, base, n_classes))
-    calib = Server(base.replace(compute_dtype="float32"), params, stats, chars,
-                   class_counts=class_counts)
-    calibrate_random_trba(calib.model, calib.images(images), None)
-    params, stats = to_flax(calib.model)
-    return params, stats, chars
-
-
 def _timed_requests(server, images, n):
     """``n`` requests through ``Server.recognize``; returns (seconds each,
     the last result)."""
@@ -3967,7 +4006,7 @@ def phase_crnn_serve(rng):
     base = load_config(os.path.join(ROOT, "configs", "crnn_mrn.py"))
     images = rng.integers(0, 256, (BATCH, base.imgH, base.imgW, base.input_channel),
                           dtype=np.uint8)
-    params, stats, chars = _conv_trees(rng, base, images, CLASS_COUNTS)
+    params, stats, chars = _random_trees(rng, base, images, CLASS_COUNTS)
     servers = {dtype: Server(base.replace(compute_dtype=dtype), params, stats, chars,
                              class_counts=CLASS_COUNTS) for dtype in CRNN_REQUESTS}
     torch.cuda.synchronize()
@@ -4040,18 +4079,22 @@ def _served_with_scores(server, images):
     return {k: v.float() if k == "logits" else v for k, v in out.items()}, scores[0]
 
 
-def _conv_window(learner, get_batch, n_warm, n_steps):
-    """A StepMeter window of ``n_steps`` steps after ``n_warm``, synced at
-    both ends; returns the mean step (s)."""
+def _window(learner, get_batch, n_warm, n_steps):
+    """A StepMeter window of ``n_steps`` steps after ``n_warm``; returns
+    (mean step s, the steps' losses)."""
     for _ in range(n_warm):
         learner.train_step(get_batch())
     torch.cuda.synchronize()
-    meter = StepMeter()
+    meter, losses = StepMeter(), []
     for _ in range(n_steps):
         meter.tick(BATCH)
-        learner.train_step(get_batch())
+        losses.append(learner.train_step(get_batch())["loss"])
     torch.cuda.synchronize()
-    return meter.seconds() / n_steps
+    seconds = meter.seconds()
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"a non-finite loss in a step window: {losses}")
+    return seconds / n_steps, losses
 
 
 def _expert_buffers(model):
@@ -4119,10 +4162,10 @@ def phase_crnn_train(rng, out_dir):
         if any(launched.values()) or not pinned:
             raise RuntimeError(f"CRNN {dtype}: a port kernel ran or a pinned expert's "
                                "statistics moved")
-        w1 = _conv_window(learner, loader.get_batch2, TIME_WARMUP, TIME_STEPS)
+        w1, _ = _window(learner, loader.get_batch2, TIME_WARMUP, TIME_STEPS)
         learner.change_model()
         learner.build_optimizer()
-        w0 = _conv_window(learner, loader.get_batch, TIME_WARMUP, TIME_STEPS)
+        w0, _ = _window(learner, loader.get_batch, TIME_WARMUP, TIME_STEPS)
         windows[dtype] = (w0, w1)
         print(f"  CRNN {dtype} StepMeter windows of {TIME_STEPS} steps after {TIME_WARMUP} "
               f"warm-up steps, batch {BATCH}: step 0 {1e3 * w0:.2f} ms/step ({BATCH / w0:.1f} "
@@ -4179,7 +4222,7 @@ def phase_grcnn(rng):
     learner._cur_task = 0
     learner.build_model()
     learner.build_optimizer()
-    w0 = _conv_window(learner, loader.get_batch, TIME_WARMUP, GRCNN_WINDOW)
+    w0, _ = _window(learner, loader.get_batch, TIME_WARMUP, GRCNN_WINDOW)
     print(f"  GRCNN bf16 step 0, StepMeter window of {GRCNN_WINDOW} steps after "
           f"{TIME_WARMUP} warm-up steps: {1e3 * w0:.2f} ms/step ({BATCH / w0:.1f} images/s)")
     images = loader.bank[loader.get_batch()[0]]
@@ -4264,8 +4307,7 @@ def phase_int8_convs(rng):
                               dtype=np.uint8)
         calib = [rng.integers(0, 256, images.shape, dtype=np.uint8)
                  for _ in range(INT8_CALIB_BATCHES)]
-        params, stats, chars = (_trba_trees(rng, base, images) if name == "TRBA"
-                                else _conv_trees(rng, base, images))
+        params, stats, chars = _random_trees(rng, base, images)
         floats, servers = {}, {}
         for dtype in ("float32", "bfloat16"):
             opt = base.replace(compute_dtype=dtype)
@@ -4511,7 +4553,7 @@ def export_programs(rng, mrn_server, int8_server, int8_images, trba_single, trba
     crnn_base = load_config(os.path.join(ROOT, "configs", "crnn_mrn.py"))
     crnn_images = rng.integers(0, 256, (BATCH, crnn_base.imgH, crnn_base.imgW,
                                         crnn_base.input_channel), dtype=np.uint8)
-    params, stats, chars = _conv_trees(rng, crnn_base, crnn_images)
+    params, stats, chars = _random_trees(rng, crnn_base, crnn_images)
     crnn = Server(crnn_base.replace(compute_dtype="bfloat16"), params, stats, chars)
 
     def single(srv):
@@ -4529,6 +4571,341 @@ def export_programs(rng, mrn_server, int8_server, int8_images, trba_single, trba
             ("TRBA recognizer bf16", trba_single, single(trba_single), trba_images,
              dict(none, grid_sample=1)),
             ("CRNN recognizer bf16", crnn, single(crnn), crnn_images, none)]
+
+
+# ------------------------------------------------------- stage combinations
+def _counted(what, expected, run):
+    """``run()`` with every launch counter at 0: its launches must equal
+    ``expected`` (missing keys 0).  Returns (run's result, the launches)."""
+    reset_launches()
+    svtr_block.int8_launches = grid_sample.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    got = dict(read_launches(), int8=svtr_block.int8_launches, grid_sample=grid_sample.launches)
+    want = {k: expected.get(k, 0) for k in got}
+    print(f"  {what}: launches {({k: v for k, v in got.items() if v})} (expected "
+          f"{({k: v for k, v in want.items() if v})})")
+    if got != want:
+        raise RuntimeError(f"{what}: the path did not run through the kernels as expected")
+    return out, got
+
+
+def _add_launches(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def _plain_everywhere(model):
+    """Within: ``model``'s SVTR Blocks and the TPS warp on their plain
+    versions."""
+    configure_blocks(model, plain=True)
+    try:
+        with mock.patch.object(tps, "grid_sample", grid_sample.grid_sample_reference):
+            yield
+    finally:
+        configure_blocks(model, plain=False)
+
+
+def _ensemble_vs_plain(what, srv, images, tol):
+    """A served MRN ensemble's output on the kernels against the same on
+    the plain versions: route scores within ``tol``, expert picks equal
+    outside near-ties of the scores, and (Attn) the greedy logits of crops
+    with the same pick up to each crop's first near-tie flip."""
+    atol, rtol = tol
+    outs, scores = [], []
+    hook = srv.model.route.register_forward_hook(
+        lambda mod, inp, out: scores.append(out[..., 0].float()))
+    try:
+        outs.append(srv.forward(images))
+        with _plain_everywhere(srv.model):
+            outs.append(srv.forward(images))
+    finally:
+        hook.remove()
+    out_k, out_p = outs
+    err = check_close(f"{what} route scores", scores[0], scores[1], atol, rtol)
+    top2 = scores[1].topk(2, dim=1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * err
+    agree = out_k["index"] == out_p["index"]
+    print(f"  {what}: expert picks agree on {int(agree.sum())}/{len(agree)} crops, "
+          f"{int(near_tie.sum())} near-ties (picks per expert "
+          f"{torch.bincount(out_k['index'], minlength=srv.model.n_experts).tolist()})")
+    if bool((~agree & ~near_tie).any()):
+        raise RuntimeError(f"{what}: expert picks disagree beyond score near-ties")
+    counts = torch.tensor(srv.model.class_counts, device=agree.device)[out_p["index"]]
+    check_greedy(f"{what} logits (crops with the same pick)", out_k["logits"][agree],
+                 out_p["logits"][agree], counts[agree], atol, rtol)
+
+
+def _combo_options(config, stages, **kw):
+    t, f, s, p = stages
+    return load_config(os.path.join(ROOT, "configs", config), Transformation=t,
+                       FeatureExtraction=f, SequenceModeling=s, Prediction=p, **kw)
+
+
+@contextlib.contextmanager
+def _train_dtype(learner, dtype):
+    """Within: the learner's mixed-precision policy is ``dtype``."""
+    saved = learner.opt.get("train_dtype")
+    learner.opt.train_dtype = dtype
+    try:
+        yield
+    finally:
+        learner.opt.train_dtype = saved
+
+
+def phase_combos(rng):
+    """The path of stage combinations the port did not build before,
+    driven through the entry points (``serve.Server``,
+    ``MRN.incremental_train``, ``serve.quantize_int8``), every launch
+    counted against its prediction (COMBO_* above).  Returns the launches
+    of the counted runs per kernel."""
+    total = {}
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="smoke_combos_", dir=os.path.join(ROOT, "build"))
+    try:
+        _combo_tps_svtr(rng, out_dir, total)
+        _combo_vgg_attn(rng, out_dir, total)
+        _combo_sweep(rng, out_dir, total)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"  the stage-combinations phase took {time.perf_counter() - t_phase:.1f} s; "
+          f"its counted launches {total}")
+    return total
+
+
+def _combo_tps_svtr(rng, out_dir, total):
+    """TPS/SVTR/BiLSTM/Attn at SVTR-MRN's full width."""
+    t0 = time.perf_counter()
+    stages = ("TPS", "SVTR", "BiLSTM", "Attn")
+    base = _combo_options("svtr_mrn.py", stages)
+    images = rng.integers(0, 256, (BATCH, base.imgH, base.imgW, base.input_channel),
+                          dtype=np.uint8)
+    params, stats, chars = _random_trees(rng, base, images, CLASS_COUNTS)
+    server = Server(base.replace(compute_dtype="bfloat16"), params, stats, chars,
+                    class_counts=CLASS_COUNTS)
+    torch.cuda.synchronize()
+    print(f"  TPS/SVTR/BiLSTM/Attn: {N_EXPERTS} experts drawn, calibrated on the batch and "
+          f"loaded in {time.perf_counter() - t0:.1f} s")
+    (ts, result), got = _counted(
+        f"TPS/SVTR/BiLSTM/Attn {N_EXPERTS}-expert bf16 requests",
+        dict(fused=COMBO_REQUESTS * N_EXPERTS * 12, grid_sample=COMBO_REQUESTS * N_EXPERTS),
+        lambda: _timed_requests(server, images, COMBO_REQUESTS))
+    _add_launches(total, got)
+    _print_requests(f"TPS/SVTR/BiLSTM/Attn {N_EXPERTS}-expert bfloat16", ts)
+    print(f"  sample words {[w for w, _ in result[:3]]}, "
+          f"{len(set(w for w, _ in result))} distinct words in {BATCH}")
+    logits = server.forward(images)["logits"]
+    shape = (BATCH, base.batch_max_length + 1, max(CLASS_COUNTS))
+    if tuple(logits.shape) != shape or not bool(torch.isfinite(logits.float()).all()):
+        raise RuntimeError(f"TPS/SVTR/BiLSTM/Attn logits {tuple(logits.shape)} != {shape} or "
+                           "not finite")
+    _ensemble_vs_plain("TPS/SVTR/BiLSTM/Attn bf16, kernels vs plain", server, images,
+                       LOGIT_TOL[torch.bfloat16])
+    mx = server.check_score_envelope(images)
+    if not np.isfinite(mx):
+        raise RuntimeError("the score envelope of an Attn ensemble is not finite")
+    del server
+
+    # ---- task 1 of 2 through the MRN learner
+    alphabets = campaign.task_alphabets()[:2]
+    counts = [build_converter("Attn", "".join(alphabets[:t + 1])).num_classes for t in (0, 1)]
+    loader = SyntheticTaskLoader(alphabets, 1, BATCH, CROPS_PER_TASK, img_h=32, img_w=256,
+                                 seed=COMBO_SEED)
+    val_set = synthetic_val_set(alphabets, 1, BATCH, 32, 256, seed=COMBO_SEED + 1)
+    opt = base.replace(output_dir=out_dir, data_log=os.path.join(out_dir, "data_tps.txt"),
+                       exp_name="tps_svtr", num_iter=COMBO_TRAIN_ITERS,
+                       val_interval=COMBO_VAL_INTERVAL, train_dtype="bf16",
+                       image_bank=loader.bank, manual_seed=COMBO_SEED)
+    valid = ValDataset(["val"], opt, {"val": val_set}.__getitem__)
+    learner = MRN(opt)
+    learner.add_expert(*random_recognizer(rng, opt, counts[0]), counts[0])
+    n0, n1 = COMBO_TRAIN_ITERS, COMBO_TRAIN_ITERS // 2
+    ff = val_points(n0, COMBO_VAL_INTERVAL)
+    tf = val_points(n1, max(1, COMBO_VAL_INTERVAL // 5))
+    expected = dict(full=6 * n0, banded=6 * n0, fused=12 * ff + 2 * 12 * (n1 + tf),
+                    grid_sample=ff + 2 * (n1 + tf))
+    t0 = time.perf_counter()
+    with fused_train_env(False):
+        _, got = _counted(f"TPS/SVTR/BiLSTM/Attn incremental_train of task 1 ({n0} step-0 "
+                          f"steps, {ff} FF batches, {n1} router steps, {tf} TF batches)",
+                          expected, lambda: learner.incremental_train(
+                              1, "".join(alphabets), loader, valid))
+    _add_launches(total, got)
+    losses = [rec["loss"] for rec in learner.history]
+    print(f"  incremental_train in {time.perf_counter() - t0:.1f} s; step losses "
+          f"{[round(v, 4) for v in losses]}")
+    if len(losses) != n0 + n1 or not all(np.isfinite(losses)):
+        raise RuntimeError("TPS/SVTR/BiLSTM/Attn training: non-finite loss or missing steps")
+
+    # ---- step windows: the router, then a new expert composed and fused
+    with fused_train_env(False):
+        (w1, _), got = _counted(
+            "router window", dict(fused=2 * 12 * (COMBO_WARMUP + COMBO_WINDOW),
+                                  grid_sample=2 * (COMBO_WARMUP + COMBO_WINDOW)),
+            lambda: _window(learner, loader.get_batch2, COMBO_WARMUP, COMBO_WINDOW))
+        _add_launches(total, got)
+        learner.change_model()
+        learner.build_optimizer()
+        grad_key = "extractor.transformation.localization.localization_fc2.kernel"
+        with _train_dtype(learner, "f32"):
+            _trba_step_pair("f32 composed step-0 step, kernels vs plain (the TPS grad through "
+                            "12 SVTR Blocks)", learner, learner.model, loader.get_batch(),
+                            grad_key, learner.build_optimizer, COMBO_STEP_TOL)
+        steps = COMBO_WARMUP + COMBO_WINDOW
+        (w0, _), got = _counted("composed step-0 window", dict(full=6 * steps, banded=6 * steps),
+                                lambda: _window(learner, loader.get_batch, COMBO_WARMUP,
+                                                COMBO_WINDOW))
+        _add_launches(total, got)
+    with fused_train_env(True):
+        with _train_dtype(learner, "f32"):
+            _trba_step_pair("f32 fused step-0 step, kernels vs plain (row 7's dx into the "
+                            "TPS)", learner, learner.model, loader.get_batch(), grad_key,
+                            learner.build_optimizer, COMBO_STEP_TOL)
+        (wf, _), got = _counted("fused step-0 window (MRN_FUSED_TRAIN=1)",
+                                dict(train_fwd=12 * steps, train_bwd_tail=12 * steps,
+                                     train_bwd_head=12 * steps),
+                                lambda: _window(learner, loader.get_batch, COMBO_WARMUP,
+                                                COMBO_WINDOW))
+        _add_launches(total, got)
+    print(f"  StepMeter windows of {COMBO_WINDOW} steps after {COMBO_WARMUP} warm-up steps, "
+          f"bf16, batch {BATCH}: step 0 composed {1e3 * w0:.2f} ms/step, fused "
+          f"{1e3 * wf:.2f} ms/step, step 1 (router over 2 experts) {1e3 * w1:.2f} ms/step")
+    del learner
+
+    # ---- one int8 recognizer
+    params, stats, chars = _random_trees(rng, base, images)
+    opt = base.replace(compute_dtype="bfloat16")
+    calib = [images[i::INT8_CALIB_BATCHES] for i in range(INT8_CALIB_BATCHES)]
+    int8_server = quantize_int8(Server(opt, params, stats, chars), iter(calib),
+                                n_batches=INT8_CALIB_BATCHES)
+    (ts, _), got = _counted("TPS/SVTR/BiLSTM/Attn int8 recognizer bf16 requests",
+                            dict(int8=COMBO_INT8_REQUESTS * 12,
+                                 grid_sample=COMBO_INT8_REQUESTS),
+                            lambda: _timed_requests(int8_server, images, COMBO_INT8_REQUESTS))
+    _add_launches(total, got)
+    _print_requests("TPS/SVTR/BiLSTM/Attn int8 recognizer bfloat16", ts)
+    check_served_int8_blocks("TPS/SVTR/BiLSTM/Attn int8 bf16", int8_server, images,
+                             torch.bfloat16)
+
+
+def _combo_vgg_attn(rng, out_dir, total):
+    """None/VGG/None/Attn (JAX's own MRN test's combination) at CRNN-MRN's
+    widths."""
+    t0 = time.perf_counter()
+    stages = ("None", "VGG", "None", "Attn")
+    base = _combo_options("crnn_mrn.py", stages)
+    images = rng.integers(0, 256, (BATCH, base.imgH, base.imgW, base.input_channel),
+                          dtype=np.uint8)
+    params, stats, chars = _random_trees(rng, base, images, CLASS_COUNTS)
+    server = Server(base.replace(compute_dtype="bfloat16"), params, stats, chars,
+                    class_counts=CLASS_COUNTS)
+    torch.cuda.synchronize()
+    print(f"  None/VGG/None/Attn: {N_EXPERTS} experts drawn, calibrated and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    (ts, result), got = _counted(f"None/VGG/None/Attn {N_EXPERTS}-expert bf16 requests (no "
+                                 "port kernel on this path)", {},
+                                 lambda: _timed_requests(server, images, COMBO_REQUESTS))
+    _print_requests(f"None/VGG/None/Attn {N_EXPERTS}-expert bfloat16", ts)
+    cpu = Server(base.replace(compute_dtype="float32"), params, stats, chars,
+                 class_counts=CLASS_COUNTS, device="cpu")
+    ref, ref_scores = _served_with_scores(cpu, images[:CRNN_REF_CROPS])
+    out, scores = _served_with_scores(server, images[:CRNN_REF_CROPS])
+    atol, rtol = CRNN_LOGIT_TOL[torch.bfloat16]
+    err = check_close("None/VGG/None/Attn bf16 route scores vs float32 on the CPU",
+                      scores.cpu(), ref_scores, atol, rtol)
+    top2 = ref_scores.topk(2, dim=1).values
+    agree = out["index"].cpu() == ref["index"]
+    if bool((~agree & ((top2[:, 0] - top2[:, 1]) > 2 * err)).any()):
+        raise RuntimeError("None/VGG/None/Attn: expert picks differ from the CPU beyond "
+                           "near-ties")
+    counts = torch.tensor(CLASS_COUNTS)[ref["index"]]
+    check_greedy("None/VGG/None/Attn bf16 logits vs float32 on the CPU (same pick)",
+                 out["logits"].cpu()[agree], ref["logits"][agree], counts[agree], atol, rtol)
+    del server, cpu
+
+    alphabet = _task_alphabets()[0]
+    loader = SyntheticTaskLoader([alphabet], 0, BATCH, CROPS_PER_TASK, img_h=32, img_w=256,
+                                 seed=COMBO_SEED)
+    learner = MRN(base.replace(image_bank=loader.bank, train_dtype="bf16",
+                               manual_seed=COMBO_SEED, exp_name="vgg_attn",
+                               output_dir=out_dir,
+                               data_log=os.path.join(out_dir, "data_vgg.txt")))
+    learner.character = list(alphabet)
+    learner.converter = learner.build_converter()
+    learner._cur_task = 0
+    learner.build_model()
+    learner.build_optimizer()
+    (w0, _), _ = _counted("None/VGG/None/Attn step-0 window", {},
+                          lambda: _window(learner, loader.get_batch, COMBO_WARMUP,
+                                          COMBO_WINDOW))
+    print(f"  None/VGG/None/Attn bf16 step 0, StepMeter window of {COMBO_WINDOW} steps after "
+          f"{COMBO_WARMUP} warm-up steps: {1e3 * w0:.2f} ms/step ({BATCH / w0:.1f} images/s)")
+
+
+def _combo_sweep(rng, out_dir, total):
+    """All 32 combinations at COMBO_SWEEP widths, batch COMBO_SWEEP_BATCH:
+    an eval forward on the kernels against the plain versions (float32),
+    then one bf16 step of a new expert with a finite loss and finite
+    gradients."""
+    alphabet = alphabet_of_size(40)
+    loader = SyntheticTaskLoader([alphabet], 0, COMBO_SWEEP_BATCH, 4 * COMBO_SWEEP_BATCH,
+                                 img_h=32, img_w=256, seed=COMBO_SEED + 2)
+    t0 = time.perf_counter()
+    for stages in itertools.product(("None", "TPS"), ("VGG", "ResNet", "RCNN", "SVTR"),
+                                    ("None", "BiLSTM"), ("CTC", "Attn")):
+        name = "/".join(stages)
+        opt = _combo_options("svtr_mrn.py", stages, batch_size=COMBO_SWEEP_BATCH,
+                             train_dtype="bf16", manual_seed=COMBO_SEED,
+                             image_bank=loader.bank, exp_name="sweep", output_dir=out_dir,
+                             data_log=os.path.join(out_dir, "data_sweep.txt"), **COMBO_SWEEP)
+        svtr, warp = stages[1] == "SVTR", stages[0] == "TPS"
+        n_blocks = sum(COMBO_SWEEP["svtr"]["depth"]) if svtr else 0
+        idx, words = loader.get_batch()
+        images = loader.bank[idx]
+        n_classes = build_converter(stages[3], alphabet).num_classes
+        params, stats = random_recognizer(rng, opt, n_classes)
+        if warp:
+            fc2 = params["extractor"]["transformation"]["localization"]["localization_fc2"]
+            fc2["kernel"] = (TRBA_FC2_SCALE * rng.standard_normal(fc2["kernel"].shape)
+                             ).astype(np.float32)
+        server = Server(opt.replace(compute_dtype="float32"), params, stats, alphabet)
+        out_k, got = _counted(f"{name} eval forward", dict(fused=n_blocks, grid_sample=int(warp)),
+                              lambda: server.forward(images)["logits"].float())
+        _add_launches(total, got)
+        with _plain_everywhere(server.model):
+            out_p = server.forward(images)["logits"].float()
+        atol, rtol = TRBA_LOGIT_TOL[torch.float32]
+        if stages[3] == "CTC":
+            check_close(f"{name} f32 logits, kernels vs plain", out_k, out_p, atol, rtol)
+        else:
+            check_greedy(f"{name} f32 logits, kernels vs plain", out_k, out_p,
+                         torch.full((len(images),), n_classes, device=out_p.device), atol, rtol)
+
+        learner = MRN(opt)
+        learner.character = list(alphabet)
+        learner.converter = learner.build_converter()
+        learner._cur_task = 0
+        learner.build_model()
+        learner.build_optimizer()
+        grads = {}
+
+        def keep(g):
+            grads.update(g)
+            return g
+
+        learner.grad_transform = lambda: keep
+        metrics, got = _counted(f"{name} bf16 step", dict(full=2 * svtr, banded=6 * svtr),
+                                lambda: learner.train_step((idx, words)))
+        _add_launches(total, got)
+        bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+        print(f"  {name}: bf16 step loss {float(metrics['loss']):.5f}, grad_norm "
+              f"{float(metrics['grad_norm']):.4g}, {len(grads)} gradients, "
+              f"{len(bad)} not finite")
+        if not np.isfinite(float(metrics["loss"])) or bad or not grads:
+            raise RuntimeError(f"{name}: a non-finite loss or gradient in the bf16 step")
+        del learner, server
+    print(f"  the 32 combinations in {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -4626,34 +5003,43 @@ def main():
         export_rng, mrn_servers["bfloat16"], int8_server, int8_images, trba_single, trba_images,
         mrn_images))
     print(f"  the tanh-GELU, dispatch and export phases took {time.perf_counter() - t_new:.1f} s")
+    print("== stage combinations: TPS/SVTR/BiLSTM/Attn at SVTR-MRN's width, None/VGG/None/Attn "
+          "at CRNN-MRN's, all 32 narrow")
+    combos = phase_combos(np.random.default_rng(COMBO_SEED))
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
              served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"]
-             + strat["fused"] + lmdb["fused"] + par["fused"] + exported["fused"], totals[bf16]),
+             + strat["fused"] + lmdb["fused"] + par["fused"] + exported["fused"]
+             + combos["fused"], totals[bf16]),
             ("svtr_fused_block_tanh", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:289",
              tanh_served, tanh_totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
              trained["full"] + ckpt["full"] + camp["full"] + strat["full"] + lmdb["full"]
-             + par["full"], attn[("full", bf16)]),
+             + par["full"] + combos["full"], attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
              trained["banded"] + ckpt["banded"] + camp["banded"] + strat["banded"]
-             + lmdb["banded"] + par["banded"], attn[("banded", bf16)]),
+             + lmdb["banded"] + par["banded"] + combos["banded"], attn[("banded", bf16)]),
             ("svtr_train_block_forward", "svtr_train_block.cu",
-             "mrn_tpu/ops/svtr_train_block.py:124", fused_trained["train_fwd"],
+             "mrn_tpu/ops/svtr_train_block.py:124",
+             fused_trained["train_fwd"] + combos["train_fwd"],
              train_blocks[("fwd", bf16)]),
             ("svtr_train_block_bwd_tail", "svtr_train_block.cu",
-             "mrn_tpu/ops/svtr_train_block.py:436", fused_trained["train_bwd_tail"],
+             "mrn_tpu/ops/svtr_train_block.py:436",
+             fused_trained["train_bwd_tail"] + combos["train_bwd_tail"],
              train_blocks[("tail", bf16)]),
             ("svtr_train_block_bwd_head", "svtr_train_block.cu",
-             "mrn_tpu/ops/svtr_train_block.py:497", fused_trained["train_bwd_head"],
+             "mrn_tpu/ops/svtr_train_block.py:497",
+             fused_trained["train_bwd_head"] + combos["train_bwd_head"],
              train_blocks[("head", bf16)]),
             ("svtr_fused_block_int8", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:303",
-             int8_served + lmdb["int8"] + exported["int8"], int8_totals[(bf16, False)]),
+             int8_served + lmdb["int8"] + exported["int8"] + combos["int8"],
+             int8_totals[(bf16, False)]),
             ("svtr_fused_block_int8_tanh", "svtr_block_int8.cu", "mrn_tpu/ops/svtr_block.py:378",
              tanh_int8_served, tanh_int8_totals[(bf16, False)]),
             ("grid_sample", "grid_sample.cu", "mrn_tpu/ops/grid_sample.py:140",
-             trba_served + trba_trained + int8_warps + exported["grid_sample"],
+             trba_served + trba_trained + int8_warps + exported["grid_sample"]
+             + combos["grid_sample"],
              warp[("tps", bf16)])]
     record = {"kernels": [{
         "name": name,
@@ -4696,7 +5082,8 @@ def main():
           f"requests ({trba_served}), the TRBA training run ({trba_trained}: step 1's "
           f"frozen experts, FF and TF validation), the int8 TRBA requests ({int8_warps}) and "
           f"the exported TRBA program ({exported['grid_sample']}), "
-          f"its library_ms F.grid_sample on NCHW; "
+          f"its library_ms F.grid_sample on NCHW; every row but the tanh ones also counts "
+          f"the stage-combinations phase's counted runs ({combos}); "
           f"on {smi}")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -102,8 +102,10 @@ def load_learner(opt, saved_model: str, last_task: int, device=None):
                                              "experts"))
         learner._phase = "standalone" if last_task == 0 else "routed"
     else:
-        if opt.il == "der":
-            leaf = payload["params"]["extractors"]["seq_linear"]["kernel"]
+        if opt.il == "der":   # any leaf of the stack: the extractor count leads
+            leaf = payload["params"]["extractors"]
+            while isinstance(leaf, dict):
+                leaf = next(iter(leaf.values()))
             learner.n_experts = int(np.shape(leaf)[0])
         learner._set_model(payload["params"], payload["batch_stats"])
     return learner

@@ -1,29 +1,31 @@
 """Model composition (mirrors ``mrn_tpu/models/composer.py``):
 Transformation -> FeatureExtraction -> mean over height -> SequenceModeling
--> prediction head.
+-> prediction head, composed stage by stage as in JAX.  Every combination
+of the four stages builds, in eval and train mode:
 
-The port covers five stage combinations, in eval and train mode:
+- Transformation: "None", or "TPS" (``transformation``, the RARE TPS warp
+  to ``img_size``: the kernel in eval mode, the differentiable warp in
+  train mode);
+- FeatureExtraction (``feature``): "VGG" (CRNN), "ResNet" (TRBA), "RCNN"
+  (GRCNN) or "SVTR"; ``svtr`` (keyword arguments of ``SVTRExtractor``:
+  ``embed_dim``, ``depth``, ``num_heads``, ``drop_path_rate``) narrows
+  SVTR for tests, the configs leave it unset;
+- SequenceModeling: "BiLSTM" (two BiLSTMs, ``seq0`` and ``seq1``) or
+  "None" (``seq_linear``, a Dense to ``hidden_size``, as the reference
+  projects);
+- Prediction: "CTC" (the head ``fc``) or "Attn" (the decoder
+  ``prediction``, whose generator is ``fc``).
 
-- None/SVTR/None/CTC (``forward(image, train=...)``); ``svtr`` (keyword
-  arguments of ``SVTRExtractor``: ``embed_dim``, ``depth``, ``num_heads``,
-  ``drop_path_rate``) narrows the backbone for tests, the configs leave it
-  unset;
-- None/VGG/BiLSTM/CTC (CRNN) and None/RCNN/BiLSTM/CTC (GRCNN): the conv
-  backbone, two BiLSTMs (``seq0``, ``seq1``) and the CTC ``fc``;
-- TPS/ResNet/BiLSTM/Attn (TRBA) and None/ResNet/BiLSTM/Attn (RBA, TRBA
-  without the TPS: ``evaluate_cli --model_name RBA``): ``fc`` is the
-  decoder's generator.  ``train`` drives BatchNorm (and the TPS warp: the
-  kernel in eval mode, the differentiable warp in train mode);
-  ``is_train`` drives the decoder, teacher-forced on ``text`` ([SOS] and
-  the characters) or greedy from its [SOS] column, and defaults to
-  ``train``, JAX's split; ``class_count`` restricts the decoder to an
-  expert's true vocabulary.
+``train`` drives BatchNorm, DropPath and the TPS warp; ``is_train``
+drives the Attn decoder, teacher-forced on ``text`` ([SOS] and the
+characters) or greedy from its [SOS] column, and defaults to ``train``,
+JAX's split; ``class_count`` restricts the decoder to an expert's true
+vocabulary.  An unknown stage name raises ``ValueError``.
 
 ``quant`` ("none", "calib", "int8") is the w8a8 mode of the SVTR Blocks
 (``models.svtr.Block``) or of every conv of VGG, ResNet and RCNN
 (``models.common.TorchConv``); the TPS localization net, the BiLSTMs and
-the heads stay float, as in JAX.  Every other combination raises
-``NotImplementedError``.
+the heads stay float, as in JAX.
 """
 
 from __future__ import annotations
@@ -44,10 +46,11 @@ from mrn_tpu_torch.models.vgg import VGGExtractor
 
 __all__ = ["Extractor", "Recognizer", "build_recognizer", "sequence_length"]
 
-_SUPPORTED = (("None", "SVTR", "None", "CTC"), ("None", "VGG", "BiLSTM", "CTC"),
-              ("None", "RCNN", "BiLSTM", "CTC"), ("TPS", "ResNet", "BiLSTM", "Attn"),
-              ("None", "ResNet", "BiLSTM", "Attn"))
 _CONV_EXTRACTORS = {"VGG": VGGExtractor, "ResNet": ResNetExtractor, "RCNN": RCNNExtractor}
+_TRANSFORMATIONS = ("None", "TPS")
+_FEATURES = ("VGG", "ResNet", "RCNN", "SVTR")
+_SEQUENCES = ("None", "BiLSTM")
+_PREDICTIONS = ("CTC", "Attn")
 
 
 def sequence_length(feature_extraction: str, img_w: int) -> int:
@@ -61,20 +64,14 @@ def sequence_length(feature_extraction: str, img_w: int) -> int:
     raise ValueError(feature_extraction)
 
 
-def _check_supported(stages: Tuple[str, ...]) -> None:
-    """``stages``: an extractor's three, or a recognizer's four."""
-    n = len(stages)
-    if stages not in {s[:n] for s in _SUPPORTED}:
-        raise NotImplementedError(
-            f"{'+'.join(stages)}: the PyTorch port builds "
-            + ", ".join("+".join(s) for s in _SUPPORTED))
+def _check_stage(stage: str, name: str, known: Tuple[str, ...]) -> None:
+    if name not in known:
+        raise ValueError(f"{stage}={name!r}: not one of {', '.join(known)}")
 
 
 class Extractor(nn.Module):
-    """Returns [B, T, hidden].  SVTR: SVTR -> mean over H -> ``seq_linear``
-    (the "None" sequence stage still projects to ``hidden_size``).  CRNN,
-    GRCNN and TRBA: (TPS ->) VGG, RCNN or ResNet -> mean over H -> two
-    BiLSTMs (``seq0``, ``seq1``)."""
+    """NHWC image -> [B, T, hidden]: (``transformation`` ->) ``feature`` ->
+    mean over H -> ``seq0`` / ``seq1`` (BiLSTM) or ``seq_linear`` (None)."""
 
     def __init__(self, transformation: str = "None",
                  feature_extraction: str = "SVTR",
@@ -84,25 +81,30 @@ class Extractor(nn.Module):
                  svtr: Optional[Mapping] = None, quant: str = "none",
                  num_fiducial: int = 20):
         super().__init__()
-        _check_supported((transformation, feature_extraction, sequence_modeling))
+        for stage, name, known in (("Transformation", transformation, _TRANSFORMATIONS),
+                                   ("FeatureExtraction", feature_extraction, _FEATURES),
+                                   ("SequenceModeling", sequence_modeling, _SEQUENCES)):
+            _check_stage(stage, name, known)
+        if transformation == "TPS":
+            self.transformation = TPSTransformer(num_fiducial, img_size, input_channel)
         if feature_extraction == "SVTR":
             self.feature = SVTRExtractor(input_channel, output_channel, img_size,
                                          **dict(svtr or {}), quant=quant)
-            self.seq_linear = Dense(output_channel, hidden_size)
         else:
-            if transformation == "TPS":
-                self.transformation = TPSTransformer(num_fiducial, img_size, input_channel)
             self.feature = _CONV_EXTRACTORS[feature_extraction](input_channel, output_channel,
                                                                 quant=quant)
+        if sequence_modeling == "BiLSTM":
             self.seq0 = BidirectionalLSTM(output_channel, hidden_size, hidden_size)
             self.seq1 = BidirectionalLSTM(hidden_size, hidden_size, hidden_size)
+        else:
+            self.seq_linear = Dense(output_channel, hidden_size)
 
     def forward(self, image: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if isinstance(self.feature, SVTRExtractor):
-            return self.seq_linear(self.feature(image, train).mean(dim=1))
         if hasattr(self, "transformation"):
             image = self.transformation(image, train)
         seq = self.feature(image, train).mean(dim=1)
+        if hasattr(self, "seq_linear"):
+            return self.seq_linear(seq)
         return self.seq1(self.seq0(seq))
 
 
@@ -118,7 +120,7 @@ class Recognizer(nn.Module):
                  svtr: Optional[Mapping] = None, quant: str = "none",
                  num_fiducial: int = 20, batch_max_length: int = 25):
         super().__init__()
-        _check_supported((transformation, feature_extraction, sequence_modeling, prediction))
+        _check_stage("Prediction", prediction, _PREDICTIONS)
         self.extractor = Extractor(transformation, feature_extraction,
                                    sequence_modeling, input_channel,
                                    output_channel, hidden_size, img_size, svtr, quant,

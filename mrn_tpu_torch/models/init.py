@@ -1,19 +1,24 @@
 """Random weights in the JAX package's init distributions, as numpy trees in
 the flax layout (bridged into the port with ``bridge.from_flax``).
 
-- SVTR: Block and Dense kernels ``truncated_normal(0.02)`` with zero biases,
-  convs kaiming-normal (fan in) with zero biases, LayerNorm scale 1 and bias
-  1 (the reference SVTR quirk), BatchNorm scale 1 / bias 0 / mean 0 / var 1;
+An extractor is drawn stage by stage, transformation -> feature ->
+sequence, then the recognizer's head, each stage in its own distribution:
+
+- SVTR ``feature``: Block kernels ``truncated_normal(0.02)`` with zero
+  biases, convs kaiming-normal (fan in) with zero biases, LayerNorm scale
+  1 and bias 1 (the reference SVTR quirk), BatchNorm scale 1 / bias 0 /
+  mean 0 / var 1;
+- VGG (CRNN), RCNN (GRCNN) and ResNet (TRBA) ``feature`` and the TPS
+  localization net: every conv kernel, conv bias (VGG's
+  ``conv0``-``conv3`` and ``conv6``, GRCNN's ``conv0``; the other convs
+  are bias-free) and Dense layer ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``,
+  BatchNorm 1 / 0 / 0 / 1, and ``localization_fc2`` a zero kernel with the
+  RARE fiducial bias (so every crop starts from the same near-identity
+  grid);
+- the BiLSTMs' and the attention cell's LSTM weights and biases
+  ``U(-1/sqrt(H), 1/sqrt(H))``, ``char_embeddings`` ``N(0, 1)``;
 - ``seq_linear``, ``fc`` and the router's Dense layers the torch default
-  ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, the router's LayerNorms 1 / 0;
-- CRNN (``FeatureExtraction="VGG"``), GRCNN (``"RCNN"``) and TRBA
-  (``"ResNet"``): every conv kernel, conv bias (VGG's ``conv0``-``conv3``
-  and ``conv6``, GRCNN's ``conv0``; the other convs are bias-free) and
-  Dense layer ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, the BiLSTMs' and the
-  attention cell's LSTM weights and biases ``U(-1/sqrt(H), 1/sqrt(H))``,
-  ``char_embeddings`` ``N(0, 1)``, BatchNorm 1 / 0 / 0 / 1, and TRBA's
-  ``localization_fc2`` a zero kernel with the RARE fiducial bias (so
-  every crop starts from the same near-identity grid).
+  ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``, the router's LayerNorms 1 / 0.
 
 A new expert is drawn this way (the JAX learner's ``change_model``); task
 0's expert then gets ``models.surgery.apply_reference_init``.  A DERNet
@@ -79,8 +84,8 @@ def random_block(rng, c, hidden=None):
 
 
 def random_recognizer(rng, opt, num_classes):
-    """One Recognizer's (params, batch_stats) trees: SVTR (``opt.svtr`` may
-    narrow the backbone: ``embed_dim``, ``depth``), CRNN, GRCNN or TRBA."""
+    """One Recognizer's (params, batch_stats) trees, any stage combination
+    (``opt.svtr`` may narrow an SVTR backbone: ``embed_dim``, ``depth``)."""
     extractor, stats = random_extractor(rng, opt)
     params = {"extractor": extractor, "fc": _torch_dense(rng, opt.hidden_size, num_classes)}
     if opt.Prediction == "Attn":
@@ -116,12 +121,24 @@ def random_der(rng, opt, n_extractors, num_classes):
 
 
 def random_extractor(rng, opt):
-    """One Extractor's (params, batch_stats) trees: SVTR, CRNN, GRCNN or
-    TRBA."""
-    conv_extractors = {"ResNet": _random_trba_extractor, "VGG": _random_vgg_extractor,
-                       "RCNN": _random_rcnn_extractor}
-    if opt.FeatureExtraction in conv_extractors:
-        return conv_extractors[opt.FeatureExtraction](rng, opt)
+    """One Extractor's (params, batch_stats) trees, drawn stage by stage:
+    the TPS ``transformation`` (``opt.Transformation="TPS"``), the
+    ``feature`` stage (``opt.FeatureExtraction``), then the sequence stage
+    (``seq0`` / ``seq1``, or ``seq_linear``)."""
+    t = _Trees(rng)
+    if opt.Transformation == "TPS":
+        _random_tps(t, opt)
+    _FEATURE_DRAWS[opt.FeatureExtraction](t, opt)
+    if opt.SequenceModeling == "BiLSTM":
+        t.bilstms(opt.output_channel, opt.hidden_size)
+    else:
+        t.params["seq_linear"] = _torch_dense(rng, opt.output_channel, opt.hidden_size)
+    return t.params, t.stats
+
+
+def _random_svtr(t, opt):
+    """SVTR's ``feature`` (``opt.svtr`` may narrow it)."""
+    rng = t.rng
     arch = dict(_SVTR, **(opt.get("svtr") or {}))
     e0, e1, e2 = arch["embed_dim"]
     h0, w0 = opt.imgH // 4, opt.imgW // 4
@@ -139,14 +156,12 @@ def random_extractor(rng, opt):
     for stage, (dim, n) in enumerate(zip((e0, e1, e2), arch["depth"]), start=1):
         for i in range(n):
             feature[f"blocks{stage}_{i}"] = random_block(rng, dim)
-    params = {"feature": feature,
-              "seq_linear": _torch_dense(rng, opt.output_channel, opt.hidden_size)}
-    stats = {"feature": {"patch_embed": {
+    t.params["feature"] = feature
+    t.stats["feature"] = {"patch_embed": {
         "bn1": {"mean": np.zeros((e0 // 2,), np.float32),
                 "var": np.ones((e0 // 2,), np.float32)},
         "bn2": {"mean": np.zeros((e0,), np.float32),
-                "var": np.ones((e0,), np.float32)}}}}
-    return params, stats
+                "var": np.ones((e0,), np.float32)}}}
 
 
 def _uniform(rng, shape, fan_in):
@@ -214,18 +229,23 @@ def _random_decoder(rng, input_size, h, num_classes):
             "char_embeddings": rng.standard_normal((num_classes, 256)).astype(np.float32)}
 
 
-def _random_trba_extractor(rng, opt):
-    """One TPS/ResNet/BiLSTM Extractor's (params, batch_stats)."""
-    t = _Trees(rng)
-    h, oc, f = opt.hidden_size, opt.output_channel, opt.num_fiducial
+def _random_tps(t, opt):
+    """The TPS ``transformation``: the localization net at its fixed widths
+    and ``localization_fc2``, a zero kernel with the RARE fiducial bias."""
+    f = opt.num_fiducial
     loc = ("transformation", "localization")
     chans = (opt.input_channel, 64, 128, 256, 512)
     for i in range(4):
         t.conv_bn(loc, f"conv{i}", f"bn{i}", 3, chans[i], chans[i + 1])
     t._at(t.params, loc).update(
-        localization_fc1=_torch_dense(rng, 512, 256),
+        localization_fc1=_torch_dense(t.rng, 512, 256),
         localization_fc2={"kernel": np.zeros((256, 2 * f), np.float32),
                           "bias": _fc2_bias(f)})
+
+
+def _random_resnet(t, opt):
+    """TRBA's ResNet ``feature``."""
+    oc = opt.output_channel
     feat = ("feature",)
     widths = (oc // 4, oc // 2, oc, oc)
     t.conv_bn(feat, "conv0_1", "bn0_1", 3, opt.input_channel, oc // 16)
@@ -244,13 +264,10 @@ def _random_trba_extractor(rng, opt):
         inplanes = planes
     t.conv_bn(feat, "conv4_1", "bn4_1", 2, oc, oc)
     t.conv_bn(feat, "conv4_2", "bn4_2", 2, oc, oc)
-    t.bilstms(oc, h)
-    return t.params, t.stats
 
 
-def _random_vgg_extractor(rng, opt):
-    """One None/VGG/BiLSTM Extractor's (params, batch_stats)."""
-    t = _Trees(rng)
+def _random_vgg(t, opt):
+    """CRNN's VGG ``feature``."""
     oc = opt.output_channel
     o = (oc // 8, oc // 4, oc // 2, oc)
     feat = ("feature",)
@@ -260,14 +277,11 @@ def _random_vgg_extractor(rng, opt):
     t.conv_bn(feat, "conv4", "bn4", 3, o[2], o[3])
     t.conv_bn(feat, "conv5", "bn5", 3, o[3], o[3])
     t.conv(feat, "conv6", 2, o[3], o[3], bias=True)
-    t.bilstms(oc, opt.hidden_size)
-    return t.params, t.stats
 
 
-def _random_rcnn_extractor(rng, opt):
-    """One None/RCNN/BiLSTM Extractor's (params, batch_stats): ``conv0``,
-    three GRCLs of 5 steps and ``conv1`` / ``bn1``."""
-    t = _Trees(rng)
+def _random_rcnn(t, opt):
+    """GRCNN's RCNN ``feature``: ``conv0``, three GRCLs of 5 steps and
+    ``conv1`` / ``bn1``."""
     oc = opt.output_channel
     o = (oc // 8, oc // 4, oc // 2, oc)
     feat = ("feature",)
@@ -283,8 +297,10 @@ def _random_rcnn_extractor(rng, opt):
             for name in ("gfu", "grx", "rx", "fu", "gx"):
                 t.bn(grcl, f"u{i}_bn_{name}", cout)
     t.conv_bn(feat, "conv1", "bn1", 2, o[2], o[3])
-    t.bilstms(oc, opt.hidden_size)
-    return t.params, t.stats
+
+
+_FEATURE_DRAWS = {"SVTR": _random_svtr, "ResNet": _random_resnet, "VGG": _random_vgg,
+                  "RCNN": _random_rcnn}
 
 
 def random_router(rng, opt, n_experts):

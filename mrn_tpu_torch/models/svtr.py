@@ -386,21 +386,21 @@ def frozen_folds(model: nn.Module, dtype: torch.dtype):
             m.fold_cache.thaw()
 
 
-def score_envelope(model: nn.Module, x: torch.Tensor) -> float:
+def score_envelope(model: nn.Module, x: torch.Tensor, *args) -> float:
     """Max |attention score| over one sample batch (``svtr.py:166-191``):
-    ``model(x)`` runs once in eval mode with every Block on the composed
-    path, each recording the largest |q k^T| (q post-scale, before the
-    mask).  The fused inference Block's softmax takes exp without the
-    max-subtract, clamped at ``SCORE_CLAMP``; a value at or above it means
-    that kernel would flatten attention for these weights, which is
-    reported loudly on stderr.  Returns the maximum (0.0 for a model
+    ``model(x, *args)`` (``args``: an Attn head's [SOS] column) runs once
+    in eval mode with every Block on the composed path, each recording the
+    largest |q k^T| (q post-scale, before the mask).  The fused inference
+    Block's softmax takes exp without the max-subtract, clamped at
+    ``SCORE_CLAMP``; a value at or above it means that kernel would flatten
+    attention for these weights, which is reported loudly on stderr.  Returns the maximum (0.0 for a model
     without Blocks)."""
     blocks = [m for m in model.modules() if isinstance(m, Block)]
     for blk in blocks:
         blk.score_max = torch.zeros(())
     try:
         with torch.inference_mode():
-            model(x)
+            model(x, *args)
         maxima = [float(blk.score_max) for blk in blocks]
     finally:
         for blk in blocks:

@@ -1,6 +1,7 @@
 """Serving entry point: recognise word crops with a recognizer or an MRN
-routed ensemble of SVTR (None/SVTR/None/CTC), CRNN (None/VGG/BiLSTM/CTC),
-GRCNN (None/RCNN/BiLSTM/CTC) or TRBA (TPS/ResNet/BiLSTM/Attn) experts.
+routed ensemble of experts of any stage combination (SVTR
+None/SVTR/None/CTC, CRNN None/VGG/BiLSTM/CTC, GRCNN None/RCNN/BiLSTM/CTC,
+TRBA TPS/ResNet/BiLSTM/Attn, or any other of ``models.composer``'s).
 
     server = Server(opt, params, batch_stats, character, class_counts=counts)
     for word, conf in server.recognize(images): ...
@@ -19,8 +20,8 @@ Runs on the CUDA card unless ``device="cpu"`` is passed, in
 ``opt.compute_dtype`` (float32 or bfloat16; bfloat16 casts every weight and
 the images, as the JAX serving path does).
 
-w8a8 serving (``evaluate_cli.py --int8``) of a single SVTR, CRNN, GRCNN,
-TRBA or RBA recognizer::
+w8a8 serving (``evaluate_cli.py --int8``) of a single recognizer (its SVTR
+Blocks or its backbone's convs; the TPS, BiLSTMs and heads stay float)::
 
     quantize_int8(server, calibration_batches)   # calibrate, quantize, rebuild
     server.recognize(images)                     # int8 Blocks or int8 convs
@@ -165,7 +166,8 @@ class Server:
         subtracts the max, and for a model without SVTR Blocks."""
         if self.quantized or self.opt.FeatureExtraction != "SVTR":
             return None
-        mx = score_envelope(self.model, self.images(images))
+        x = self.images(images)
+        mx = score_envelope(self.model, x, self.sos_column(x))
         print(f"# svtr score envelope: max |score| {mx:.1f} (fused-kernel clamp {SCORE_CLAMP:g})")
         return mx
 

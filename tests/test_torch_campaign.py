@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -82,21 +83,25 @@ def test_smoke_campaign_record_and_replay(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("il", ["wa", "base", "der"])
 def test_other_strategies_raise(il, tmp_path):
-    """The other strategies are ported for the CTC and the Attn head (SVTR,
-    CRNN, GRCNN and TRBA); what they still refuse is a stage combination
-    the port does not build (a TPS in front of VGG), and the campaign an
-    architecture it has no dims for."""
+    """The other strategies are ported for the CTC and the Attn head and
+    every stage combination (a TPS in front of VGG builds its model and
+    takes a step); what they still refuse is an architecture the campaign
+    has no dims for."""
     learner = build_learner(default_options(il=il, output_dir=str(tmp_path)), device="cpu")
     assert type(learner).__name__ == {"wa": "WA", "base": "BaseLearner", "der": "DER"}[il]
     attn = build_learner(default_options(il=il, Prediction="Attn", output_dir=str(tmp_path)),
                          device="cpu")
     assert type(attn) is type(learner)
     tps_vgg = build_learner(default_options(il=il, Transformation="TPS", FeatureExtraction="VGG",
-                                            SequenceModeling="BiLSTM",
+                                            SequenceModeling="BiLSTM", imgW=64,
+                                            output_channel=32, hidden_size=16, batch_size=2,
                                             output_dir=str(tmp_path)), device="cpu")
     tps_vgg.character = list("abc")
     tps_vgg.converter = tps_vgg.build_converter()
-    with pytest.raises(NotImplementedError, match="TPS\\+VGG"):
-        tps_vgg.build_model()
+    tps_vgg.build_model()
+    tps_vgg.build_optimizer()
+    images = np.random.default_rng(0).uniform(-1, 1, (2, 32, 64, 4)).astype(np.float32)
+    metrics = tps_vgg.train_step((images, ["ab", "c"]))
+    assert np.isfinite(float(metrics["loss"]))
     with pytest.raises(SystemExit):
         campaign.main(["--il", il, "--arch", "grcnn", "--device", "cpu"])

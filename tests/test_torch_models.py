@@ -123,10 +123,24 @@ def test_bridge_layouts(rng):
 
 
 def test_unsupported_stage_combination_raises():
-    with pytest.raises(NotImplementedError):
-        Recognizer(10, transformation="TPS", feature_extraction="VGG", sequence_modeling="BiLSTM")
-    with pytest.raises(NotImplementedError):
-        Recognizer(10, feature_extraction="VGG", sequence_modeling="None")
+    """Every combination of the four stages builds (TPS in front of VGG,
+    VGG without a BiLSTM); a stage name outside them raises ``ValueError``,
+    as JAX's composer does."""
+    tps_vgg = Recognizer(10, transformation="TPS", feature_extraction="VGG",
+                         sequence_modeling="BiLSTM", img_size=(32, 64), output_channel=32,
+                         hidden_size=16)
+    assert hasattr(tps_vgg.extractor, "transformation")
+    assert hasattr(tps_vgg.extractor, "seq0") and not hasattr(tps_vgg.extractor, "seq_linear")
+    vgg = Recognizer(10, feature_extraction="VGG", sequence_modeling="None",
+                     img_size=(32, 64), output_channel=32, hidden_size=16)
+    assert hasattr(vgg.extractor, "seq_linear") and not hasattr(vgg.extractor, "seq0")
+    with torch.inference_mode():
+        out = tps_vgg(torch.zeros(2, 32, 64, 4))
+    assert out["predict"].shape == (2, 15, 10)
+    for stages in (dict(transformation="STN"), dict(feature_extraction="Swin"),
+                   dict(sequence_modeling="GRU"), dict(prediction="CTC2")):
+        with pytest.raises(ValueError, match=next(iter(stages.values()))):
+            Recognizer(10, **stages)
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])
