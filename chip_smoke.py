@@ -5,7 +5,10 @@
 
 1. prints the toolchain and the card (``nvidia-smi`` name and power limit);
 2. builds the CUDA kernels from ``mrn_tpu_torch/ops/csrc`` (one ``nvcc``
-   per source, all started together);
+   per source): the TPS warp's source first, then every other source at
+   once in a background thread (``_build.BackgroundBuild``), behind phases
+   12, 12b and 14-17, which launch only the warp kernel and so run first
+   (see "Run order" below);
 3. holds the fused SVTR Block kernel against its plain PyTorch version at
    the four Block shapes of SVTR at batch 256, in float32 and bfloat16 (two
    launches must be bitwise equal), prints each shape's launch plan, and
@@ -79,8 +82,8 @@
    routed step ``CAMPAIGN_CRASH`` of task 5 resumes (``resume_full``,
    ``start_task=5.5``) into the uninterrupted replay's batches bitwise and
    its losses and router within ``TRAIN_STEP_TOL``; prints (d) the matrix,
-   the AIA and seconds per stage and (e) the step-0 window mean with and
-   without the prefetcher and a traced window's idle share;
+   the AIA and seconds per stage and (e) one step-0 window mean with and
+   one without the prefetcher and a traced window's idle share;
 9d. runs the other strategies (base, LwF, WA, EWC, DER, joint_mix and
    joint_loader) through ``campaign.run_incremental`` / ``run_joint`` at
    full width, bf16, batch 256, prefetch on, over 3 tasks of the campaign
@@ -97,9 +100,9 @@
    versions within ``TRAIN_STEP_TOL``: LwF at task 1 (row 4 in the old
    network, rows 1-2 in the live one), DER at task 2 composed and with
    ``MRN_FUSED_TRAIN=1`` (rows 5-7); prints (d) each strategy's step time
-   over a window after 3 warm-up steps, its stage seconds and launches;
+   over one window after 3 warm-up steps, its stage seconds and launches;
 9e. runs the slice's entry points on an LMDB tree it writes under
-   ``build/`` (see ``LMDB_*``: 3 tasks of the campaign's alphabets, 2,048
+   ``build/`` (see ``LMDB_*``: 3 tasks of the campaign's alphabets, 1,024
    train and 256 test crops a task at natural sizes, PNG-encoded without
    PIL): ``train_cli.main`` over the LMDB stream and again with
    ``--device_bank``, ``evaluate_cli.main`` on the final checkpoint and
@@ -115,6 +118,18 @@
    words against the eval path's on the same crops; prints the host decode
    rate (PNG and JPEG), the step-0 windows of the LMDB stream and of the
    bank, the LMDB window's idle share and the CLIs' crops/s;
+9e'. training-time augmentation on that tree (``AUG_*``): (a) the C++
+   augment library (``data/csrc/augment.cpp``, built here with g++) on the
+   committed fixtures of Pillow's, OpenCV's and the JAX package's outputs
+   (``tests/fixtures/torch_augment/``, ``data.augment_fixtures``), bitwise
+   or within the stated bounds; the host's augment + resize crops/s on one
+   thread per chain beside plain decode + resize; ``train_cli.main`` with
+   ``Aug=ABINet`` over the first 2 tasks and ``Aug=Blur5-Crop90-Rot15``
+   over task 0, bf16, ``AUG_ITERS`` step-0 iterations a task: (b) the
+   launches of rows 1, 2 and 4 against the unaugmented run's count for
+   those cuts, (c) the first batch's labels equal to the unaugmented
+   stream's and its crops not; the ABINet stream's step-0 window and the
+   idle share of a traced window;
 9f. trains data- and expert-parallel through ``train_cli`` on that tree
    (see ``PAR_*``: 2 tasks, float32, batch 256, ``--device_bank``): once
    without a process group, then (a) under torchrun's environment in a
@@ -123,13 +138,13 @@
    beside a second run without a group (the card's own run-to-run
    spread), its NCCL all-reduce shown by a profile of one more step; (b)
    ``torchrun --nproc_per_node 2`` of this script's ``--parallel-rank``
-   mode, gloo with both ranks on cuda:0, ``--data_parallel 2`` and then
-   ``--expert_parallel 2``, each rank's gradient norms step by step and
+   mode, gloo with both ranks on cuda:0, ``--data_parallel 2`` and
+   ``--expert_parallel 2`` at once, each rank's gradient norms step by step and
    leaf by leaf, step losses, experts, router (leaf by leaf), scores and
    validation losses against the run without a group; (c) every run's and rank's launches of rows 1, 2 and 4 against
    their expected counts (an expert rank holds half the experts); (d) the
    step-0 and router step windows of each with the gradient buckets'
-   bytes (two ranks on one card share it: no scaling figure);
+   bytes (four ranks on one card share it: no scaling figure);
 10. holds the w8a8 Block kernel against its plain version at the four Block
    shapes at batch 256, float32 and bfloat16, float and int8 attention, each
    Block calibrated on its input and quantized first (Local Blocks banded,
@@ -249,6 +264,11 @@
    f32 eval forward on the kernels against the plain versions and one
    bf16 step with a finite loss and finite gradients.
 
+Run order: 1, 2 (the warp's source, the rest started), 12, 12b, 14, 15,
+16, 17 (their weights and crops from ``EARLY_SEED``'s generator), the
+build joined, 13, 3-11, 18-21.  Traces record the card's activity only
+(``device_trace``).
+
 Any failed check raises (exit code != 0).  The line before the last is the
 per-kernel JSON record, the last line ``{"ok": true, "device": {...}}``.
 Exits non-zero without printing a result when no CUDA card is present.
@@ -263,6 +283,7 @@ import hashlib
 import itertools
 import json
 import os
+import random
 import re
 import shutil
 import socket
@@ -285,9 +306,11 @@ from mrn_tpu_torch.bridge import quant_tree, state_to_flax, to_flax  # noqa: E40
 from mrn_tpu_torch.codec import build_converter  # noqa: E402
 from mrn_tpu_torch.config import load_config  # noqa: E402
 from mrn_tpu_torch import evaluate_cli, export_cli, recognize_cli, train_cli  # noqa: E402
+from mrn_tpu_torch.data import augment_fixtures  # noqa: E402
 from mrn_tpu_torch.data import image as image_codec  # noqa: E402
 from mrn_tpu_torch.data.lmdb_store import LmdbReader  # noqa: E402
 from mrn_tpu_torch.data.manager import DatasetManager, ValDataset  # noqa: E402
+from mrn_tpu_torch.data.transform import MoCoAugment, build_transform  # noqa: E402
 from mrn_tpu_torch.tools import create_lmdb  # noqa: E402
 from mrn_tpu_torch.data.prefetch import Prefetcher  # noqa: E402
 from mrn_tpu_torch.data.synthetic import (SyntheticTaskLoader, alphabet_of_size,  # noqa: E402
@@ -511,19 +534,19 @@ TRBA_STEP_TOL = TRAIN_STEP_TOL["bf16"]
 # (336..5926 for 2687..47411), CAMPAIGN_TEST test crops a task (for
 # 529..11073), memory_num CAMPAIGN_MEMORY (for 2000; under the smallest cut
 # task, 404) and num_iter CAMPAIGN_ITERS with val_interval CAMPAIGN_VAL (for
-# 1000 and 500): 20 step-0 steps a task validated at 1, 10 and 20, and 10
-# step-1 steps validated at 1, 2, 4, 6, 8 and 10.
+# 1000 and 500): 10 step-0 steps a task validated at 1, 5 and 10, and 5
+# step-1 steps validated at each.
 CAMPAIGN_CUT = 8
 CAMPAIGN_TEST = 256
 CAMPAIGN_MEMORY = 256
-CAMPAIGN_ITERS = 20
-CAMPAIGN_VAL = 10
+CAMPAIGN_ITERS = 10
+CAMPAIGN_VAL = 5
 CAMPAIGN_SEED = 111
-# (c): the crash comes after routed step 5 of task 5; its last snapshot is
-# step 4's (one at every validation point before the last)
-CAMPAIGN_CRASH = 5
+# (c): the crash comes after routed step 3 of task 5; its last snapshot is
+# step 3's (one at every validation point before the last)
+CAMPAIGN_CRASH = 3
 # (e): a step-0 window of TIME_STEPS steps after TIME_WARMUP, no validation
-# in it; TRACE_STEPS of them traced
+# in it, with the prefetcher and without; TRACE_STEPS of them traced
 TIME_WARMUP, TIME_STEPS, TRACE_STEPS = 3, 10, 5
 
 # The strategies phase: campaign.run_incremental / run_joint for each of
@@ -548,12 +571,21 @@ STRATEGY_FISHER = 3
 # width, bf16, batch 256, num_iter CAMPAIGN_ITERS, val_interval CAMPAIGN_VAL,
 # memory_num CAMPAIGN_MEMORY; host decode rates over LMDB_DECODE_CALLS calls.
 LMDB_TASKS = 3
-LMDB_TRAIN = 2048
+LMDB_TRAIN = 1024
 LMDB_TEST = 256
 LMDB_HEIGHTS = (24, 48)
 LMDB_WIDTHS = (48, 320)
 LMDB_MAX_LEN = 8
 LMDB_DECODE_CALLS = 1024
+# the augmentation phase: train_cli with Aug over the LMDB phase's tree, cut
+# to AUG_ITERS step-0 iterations a task (validated every AUG_VAL); host
+# rates over AUG_RATE_CROPS of its PNG crops; the ABINet stream's window of
+# AUG_WINDOW steps after AUG_WARMUP and a traced one of AUG_TRACE (the
+# host-bound steps take ≈ 0.7 s: the phase stays within a minute)
+AUG_ITERS, AUG_VAL = 4, 2
+AUG_RATE_CROPS = 128
+AUG_WARMUP, AUG_WINDOW, AUG_TRACE = 2, 6, 3
+AUG_CHAINS = (("abinet", "ABINet", 2), ("text", "Blur5-Crop90-Rot15", 1))
 
 # The parallel-training phase: train_cli --device_bank on the LMDB phase's
 # tree, its first PAR_TASKS tasks, configs/svtr_mrn.py at full width,
@@ -659,6 +691,11 @@ COMBO_STEP_TOL = (1e-4, 1e-4, 1e-3)
 # host cost of a custom op's dispatch: calls of the op and of its CUDA
 # implementation directly, on a tiny input (host-bound), in turns
 DISPATCH_CALLS = 2000
+# The TRBA, CRNN, GRCNN and int8-conv phases and the TPS warp kernel's
+# phase launch only EARLY_KERNEL's library: all but the last run while
+# nvcc builds the other sources, and all draw from a generator of their own.
+EARLY_KERNEL = "grid_sample"
+EARLY_SEED = SEED + 18
 
 
 # ------------------------------------------------------------------- timing
@@ -775,9 +812,20 @@ def print_ptxas(lib, select=lambda name: True, indent="  "):
 
 
 def phase_build():
+    """Builds the TPS warp's source, then starts every other source's build
+    behind it (``_build.BackgroundBuild``); returns the build in flight."""
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    _build.load(EARLY_KERNEL)
+    print(f"built ['{EARLY_KERNEL}'] in {time.perf_counter() - t0:.1f} s; the other sources "
+          "build behind the TRBA, CRNN, GRCNN and int8-conv phases, which launch only "
+          "that kernel")
+    return _build.BackgroundBuild(), t0
+
+
+def join_build(build, t0):
+    libs = build.wait()
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s (from the start of the "
+          "build)")
     for name in libs:
         print_ptxas(name)
 
@@ -978,12 +1026,10 @@ def phase_serve(rng):
             raise RuntimeError(f"logits shape {tuple(out_k['logits'].shape)} != {shape}")
 
     # ---- where a warm bf16 request's device time goes
-    from torch.profiler import ProfilerActivity, profile
 
     servers["bfloat16"].recognize(images)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         servers["bfloat16"].recognize(images)
         torch.cuda.synchronize()
@@ -1527,7 +1573,6 @@ def phase_profile(runs, loader):
     Prints the kernels with the most device time, the device-busy time and
     the host-clock step time (the profiler's own overhead is inside the
     latter)."""
-    from torch.profiler import ProfilerActivity, profile
 
     for label, learner, fused in runs:
         if label.endswith("step 0"):
@@ -1540,8 +1585,7 @@ def phase_profile(runs, loader):
         with fused_train_env(fused):
             learner.train_step(batch)     # warm-up outside the trace
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
+            with device_trace() as prof:
                 t0 = time.perf_counter()
                 learner.train_step(batch)
                 torch.cuda.synchronize()
@@ -1899,21 +1943,20 @@ def campaign_launches(tasks, ff_batches):
                 train_fwd=0, train_bwd_tail=0, train_bwd_head=0)
 
 
-def _step0_window(learner, manager, prefetch):
-    """The mean step-0 step (host clock, synced at both ends) of TIME_STEPS
-    steps after TIME_WARMUP, batches from ``manager`` through a prefetcher
+def _step0_window(learner, manager, prefetch, warmup=TIME_WARMUP, steps=TIME_STEPS):
+    """The mean step-0 step (host clock, synced at both ends) of ``steps``
+    steps after ``warmup``, batches from ``manager`` through a prefetcher
     or not."""
-    n = TIME_WARMUP + TIME_STEPS
-    fetch = Prefetcher(manager.get_batch, n) if prefetch else manager.get_batch
+    fetch = Prefetcher(manager.get_batch, warmup + steps) if prefetch else manager.get_batch
     try:
-        for _ in range(TIME_WARMUP):
+        for _ in range(warmup):
             learner.train_step(fetch())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(TIME_STEPS):
+        for _ in range(steps):
             learner.train_step(fetch())
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / TIME_STEPS
+        return (time.perf_counter() - t0) / steps
     finally:
         if prefetch:
             fetch.close()
@@ -1993,15 +2036,13 @@ def phase_campaign(out_dir, device, source):
     manager.init_start(opt, opt.select_data, None, len(campaign.LANS) - 1)
     with fused_train_env(False):
         windows = {flag: [] for flag in (True, False)}
-        for flag in (True, False, True, False):
+        for flag in (True, False):
             windows[flag].append(_step0_window(learner, manager, flag))
-        from torch.profiler import ProfilerActivity, profile
         fetch = Prefetcher(manager.get_batch, TRACE_STEPS + 1)
         try:
             learner.train_step(fetch())
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
+            with device_trace() as prof:
                 t1 = time.perf_counter()
                 for _ in range(TRACE_STEPS):
                     learner.train_step(fetch())
@@ -2319,7 +2360,7 @@ def phase_strategies(out_dir, device, source):
         # again, as a loop would build it, on what after_task left
         learner._train_step = None
         with fused_train_env(False):
-            windows = [_step0_window(learner, manager, True) for _ in range(2)]
+            windows = [_step0_window(learner, manager, True)]
         print(f"  (d) {il}: bf16 step over {TIME_STEPS} steps after {TIME_WARMUP} on task "
               f"{len(opt.lan_list) - 1 if not il.startswith('joint') else 0}'s stream: "
               f"{', '.join(f'{1e3 * w:.2f}' for w in windows)} ms; stage seconds {seconds}")
@@ -2520,9 +2561,11 @@ def _write_lmdb_tree(root):
                 char_to_idx=index)
 
 
-def _lmdb_config(root, name):
+def _lmdb_config(root, name, aug="None", tasks=LMDB_TASKS, iters=CAMPAIGN_ITERS,
+                 val=CAMPAIGN_VAL):
     """A config file over ``configs/svtr_mrn.py`` with the phase's tree,
-    cuts and output directory."""
+    cuts and output directory (``aug`` its ``Aug``, the first ``tasks``
+    languages, ``iters`` step-0 iterations validated every ``val``)."""
     path = os.path.join(root, f"{name}.py")
     with open(path, "w", encoding="utf-8") as f:
         f.write(f"""import runpy
@@ -2532,29 +2575,30 @@ common = dict(_base["common"], exp_name={name!r}, memory_num={CAMPAIGN_MEMORY},
               data_log={os.path.join(root, "data_any.txt")!r})
 model = _base["model"]
 optimizer = _base["optimizer"]
-train = dict(_base["train"], lan_list={campaign.LANS[:LMDB_TASKS]!r},
+train = dict(_base["train"], lan_list={campaign.LANS[:tasks]!r},
              select_data=[{os.path.join(root, "train")!r}],
-             valid_datas=[{os.path.join(root, "test")!r}], workers=0,
-             num_iter={CAMPAIGN_ITERS}, val_interval={CAMPAIGN_VAL})
+             valid_datas=[{os.path.join(root, "test")!r}], workers=0, Aug={aug!r},
+             num_iter={iters}, val_interval={val})
 """)
     return path
 
 
-def lmdb_train_launches(tasks):
-    """Kernel launches of a train_cli run of ``tasks`` tasks over test sets
-    of one batch: 6 full + 6 banded attention per step-0 step; kernel 4 in
-    the FF validations (12 a batch) and task 0's ``test``, and from task 1
-    in the step-1 steps, the TF validations and ``test`` ((t + 1) experts x
-    12 per step or batch, t + 1 sets of one batch)."""
-    n0, n1 = CAMPAIGN_ITERS, CAMPAIGN_ITERS // 2
+def lmdb_train_launches(tasks, iters=CAMPAIGN_ITERS, val=CAMPAIGN_VAL):
+    """Kernel launches of a train_cli run of ``tasks`` tasks of ``iters``
+    step-0 iterations (validated every ``val``) over test sets of one
+    batch: 6 full + 6 banded attention per step-0 step; kernel 4 in the FF
+    validations (12 a batch) and task 0's ``test``, and from task 1 in the
+    step-1 steps, the TF validations and ``test`` ((t + 1) experts x 12 per
+    step or batch, t + 1 sets of one batch)."""
+    n0, n1 = iters, iters // 2
     fused = 0
     for t in range(tasks):
         experts = (t + 1) * 12
-        fused += val_points(n0, CAMPAIGN_VAL) * 12
+        fused += val_points(n0, val) * 12
         if t == 0:
             fused += 12
             continue
-        fused += n1 * experts + val_points(n1, max(1, CAMPAIGN_VAL // 5)) * (t + 1) * experts
+        fused += n1 * experts + val_points(n1, max(1, val // 5)) * (t + 1) * experts
         fused += (t + 1) * experts
     return dict(full=6 * n0 * tasks, banded=6 * n0 * tasks, fused=fused, train_fwd=0,
                 train_bwd_tail=0, train_bwd_head=0)
@@ -2646,15 +2690,13 @@ def phase_lmdb(out_dir, device):
         manager = DatasetManager(learner.opt)
         manager.init_start(learner.opt, learner.opt.select_data, None, LMDB_TASKS - 1)
         with fused_train_env(False):
-            windows[tag] = [_step0_window(learner, manager, True) for _ in range(2)]
+            windows[tag] = [_step0_window(learner, manager, True)]
             if tag == "lmdb":
-                from torch.profiler import ProfilerActivity, profile
                 fetch = Prefetcher(manager.get_batch, TRACE_STEPS + 1)
                 try:
                     learner.train_step(fetch())
                     torch.cuda.synchronize()
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                 acc_events=True) as prof:
+                    with device_trace() as prof:
                         t1 = time.perf_counter()
                         for _ in range(TRACE_STEPS):
                             learner.train_step(fetch())
@@ -2972,28 +3014,164 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _world(tag, root, cfg, extra):
-    """``torchrun --nproc_per_node 2`` of ``parallel_rank`` on cuda:0 with
-    gloo; returns the ranks' records, or None (and the reason) when gloo
-    refuses the CUDA collectives."""
+def _start_world(tag, root, cfg, extra):
+    """Starts ``torchrun --nproc_per_node 2`` of ``parallel_rank`` on cuda:0
+    with gloo, its output to files; ``_finish_world`` waits for it."""
     out = os.path.join(root, f"ranks_{tag}")
     os.makedirs(out, exist_ok=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
            "--master_addr", "127.0.0.1", "--master_port", str(_free_port()),
            os.path.join(ROOT, "chip_smoke.py"), "--parallel-rank", out, "--config", cfg,
            "--device", PAR_DEVICE, "--device_bank", *extra]
-    t0 = time.perf_counter()
-    done = subprocess.run(cmd, capture_output=True, text=True, timeout=PAR_TIMEOUT,
-                          env=dict(os.environ, OMP_NUM_THREADS="4"))
+    logs = [open(os.path.join(out, name), "w+") for name in ("stdout.txt", "stderr.txt")]
+    proc = subprocess.Popen(cmd, stdout=logs[0], stderr=logs[1],
+                            env=dict(os.environ, OMP_NUM_THREADS="4"))
+    return tag, out, proc, logs, time.perf_counter()
+
+
+def _finish_world(world):
+    """The ranks' records of a world ``_start_world`` started, or None (and
+    the reason) when gloo refuses the CUDA collectives; and its seconds."""
+    tag, out, proc, logs, t0 = world
+    try:
+        rc = proc.wait(timeout=max(1.0, PAR_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.terminate()               # torchrun passes it on to its ranks
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        rc = None
     wall = time.perf_counter() - t0
-    if done.returncode != 0:
-        text = done.stdout[-3000:] + done.stderr[-6000:]
-        if re.search(r"gloo.*(not supported|unsupported|Unsupported)|"
-                     r"(not supported|unsupported|Unsupported).*[Gg]loo", text):
+    text = []
+    for log in logs:
+        log.seek(0)
+        text.append(log.read())
+        log.close()
+    if rc != 0:
+        text = text[0][-3000:] + text[1][-6000:]
+        if rc is not None and re.search(r"gloo.*(not supported|unsupported|Unsupported)|"
+                                        r"(not supported|unsupported|Unsupported).*[Gg]loo", text):
             return None, text.strip().splitlines()[-1], wall
-        raise RuntimeError(f"(b) the {tag} world failed:\n{text}")
+        raise RuntimeError(f"(b) the {tag} world failed"
+                           f"{' (timed out)' if rc is None else ''}:\n{text}")
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(2)], None, wall
+
+
+def check_augment_fixtures():
+    """(a): the C++ augment library, built here, on the committed fixtures
+    (Pillow's, OpenCV's and the JAX package's arrays in ``expected.npz``):
+    bitwise, or within the bounds ``data.augment_fixtures`` states."""
+    result = augment_fixtures.check(os.path.join(ROOT, "tests", "fixtures", "torch_augment"))
+    if result["failures"]:
+        raise RuntimeError("(a) the augment library differs from the fixtures: "
+                           + "; ".join(result["failures"]))
+    print(f"  (a) the C++ augment library reproduces the {result['arrays']} committed fixture "
+          f"arrays: {result['bitwise']} bitwise, {len(result['bounded'])} within the stated "
+          f"bound ({'; '.join(result['bounded']) or 'none'})")
+
+
+def _augment_rate(buffers, transform):
+    """Crops/s of decoding each PNG at its own size and running
+    ``transform`` (which ends in the resize) on this thread."""
+    t0 = time.perf_counter()
+    for buf in buffers:
+        transform(image_codec.decode(buf))
+    return len(buffers) / (time.perf_counter() - t0)
+
+
+def _traced_idle(learner, manager, label, steps):
+    """The device-busy share of ``steps`` step-0 steps fed through the
+    prefetcher, under ``torch.profiler``."""
+    fetch = Prefetcher(manager.get_batch, steps + 1)
+    try:
+        learner.train_step(fetch())
+        torch.cuda.synchronize()
+        with device_trace() as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                learner.train_step(fetch())
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t0
+    finally:
+        fetch.close()
+    return print_device_profile(label, prof, traced)
+
+
+def phase_augment(out_dir, device):
+    """Training-time augmentation over the LMDB phase's tree: (a) the
+    fixtures, the host's augment + resize crops/s per chain, then
+    train_cli with ``Aug=ABINet`` over its first 2 tasks and with
+    ``Blur5-Crop90-Rot15`` over task 0 (bf16, AUG_ITERS a task): (b) the
+    launches equal the unaugmented run's count for those tasks and cuts,
+    (c) the first batch has the unaugmented stream's labels and other
+    crops; the ABINet stream's step-0 window and idle share.  Returns the
+    launches."""
+    t_phase = time.perf_counter()
+    root = os.path.join(out_dir, "lmdb")
+    check_augment_fixtures()
+    env = LmdbReader(os.path.join(root, "train", campaign.LANS[0]))
+    pngs = [env.get(b"image-%09d" % (i % LMDB_TRAIN + 1)) for i in range(AUG_RATE_CROPS)]
+    opt = load_config(os.path.join(ROOT, "configs", "svtr_mrn.py"))
+    size = (opt.imgW, opt.imgH)
+    rates = {"decode + resize": _decode_rate(pngs, size)}
+    for tag, aug, _ in AUG_CHAINS:
+        transform = build_transform(opt.replace(Aug=aug), "train", rng=random.Random(SEED),
+                                    np_rng=np.random.RandomState(SEED))
+        rates[aug] = _augment_rate(pngs, transform)
+    rates["MoCo, two views"] = _augment_rate(pngs, MoCoAugment(opt, random.Random(SEED)))
+    print(f"  host, one thread, {AUG_RATE_CROPS} PNG crops of the tree to {size[1]}x{size[0]}: "
+          + ", ".join(f"{k} {v:.0f} crops/s ({1e3 * opt.batch_size / v:.0f} ms a batch of "
+                      f"{opt.batch_size})" for k, v in rates.items()))
+
+    launches = {}
+    window = idle = None
+    for tag, aug, tasks in AUG_CHAINS:
+        cfg = _lmdb_config(root, f"smoke_aug_{tag}", aug, tasks, AUG_ITERS, AUG_VAL)
+        record = []
+        with fused_train_env(False), _recording_steps(record):
+            reset_launches()
+            t0 = time.perf_counter()
+            run = train_cli.main(["--config", cfg, "--bf16"])
+            wall = time.perf_counter() - t0
+            launches[tag] = read_launches()
+        expected = lmdb_train_launches(tasks, AUG_ITERS, AUG_VAL)
+        print(f"  (b) train_cli Aug={aug}: {tasks} task(s) of {AUG_ITERS} step-0 iterations in "
+              f"{wall:.1f} s, {len(record)} steps, AIA per stage {run.best_scores}; launches "
+              f"{launches[tag]} (expected {expected})")
+        if launches[tag] != expected:
+            raise RuntimeError(f"(b) train_cli Aug={aug} did not run through the kernels as "
+                               "expected")
+        learner = run.learner
+        plain_opt = learner.opt.replace(Aug="None")
+        plain = DatasetManager(plain_opt)
+        plain.init_start(plain_opt, plain_opt.select_data, None, 0)
+        images, labels = plain.get_batch()
+        same_crops = hashlib.sha1(np.asarray(images).tobytes()).hexdigest() == record[0][0]
+        same_labels = record[0][1] == labels
+        print(f"  (c) the first augmented batch: labels {'equal' if same_labels else 'NOT equal'} "
+              f"to the unaugmented stream's, crops {'EQUAL' if same_crops else 'different'}")
+        if not same_labels or same_crops:
+            raise RuntimeError(f"(c) Aug={aug}'s first batch is not the unaugmented stream's "
+                               "batch augmented")
+        if tag == "abinet":
+            learner._phase = "standalone"
+            learner.build_optimizer()
+            manager = DatasetManager(learner.opt)
+            manager.init_start(learner.opt, learner.opt.select_data, None, tasks - 1)
+            with fused_train_env(False):
+                window = _step0_window(learner, manager, True, AUG_WARMUP, AUG_WINDOW)
+                idle = _traced_idle(learner, manager, f"bf16 step 0 on the ABINet-augmented "
+                                    f"LMDB stream, {AUG_TRACE} steps, prefetch on", AUG_TRACE)
+            del manager
+        del learner, run, plain
+    print(f"  step-0 window ({AUG_WINDOW} steps after {AUG_WARMUP}, task "
+          f"{AUG_CHAINS[0][2] - 1}, Aug=ABINet, prefetch on): {1e3 * window:.2f} ms/step; idle "
+          f"share of the traced window {'not measured' if idle is None else f'{idle:.1%}'}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(v[k] for v in launches.values()) for k in launches["abinet"]}
 
 
 def phase_parallel(out_dir):
@@ -3124,12 +3302,24 @@ def phase_parallel(out_dir):
             (backend == "nccl" and not any("nccl" in n.lower() for n in names)):
         raise RuntimeError(f"(a) the profile shows no {backend} all-reduce")
 
-    # ---- (b) 2-rank gloo worlds on cuda:0, against the run without a group
+    # ---- (b) 2-rank gloo worlds on cuda:0, both at once, against the run
+    # without a group
     torch.cuda.empty_cache()   # the ranks share the card with this process
+    shapes = (("data2", ["--data_parallel", "2"], 1), ("expert2", ["--expert_parallel", "2"], 2))
+    started, finished, errors = [], [], []
+    try:
+        for tag, extra, _ in shapes:
+            started.append(_start_world(tag, root, _parallel_config(root, f"par_{tag}"), extra))
+    finally:
+        for world in started:          # every world is waited for
+            try:
+                finished.append(_finish_world(world))
+            except RuntimeError as error:
+                errors.append(error)
+    if errors:
+        raise errors[0]
     worlds = {}
-    for tag, extra, shards in (("data2", ["--data_parallel", "2"], 1),
-                               ("expert2", ["--expert_parallel", "2"], 2)):
-        ranks, refused, wall = _world(tag, root, _parallel_config(root, f"par_{tag}"), extra)
+    for (tag, _, shards), (ranks, refused, wall) in zip(shapes, finished):
         if ranks is None:
             print(f"  (b) {tag}: gloo refused a CUDA collective, so the 2-rank world on one "
                   f"card was not run: {refused}")
@@ -3161,8 +3351,8 @@ def phase_parallel(out_dir):
         print(f"  (d) {label}: step 0 {rec['step0_ms']:.2f} ms/step (task {PAR_TASKS - 1}, "
               f"iterations 2-{PAR_ITERS}), router step {rec['router_ms']:.2f} ms; gradient "
               f"buckets {rec['bucket'][0]:,} B (step 0) and {rec['bucket'][1]:,} B (router)")
-    print("  (d) two ranks that share one card split its time: these windows are no "
-          "multi-GPU scaling figure")
+    print("  (d) the two worlds run at once, so four ranks share one card and split its "
+          "time: these windows are no multi-GPU scaling figure")
     print(f"  the parallel phase took {time.perf_counter() - t_phase:.1f} s")
     return {k: sum(v.get(k, 0) for v in launches.values()) for k in ("full", "banded", "fused")}
 
@@ -3508,6 +3698,15 @@ def check_greedy(what, got, ref, counts, atol, rtol):
     return mx, flipped
 
 
+def device_trace():
+    """``torch.profiler`` over the card's activity only, for
+    ``print_device_profile``, which reads device events: the CPU operators'
+    records would add their own host time to the traced window and take
+    seconds to gather after it."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+
+
 def print_device_profile(label, prof, wall):
     """Device-busy time of a ``torch.profiler`` trace against the host
     clock ``wall`` (s), and the kernels with the most device time."""
@@ -3659,13 +3858,11 @@ def phase_trba_serve(rng):
                 srv.images(images))
 
     # ---- where a request's time goes
-    from torch.profiler import ProfilerActivity, profile
 
     for dtype, srv in servers.items():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+        with device_trace() as prof:
             t0 = time.perf_counter()
             srv.recognize(images)
             wall = time.perf_counter() - t0
@@ -3938,9 +4135,7 @@ def phase_trba_train(rng, out_dir):
           f"launches)")
     if (l0, l1) != (0, n_exp * TRBA_WINDOW):
         raise RuntimeError("the step windows did not launch the warp as expected")
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with device_trace() as prof:
         t1 = time.perf_counter()
         for _ in range(TRACE_STEPS):
             learner.train_step(loader.get_batch())
@@ -4053,12 +4248,10 @@ def phase_crnn_serve(rng):
                     out["logits"][:CRNN_REF_CROPS].cpu()[agree], ref["logits"][agree], atol, rtol)
 
     # ---- where a request's time goes
-    from torch.profiler import ProfilerActivity, profile
 
     for dtype, srv in servers.items():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+        with device_trace() as prof:
             t0 = time.perf_counter()
             srv.recognize(images)
             wall = time.perf_counter() - t0
@@ -4172,9 +4365,7 @@ def phase_crnn_train(rng, out_dir):
               f"images/s), step 1 over {N_EXPERTS} experts {1e3 * w1:.2f} ms/step "
               f"({BATCH / w1:.1f} images/s)")
         if dtype == "bf16":
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
+            with device_trace() as prof:
                 t1 = time.perf_counter()
                 for _ in range(TRACE_STEPS):
                     learner.train_step(loader.get_batch())
@@ -4920,7 +5111,42 @@ def main():
     print("== environment")
     smi = phase_environment()
     print("== build")
-    phase_build()
+    build, t_build = phase_build()
+    # these phases launch only the TPS warp's kernel: they run while nvcc
+    # builds the SVTR sources, on their own generator
+    early_rng = np.random.default_rng(EARLY_SEED)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    try:
+        print("== TRBA-MRN serving, 6 experts, full width")
+        trba_served, _, tps_grids, trba_images, trba_single = phase_trba_serve(early_rng)
+        print("== TRBA-MRN training, task 2 of 3, full width, bf16")
+        trba_dir = tempfile.mkdtemp(prefix="smoke_trba_", dir=os.path.join(ROOT, "build"))
+        try:
+            trba_trained = phase_trba_train(early_rng, trba_dir)
+        finally:
+            shutil.rmtree(trba_dir, ignore_errors=True)
+        print("== CRNN-MRN serving, 6 experts, full width")
+        crnn_served = phase_crnn_serve(early_rng)
+        print("== CRNN-MRN training, task 5 of 6, full width, bf16 and f32; a drifting-mode step")
+        crnn_dir = tempfile.mkdtemp(prefix="smoke_crnn_", dir=os.path.join(ROOT, "build"))
+        try:
+            crnn_trained = phase_crnn_train(early_rng, crnn_dir)
+        finally:
+            shutil.rmtree(crnn_dir, ignore_errors=True)
+        print("== GRCNN, full width: a bf16 step-0 window and a served recognizer")
+        grcnn_step, grcnn_served = phase_grcnn(early_rng)
+        print("== the int8 conv path: CRNN, TRBA and GRCNN recognizers, full width")
+        int8_warps = phase_int8_convs(early_rng)
+        print(f"  CRNN-MRN requests {crnn_served}; CRNN step windows (step 0, step 1) "
+              f"{crnn_trained}; GRCNN step 0 {grcnn_step:.4f} s, requests {grcnn_served}")
+    except BaseException:
+        with contextlib.suppress(BaseException):
+            build.wait()          # no nvcc outlives the script
+        raise
+    print("== build, joined")
+    join_build(build, t_build)
+    print("== TPS warp kernel vs plain, TRBA shape")
+    warp = phase_grid_sample(device, early_rng, tps_grids, trba_images)
     print("== kernel vs plain, SVTR Block shapes")
     totals = phase_blocks(device, rng)
     print("== SVTR-MRN serving, 6 experts, full width")
@@ -4928,7 +5154,6 @@ def main():
     print("== attention kernels vs plain, SVTR training shapes")
     attn = phase_attention(device, rng)
     # best checkpoints and expert blobs of the training phases, removed at the end
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     out_dir = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
     try:
         base = load_config(os.path.join(ROOT, "configs", "svtr_mrn.py"), output_dir=out_dir,
@@ -4957,6 +5182,9 @@ def main():
         del source
         print("== LMDB entry points: train_cli, evaluate_cli, recognize_cli, full width, bf16")
         lmdb = phase_lmdb(out_dir, device)
+        print("== training-time augmentation: the fixtures, host crops/s, train_cli with "
+              "Aug=ABINet and Blur5-Crop90-Rot15 over the LMDB tree, full width, bf16")
+        aug = phase_augment(out_dir, device)
         print("== parallel training: train_cli without a process group, in a 1-rank NCCL "
               "world and in 2-rank gloo worlds on one card, full width, f32")
         par = phase_parallel(out_dir)
@@ -4966,30 +5194,6 @@ def main():
     int8_totals = phase_int8_blocks(device, rng)
     print("== int8 serving, one SVTR recognizer (task 0), full width")
     int8_served, int8_server, int8_images = phase_int8_serve(rng, base)
-    print("== TRBA-MRN serving, 6 experts, full width")
-    trba_served, _, tps_grids, trba_images, trba_single = phase_trba_serve(rng)
-    print("== TRBA-MRN training, task 2 of 3, full width, bf16")
-    trba_dir = tempfile.mkdtemp(prefix="smoke_trba_", dir=os.path.join(ROOT, "build"))
-    try:
-        trba_trained = phase_trba_train(rng, trba_dir)
-    finally:
-        shutil.rmtree(trba_dir, ignore_errors=True)
-    print("== TPS warp kernel vs plain, TRBA shape")
-    warp = phase_grid_sample(device, rng, tps_grids, trba_images)
-    print("== CRNN-MRN serving, 6 experts, full width")
-    crnn_served = phase_crnn_serve(rng)
-    print("== CRNN-MRN training, task 5 of 6, full width, bf16 and f32; a drifting-mode step")
-    crnn_dir = tempfile.mkdtemp(prefix="smoke_crnn_", dir=os.path.join(ROOT, "build"))
-    try:
-        crnn_trained = phase_crnn_train(rng, crnn_dir)
-    finally:
-        shutil.rmtree(crnn_dir, ignore_errors=True)
-    print("== GRCNN, full width: a bf16 step-0 window and a served recognizer")
-    grcnn_step, grcnn_served = phase_grcnn(rng)
-    print("== the int8 conv path: CRNN, TRBA and GRCNN recognizers, full width")
-    int8_warps = phase_int8_convs(rng)
-    print(f"  CRNN-MRN requests {crnn_served}; CRNN step windows (step 0, step 1) "
-          f"{crnn_trained}; GRCNN step 0 {grcnn_step:.4f} s, requests {grcnn_served}")
     t_new = time.perf_counter()
     print("== the tanh-GELU serving mode: SVTR-MRN, 6 experts, and one int8 recognizer, "
           "full width")
@@ -5010,16 +5214,17 @@ def main():
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
              served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"]
-             + strat["fused"] + lmdb["fused"] + par["fused"] + exported["fused"]
+             + strat["fused"] + lmdb["fused"] + aug["fused"] + par["fused"] + exported["fused"]
              + combos["fused"], totals[bf16]),
             ("svtr_fused_block_tanh", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:289",
              tanh_served, tanh_totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
              trained["full"] + ckpt["full"] + camp["full"] + strat["full"] + lmdb["full"]
-             + par["full"] + combos["full"], attn[("full", bf16)]),
+             + aug["full"] + par["full"] + combos["full"], attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
              trained["banded"] + ckpt["banded"] + camp["banded"] + strat["banded"]
-             + lmdb["banded"] + par["banded"] + combos["banded"], attn[("banded", bf16)]),
+             + lmdb["banded"] + aug["banded"] + par["banded"] + combos["banded"],
+             attn[("banded", bf16)]),
             ("svtr_train_block_forward", "svtr_train_block.cu",
              "mrn_tpu/ops/svtr_train_block.py:124",
              fused_trained["train_fwd"] + combos["train_fwd"],
@@ -5060,7 +5265,9 @@ def main():
           f"{fused_trained['fused']} fused), of the checkpoint phase with its test "
           f"({ckpt['fused']}), of the campaign ({camp['fused']}), of the strategies "
           f"({strat['fused']}) and of the LMDB entry points ({lmdb['fused']}: two train_cli "
-          f"runs, evaluate_cli, recognize_cli), of the parallel phase ({par['fused']}: "
+          f"runs, evaluate_cli, recognize_cli), of the augmentation phase ({aug['fused']}: "
+          f"train_cli with Aug=ABINet and Blur5-Crop90-Rot15), of the parallel phase "
+          f"({par['fused']}: "
           f"train_cli without a group, in 1-rank NCCL worlds and on each rank of the 2-rank "
           f"gloo worlds) and of the exported SVTR-MRN program "
           f"({exported['fused']}: its export's eager call and {EXPORT_REQUESTS} requests); "
@@ -5070,7 +5277,8 @@ def main():
           f"with F.gelu(approximate='tanh'), their bound the degree-9 rows'; attention times "
           f"are one "
           f"expert forward's 6 Blocks of each kind, their launches the composed step-0 steps "
-          f"of the training, checkpoint, campaign, strategies, LMDB and parallel phases; "
+          f"of the training, checkpoint, campaign, strategies, LMDB, augmentation and parallel "
+          f"phases; "
           f"svtr_train_block times are one expert's 12 Blocks, the tail's library_ms "
           f"autograd's backward of the library Block's proj + LayerNorm + MLP sub-graph, "
           f"the head's of its LayerNorm + qkv product; svtr_fused_block_int8 times are one recognizer's 12 "

@@ -33,10 +33,13 @@ localization net keeps its fixed widths.  A
 crashed campaign goes on with ``--start_task K --eval_from K`` (tasks
 below K replay their best checkpoints; for MRN K + 0.5 also replays task
 K's step 0); ``--stop_after K`` ends after stage K, writing
-``<out>/<arch>_<il>.stage<K>.json``.  The record states the TF32 switches
-the run had (``tf32``: PyTorch's defaults, which this module leaves alone,
-let cuDNN convs, not matmuls, run float32 in TF32).  Runs on the CUDA card
-unless ``--device cpu``.
+``<out>/<arch>_<il>.stage<K>.json``.  ``--shared N`` prepends N glyphs
+of a span of their own to every task's alphabet (the overlap suite, with
+a cache tag of its own; the record's ``shared_glyphs``), and
+``--skip_done`` returns at once when the record exists.  The record
+states the TF32 switches the run had (``tf32``: PyTorch's defaults, which
+this module leaves alone, let cuDNN convs, not matmuls, run float32 in
+TF32).  Runs on the CUDA card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -96,32 +99,41 @@ def tf32_switches() -> dict:
             "matmul": bool(torch.backends.cuda.matmul.allow_tf32)}
 
 
-def task_alphabets() -> List[str]:
-    """Each task's span of ``alphabet_of_size``, back to back."""
+def task_alphabets(shared: int = 0) -> List[str]:
+    """Each task's span of ``alphabet_of_size``, back to back; ``shared`` >
+    0 prepends the same slice of that many glyphs from U+3000, a span
+    disjoint from every task's, to each (the overlap suite)."""
     spans, start = [], 0x4E00
     for n in CLASSES:
         spans.append(alphabet_of_size(n, start))
         start += n
+    if shared:
+        shared_slice = alphabet_of_size(shared, 0x3000)
+        spans = [shared_slice + s for s in spans]
     return spans
 
 
-def suite_tag(seed: int, n_train: Sequence[int], img_h: int, img_w: int) -> str:
+def suite_tag(seed: int, n_train: Sequence[int], img_h: int, img_w: int,
+              shared: int = 0) -> str:
     """The JAX script's cache tag: seed, train size, crop size and a hash
-    of the generation parameters."""
-    h = hashlib.sha1(json.dumps(GEN_PARAMS, sort_keys=True).encode()).hexdigest()[:8]
+    of the generation parameters (with ``shared`` among them when > 0)."""
+    params = dict(GEN_PARAMS, shared=shared) if shared else GEN_PARAMS
+    h = hashlib.sha1(json.dumps(params, sort_keys=True).encode()).hexdigest()[:8]
     return f"s{seed}_n{sum(n_train)}_{img_h}x{img_w}_{h}"
 
 
 def build_source(opt, seed: int = 111, cache_dir: Optional[str] = None,
-                 n_train: Sequence[int] = N_TRAIN, n_test: Sequence[int] = N_TEST
-                 ) -> SyntheticSource:
+                 n_train: Sequence[int] = N_TRAIN, n_test: Sequence[int] = N_TEST,
+                 shared: int = 0) -> SyntheticSource:
     """The bank-mode suite of all six tasks (whatever ``--tasks`` says, as
     in the JAX script, so a task's bank indices never depend on it), loaded
-    from ``cache_dir`` when it holds it, else rendered (and saved there)."""
-    spans, lans = task_alphabets(), LANS
+    from ``cache_dir`` when it holds it, else rendered (and saved there);
+    ``shared`` as in ``task_alphabets``."""
+    spans, lans = task_alphabets(shared), LANS
     cache = None
     if cache_dir:
-        cache = os.path.join(cache_dir, f"suite_{suite_tag(seed, n_train, opt.imgH, opt.imgW)}")
+        tag = suite_tag(seed, n_train, opt.imgH, opt.imgW, shared)
+        cache = os.path.join(cache_dir, f"suite_{tag}")
         if os.path.exists(cache + ".npz"):
             t0 = time.time()
             source = SyntheticSource.load(cache + ".npz", lans, spans)
@@ -273,7 +285,7 @@ def device_name(device) -> str:
 def campaign_record(il: str, num_iter: int, bf16: bool, batch_size: int, seed: int,
                     n_train: Sequence[int], n_test: Sequence[int], aia: List[float],
                     matrix: List[List[float]], times: List[float], total: float,
-                    card: str, arch: str = "svtr") -> dict:
+                    card: str, arch: str = "svtr", shared: int = 0) -> dict:
     """The fields of the JAX campaign's ``ACCURACY_RUNS/t6/svtr_<il>.json``
     (``ACCURACY_RUNS/<il>.json``, ``ACCURACY_RUNS/trba_<il>.json``) plus the
     card's ``device`` and the run's ``tf32`` switches."""
@@ -281,7 +293,7 @@ def campaign_record(il: str, num_iter: int, bf16: bool, batch_size: int, seed: i
         "il": il, "num_iter": num_iter, "train_dtype": "bf16" if bf16 else "f32",
         "batch_size": batch_size, "seed": seed,
         "classes": CLASSES, "n_train": list(n_train), "n_test": list(n_test),
-        "shared_glyphs": 0,
+        "shared_glyphs": shared,
         "aia_per_stage": aia, "final_aia": aia[-1] if aia else None,
         "acc_matrix": matrix, "final_row": matrix[-1] if matrix else None,
         "avg_forgetting": forgetting(matrix) if matrix else None,
@@ -309,8 +321,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="skip the evaluation of stages below this")
     ap.add_argument("--stop_after", type=int, default=-1,
                     help="end after this stage, writing <out>/<arch>_<il>.stage<K>.json")
+    ap.add_argument("--shared", type=int, default=0,
+                    help="glyphs shared by every task's alphabet (the overlap suite); "
+                         "give overlap runs an --out of their own")
+    ap.add_argument("--skip_done", action="store_true",
+                    help="do nothing when <out>/<arch>_<il>.json exists")
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     args = ap.parse_args(argv)
+    done = os.path.join(args.out, f"{prefix(args.arch)}{args.il}.json")
+    if args.skip_done and os.path.exists(done):
+        print(f"== {args.il}: already done, skipping", flush=True)
+        with open(done, encoding="utf-8") as f:
+            return json.load(f)
     device = resolve_device(args.device)
     if device.type == "cuda":
         # the kernels' nvcc builds stay out of stage 0's seconds
@@ -328,7 +350,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                            eval_from=args.eval_from, stop_after=args.stop_after)
     os.makedirs(args.out, exist_ok=True)
     t_build = time.time()
-    source = build_source(opt, args.seed, None if args.smoke else CACHE_DIR, n_train, n_test)
+    source = build_source(opt, args.seed, None if args.smoke else CACHE_DIR, n_train, n_test,
+                          args.shared)
     opt.image_bank = source.device_bank(device)
     print(f"suite ready in {time.time() - t_build:.0f}s (train={sum(n_train)} "
           f"test={sum(n_test)} crops, bank={source.bank.nbytes >> 20}MB on {device})",
@@ -347,8 +370,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                             f"{prefix(args.arch)}{args.il}.stage{args.stop_after}.json")
     else:
         record = campaign_record(args.il, args.num_iter, args.bf16, args.batch_size, args.seed,
-                                 n_train, n_test, aia, matrix, times, total, card, args.arch)
-        path = os.path.join(args.out, f"{prefix(args.arch)}{args.il}.json")
+                                 n_train, n_test, aia, matrix, times, total, card, args.arch,
+                                 args.shared)
+        path = done
     with open(path, "w", encoding="utf-8") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({k: record[k] for k in ("final_aia", "avg_forgetting", "final_row",

@@ -11,7 +11,9 @@ int32 index into the learner's image bank.
 jpg/jpeg/png files (sorted paths, the path as the label).  Their items are
 the crop decoded and resized to ``(imgH, imgW)`` RGBA in one call
 (``data.image.decode``): what the JAX item, a PIL image, gives after
-``ResizeNormalize``'s resize, which then returns it as it is.  Bytes that
+``ResizeNormalize``'s resize, which then returns it as it is.  Under
+``opt.Aug`` (training sets; every ``RawDataset``) the item is the crop at
+its own size, as JAX's is, and the augmentation resizes it.  Bytes that
 cannot be read give a blank crop labelled ``[dummy_label]``, as JAX's
 ``except (IOError, OSError)`` does; a valid file of a form the port does
 not decode raises.  ``hierarchical_dataset`` opens every leaf directory
@@ -74,12 +76,16 @@ class DeviceImageBank:
         return self._dev
 
 
+def _augmented(opt) -> bool:
+    return opt.get("Aug", "None") not in (None, "None")
+
+
 def bank_dataset(dataset, opt, bank: DeviceImageBank) -> "BankDataset":
     """Resizes every crop of ``dataset`` once to ``(imgH, imgW)`` RGBA uint8
     (Pillow's bicubic; LMDB items are at that size already), appends them
     to ``bank`` and returns the index view.  Refused under ``opt.Aug``:
     the crops are frozen when banked."""
-    if opt.get("Aug", "None") not in (None, "None"):
+    if _augmented(opt):
         raise ValueError("device_bank is incompatible with Aug (images are resized and "
                          "frozen once; augmentation needs per-epoch randomness)")
     size = (opt.imgW, opt.imgH)
@@ -192,9 +198,11 @@ class LmdbDataset:
         index = self.filtered_index_list[idx]
         label = self.env.get(b"label-%09d" % index).decode("utf-8")
         buf = self.env.get(b"image-%09d" % index) or b""
+        size = (self.opt.imgW, self.opt.imgH)
+        if self.mode == "train" and _augmented(self.opt):
+            size = None     # the augmentation resizes
         try:
-            img = image_codec.decode(buf, (self.opt.imgW, self.opt.imgH),
-                                     key=f"{self.root} image-{index:09d}")
+            img = image_codec.decode(buf, size, key=f"{self.root} image-{index:09d}")
         except OSError:
             img = np.zeros((self.opt.imgH, self.opt.imgW, 4), np.uint8)
             label = "[dummy_label]"
@@ -219,8 +227,9 @@ class RawDataset:
     def __getitem__(self, idx):
         path = self.image_path_list[idx]
         try:
+            size = None if _augmented(self.opt) else (self.opt.imgW, self.opt.imgH)
             with open(path, "rb") as f:
-                img = image_codec.decode(f.read(), (self.opt.imgW, self.opt.imgH), key=path)
+                img = image_codec.decode(f.read(), size, key=path)
         except OSError:
             img = np.zeros((self.opt.imgH, self.opt.imgW, 4), np.uint8)
         return img, path

@@ -24,7 +24,7 @@ Huffman data, an unknown format) raise ``CorruptImage``, an ``OSError``
 like Pillow's, which ``LmdbDataset`` turns into its dummy crop.  A valid
 file of a form the port does not decode (progressive, arithmetic, lossless,
 12-bit or CMYK JPEG, 16-bit or interlaced PNG, GIF, BMP, TIFF, WebP)
-raises ``UnsupportedImage`` naming the form (ROADMAP.md §1 item 6): it is
+raises ``UnsupportedImage`` naming the form (ROADMAP.md §1 item 8): it is
 never turned into a dummy.  ``data.image_ref`` holds the same decoder and
 resize in numpy, for the tests.
 """
@@ -84,7 +84,7 @@ def _raise(rc: int, err, key: Optional[str]) -> None:
     msg = err.value.decode(errors="replace")
     if rc == 2:
         raise UnsupportedImage(f"{where}{msg} is not decoded by the port (ROADMAP.md §1 "
-                               "item 6)")
+                               "item 8)")
     raise CorruptImage(f"{where}cannot decode the image: {msg}")
 
 
@@ -149,10 +149,10 @@ def parse_png(buf: bytes, key: Optional[str] = None) -> PngHeader:
         raise CorruptImage(f"{where}PNG of size {width}x{height}")
     if depth == 16:
         raise UnsupportedImage(f"{where}16-bit PNG is not decoded by the port (ROADMAP.md "
-                               "§1 item 6)")
+                               "§1 item 8)")
     if interlace:
         raise UnsupportedImage(f"{where}interlaced PNG is not decoded by the port "
-                               "(ROADMAP.md §1 item 6)")
+                               "(ROADMAP.md §1 item 8)")
     ok = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
     if depth not in ok.get(color_type, ()):
         raise CorruptImage(f"{where}PNG colour type {color_type} at bit depth {depth}")
@@ -212,7 +212,7 @@ def decode(buf: bytes, size: Optional[Tuple[int, int]] = None,
     if fmt == "unknown":
         raise CorruptImage(f"{where}cannot identify the image format")
     raise UnsupportedImage(f"{where}{fmt} images are not decoded by the port (ROADMAP.md "
-                           "§1 item 6)")
+                           "§1 item 8)")
 
 
 def to_rgba(image: np.ndarray) -> np.ndarray:
@@ -240,6 +240,8 @@ def resize(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     w, h = _check_size(size)
     if image.shape[:2] == (h, w):
         return image
+    if image.shape[0] == 0 or image.shape[1] == 0:
+        return np.zeros((h, w, 4), np.uint8)    # Pillow's resize of an empty image
     out = np.empty((h, w, 4), np.uint8)
     _lib().ic_resize_rgba(image.ctypes.data, image.shape[0], image.shape[1], h, w,
                           out.ctypes.data)

@@ -15,7 +15,10 @@ of ``EpochLoader``, ``DatasetManager`` and ``ValDataset`` from
 ``DatasetManager(opt, dataset_factory)`` builds the training stream from
 ``dataset_factory(data_root, taski, mode) -> dataset`` over
 ``opt.select_data``, each task's dataset repeated to about 50k samples,
-and draws everything from one generator seeded ``opt.manual_seed``:
+and draws everything from one generator seeded ``opt.manual_seed`` (the
+augmentations of ``opt.Aug`` from a ``random.Random`` and an
+``np.random.RandomState`` seeded alike, JAX's seeded globals, which a
+full-state resume does not save, as JAX's does not):
 
 - ``get_dataset(taski, memory=None)``: the current task alone (step 0);
 - ``get_dataset(taski, memory, index_list)`` with ``il="mrn"``: one stream
@@ -66,6 +69,7 @@ float32.
 
 from __future__ import annotations
 
+import random
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
@@ -162,7 +166,12 @@ class DatasetManager:
         self.select_data: Optional[Sequence[str]] = None
         self.data_list: List = []          # joint_mix's datasets, one a task
         self.loaders: List[EpochLoader] = []
-        self.rng = np.random.default_rng(opt.manual_seed if seed is None else seed)
+        seed = opt.manual_seed if seed is None else seed
+        self.rng = np.random.default_rng(seed)
+        # the augmentations' generators (JAX's seeded globals), handed to
+        # every training loader's transform
+        self.aug_rng = random.Random(seed)
+        self.aug_np_rng = np.random.RandomState(seed)
         self._factory = dataset_factory or self._lmdb_factory
 
     # ------------------------------------------------ dataset construction
@@ -193,9 +202,10 @@ class DatasetManager:
         return ConcatDataset(datasets)
 
     def _add_loader(self, dataset, batch_size=None, with_index=False):
-        self.loaders.append(EpochLoader(
-            dataset, batch_size or self.opt.batch_size, build_transform(self.opt, mode="train"),
-            with_index=with_index, rng=self.rng))
+        transform = build_transform(self.opt, mode="train", rng=self.aug_rng,
+                                    np_rng=self.aug_np_rng)
+        self.loaders.append(EpochLoader(dataset, batch_size or self.opt.batch_size, transform,
+                                        with_index=with_index, rng=self.rng))
 
     # -------------------------------------------------------- policies
     def init_start(self, opt, select_data, log, taski):

@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "CSRC", "build_all", "load", "ptxas_report", "sass"]
+__all__ = ["BUILD_DIR", "CSRC", "BackgroundBuild", "build_all", "load", "ptxas_report",
+           "sass"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mrn_tpu_torch"
@@ -83,13 +84,43 @@ def build_all(names: List[str] = None) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use.  A
+    library already loaded is returned at once; any other waits for a
+    ``BackgroundBuild`` in flight instead of compiling its source twice."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _libs[name] = lib
         return lib
+
+
+class BackgroundBuild:
+    """``build_all(names)`` in a thread, started at construction, that holds
+    the lock ``load`` takes.  ``wait`` joins it and returns the libraries,
+    or raises what the build raised."""
+
+    def __init__(self, names: List[str] = None):
+        self._libs: Dict[str, Path] = {}
+        self._error: BaseException = None
+        self._thread = threading.Thread(target=self._run, args=(names,), daemon=True)
+        self._thread.start()
+
+    def _run(self, names):
+        with _lock:
+            try:
+                self._libs = build_all(names)
+            except BaseException as error:  # raised again by wait()
+                self._error = error
+
+    def wait(self) -> Dict[str, Path]:
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self._libs
 
 
 def sass(name: str) -> Dict[str, str]:

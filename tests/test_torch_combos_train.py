@@ -211,6 +211,7 @@ def step0(request, tmp_path_factory):
         (loss, (stats, _)), jgrads = jax.jit(jax.value_and_grad(jl.loss_fn, has_aux=True),
                                              static_argnums=(4,))(
             jl.params, jl.batch_stats, batch, jax.random.PRNGKey(0), None)
+        jax.effects_barrier()   # the grid's callback has run before the port reads it
     before = to_flax(tl.model)[0]
     calls = []
     with pytest.MonkeyPatch.context() as mp:

@@ -13,6 +13,7 @@
 
 import io
 import os
+import random
 
 import numpy as np
 import PIL.Image
@@ -31,7 +32,7 @@ from mrn_tpu.train.learners.mrn import MRN as JaxMRN
 from mrn_tpu_torch.config import default_options
 from mrn_tpu_torch.data import dataset, image, lmdb_store
 from mrn_tpu_torch.data.manager import DatasetManager, ValDataset
-from mrn_tpu_torch.data.transform import ResizeNormalize, build_transform
+from mrn_tpu_torch.data.transform import ResizeNormalize, TextAugment, build_transform
 from mrn_tpu_torch.tools import create_lmdb
 from mrn_tpu_torch.train.learners.mrn import MRN
 
@@ -219,11 +220,22 @@ def test_bank_dataset_matches_jax(tree):
 
 
 def test_augmentation_is_not_ported():
+    """``build_transform`` dispatches as JAX's: TextAugment for any
+    ``Aug`` but ``"None"`` and ``"ABINet"``, the ABINet chain for that, the
+    resize in test mode; the augmentations need explicit generators, and
+    a bank index still passes through."""
+    gens = dict(rng=random.Random(SEED), np_rng=np.random.RandomState(SEED))
     opt, _ = _opts(Aug="Blur5-Crop90")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    assert isinstance(build_transform(opt, mode="train", **gens), TextAugment)
+    assert callable(build_transform(opt.replace(Aug="ABINet"), mode="train", **gens))
+    assert not isinstance(build_transform(opt.replace(Aug="ABINet"), mode="train", **gens),
+                          (TextAugment, ResizeNormalize))
+    with pytest.raises(ValueError, match="rng"):
         build_transform(opt, mode="train")
     assert isinstance(build_transform(opt, mode="test"), ResizeNormalize)
+    assert isinstance(build_transform(opt.replace(Aug="None"), mode="train"), ResizeNormalize)
     assert ResizeNormalize((IMG_W, IMG_H))(np.int32(7)) == 7
+    assert build_transform(opt, mode="train", **gens)(np.int32(7)) == 7
 
 
 # ----------------------------------------------------------------- stream
