@@ -118,6 +118,18 @@
    words against the eval path's on the same crops; prints the host decode
    rate (PNG and JPEG), the step-0 windows of the LMDB stream and of the
    bank, the LMDB window's idle share and the CLIs' crops/s;
+9e''. the dataset tools and the image forms a scene tree brings, on that
+   phase's final checkpoint (``FORMS_*``): (a) the g++ build of the codec
+   on every file of ``tests/fixtures/torch_forms/`` against the committed
+   digests of Pillow's ``convert("RGBA")`` and cv2's ``imdecode``
+   (``IMREAD_COLOR`` / ``IMREAD_UNCHANGED``) views, bitwise; (b) ``python
+   -m mrn_tpu_torch.tools.crop_by_word`` on the fixtures' scene tree
+   against the JAX tool's committed crop names, ``label.txt`` bytes and
+   crops; (c) ``create_lmdb.create_dataset`` over those crops and over the
+   fixtures' word crops in every new form; (d) ``evaluate_cli.main`` on
+   that tree and ``recognize_cli.main`` on the folder of word crops, their
+   row-4 launches against the expected counts; prints the one-thread
+   decode + resize crops/s of each form and the phase's seconds;
 9e'. training-time augmentation on that tree (``AUG_*``): (a) the C++
    augment library (``data/csrc/augment.cpp``, built here with g++) on the
    committed fixtures of Pillow's, OpenCV's and the JAX package's outputs
@@ -577,6 +589,14 @@ LMDB_HEIGHTS = (24, 48)
 LMDB_WIDTHS = (48, 320)
 LMDB_MAX_LEN = 8
 LMDB_DECODE_CALLS = 1024
+# the forms phase: the committed fixtures of tests/fixtures/torch_forms/,
+# each word crop's form decoded and resized to 32x256 FORMS_DECODE_REPEAT
+# times on one thread for its rate; evaluate_cli (FORMS_SETS sets) and
+# recognize_cli run every expert's 12 Blocks on each batch (one a set at
+# the config's batch of 256).
+FORMS_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_forms")
+FORMS_DECODE_REPEAT = 50
+FORMS_SETS = 3
 # the augmentation phase: train_cli with Aug over the LMDB phase's tree, cut
 # to AUG_ITERS step-0 iterations a task (validated every AUG_VAL); host
 # rates over AUG_RATE_CROPS of its PNG crops; the ABINet stream's window of
@@ -2833,6 +2853,129 @@ def phase_lmdb(out_dir, device):
              for k in ("full", "banded", "fused")}
     total["int8"] = launches["int8"]
     return total
+
+
+def _digest(array):
+    """SHA-1 of an array's dtype, shape and bytes, as
+    ``scripts/make_torch_forms_fixtures.py`` records the expected views."""
+    array = np.ascontiguousarray(array)
+    return hashlib.sha1(f"{array.dtype}{array.shape}".encode() + array.tobytes()).hexdigest()
+
+
+def check_forms_fixtures():
+    """(a): every fixture file through the codec's Pillow view (``decode``)
+    and cv2 view (``imdecode``), against the committed digests.  Returns
+    the expected arrays and {word crop's form: bytes}."""
+    expected = np.load(os.path.join(FORMS_DIR, "expected.npz"))
+    forms, views = {}, 0
+    for sub in ("imgs", "crops"):
+        for name in sorted(os.listdir(os.path.join(FORMS_DIR, sub))):
+            if name.endswith(".txt"):
+                continue
+            key = f"{sub}/{name}"
+            with open(os.path.join(FORMS_DIR, key), "rb") as f:
+                data = f.read()
+            got = {"pil": image_codec.decode(data)}
+            if f"{key}:cv_color" in expected.files:
+                got["cv_color"] = image_codec.imdecode(data, image_codec.IMREAD_COLOR)
+                got["cv_unchanged"] = image_codec.imdecode(data, image_codec.IMREAD_UNCHANGED)
+            for which, array in got.items():
+                if _digest(array) != expected[f"{key}:{which}"]:
+                    raise RuntimeError(f"(a) the codec's {which} view of fixture {key} differs "
+                                       "from the committed one")
+            views += len(got)
+            if sub == "crops":
+                forms[name.split("_", 1)[1]] = data
+    print(f"  (a) the g++ codec reproduces all {views} committed views of the "
+          f"{len(os.listdir(os.path.join(FORMS_DIR, 'imgs')))} scenes and {len(forms)} word "
+          f"crops bitwise (Pillow's RGBA; cv2's IMREAD_COLOR and IMREAD_UNCHANGED)")
+    return expected, forms
+
+
+def phase_forms(out_dir, cfg, final):
+    """The dataset tools and the new image forms (see ``FORMS_*``) on the
+    LMDB phase's config ``cfg`` and final checkpoint ``final``: checks
+    (a)-(d); prints the per-form decode rates and the phase's seconds.
+    Returns the launches."""
+    t_phase = time.perf_counter()
+    root = os.path.join(out_dir, "forms")
+    expected, forms = check_forms_fixtures()
+    rates = {}
+    for form, data in forms.items():
+        t0 = time.perf_counter()
+        for _ in range(FORMS_DECODE_REPEAT):
+            image_codec.decode(data, (256, 32))
+        rates[form] = FORMS_DECODE_REPEAT / (time.perf_counter() - t0)
+    print("  host decode + resize to 32x256, one thread, crops/s by form: "
+          + ", ".join(f"{f.rsplit('.', 1)[0]} ({f.rsplit('.', 1)[1]}) {r:.0f}"
+                      for f, r in rates.items()))
+    # ---- (b) the port's crop_by_word against the JAX tool's committed output
+    crops = os.path.join(root, "crops")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mrn_tpu_torch.tools.crop_by_word", FORMS_DIR,
+                           "--out_dir", crops, "--nproc", "2"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode != 0:
+        raise RuntimeError(f"(b) crop_by_word failed:\n{proc.stdout}{proc.stderr}")
+    names = sorted(os.listdir(os.path.join(crops, "imgs")))
+    with open(os.path.join(crops, "label.txt"), "rb") as f:
+        label = f.read()
+    if names != list(expected["jax:names"]) or label != expected["jax:label"].tobytes():
+        raise RuntimeError("(b) crop_by_word's crop names or label.txt differ from JAX's")
+    for name in names:
+        with open(os.path.join(crops, "imgs", name), "rb") as f:
+            data = f.read()
+        bgr = image_codec.imdecode(data, image_codec.IMREAD_UNCHANGED)
+        want = expected[f"jax:crop:{name}"]
+        if not (np.array_equal(bgr, want) and np.array_equal(
+                image_codec.decode(data)[:, :, 2::-1], want)):
+            raise RuntimeError(f"(b) crop {name} differs from the JAX tool's")
+    print(f"  (b) crop_by_word --nproc 2 on the {len(os.listdir(os.path.join(FORMS_DIR, 'imgs')))}"
+          f"-scene tree: {len(names)} crops in {time.perf_counter() - t0:.1f} s (process "
+          f"start included); names, label.txt bytes and every crop (cv2 and Pillow views) "
+          f"equal the JAX tool's")
+    # ---- (c) create_lmdb over those crops and over the word crops in every form
+    test = os.path.join(root, "test")
+    sources = [(crops, os.path.join(crops, "label.txt")),
+               (os.path.join(FORMS_DIR, "crops"), os.path.join(FORMS_DIR, "crops", "labels.txt")),
+               (crops, os.path.join(crops, "label.txt"))]
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        counts = [create_lmdb.create_dataset(src, gt, os.path.join(test, lan))
+                  for (src, gt), lan in zip(sources, campaign.LANS[:FORMS_SETS])]
+    if counts != [len(names), len(forms), len(names)]:
+        raise RuntimeError(f"(c) create_lmdb kept {counts} crops, not every one")
+    print(f"  (c) create_lmdb: {counts} crops in {FORMS_SETS} sets (the tool's crops, the "
+          f"{len(forms)} forms incl. GIF and BMP, the tool's again)")
+    # ---- (d) evaluate_cli and recognize_cli on them, row 4 counted
+    launches = {}
+    reset_launches()
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        scores, neds = evaluate_cli.main(["--config", cfg, "--saved_model", final, "--eval_data",
+                                          test, "--result_dir", os.path.join(root, "result")])
+    launches["evaluate"] = read_launches()
+    reset_launches()
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        words = recognize_cli.main(["--config", cfg, "--saved_model", final, "--image_folder",
+                                    os.path.join(FORMS_DIR, "crops")])
+    launches["recognize"] = read_launches()
+    # every expert's 12 Blocks on each batch (row 4); evaluate_cli's score
+    # envelope check, once a learner, runs them composed on its first batch (row 1)
+    batch = load_config(cfg).batch_size
+    want = {"evaluate": dict(fused=sum(-(-n // batch) for n in counts) * LMDB_TASKS * 12,
+                             full=LMDB_TASKS * 12),
+            "recognize": dict(fused=-(-len(words) // batch) * LMDB_TASKS * 12)}
+    print(f"  (d) evaluate_cli on the {FORMS_SETS} sets: acc {scores} ned {neds}; "
+          f"recognize_cli on the word crops (its jpg and png, as RawDataset lists): "
+          f"{len(words)} words; launches {launches['evaluate']} and "
+          f"{launches['recognize']} (expected {want['evaluate']} and {want['recognize']})")
+    if len(words) != sum(n.rsplit(".", 1)[1] in ("jpg", "png") for n in forms) or \
+            not all(isinstance(w, str) for _, w, _ in words):
+        raise RuntimeError("(d) recognize_cli did not read every jpg and png word crop")
+    for tag in want:
+        if any(launches[tag][k] != want[tag].get(k, 0) for k in launches[tag]):
+            raise RuntimeError(f"(d) {tag} launched {launches[tag]}, not {want[tag]}")
+    print(f"  the forms phase took {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches["evaluate"][k] + launches["recognize"][k] for k in ("fused", "full")}
 
 
 def _parallel_config(root, name):
@@ -5182,6 +5325,12 @@ def main():
         del source
         print("== LMDB entry points: train_cli, evaluate_cli, recognize_cli, full width, bf16")
         lmdb = phase_lmdb(out_dir, device)
+        print("== dataset tools and image forms: the fixtures, crop_by_word, create_lmdb, "
+              "evaluate_cli and recognize_cli on the LMDB phase's checkpoint, full width, bf16")
+        lmdb_saved = os.path.join(out_dir, "lmdb", "saved", "smoke_lmdb_lmdb")
+        forms = phase_forms(out_dir, os.path.join(out_dir, "lmdb", "smoke_lmdb_lmdb.py"),
+                            os.path.join(lmdb_saved, f"{campaign.LANS[LMDB_TASKS - 1]}_"
+                                         f"{LMDB_TASKS - 1}_1_best_score.msgpack"))
         print("== training-time augmentation: the fixtures, host crops/s, train_cli with "
               "Aug=ABINet and Blur5-Crop90-Rot15 over the LMDB tree, full width, bf16")
         aug = phase_augment(out_dir, device)
@@ -5214,13 +5363,13 @@ def main():
     bf16 = torch.bfloat16
     rows = [("svtr_fused_block", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:166",
              served + trained["fused"] + fused_trained["fused"] + ckpt["fused"] + camp["fused"]
-             + strat["fused"] + lmdb["fused"] + aug["fused"] + par["fused"] + exported["fused"]
-             + combos["fused"], totals[bf16]),
+             + strat["fused"] + lmdb["fused"] + forms["fused"] + aug["fused"] + par["fused"]
+             + exported["fused"] + combos["fused"], totals[bf16]),
             ("svtr_fused_block_tanh", "svtr_block.cu", "mrn_tpu/ops/svtr_block.py:289",
              tanh_served, tanh_totals[bf16]),
             ("svtr_attention_full", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:87",
              trained["full"] + ckpt["full"] + camp["full"] + strat["full"] + lmdb["full"]
-             + aug["full"] + par["full"] + combos["full"], attn[("full", bf16)]),
+             + forms["full"] + aug["full"] + par["full"] + combos["full"], attn[("full", bf16)]),
             ("svtr_attention_banded", "svtr_attention.cu", "mrn_tpu/ops/svtr_attention.py:157",
              trained["banded"] + ckpt["banded"] + camp["banded"] + strat["banded"]
              + lmdb["banded"] + aug["banded"] + par["banded"] + combos["banded"],
@@ -5265,7 +5414,8 @@ def main():
           f"{fused_trained['fused']} fused), of the checkpoint phase with its test "
           f"({ckpt['fused']}), of the campaign ({camp['fused']}), of the strategies "
           f"({strat['fused']}) and of the LMDB entry points ({lmdb['fused']}: two train_cli "
-          f"runs, evaluate_cli, recognize_cli), of the augmentation phase ({aug['fused']}: "
+          f"runs, evaluate_cli, recognize_cli), of the forms phase ({forms['fused']}: "
+          f"evaluate_cli, recognize_cli), of the augmentation phase ({aug['fused']}: "
           f"train_cli with Aug=ABINet and Blur5-Crop90-Rot15), of the parallel phase "
           f"({par['fused']}: "
           f"train_cli without a group, in 1-rank NCCL worlds and on each rank of the 2-rank "

@@ -1,8 +1,12 @@
 """The slow numpy version of ``data.image``'s decoder and resize, for the
-tests: the same PNG unfilter and RGBA conversion, baseline JPEG decode
-(libjpeg-turbo's integer IDCT, fancy upsampling and colour tables) and
-Pillow's bicubic resize, written apart from ``csrc/imagecodec.cpp`` so the
-two can be held against each other.  Raises ``data.image``'s errors.
+tests: the same PNG unfilter and RGBA conversion (8-bit and lower, not
+interlaced), baseline JPEG decode (libjpeg-turbo's integer IDCT, fancy
+upsampling and colour tables; 1 or 3 components at 4:4:4, 4:2:2 or 4:2:0)
+and Pillow's bicubic resize, written apart from ``csrc/imagecodec.cpp`` so
+the two can be held against each other.  Raises ``data.image``'s errors;
+the other forms ``data.image`` decodes (progressive and any-sampling JPEG,
+CMYK, 16-bit and interlaced PNG, GIF, BMP) raise ``UnsupportedImage`` here
+and are held against Pillow and cv2 themselves.
 """
 
 from __future__ import annotations
@@ -115,6 +119,9 @@ def resize(image: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 # --------------------------------------------------------------------- PNG
 def _png(buf: bytes, key) -> np.ndarray:
     hdr = parse_png(buf, key)
+    if hdr.depth == 16 or hdr.interlace:
+        raise UnsupportedImage("16-bit or interlaced PNG (the reference models 8-bit "
+                               "non-interlaced PNG)")
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[hdr.color_type]
     depth = hdr.depth
     stride = (hdr.width * channels * depth + 7) // 8

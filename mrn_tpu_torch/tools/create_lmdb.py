@@ -4,17 +4,21 @@
 Converts image+label ground-truth lists into train/test LMDB pairs with the
 reference's layout and policies:
 - keys image-%09d / label-%09d (1-based) + num-samples;
-- image validity check: the port's decoder (``data.image``) in place of
-  ``cv2.imdecode``: bytes it cannot read are rejected, a valid file of a
-  form it does not decode raises (it would raise in training too);
+- image validity check: the port's decoder (``data.image``, Pillow's
+  view) in place of ``cv2.imdecode``: bytes it cannot read are rejected, a
+  valid file of a form it does not decode (TIFF, WebP, ICO; arithmetic,
+  lossless, 12-bit or YCCK JPEG) raises (it would raise in training too);
+  PNG of any depth, plain or interlaced, baseline and progressive JPEG of
+  any sampling, CMYK JPEG, GIF and BMP pass;
 - 9:1 shuffled train/test split via a reshuffled 10-slot assignment
   (is_test, create_lmdb_dataset.py:13-14, 90-149);
 - per-language character lexicon emitted as dict.txt next to the train LMDB
   (write_txt, create_lmdb_dataset.py:49-62).
 
 Backed by the native lmdbx writer, so outputs are standard LMDB files.
-``crop_by_word`` and ``analysis`` need cv2 and are not ported (ROADMAP.md
-§1 item 6).
+The data path's first step, word crops out of a scene tree, is
+``tools/crop_by_word.py``; ``tools/analysis.py`` is the per-character
+accuracy report.
 
     python3 -m mrn_tpu_torch.tools.create_lmdb --input_path IMAGES \
         --gt_file gt.txt --output_path train/Latin --output_path2 test/Latin

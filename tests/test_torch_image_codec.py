@@ -15,6 +15,7 @@ import os
 import struct
 import zlib
 
+import cv2
 import numpy as np
 import PIL.Image
 import pytest
@@ -204,6 +205,21 @@ def test_encode_png_round_trips_through_pil():
     np.testing.assert_array_equal(image.decode(data), arr)
 
 
+@pytest.mark.parametrize("channels,ctype,mode", [(1, 0, "L"), (3, 2, "RGB"), (4, 6, "RGBA")])
+def test_encode_png_writes_the_channels_given(channels, ctype, mode):
+    """Gray, RGB and RGBA arrays become colour types 0, 2 and 6, read back
+    by Pillow in that mode and by cv2's IMREAD_UNCHANGED in that shape."""
+    arr = _crop(np.random.default_rng(channels), 9, 13, channels)
+    data = image.encode_png(arr[:, :, 0] if channels == 1 else arr)
+    assert image.parse_png(data).color_type == ctype
+    pil = PIL.Image.open(io.BytesIO(data))
+    assert pil.mode == mode
+    np.testing.assert_array_equal(np.asarray(pil).reshape(arr.shape), arr)
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(bgr, image.imdecode(data, image.IMREAD_UNCHANGED))
+    assert bgr.shape == ((9, 13) if channels == 1 else (9, 13, channels))
+
+
 # -------------------------------------------------------------------- errors
 def _pil_raises_oserror(data):
     with pytest.raises(OSError):
@@ -231,21 +247,32 @@ def _set_interlace(png: bytes) -> bytes:
 
 
 def test_unsupported_forms_raise_naming_the_form():
+    """The forms the codec now decodes give Pillow's arrays (the numpy
+    reference, which models the first forms only, still raises on them);
+    TIFF, WebP and a JPEG form no library here writes raise in both."""
     rng = np.random.default_rng(10)
     rgb = PIL.Image.fromarray(_crop(rng, 30, 60, 3))
     gray16 = PIL.Image.fromarray(_crop(rng, 30, 60, 1)[:, :, 0].astype(np.uint16) * 257)
-    cases = {
+    decoded = {
         "progressive": _encode(rgb, "JPEG", progressive=True),
-        "CMYK": _encode(rgb.convert("CMYK"), "JPEG"),
+        "4-component": _encode(rgb.convert("CMYK"), "JPEG"),
         "16-bit": _encode(gray16, "PNG"),
-        "interlaced": _set_interlace(_encode(rgb, "PNG")),
+        "interlaced": _set_interlace(_encode(PIL.Image.fromarray(_crop(rng, 1, 1, 3)), "PNG")),
         "GIF": _encode(rgb, "GIF"),
         "BMP": _encode(rgb, "BMP"),
     }
-    for form, data in cases.items():
+    for form, data in decoded.items():
+        np.testing.assert_array_equal(image.decode(data), _pil_rgba(data), err_msg=form)
+        with pytest.raises(image.UnsupportedImage):
+            image_ref.decode(data, key="root/image-000000007")
+    jpeg = bytearray(_encode(rgb, "JPEG"))
+    jpeg[jpeg.index(b"\xff\xc0") + 1] = 0xC9     # SOF9: arithmetic coding
+    raising = {"TIFF": _encode(rgb, "TIFF"), "WebP": _encode(rgb, "WEBP"),
+               "arithmetic-coded JPEG": bytes(jpeg)}
+    for form, data in raising.items():
         for decoder in (image.decode, image_ref.decode):
             with pytest.raises(image.UnsupportedImage, match=form):
                 decoder(data, key="root/image-000000007")
     with pytest.raises(image.UnsupportedImage, match="root/image-000000007"):
-        image.decode(cases["progressive"], key="root/image-000000007")
+        image.decode(raising["TIFF"], key="root/image-000000007")
     assert not issubclass(image.UnsupportedImage, OSError)

@@ -170,13 +170,50 @@ def test_device_images_normalise_as_jax(tree, tmp_path):
     assert learner._device_images(batch).numpy().tobytes() == want.tobytes()
 
 
+FORMS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "torch_forms")
+
+
+def _pil_bytes(fmt, **kw):
+    buf = io.BytesIO()
+    rgb = np.random.default_rng(8).integers(0, 256, (20, 50, 3), np.uint8)
+    PIL.Image.fromarray(rgb).save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
 def test_unsupported_crop_raises_where_jax_decodes(tmp_path):
+    """Crops in every form the port decodes beyond baseline JPEG and 8-bit
+    PNG (progressive, 4:1:1, 4:4:0, CMYK, EXIF JPEG; 16-bit and interlaced
+    PNG; GIF; BMP) give JAX's ``LmdbDataset`` items and ``ResizeNormalize``
+    tensors bitwise; TIFF and WebP, which JAX decodes, still raise."""
     opt, jopt = _opts()
     _odd_lmdb(str(tmp_path / "odd"), jpeg_progressive=True)
-    ref = jax_dataset.LmdbDataset(str(tmp_path / "odd"), jopt)
-    assert ref[2][1] == "prog"
-    with pytest.raises(image.UnsupportedImage, match="progressive JPEG.*"):
-        dataset.LmdbDataset(str(tmp_path / "odd"), opt)[2]
+    names = sorted(n for n in os.listdir(os.path.join(FORMS, "crops")) if n != "labels.txt")
+    records = [(open(os.path.join(FORMS, "crops", n), "rb").read(), "abc") for n in names]
+    w = lmdb_store.LmdbWriter(str(tmp_path / "forms"))
+    w.put(b"num-samples", str(len(records)).encode())
+    for i, (data, label) in enumerate(records, 1):
+        w.put(b"image-%09d" % i, data)
+        w.put(b"label-%09d" % i, label.encode())
+    w.commit()
+    to_jax = JaxResizeNormalize((IMG_W, IMG_H))
+    for path in (str(tmp_path / "odd"), str(tmp_path / "forms")):
+        got, ref = dataset.LmdbDataset(path, opt), jax_dataset.LmdbDataset(path, jopt)
+        assert got.filtered_index_list == ref.filtered_index_list
+        for i in range(len(ref)):
+            (g, gl), (r, rl) = got[i], ref[i]
+            assert gl == rl
+            assert _normed(ResizeNormalize((IMG_W, IMG_H))(g)[None]).tobytes() == \
+                to_jax(r)[None].astype(np.float32).tobytes()
+    assert len(dataset.LmdbDataset(str(tmp_path / "forms"), opt)) == len(names) == 19
+    for form in ("TIFF", "WebP"):
+        w = lmdb_store.LmdbWriter(str(tmp_path / form))
+        w.put(b"num-samples", b"1")
+        w.put(b"image-000000001", _pil_bytes(form.upper()))
+        w.put(b"label-000000001", b"ab")
+        w.commit()
+        assert jax_dataset.LmdbDataset(str(tmp_path / form), jopt)[0][1] == "ab"
+        with pytest.raises(image.UnsupportedImage, match=f"{form} images.*"):
+            dataset.LmdbDataset(str(tmp_path / form), opt)[0]
 
 
 @pytest.mark.parametrize("select", ["/", ["T1"], ["T0", "T1"]])
@@ -204,6 +241,22 @@ def test_raw_dataset_matches_jax(tree, tmp_path):
         (g, gp), (r, rp) = got[i], ref[i]
         assert gp == rp
         np.testing.assert_array_equal(g, np.asarray(r.resize((IMG_W, IMG_H), PIL.Image.BICUBIC)))
+
+
+def test_raw_dataset_over_new_forms_matches_jax():
+    """RawDataset over the fixtures' crop folder (its jpg and png files:
+    progressive, 4:1:1, 4:4:0, CMYK, EXIF JPEG; 16-bit and interlaced PNG)
+    gives JAX's ``ResizeNormalize`` tensors bitwise."""
+    opt, jopt = _opts()
+    folder = os.path.join(FORMS, "crops")
+    got, ref = dataset.RawDataset(folder, opt), jax_dataset.RawDataset(folder, jopt)
+    assert got.image_path_list == ref.image_path_list and len(got) == 11
+    to_jax = JaxResizeNormalize((IMG_W, IMG_H))
+    for i in range(len(got)):
+        (g, gp), (r, rp) = got[i], ref[i]
+        assert gp == rp
+        assert _normed(ResizeNormalize((IMG_W, IMG_H))(g)[None]).tobytes() == \
+            to_jax(r)[None].astype(np.float32).tobytes()
 
 
 def test_bank_dataset_matches_jax(tree):
