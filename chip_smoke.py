@@ -128,8 +128,11 @@
    crops; (c) ``create_lmdb.create_dataset`` over those crops and over the
    fixtures' word crops in every new form; (d) ``evaluate_cli.main`` on
    that tree and ``recognize_cli.main`` on the folder of word crops, their
-   row-4 launches against the expected counts; prints the one-thread
-   decode + resize crops/s of each form and the phase's seconds;
+   row-4 launches against the expected counts; then (a)-(d) again on
+   ``tests/fixtures/torch_webp/`` (WebP scenes under ``.jpg`` / ``.png``
+   names, WebP word crops: lossy, lossless, alpha, animated, two named
+   ``.jpg``), rows 4 and 1 counted; prints the one-thread decode + resize
+   crops/s of each form and the phase's seconds;
 9e'. training-time augmentation on that tree (``AUG_*``): (a) the C++
    augment library (``data/csrc/augment.cpp``, built here with g++) on the
    committed fixtures of Pillow's, OpenCV's and the JAX package's outputs
@@ -594,7 +597,11 @@ LMDB_DECODE_CALLS = 1024
 # times on one thread for its rate; evaluate_cli (FORMS_SETS sets) and
 # recognize_cli run every expert's 12 Blocks on each batch (one a set at
 # the config's batch of 256).
+# The same checks run on tests/fixtures/torch_webp/ (WebP scenes and word
+# crops, some under .jpg / .png names).
 FORMS_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_forms")
+WEBP_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_webp")
+FORMS_TREES = (("forms", FORMS_DIR), ("webp", WEBP_DIR))
 FORMS_DECODE_REPEAT = 50
 FORMS_SETS = 3
 # the augmentation phase: train_cli with Aug over the LMDB phase's tree, cut
@@ -2862,18 +2869,18 @@ def _digest(array):
     return hashlib.sha1(f"{array.dtype}{array.shape}".encode() + array.tobytes()).hexdigest()
 
 
-def check_forms_fixtures():
-    """(a): every fixture file through the codec's Pillow view (``decode``)
-    and cv2 view (``imdecode``), against the committed digests.  Returns
-    the expected arrays and {word crop's form: bytes}."""
-    expected = np.load(os.path.join(FORMS_DIR, "expected.npz"))
+def check_forms_fixtures(fixture_dir=FORMS_DIR):
+    """(a): every file of ``fixture_dir`` through the codec's Pillow view
+    (``decode``) and cv2 view (``imdecode``), against the committed
+    digests.  Returns the expected arrays and {word crop's form: bytes}."""
+    expected = np.load(os.path.join(fixture_dir, "expected.npz"))
     forms, views = {}, 0
     for sub in ("imgs", "crops"):
-        for name in sorted(os.listdir(os.path.join(FORMS_DIR, sub))):
+        for name in sorted(os.listdir(os.path.join(fixture_dir, sub))):
             if name.endswith(".txt"):
                 continue
             key = f"{sub}/{name}"
-            with open(os.path.join(FORMS_DIR, key), "rb") as f:
+            with open(os.path.join(fixture_dir, key), "rb") as f:
                 data = f.read()
             got = {"pil": image_codec.decode(data)}
             if f"{key}:cv_color" in expected.files:
@@ -2887,19 +2894,30 @@ def check_forms_fixtures():
             if sub == "crops":
                 forms[name.split("_", 1)[1]] = data
     print(f"  (a) the g++ codec reproduces all {views} committed views of the "
-          f"{len(os.listdir(os.path.join(FORMS_DIR, 'imgs')))} scenes and {len(forms)} word "
+          f"{len(os.listdir(os.path.join(fixture_dir, 'imgs')))} scenes and {len(forms)} word "
           f"crops bitwise (Pillow's RGBA; cv2's IMREAD_COLOR and IMREAD_UNCHANGED)")
     return expected, forms
 
 
 def phase_forms(out_dir, cfg, final):
-    """The dataset tools and the new image forms (see ``FORMS_*``) on the
-    LMDB phase's config ``cfg`` and final checkpoint ``final``: checks
-    (a)-(d); prints the per-form decode rates and the phase's seconds.
-    Returns the launches."""
+    """The dataset tools and the image forms (see ``FORMS_*``) on the LMDB
+    phase's config ``cfg`` and final checkpoint ``final``: checks (a)-(d)
+    on each fixture tree of ``FORMS_TREES``; prints the per-form decode
+    rates and the phase's seconds.  Returns the launches."""
     t_phase = time.perf_counter()
-    root = os.path.join(out_dir, "forms")
-    expected, forms = check_forms_fixtures()
+    launches = {"fused": 0, "full": 0}
+    for tag, fixture_dir in FORMS_TREES:
+        print(f"  -- {os.path.relpath(fixture_dir, ROOT)}")
+        got = forms_tree(os.path.join(out_dir, tag), cfg, final, fixture_dir)
+        launches = {k: launches[k] + got[k] for k in launches}
+    print(f"  the forms phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def forms_tree(root, cfg, final, fixture_dir):
+    """Checks (a)-(d) on one fixture tree, working under ``root``; returns
+    its launches."""
+    expected, forms = check_forms_fixtures(fixture_dir)
     rates = {}
     for form, data in forms.items():
         t0 = time.perf_counter()
@@ -2912,7 +2930,7 @@ def phase_forms(out_dir, cfg, final):
     # ---- (b) the port's crop_by_word against the JAX tool's committed output
     crops = os.path.join(root, "crops")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mrn_tpu_torch.tools.crop_by_word", FORMS_DIR,
+    proc = subprocess.run([sys.executable, "-m", "mrn_tpu_torch.tools.crop_by_word", fixture_dir,
                            "--out_dir", crops, "--nproc", "2"], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     if proc.returncode != 0:
@@ -2930,14 +2948,16 @@ def phase_forms(out_dir, cfg, final):
         if not (np.array_equal(bgr, want) and np.array_equal(
                 image_codec.decode(data)[:, :, 2::-1], want)):
             raise RuntimeError(f"(b) crop {name} differs from the JAX tool's")
-    print(f"  (b) crop_by_word --nproc 2 on the {len(os.listdir(os.path.join(FORMS_DIR, 'imgs')))}"
+    scenes = len(os.listdir(os.path.join(fixture_dir, "imgs")))
+    print(f"  (b) crop_by_word --nproc 2 on the {scenes}"
           f"-scene tree: {len(names)} crops in {time.perf_counter() - t0:.1f} s (process "
           f"start included); names, label.txt bytes and every crop (cv2 and Pillow views) "
           f"equal the JAX tool's")
     # ---- (c) create_lmdb over those crops and over the word crops in every form
     test = os.path.join(root, "test")
     sources = [(crops, os.path.join(crops, "label.txt")),
-               (os.path.join(FORMS_DIR, "crops"), os.path.join(FORMS_DIR, "crops", "labels.txt")),
+               (os.path.join(fixture_dir, "crops"),
+                os.path.join(fixture_dir, "crops", "labels.txt")),
                (crops, os.path.join(crops, "label.txt"))]
     with contextlib.redirect_stdout(open(os.devnull, "w")):
         counts = [create_lmdb.create_dataset(src, gt, os.path.join(test, lan))
@@ -2945,7 +2965,7 @@ def phase_forms(out_dir, cfg, final):
     if counts != [len(names), len(forms), len(names)]:
         raise RuntimeError(f"(c) create_lmdb kept {counts} crops, not every one")
     print(f"  (c) create_lmdb: {counts} crops in {FORMS_SETS} sets (the tool's crops, the "
-          f"{len(forms)} forms incl. GIF and BMP, the tool's again)")
+          f"{len(forms)} word crops' forms, the tool's again)")
     # ---- (d) evaluate_cli and recognize_cli on them, row 4 counted
     launches = {}
     reset_launches()
@@ -2956,7 +2976,7 @@ def phase_forms(out_dir, cfg, final):
     reset_launches()
     with contextlib.redirect_stdout(open(os.devnull, "w")):
         words = recognize_cli.main(["--config", cfg, "--saved_model", final, "--image_folder",
-                                    os.path.join(FORMS_DIR, "crops")])
+                                    os.path.join(fixture_dir, "crops")])
     launches["recognize"] = read_launches()
     # every expert's 12 Blocks on each batch (row 4); evaluate_cli's score
     # envelope check, once a learner, runs them composed on its first batch (row 1)
@@ -2974,7 +2994,6 @@ def phase_forms(out_dir, cfg, final):
     for tag in want:
         if any(launches[tag][k] != want[tag].get(k, 0) for k in launches[tag]):
             raise RuntimeError(f"(d) {tag} launched {launches[tag]}, not {want[tag]}")
-    print(f"  the forms phase took {time.perf_counter() - t_phase:.1f} s")
     return {k: launches["evaluate"][k] + launches["recognize"][k] for k in ("fused", "full")}
 
 

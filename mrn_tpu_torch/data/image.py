@@ -1,6 +1,6 @@
-"""Images without PIL or cv2: decode PNG, JPEG, GIF and BMP bytes bit for
-bit as the JAX package's libraries read them, and resize them as Pillow's
-``Image.resize(BICUBIC)`` does.
+"""Images without PIL or cv2: decode PNG, JPEG, GIF, BMP and WebP bytes bit
+for bit as the JAX package's libraries read them, and resize them as
+Pillow's ``Image.resize(BICUBIC)`` does.
 
 Two views of the same decoders:
 
@@ -11,10 +11,10 @@ Two views of the same decoders:
   Pillow.
 - ``imdecode(buf, flags)`` / ``imread(path, flags)``: cv2's, for the tools
   (``crop_by_word``): ``IMREAD_COLOR`` is BGR ``[H, W, 3]`` with the EXIF
-  orientation applied (JPEG APP1, PNG eXIf), alpha dropped, palette and
-  gray expanded, 16 bits to their high byte; ``IMREAD_UNCHANGED`` is the
-  stored shape, unrotated, as cv2 gives it (gray ``[H, W]``, BGRA where
-  there is alpha, uint16 for 16-bit PNG).
+  orientation applied (JPEG APP1, PNG eXIf, the WebP EXIF chunk), alpha
+  dropped, palette and gray expanded, 16 bits to their high byte;
+  ``IMREAD_UNCHANGED`` is the stored shape, unrotated, as cv2 gives it
+  (gray ``[H, W]``, BGRA where there is alpha, uint16 for 16-bit PNG).
 
 The forms decoded:
 
@@ -35,26 +35,38 @@ The forms decoded:
   and top-down.  cv2's view reads the uncompressed INFO / V4 / V5 layouts
   and raises ``UnsupportedImage`` on RLE, BITFIELDS and core-header BMPs
   and on GIFs without a colour table.
+- WebP (``csrc/webpcodec.cpp``, as libwebp 1.6 runs it; the container
+  here, as its demuxer reads it): lossy VP8 key frames through libwebp's
+  fancy upsampler, lossless VP8L, ALPH (raw or VP8L, filtered), VP8X with
+  EXIF / ICCP / XMP, animations (frame 0 on a transparent canvas).
+  Pillow's RGBA mode follows libwebp's ``has_alpha`` (the VP8L header's
+  alpha bit, VP8X's flag or an ALPH chunk), cv2's four channels VP8X's
+  flag; the demuxer drops an ALPH chunk VP8X does not flag.
 
-Still raising ``UnsupportedImage`` naming the form (ROADMAP.md §1 item 8):
-TIFF, WebP, ICO, and arithmetic-coded, lossless, hierarchical, 12-bit and
-YCCK JPEG.  Bytes that no decoder can read (truncated, bad markers, bad
-zlib, LZW or Huffman data, an unknown format) raise ``CorruptImage``, an
-``OSError`` like Pillow's, which ``LmdbDataset`` turns into its dummy crop.
+Every other format Pillow 12.1 or cv2 5.0 identifies is named
+(``image_format``) and raises ``UnsupportedImage`` in the view of a
+library that reads it (ROADMAP.md §1 item 3): TIFF, JPEG 2000, AVIF, the
+PNM family, TGA, ICO, ... and arithmetic-coded, lossless, hierarchical,
+12-bit and YCCK JPEG.  Bytes that no decoder can read (truncated, bad
+markers, bad zlib, LZW, Huffman or VP8 data, a format neither library of
+the view reads) raise ``CorruptImage``, an ``OSError`` like Pillow's,
+which ``LmdbDataset`` turns into its dummy crop.
 
-Each call goes into the host library ``csrc/imagecodec.cpp`` (built with
-``g++`` at first use into ``build/mrn_tpu_torch/``); ``resize(rgba,
-size)`` is Pillow's bicubic resize (through premultiplied RGBa), a crop
-already at ``size`` returned as it is; ``to_rgba(array)`` is
-``PIL.Image.fromarray(array).convert("RGBA")``; ``encode_png(array)``
-writes a gray, RGB or RGBA PNG (colour type 0, 2 or 6, as given).
-``data.image_ref`` holds the first forms' decoder (8-bit PNG, baseline
-4:4:4 / 4:2:2 / 4:2:0 JPEG) and the resize in numpy, for the tests.
+Each call goes into a host library (``csrc/imagecodec.cpp``, and
+``csrc/webpcodec.cpp`` for WebP; built with ``g++`` at first use into
+``build/mrn_tpu_torch/``); ``resize(rgba, size)`` is Pillow's bicubic
+resize (through premultiplied RGBa), a crop already at ``size`` returned as
+it is; ``to_rgba(array)`` is ``PIL.Image.fromarray(array).convert("RGBA")``;
+``encode_png(array)`` writes a gray, RGB or RGBA PNG (colour type 0, 2 or
+6, as given).  ``data.image_ref`` holds the first forms' decoder (8-bit
+PNG, baseline 4:4:4 / 4:2:2 / 4:2:0 JPEG) and the resize in numpy, for the
+tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import struct
 import zlib
 from pathlib import Path
@@ -69,10 +81,10 @@ __all__ = ["CorruptImage", "IMREAD_COLOR", "IMREAD_UNCHANGED", "PngHeader", "Uns
            "to_rgba"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "imagecodec.cpp"
+WEBP_SOURCE = SOURCE.with_name("webpcodec.cpp")
 # the bicubic coefficients are doubles: no fused multiply-add, as Pillow's build
 FLAGS = ("-ffp-contract=off",)
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"\x00\x00\x01\x00", "ICO"))
 _ERRLEN = 256
 # cv2's imread flags, the two the tools use
 IMREAD_COLOR = 1
@@ -112,7 +124,7 @@ def _where(key: Optional[str]) -> str:
 
 def _unsupported(form: str, key: Optional[str]) -> UnsupportedImage:
     return UnsupportedImage(f"{_where(key)}{form} is not decoded by the port (ROADMAP.md §1 "
-                            "item 8)")
+                            "item 3)")
 
 
 def _raise(rc: int, err, key: Optional[str]) -> None:
@@ -136,9 +148,157 @@ class PngHeader(NamedTuple):
     exif: bytes = b""
 
 
+# The formats Pillow 12.1 or cv2 5.0 identify and the port does not decode,
+# by their leading bytes (Pillow's `_accept` functions and, for the formats
+# that have none, the header checks of their `_open`; cv2's
+# `checkSignature`).  Pillow's stub formats (BUFR, GRIB, HDF5, MPEG and WMF
+# here) are named but load with neither library.
+_MAGIC = (
+    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"),
+    (b"MM*\x00", "TIFF"), (b"II\x00*", "TIFF"),
+    (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "CUR"), (b"icns", "ICNS"),
+    (b"\xffO\xffQ", "JPEG 2000"), (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+    (b"\x59\xa6\x6a\x95", "Sun raster"), (b"#?RADIANCE", "Radiance HDR"),
+    (b"#?RGBE", "Radiance HDR"), (b"8BPS", "PSD"), (b"qoif", "QOI"), (b"DDS ", "DDS"),
+    (b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"FTEX", "FTEX"), (b"DanM", "MSP"), (b"LinS", "MSP"),
+    (b"\x80\xe8\x00\x00", "PIXAR"), (b"SIMPLE", "FITS"), (b"/* XPM */", "XPM"),
+    (b"P7 332", "XV thumbnail"), (b"%!PS", "EPS"), (b"\xc5\xd0\xd3\xc6", "EPS"),
+    (b"\x00\x00\x00\x00\x00\x00\x00\x04", "McIDAS"), (b"Image type:", "IM"),
+    (b"BUFR", "BUFR"), (b"ZCZC", "BUFR"), (b"\x89HDF\r\n\x1a\n", "HDF5"),
+    (b"\x00\x00\x01\xb3", "MPEG"), (b"\xd7\xcd\xc6\x9a\x00\x00", "WMF"),
+    (b"\x01\x00\x00\x00", "WMF"),
+)
+_PILLOW_READS = frozenset({
+    "TIFF", "BigTIFF", "ICO", "CUR", "ICNS", "JPEG 2000", "Sun raster", "PSD", "QOI", "DDS", "BLP",
+    "FTEX", "MSP", "PIXAR", "FITS", "XPM", "XV thumbnail", "EPS", "McIDAS", "IM", "AVIF", "PBM",
+    "PGM", "PPM", "PFM", "DCX", "PCX", "SGI", "DIB", "GBR", "FLI", "XBM", "PCD", "SPIDER",
+    "IPTC/NAA", "IM Tools", "TGA"})
+_CV2_READS = frozenset({"TIFF", "BigTIFF", "JPEG 2000", "Sun raster", "Radiance HDR", "AVIF",
+                        "PBM", "PGM", "PPM", "PFM", "color PFM", "PAM"})
+_WS = b" \t\n\r\x0b\x0c"
+_PNM = {b"P1": "PBM", b"P4": "PBM", b"P2": "PGM", b"P5": "PGM", b"P3": "PPM", b"P6": "PPM",
+        b"P0CMYK": "PPM", b"PyP": "PPM", b"PyRGBA": "PPM", b"PyCMYK": "PPM", b"Pf": "PFM",
+        b"PF": "color PFM", b"P7": "PAM"}
+_XBM = re.compile(
+    rb"\s*#define[ \t]+.*_width[ \t]+[0-9]+[\r\n]+#define[ \t]+.*_height[ \t]+[0-9]+[\r\n]+")
+_SGI_MODES = {(1, 1, 1), (1, 2, 1), (2, 1, 1), (2, 2, 1), (1, 3, 3), (2, 3, 3), (1, 3, 4),
+              (2, 3, 4)}
+
+
+def _u16(buf: bytes, at: int, e: str = "<") -> int:
+    return struct.unpack_from(e + "H", buf, at)[0]
+
+
+def _u32(buf: bytes, at: int, e: str = "<") -> int:
+    return struct.unpack_from(e + "I", buf, at)[0]
+
+
+def _is_avif(buf: bytes) -> bool:
+    """An ISO-BMFF ftyp box naming AVIF (Pillow: the major brand; cv2:
+    any compatible brand)."""
+    if buf[4:8] != b"ftyp" or len(buf) < 16:
+        return False
+    size = min(_u32(buf, 0, ">"), len(buf))
+    brands = {buf[8:12]} | {buf[i:i + 4] for i in range(16, size - 3, 4)}
+    return buf[8:12] in (b"avif", b"avis", b"mif1", b"msf1") or bool(brands & {b"avif", b"avis"})
+
+
+def _is_spider(buf: bytes) -> bool:
+    """SpiderImagePlugin's isSpiderHeader on the 27 leading floats."""
+    if len(buf) < 27 * 4:
+        return False
+    for e in (">", "<"):
+        h = (99.0,) + struct.unpack_from(e + "27f", buf)
+        if not all(abs(h[i]) < 1e9 and h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+            continue
+        if int(h[5]) in (1, 3, -11, -12, -21, -22) and \
+                int(h[22]) == int(h[13]) * int(h[23]) and int(h[22]) != 0:
+            return True
+    return False
+
+
+def _is_iptc(buf: bytes) -> bool:
+    """IptcImagePlugin: fields 0x1C <record> <tag> <size> up to (8, 10),
+    with the layers and the size among them."""
+    pos, tags = 0, set()
+    while pos + 5 <= len(buf) and buf[pos:pos + 5].strip(b"\x00"):
+        if buf[pos] != 0x1C or buf[pos + 1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+            return False
+        tag, size = (buf[pos + 1], buf[pos + 2]), buf[pos + 3]
+        if tag == (8, 10):
+            break
+        if size >= 128:
+            return False
+        size = _u16(buf, pos + 3, ">")
+        tags.add(tag)
+        pos += 5 + size
+    return {(3, 60), (3, 20), (3, 30)} <= tags
+
+
+def _is_imt(buf: bytes) -> bool:
+    """ImtImagePlugin: "key value" lines with a width and a height, then a
+    form feed."""
+    head = buf.split(b"\x0c", 1)
+    if len(head) < 2 or b"\n" not in buf[:100]:
+        return False
+    size = {}
+    for line in head[0].split(b"\n"):
+        if line.startswith(b"*") or not line:
+            continue
+        key, _, value = line.partition(b" ")
+        if key in (b"width", b"height") and value.strip().isdigit():
+            size[key] = int(value)
+    return size.get(b"width", 0) > 0 and size.get(b"height", 0) > 0
+
+
+def _weak_format(buf: bytes) -> Optional[str]:
+    """The formats without a magic number of their own: Pillow's header
+    checks."""
+    n = len(buf)
+    if n >= 16 and _u32(buf, 0) in (12, 40, 52, 56, 64, 108, 124):   # a BMP without its file header
+        if _u32(buf, 0) == 12:
+            w, h, bits = _u16(buf, 4), _u16(buf, 6), _u16(buf, 10)
+        else:
+            w, h, bits = struct.unpack_from("<ii", buf, 4) + (_u16(buf, 14),)
+        if w > 0 and h != 0 and bits in (1, 4, 8, 16, 24, 32):
+            return "DIB"
+    if n >= 4 and _u32(buf, 0) == 0x3ADE68B1:
+        return "DCX"
+    if n >= 68 and buf[0] == 10 and buf[1] in (0, 2, 3, 5):
+        x0, y0, x1, y1 = (_u16(buf, i) for i in (4, 6, 8, 10))
+        bits, planes = buf[3], buf[65]
+        if x1 + 1 > x0 and y1 + 1 > y0 and ((bits, planes) in ((1, 1), (1, 2), (1, 4)) or
+                                            (buf[1] == 5 and bits == 8 and planes in (1, 3))):
+            return "PCX"
+    if n >= 12 and _u16(buf, 0, ">") == 474 and buf[2] in (0, 1) and \
+            (buf[3], _u16(buf, 4, ">"), _u16(buf, 10, ">")) in _SGI_MODES:
+        return "SGI"
+    if n >= 16 and _u16(buf, 4) in (0xAF11, 0xAF12) and _u16(buf, 14) in (0, 3):
+        return "FLI"
+    if n >= 20 and _u32(buf, 0, ">") >= 20 and _u32(buf, 4, ">") in (1, 2):
+        w, h, depth = (_u32(buf, i, ">") for i in (8, 12, 16))
+        if 0 < w < 1 << 31 and 0 < h < 1 << 31 and depth in (1, 4) and \
+                (_u32(buf, 4, ">") == 1 or buf[24:28] == b"GIMP"):
+            return "GBR"
+    if _XBM.match(buf[:512]):
+        return "XBM"
+    if n >= 2052 and buf[2048:2052] == b"PCD_":
+        return "PCD"
+    if _is_spider(buf):
+        return "SPIDER"
+    if _is_iptc(buf):
+        return "IPTC/NAA"
+    if _is_imt(buf):
+        return "IM Tools"
+    if n >= 18 and buf[1] in (0, 1) and buf[2] in (1, 2, 3, 9, 10, 11) and \
+            _u16(buf, 12) > 0 and _u16(buf, 14) > 0 and buf[16] in (1, 8, 16, 24, 32):
+        return "TGA"
+    return None
+
+
 def image_format(buf: bytes) -> str:
-    """"png", "jpeg", "gif", "bmp", the name of another format Pillow
-    reads, or "unknown"."""
+    """"png", "jpeg", "gif", "bmp", "webp" (the forms decoded here), the
+    name of another format Pillow or cv2 identifies, or "unknown"."""
     if buf.startswith(PNG_MAGIC):
         return "png"
     if buf[:3] == b"\xff\xd8\xff":
@@ -148,11 +308,27 @@ def image_format(buf: bytes) -> str:
     if buf[:2] == b"BM":
         return "bmp"
     if buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
-        return "WebP"
-    for magic, name in _OTHER_FORMATS:
-        if buf.startswith(magic):
-            return name
-    return "unknown"
+        return "webp"
+    for magic, name in _MAGIC:
+        if buf.startswith(magic) and (name not in ("ICO", "CUR") or buf[4:6] != b"\x00\x00"):
+            return name    # an icon directory of no entries is a TGA's header
+    if _is_avif(buf):
+        return "AVIF"
+    if buf[:1] == b"P":
+        token = buf[:7].split(None, 1)[0] if buf[:7].strip() else b""
+        if token in _PNM and len(buf) > len(token) and buf[len(token)] in _WS:
+            return _PNM[token]
+    return _weak_format(buf) or "unknown"
+
+
+def _unreadable(fmt: str, view: str, key: Optional[str]) -> Exception:
+    """The error for a format the decoders here do not read: UnsupportedImage
+    where the library of this view reads it, else CorruptImage."""
+    if fmt in (_PILLOW_READS if view == "Pillow" else _CV2_READS):
+        return _unsupported(f"{fmt} images", key)
+    if fmt == "unknown":
+        return CorruptImage(f"{_where(key)}cannot identify the image format")
+    return CorruptImage(f"{_where(key)}{fmt} images are not read by {view}")
 
 
 # --------------------------------------------------------------------- PNG
@@ -519,6 +695,172 @@ def _bmp_rgba(buf: bytes, key: Optional[str]) -> np.ndarray:
     return _palette_rgba(b.palette)[b.pixels]
 
 
+# -------------------------------------------------------------------- WebP
+_WEBP_ALPHA, _WEBP_ANIMATION, _WEBP_EXIF, _WEBP_FLAGS = 0x10, 0x02, 0x08, 0x3E
+
+
+def _webp_lib() -> ctypes.CDLL:
+    lib = _host_build.load("webpcodec", WEBP_SOURCE)
+    if not getattr(lib, "_typed", False):
+        i, p, sz, buf = ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.wp_vp8_info.argtypes = [buf, sz, ip, ip, buf, i]
+        lib.wp_vp8_decode.argtypes = [buf, sz, i, i, p, buf, i]
+        lib.wp_vp8l_info.argtypes = [buf, sz, ip, ip, ip, buf, i]
+        lib.wp_vp8l_decode.argtypes = [buf, sz, i, i, p, buf, i]
+        lib.wp_alpha_decode.argtypes = [buf, sz, i, i, p, buf, i]
+        for fn in (lib.wp_vp8_info, lib.wp_vp8_decode, lib.wp_vp8l_info, lib.wp_vp8l_decode,
+                   lib.wp_alpha_decode):
+            fn.restype = i
+        lib._typed = True
+    return lib
+
+
+class _WebPFrame(NamedTuple):
+    image: bytes            # the VP8 or VP8L payload
+    lossless: bool
+    alph: Optional[bytes]   # the ALPH payload the demuxer keeps, or None
+    width: int              # the bitstream's own size
+    height: int
+    alpha_hint: bool        # WebPGetFeatures' has_alpha of the bitstream
+
+
+class _WebP(NamedTuple):
+    width: int              # the canvas
+    height: int
+    frame: _WebPFrame       # frame 0
+    x: int                  # its offset on the canvas
+    y: int
+    pil_alpha: bool         # WebPGetFeatures' has_alpha: Pillow's RGBA mode
+    cv_alpha: bool          # the demuxer's alpha flag: cv2's four channels
+    exif: bytes             # the first EXIF chunk where VP8X flags one
+
+
+def _webp_chunks(buf: bytes, start: int, end: int, where: str) -> list:
+    """(fourcc, payload) of the RIFF chunks in buf[start:end], each padded
+    to an even size as the demuxer reads them."""
+    out, pos = [], start
+    while pos < end:
+        if pos + 8 > end:
+            raise CorruptImage(f"{where}truncated WebP chunk header")
+        size = struct.unpack_from("<I", buf, pos + 4)[0]
+        if pos + 8 + size + (size & 1) > end:
+            raise CorruptImage(f"{where}truncated WebP chunk {buf[pos:pos + 4]!r}")
+        out.append((buf[pos:pos + 4], buf[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def _webp_frame(chunks: list, where: str, key: Optional[str]) -> Tuple[_WebPFrame, list]:
+    """The demuxer's StoreFrame: an optional ALPH then VP8 or VP8L; the
+    chunks after them."""
+    alph = None
+    n = 0
+    if n < len(chunks) and chunks[n][0] == b"ALPH":
+        alph = chunks[n][1]
+        n += 1
+    if n >= len(chunks) or chunks[n][0] not in (b"VP8 ", b"VP8L"):
+        raise CorruptImage(f"{where}WebP frame without image data")
+    fourcc, data = chunks[n]
+    lossless = fourcc == b"VP8L"
+    if lossless and alph is not None:
+        raise CorruptImage(f"{where}WebP ALPH chunk before a lossless image")
+    lib = _webp_lib()
+    w, h, a = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if lossless:
+        rc = lib.wp_vp8l_info(data, len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(a),
+                              err, _ERRLEN)
+    else:
+        rc = lib.wp_vp8_info(data, len(data), ctypes.byref(w), ctypes.byref(h), err, _ERRLEN)
+    _raise(rc, err, key)
+    hint = bool(a.value) if lossless else alph is not None
+    return _WebPFrame(data, lossless, alph, w.value, h.value, hint), chunks[n + 1:]
+
+
+def _webp(buf: bytes, key: Optional[str]) -> _WebP:
+    """A WebP file as libwebp's demuxer reads it (the RIFF size bounds it;
+    the bytes after it are ignored): the simple VP8 / VP8L forms, VP8X with
+    ALPH, EXIF, ICCP and XMP, and animations (frame 0 on its canvas)."""
+    where = _where(key)
+    if len(buf) < 20:
+        raise CorruptImage(f"{where}truncated WebP")
+    riff_size = struct.unpack_from("<I", buf, 4)[0]
+    if riff_size < 12 or riff_size + 8 > len(buf):
+        raise CorruptImage(f"{where}truncated WebP (RIFF size {riff_size})")
+    chunks = _webp_chunks(buf, 12, riff_size + 8, where)
+    first = chunks[0][0]
+    if first in (b"VP8 ", b"VP8L"):
+        frame, _ = _webp_frame(chunks, where, key)
+        return _WebP(frame.width, frame.height, frame, 0, 0, frame.alpha_hint, frame.alpha_hint,
+                     b"")
+    if first != b"VP8X" or len(chunks[0][1]) < 10:
+        raise CorruptImage(f"{where}not a WebP image (first chunk {first!r})")
+    vp8x = chunks[0][1]
+    flags = struct.unpack_from("<I", vp8x)[0]
+    width = 1 + int.from_bytes(vp8x[4:7], "little")
+    height = 1 + int.from_bytes(vp8x[7:10], "little")
+    if flags & ~_WEBP_FLAGS or width * height >= 1 << 32:
+        raise CorruptImage(f"{where}bad WebP VP8X header")
+    exif = next((d for c, d in chunks if c == b"EXIF"), b"") if flags & _WEBP_EXIF else b""
+    alpha = bool(flags & _WEBP_ALPHA)
+    body = chunks[1:]
+    if not flags & _WEBP_ANIMATION:
+        at = next((i for i, (c, _) in enumerate(body) if c in (b"ALPH", b"VP8 ", b"VP8L")), None)
+        if at is None:
+            raise CorruptImage(f"{where}WebP without image data")
+        frame, rest = _webp_frame(body[at:], where, key)
+        if any(c in (b"ALPH", b"VP8 ", b"VP8L") for c, _ in rest):
+            raise CorruptImage(f"{where}WebP with a second image")
+        if (frame.width, frame.height) != (width, height):
+            raise CorruptImage(f"{where}WebP image of {frame.width}x{frame.height} on a "
+                               f"{width}x{height} canvas")
+        pil_alpha = frame.alpha_hint if frame.lossless else alpha or frame.alph is not None
+        if not alpha:   # the demuxer drops ALPH where VP8X does not flag alpha
+            frame = frame._replace(alph=None)
+        return _WebP(width, height, frame, 0, 0, pil_alpha, alpha, exif)
+    # an animation: ANIM before the frames; every frame checked, frame 0 shown
+    names = [c for c, _ in body]
+    if b"ANMF" not in names or b"ANIM" not in names[:names.index(b"ANMF")]:
+        raise CorruptImage(f"{where}animated WebP without ANIM before its frames")
+    if any(c in (b"ALPH", b"VP8 ", b"VP8L") for c in names):
+        raise CorruptImage(f"{where}image data outside the frames of an animated WebP")
+    frames = []
+    for data in (d for c, d in body if c == b"ANMF"):
+        if len(data) < 16:
+            raise CorruptImage(f"{where}truncated WebP ANMF chunk")
+        x = 2 * int.from_bytes(data[0:3], "little")
+        y = 2 * int.from_bytes(data[3:6], "little")
+        frame, _ = _webp_frame(_webp_chunks(data, 16, len(data), where), where, key)
+        if x + frame.width > width or y + frame.height > height:
+            raise CorruptImage(f"{where}WebP frame outside its canvas")
+        frames.append((frame, x, y))
+    frame, x, y = frames[0]
+    return _WebP(width, height, frame, x, y, alpha, alpha, exif)
+
+
+def _webp_rgba(w: _WebP, key: Optional[str]) -> np.ndarray:
+    """The canvas after frame 0, RGBA as libwebp decodes it (WebPAnimDecoder:
+    transparent black around the frame, every alpha as stored)."""
+    f = w.frame
+    lib = _webp_lib()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    rgba = np.empty((f.height, f.width, 4), np.uint8)
+    decode_fn = lib.wp_vp8l_decode if f.lossless else lib.wp_vp8_decode
+    _raise(decode_fn(f.image, len(f.image), f.width, f.height, rgba.ctypes.data, err, _ERRLEN),
+           err, key)
+    if f.alph is not None:
+        alpha = np.empty((f.height, f.width), np.uint8)
+        _raise(lib.wp_alpha_decode(f.alph, len(f.alph), f.width, f.height, alpha.ctypes.data,
+                                   err, _ERRLEN), err, key)
+        rgba[:, :, 3] = alpha
+    if (w.width, w.height) == (f.width, f.height):
+        return rgba
+    canvas = np.zeros((w.height, w.width, 4), np.uint8)
+    canvas[w.y:w.y + f.height, w.x:w.x + f.width] = rgba
+    return canvas
+
+
 # -------------------------------------------------------------- Pillow's view
 def _check_size(size: Tuple[int, int]) -> Tuple[int, int]:
     w, h = (int(v) for v in size)
@@ -537,7 +879,7 @@ def _jpeg_shape(buf: bytes, key: Optional[str]) -> Tuple[int, int, int]:
 
 def decode(buf: bytes, size: Optional[Tuple[int, int]] = None,
            key: Optional[str] = None) -> np.ndarray:
-    """RGBA uint8 ``[H, W, 4]`` of a PNG, JPEG, GIF or BMP as Pillow's
+    """RGBA uint8 ``[H, W, 4]`` of a PNG, JPEG, GIF, BMP or WebP as Pillow's
     ``Image.open(b).convert("RGBA")`` gives it, resized to ``size = (W,
     H)`` (Pillow's bicubic) unless ``size`` is None; ``key`` names the crop
     in errors."""
@@ -568,9 +910,13 @@ def decode(buf: bytes, size: Optional[Tuple[int, int]] = None,
     if fmt in ("gif", "bmp"):
         rgba = _gif_rgba(buf, key) if fmt == "gif" else _bmp_rgba(buf, key)
         return rgba if size is None else resize(rgba, size)
-    if fmt == "unknown":
-        raise CorruptImage(f"{_where(key)}cannot identify the image format")
-    raise _unsupported(f"{fmt} images", key)
+    if fmt == "webp":
+        webp = _webp(buf, key)
+        rgba = _webp_rgba(webp, key)
+        if not webp.pil_alpha:   # Pillow's "RGB" mode
+            rgba[:, :, 3] = 255
+        return rgba if size is None else resize(rgba, size)
+    raise _unreadable(fmt, "Pillow", key)
 
 
 # ----------------------------------------------------------------- cv2's view
@@ -714,6 +1060,17 @@ def _cv_bmp(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
     return np.ascontiguousarray(b.pixels[:, :, 2::-1])
 
 
+def _cv_webp(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
+    """OpenCV's WebP decoder: frame 0's canvas, BGRA under
+    ``IMREAD_UNCHANGED`` where the file flags alpha (else BGR), BGR with
+    the EXIF orientation applied under ``IMREAD_COLOR``."""
+    webp = _webp(buf, key)
+    bgra = _webp_rgba(webp, key)[:, :, [2, 1, 0, 3]]
+    if flags == IMREAD_UNCHANGED:
+        return np.ascontiguousarray(bgra if webp.cv_alpha else bgra[:, :, :3])
+    return _orient(np.ascontiguousarray(bgra[:, :, :3]), _exif_orientation(webp.exif))
+
+
 def imdecode(buf: bytes, flags: int = IMREAD_COLOR, key: Optional[str] = None) -> np.ndarray:
     """``cv2.imdecode(buf, flags)`` for ``IMREAD_COLOR`` (BGR [H, W, 3]
     uint8: EXIF orientation applied, alpha dropped, palette and gray
@@ -732,9 +1089,9 @@ def imdecode(buf: bytes, flags: int = IMREAD_COLOR, key: Optional[str] = None) -
         return _cv_gif(buf, flags, key)
     if fmt == "bmp":
         return _cv_bmp(buf, flags, key)
-    if fmt == "unknown":
-        raise CorruptImage(f"{_where(key)}cannot identify the image format")
-    raise _unsupported(f"{fmt} images", key)
+    if fmt == "webp":
+        return _cv_webp(buf, flags, key)
+    raise _unreadable(fmt, "cv2", key)
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:

@@ -5,7 +5,7 @@ upsampling and colour tables; 1 or 3 components at 4:4:4, 4:2:2 or 4:2:0)
 and Pillow's bicubic resize, written apart from ``csrc/imagecodec.cpp`` so
 the two can be held against each other.  Raises ``data.image``'s errors;
 the other forms ``data.image`` decodes (progressive and any-sampling JPEG,
-CMYK, 16-bit and interlaced PNG, GIF, BMP) raise ``UnsupportedImage`` here
+CMYK, 16-bit and interlaced PNG, GIF, BMP, WebP) raise ``UnsupportedImage`` here
 and are held against Pillow and cv2 themselves.
 """
 

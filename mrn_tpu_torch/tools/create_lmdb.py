@@ -6,10 +6,11 @@ reference's layout and policies:
 - keys image-%09d / label-%09d (1-based) + num-samples;
 - image validity check: the port's decoder (``data.image``, Pillow's
   view) in place of ``cv2.imdecode``: bytes it cannot read are rejected, a
-  valid file of a form it does not decode (TIFF, WebP, ICO; arithmetic,
-  lossless, 12-bit or YCCK JPEG) raises (it would raise in training too);
-  PNG of any depth, plain or interlaced, baseline and progressive JPEG of
-  any sampling, CMYK JPEG, GIF and BMP pass;
+  valid file of a form it does not decode (TIFF, JPEG 2000, AVIF, PNM,
+  TGA, ICO, ...; arithmetic, lossless, 12-bit or YCCK JPEG) raises (it
+  would raise in training too); PNG of any depth, plain or interlaced,
+  baseline and progressive JPEG of any sampling, CMYK JPEG, GIF, BMP and
+  WebP (lossy, lossless, alpha, animated) pass;
 - 9:1 shuffled train/test split via a reshuffled 10-slot assignment
   (is_test, create_lmdb_dataset.py:13-14, 90-149);
 - per-language character lexicon emitted as dict.txt next to the train LMDB
