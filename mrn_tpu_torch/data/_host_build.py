@@ -1,7 +1,7 @@
 """Builds the port's host C++ (the LMDB store of ``native/lmdbx/lmdbx.cpp``,
 the image codec of ``data/csrc/imagecodec.cpp``, the WebP decoder of
-``data/csrc/webpcodec.cpp``) with ``g++`` at first use and loads it with
-ctypes.
+``data/csrc/webpcodec.cpp``, the TIFF decoder of ``data/csrc/tiffcodec.cpp``)
+with ``g++`` at first use and loads it with ctypes.
 
 A library is named by a hash of its source and flags and lives in
 ``build/mrn_tpu_torch`` at the root of the checkout (listed in

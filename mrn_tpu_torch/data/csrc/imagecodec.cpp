@@ -720,6 +720,7 @@ struct Jpeg {
   int adobe_transform = -1;
   int restart = 0;
   int scans = 0;
+  int force_ycc = -1;  // -1: the markers decide; 0 / 1: the caller does (TIFF)
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huff dc[4], ac[4];
@@ -1296,7 +1297,7 @@ inline uint8_t clamp255(int v) { return v < 0 ? 0 : (v > 255 ? 255 : static_cast
 // RGB (nc 3, YCbCr converted), or CMYK as stored (nc 4, Adobe's inverted
 // polarity, not converted).
 int jpeg_samples(Jpeg& j, std::vector<uint8_t>& px) {
-  if (j.ncomp == 4 && j.is_ycck()) unsupported("YCCK JPEG");
+  if (j.ncomp == 4 && j.force_ycc < 0 && j.is_ycck()) unsupported("YCCK JPEG");
   idct_all(j);
   const int w = j.width, h = j.height, nc = j.ncomp;
   px.assign(static_cast<size_t>(w) * h * nc, 0);
@@ -1310,7 +1311,7 @@ int jpeg_samples(Jpeg& j, std::vector<uint8_t>& px) {
   int ow[4];
   for (int i = 0; i < nc; i++)
     upsample(j.comp[i], j.hmax / j.comp[i].h, j.vmax / j.comp[i].v, up[i], ow[i]);
-  const bool ycc = nc == 3 && !j.is_rgb();
+  const bool ycc = nc == 3 && (j.force_ycc < 0 ? !j.is_rgb() : j.force_ycc == 1);
   for (int y = 0; y < h; y++) {
     uint8_t* o = &px[static_cast<size_t>(y) * w * nc];
     const uint8_t* c[4];
@@ -1412,10 +1413,16 @@ int ic_jpeg_decode(const uint8_t* buf, size_t len, int out_h, int out_w, uint8_t
   });
 }
 
-// Decodes a JPEG into its samples out [h, w, ncomp] (see jpeg_samples).
-int ic_jpeg_samples(const uint8_t* buf, size_t len, uint8_t* out, char* err, int errlen) {
+// Decodes a JPEG into its samples out [h, w, ncomp] (see jpeg_samples). Where
+// `ycc` is -1 the markers decide whether three components are YCbCr; a
+// JPEG-in-TIFF strip or tile (its JPEGTables merged in) passes 1 under
+// Photometric YCbCr (libtiff's JPEGCOLORMODE_RGB) and 0 otherwise, which
+// keeps every component as stored.
+int ic_jpeg_samples(const uint8_t* buf, size_t len, int ycc, uint8_t* out, char* err,
+                    int errlen) {
   return guarded(err, errlen, [&] {
     Jpeg j{buf, len};
+    j.force_ycc = ycc;
     j.parse();
     if (!j.frame) corrupt("JPEG without a frame header");
     std::vector<uint8_t> px;

@@ -1,20 +1,20 @@
-"""Images without PIL or cv2: decode PNG, JPEG, GIF, BMP and WebP bytes bit
-for bit as the JAX package's libraries read them, and resize them as
-Pillow's ``Image.resize(BICUBIC)`` does.
+"""Images without PIL or cv2: decode PNG, JPEG, GIF, BMP, WebP and TIFF
+bytes bit for bit as the JAX package's libraries read them, and resize
+them as Pillow's ``Image.resize(BICUBIC)`` does.
 
 Two views of the same decoders:
 
 - ``decode(buf, size, key)``: Pillow's, ``[H, W, 4]`` RGBA uint8 as
   ``PIL.Image.open(b).convert("RGBA")`` gives it (then resized to ``size =
-  (W, H)``), what ``LmdbDataset``, ``RawDataset`` and
-  ``create_lmdb.check_image_valid`` read, as the JAX readers do through
-  Pillow.
+  (W, H)``), what ``LmdbDataset`` and ``RawDataset`` read, as the JAX
+  readers do through Pillow.
 - ``imdecode(buf, flags)`` / ``imread(path, flags)``: cv2's, for the tools
-  (``crop_by_word``): ``IMREAD_COLOR`` is BGR ``[H, W, 3]`` with the EXIF
+  (``crop_by_word``, ``create_lmdb.check_image_valid``): ``IMREAD_COLOR`` is BGR ``[H, W, 3]`` with the EXIF
   orientation applied (JPEG APP1, PNG eXIf, the WebP EXIF chunk), alpha
   dropped, palette and gray expanded, 16 bits to their high byte;
-  ``IMREAD_UNCHANGED`` is the stored shape, unrotated, as cv2 gives it
-  (gray ``[H, W]``, BGRA where there is alpha, uint16 for 16-bit PNG).
+  ``IMREAD_UNCHANGED`` is the stored shape, unrotated but for TIFF, as
+  cv2 gives it (gray ``[H, W]``, BGRA where there is alpha, uint16 for
+  16-bit PNG and TIFF).
 
 The forms decoded:
 
@@ -42,30 +42,48 @@ The forms decoded:
   Pillow's RGBA mode follows libwebp's ``has_alpha`` (the VP8L header's
   alpha bit, VP8X's flag or an ALPH chunk), cv2's four channels VP8X's
   flag; the demuxer drops an ALPH chunk VP8X does not flag.
+- TIFF and BigTIFF (``csrc/tiffcodec.cpp``, as libtiff 4.7 runs it; the
+  IFD here): IFD 0 only; strips or tiles, planar or chunky, FillOrder 2;
+  none, PackBits, LZW (libtiff's codes and the old LSB-first ones),
+  Deflate and LZMA (inflated here with ``zlib`` / ``lzma``) and JPEG (the
+  JPEG decoder above, tag 347's tables merged in, YCbCr converted within
+  each chunk), the horizontal predictor; 1-16-bit gray, RGB at 8 and 16
+  bits, palette, gray + alpha, CMYK, YCbCr JPEG, associated and
+  unassociated alpha.  Pillow's view takes its mode from Pillow's table
+  (a combination it lacks fails, as Pillow's open), unpremultiplies
+  associated alpha, clips 16-bit gray and applies the Orientation; cv2's
+  goes through libtiff's RGBA image (unassociated alpha premultiplied,
+  16 bits through its table, the askew reads of cut tiles by its gray and
+  palette routines) for 8-bit output and reads 16-bit samples as stored
+  under ``IMREAD_UNCHANGED``, the Orientation applied under both flags.
 
 Every other format Pillow 12.1 or cv2 5.0 identifies is named
 (``image_format``) and raises ``UnsupportedImage`` in the view of a
-library that reads it (ROADMAP.md §1 item 3): TIFF, JPEG 2000, AVIF, the
-PNM family, TGA, ICO, ... and arithmetic-coded, lossless, hierarchical,
-12-bit and YCCK JPEG.  Bytes that no decoder can read (truncated, bad
-markers, bad zlib, LZW, Huffman or VP8 data, a format neither library of
-the view reads) raise ``CorruptImage``, an ``OSError`` like Pillow's,
-which ``LmdbDataset`` turns into its dummy crop.
+library that reads it (ROADMAP.md §1 item 3): JPEG 2000, AVIF, the PNM
+family, TGA, ICO, ..., the TIFF forms not decoded (named as "TIFF
+(ZSTD)": CCITT, ZSTD, old-style JPEG, SampleFormat 2 / 3, 12- and 32-bit
+samples, CIELab, LogLuv, YCbCr without JPEG) and arithmetic-coded,
+lossless, hierarchical, 12-bit and YCCK JPEG.  Bytes that no decoder can
+read (truncated, bad markers, bad zlib, LZW, Huffman or VP8 data, a
+format neither library of the view reads) raise ``CorruptImage``, an
+``OSError`` like Pillow's, which ``LmdbDataset`` turns into its dummy
+crop.
 
 Each call goes into a host library (``csrc/imagecodec.cpp``, and
-``csrc/webpcodec.cpp`` for WebP; built with ``g++`` at first use into
-``build/mrn_tpu_torch/``); ``resize(rgba, size)`` is Pillow's bicubic
-resize (through premultiplied RGBa), a crop already at ``size`` returned as
-it is; ``to_rgba(array)`` is ``PIL.Image.fromarray(array).convert("RGBA")``;
-``encode_png(array)`` writes a gray, RGB or RGBA PNG (colour type 0, 2 or
-6, as given).  ``data.image_ref`` holds the first forms' decoder (8-bit
-PNG, baseline 4:4:4 / 4:2:2 / 4:2:0 JPEG) and the resize in numpy, for the
-tests.
+``csrc/webpcodec.cpp`` for WebP, ``csrc/tiffcodec.cpp`` for TIFF; built
+with ``g++`` at first use into ``build/mrn_tpu_torch/``); ``resize(rgba,
+size)`` is Pillow's bicubic resize (through premultiplied RGBa), a crop
+already at ``size`` returned as it is; ``to_rgba(array)`` is
+``PIL.Image.fromarray(array).convert("RGBA")``; ``encode_png(array)``
+writes a gray, RGB or RGBA PNG (colour type 0, 2 or 6, as given).
+``data.image_ref`` holds the first forms' decoder (8-bit PNG, baseline
+4:4:4 / 4:2:2 / 4:2:0 JPEG) and the resize in numpy, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import lzma
 import re
 import struct
 import zlib
@@ -106,13 +124,13 @@ def _lib() -> ctypes.CDLL:
         ip = ctypes.POINTER(ctypes.c_int)
         lib.ic_jpeg_info.argtypes = [buf, sz, ip, ip, ip, buf, i]
         lib.ic_jpeg_decode.argtypes = [buf, sz, i, i, p, buf, i]
-        lib.ic_jpeg_samples.argtypes = [buf, sz, p, buf, i]
+        lib.ic_jpeg_samples.argtypes = [buf, sz, i, p, buf, i]
         lib.ic_png_decode.argtypes = [buf, sz, i, i, i, i, i, buf, i, buf, i, i, i, p, buf, i]
         lib.ic_png_samples.argtypes = [buf, sz, i, i, i, i, i, p, buf, i]
         lib.ic_gif_lzw.argtypes = [buf, sz, i, sz, p, ctypes.POINTER(sz), buf, i]
         lib.ic_resize_rgba.argtypes = [p, i, i, i, i, p]
-        for fn in (lib.ic_jpeg_info, lib.ic_jpeg_decode, lib.ic_jpeg_samples, lib.ic_png_decode,
-                   lib.ic_png_samples, lib.ic_gif_lzw, lib.ic_resize_rgba):
+        for fn in (lib.ic_jpeg_info, lib.ic_jpeg_decode, lib.ic_jpeg_samples,
+                   lib.ic_png_decode, lib.ic_png_samples, lib.ic_gif_lzw, lib.ic_resize_rgba):
             fn.restype = i
         lib._typed = True
     return lib
@@ -154,8 +172,6 @@ class PngHeader(NamedTuple):
 # `checkSignature`).  Pillow's stub formats (BUFR, GRIB, HDF5, MPEG and WMF
 # here) are named but load with neither library.
 _MAGIC = (
-    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"),
-    (b"MM*\x00", "TIFF"), (b"II\x00*", "TIFF"),
     (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "CUR"), (b"icns", "ICNS"),
     (b"\xffO\xffQ", "JPEG 2000"), (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
     (b"\x59\xa6\x6a\x95", "Sun raster"), (b"#?RADIANCE", "Radiance HDR"),
@@ -168,12 +184,15 @@ _MAGIC = (
     (b"\x00\x00\x01\xb3", "MPEG"), (b"\xd7\xcd\xc6\x9a\x00\x00", "WMF"),
     (b"\x01\x00\x00\x00", "WMF"),
 )
+# TIFF and BigTIFF headers (Pillow's PREFIXES: the last two are invalid, and
+# Pillow reads them in the first two bytes' byte order)
+_TIFF_MAGIC = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+", b"MM*\x00", b"II\x00*")
 _PILLOW_READS = frozenset({
-    "TIFF", "BigTIFF", "ICO", "CUR", "ICNS", "JPEG 2000", "Sun raster", "PSD", "QOI", "DDS", "BLP",
+    "ICO", "CUR", "ICNS", "JPEG 2000", "Sun raster", "PSD", "QOI", "DDS", "BLP",
     "FTEX", "MSP", "PIXAR", "FITS", "XPM", "XV thumbnail", "EPS", "McIDAS", "IM", "AVIF", "PBM",
     "PGM", "PPM", "PFM", "DCX", "PCX", "SGI", "DIB", "GBR", "FLI", "XBM", "PCD", "SPIDER",
     "IPTC/NAA", "IM Tools", "TGA"})
-_CV2_READS = frozenset({"TIFF", "BigTIFF", "JPEG 2000", "Sun raster", "Radiance HDR", "AVIF",
+_CV2_READS = frozenset({"JPEG 2000", "Sun raster", "Radiance HDR", "AVIF",
                         "PBM", "PGM", "PPM", "PFM", "color PFM", "PAM"})
 _WS = b" \t\n\r\x0b\x0c"
 _PNM = {b"P1": "PBM", b"P4": "PBM", b"P2": "PGM", b"P5": "PGM", b"P3": "PPM", b"P6": "PPM",
@@ -297,8 +316,9 @@ def _weak_format(buf: bytes) -> Optional[str]:
 
 
 def image_format(buf: bytes) -> str:
-    """"png", "jpeg", "gif", "bmp", "webp" (the forms decoded here), the
-    name of another format Pillow or cv2 identifies, or "unknown"."""
+    """"png", "jpeg", "gif", "bmp", "webp", "tiff" (the forms decoded
+    here), the name of another format Pillow or cv2 identifies (a TIFF form
+    not decoded as "TIFF (ZSTD)"), or "unknown"."""
     if buf.startswith(PNG_MAGIC):
         return "png"
     if buf[:3] == b"\xff\xd8\xff":
@@ -309,6 +329,8 @@ def image_format(buf: bytes) -> str:
         return "bmp"
     if buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
         return "webp"
+    if buf[:4] in _TIFF_MAGIC:
+        return _tiff_name(buf)
     for magic, name in _MAGIC:
         if buf.startswith(magic) and (name not in ("ICO", "CUR") or buf[4:6] != b"\x00\x00"):
             return name    # an icon directory of no entries is a TGA's header
@@ -861,6 +883,438 @@ def _webp_rgba(w: _WebP, key: Optional[str]) -> np.ndarray:
     return canvas
 
 
+# -------------------------------------------------------------------- TIFF
+TIFF_SOURCE = SOURCE.with_name("tiffcodec.cpp")
+_TIFF_NONE, _TIFF_JPEG, _TIFF_LZMA, _TIFF_DEFLATE = 1, 7, 34925, (8, 32946)
+# none, LZW, JPEG, Deflate, PackBits, Deflate (old code), LZMA
+_TIFF_DECODED = frozenset({1, 5, 7, 8, 32773, 32946, 34925})
+# the compressions Pillow 12.1 names (TiffImagePlugin.COMPRESSION_INFO)
+_TIFF_COMPRESSION = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4", 6: "old-style JPEG",
+                     32771: "CCITT RLEW", 32809: "ThunderScan", 34676: "SGILog",
+                     34677: "SGILog24", 50000: "ZSTD", 50001: "WebP"}
+# field types: (bytes, struct code)
+_TIFF_TYPES = {1: (1, "B"), 2: (1, "B"), 3: (2, "H"), 4: (4, "I"), 5: (8, "II"), 6: (1, "b"),
+               7: (1, "B"), 8: (2, "h"), 9: (4, "i"), 10: (8, "ii"), 11: (4, "f"), 12: (8, "d"),
+               13: (4, "I"), 16: (8, "Q"), 17: (8, "q"), 18: (8, "Q")}
+# the fields read as numbers, and the integer types they may have
+_TIFF_NUMERIC = frozenset((256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320,
+                           322, 323, 324, 325, 338, 339))
+_TIFF_INTEGER = frozenset((1, 3, 4, 6, 8, 9, 13, 16, 17, 18))
+
+
+def _tiff_lib() -> ctypes.CDLL:
+    lib = _host_build.load("tiffcodec", TIFF_SOURCE)
+    if not getattr(lib, "_typed", False):
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.tf_decode.argtypes = [ctypes.c_char_p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
+                                  i, p, ctypes.c_char_p, i]
+        lib.tf_decode.restype = i
+        lib._typed = True
+    return lib
+
+
+class _Tiff(NamedTuple):
+    order: str               # "<" or ">"
+    big: bool                # BigTIFF
+    tags: dict               # IFD 0: tag -> tuple of values
+    width: int
+    height: int
+    spp: int
+    bps: Tuple[int, ...]     # one per sample
+    compression: int
+    photometric: int
+    planar: int
+    fillorder: int
+    predictor: int
+    extra: Tuple[int, ...]
+    sample_format: Tuple[int, ...]
+    orientation: int
+
+
+def _tiff(buf: bytes, key: Optional[str], pillow: bool) -> _Tiff:
+    """IFD 0 of a TIFF or BigTIFF as the view's library reads it: Pillow
+    takes the byte order from the first two bytes and BigTIFF only where
+    the third byte is 43 (so a big-endian BigTIFF reads as a classic TIFF),
+    libtiff wants the magic number in the file's byte order."""
+    where = _where(key)
+    if len(buf) < 8:
+        raise CorruptImage(f"{where}truncated TIFF header")
+    e = "<" if buf[:2] == b"II" else ">"
+    magic = struct.unpack_from(e + "H", buf, 2)[0]
+    if pillow:
+        big = buf[2] == 43
+    elif magic in (42, 43):
+        big = magic == 43
+    else:
+        raise CorruptImage(f"{where}bad TIFF magic number {magic}")
+    if big:
+        if len(buf) < 16:
+            raise CorruptImage(f"{where}truncated BigTIFF header")
+        if not pillow and struct.unpack_from(e + "HH", buf, 4) != (8, 0):
+            raise CorruptImage(f"{where}bad BigTIFF header")
+        at = struct.unpack_from(e + "Q", buf, 8)[0]
+        count_fmt, entry, inline, ptr = "Q", 20, 8, "Q"
+    else:
+        at = struct.unpack_from(e + "I", buf, 4)[0]
+        count_fmt, entry, inline, ptr = "H", 12, 4, "I"
+    csize = struct.calcsize(count_fmt)
+    if at < 8 or at + csize > len(buf):
+        raise CorruptImage(f"{where}truncated TIFF (no IFD at {at})")
+    n = struct.unpack_from(e + count_fmt, buf, at)[0]
+    if at + csize + n * entry > len(buf):
+        raise CorruptImage(f"{where}truncated TIFF IFD")
+    tags = {}
+    for k in range(n):
+        pos = at + csize + k * entry
+        tag, typ = struct.unpack_from(e + "HH", buf, pos)
+        count = struct.unpack_from(e + ("Q" if big else "I"), buf, pos + 4)[0]
+        if typ not in _TIFF_TYPES or tag in tags:
+            continue
+        if tag in _TIFF_NUMERIC and typ not in _TIFF_INTEGER:
+            continue   # libtiff ignores a field of the wrong type
+        size, code = _TIFF_TYPES[typ]
+        total = size * count
+        if total <= inline:
+            data = buf[pos + 4 + (8 if big else 4):pos + 4 + (8 if big else 4) + total]
+        else:
+            off = struct.unpack_from(e + ptr, buf, pos + 4 + (8 if big else 4))[0]
+            if off + total > len(buf):
+                raise CorruptImage(f"{where}truncated TIFF field {tag}")
+            data = buf[off:off + total]
+        if typ in (2, 7) and tag != 347:
+            tags[tag] = (data,)
+        elif tag == 347:
+            tags[tag] = (bytes(data),)
+        else:
+            tags[tag] = struct.unpack(e + code * count, data)
+    one = lambda t, d: (tags.get(t) or (d,))[0]   # noqa: E731
+    if 256 not in tags or 257 not in tags:
+        raise CorruptImage(f"{where}TIFF without its dimensions")
+    width, height = int(one(256, 0)), int(one(257, 0))
+    compression, photometric = int(one(259, 1)), int(one(262, 0))
+    spp = int(one(277, 3 if compression == 6 and photometric in (2, 6) else 1))
+    bps = tuple(int(v) for v in tags.get(258, (1,)))
+    if pillow and not bps:   # Pillow takes an empty BitsPerSample for its default
+        bps = (1,)
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) == 1:
+        bps = bps * spp
+    if not bps:
+        raise CorruptImage(f"{where}TIFF of {spp} samples and bits {bps}")
+    if 324 in tags and not (tags.get(322) and tags.get(323) and
+                            min(tags[322][0], tags[323][0]) > 0):
+        raise CorruptImage(f"{where}TIFF tiles without their size")
+    sf = tuple(int(v) for v in tags.get(339, (1,)))
+    if len(sf) > 1 and max(sf) == min(sf) == 1:
+        sf = (1,)
+    return _Tiff(e, big, tags, width, height, spp, bps, compression, photometric,
+                 int(one(284, 1)), int(one(266, 1)), int(one(317, 1)),
+                 tuple(int(v) for v in tags.get(338, ())), sf, int(one(274, 1)))
+
+
+def _tiff_scope(t: _Tiff) -> Optional[str]:
+    """The form of a TIFF the port does not decode, or None."""
+    c = t.compression
+    if c in _TIFF_COMPRESSION:
+        return _TIFF_COMPRESSION[c]
+    if c not in _TIFF_DECODED:
+        return f"compression {c}"
+    if any(v != 1 for v in t.sample_format):
+        return f"SampleFormat {max(t.sample_format)}"
+    if t.predictor == 3:
+        return "floating-point predictor"
+    if any(b > 16 for b in t.bps):
+        return f"{max(t.bps)}-bit samples"
+    if t.photometric in (8, 9, 10):
+        return "CIELab"
+    if t.photometric in (32844, 32845):
+        return "LogLuv"
+    if t.photometric == 6 and c != _TIFF_JPEG:
+        return "YCbCr without JPEG"
+    if t.photometric == 3 and max(t.bps) > 8:
+        return f"{max(t.bps)}-bit palette"
+    if any(b not in (1, 2, 4, 8, 16) for b in t.bps):
+        return f"{max(t.bps)}-bit samples"
+    return None
+
+
+def _tiff_name(buf: bytes) -> str:
+    """image_format of a TIFF: "tiff" where the port decodes it (or cannot
+    read its IFD), else the form, as "TIFF (ZSTD)"."""
+    try:
+        t = _tiff(buf, None, pillow=False)
+    except CorruptImage:
+        return "tiff"
+    form = _tiff_scope(t)
+    return "tiff" if form is None else f"{'BigTIFF' if t.big else 'TIFF'} ({form})"
+
+
+def _tiff_chunks(t: _Tiff, buf: bytes, key: Optional[str]):
+    """(tiled, chunk width, chunk height, [chunk bytes as stored])."""
+    where = _where(key)
+    tiled = 324 in t.tags
+    if tiled:   # _tiff saw a tile size
+        cw, ch = int(t.tags[322][0]), int(t.tags[323][0])
+        offs, counts = t.tags.get(324, ()), t.tags.get(325, ())
+    else:
+        cw, ch = t.width, int((t.tags.get(278) or (2 ** 32 - 1,))[0])
+        ch = min(max(ch, 1), t.height) if ch else t.height
+        offs, counts = t.tags.get(273, ()), t.tags.get(279, ())
+    across = -(-t.width // cw)
+    need = across * -(-t.height // ch) * (t.spp if t.planar == 2 else 1)
+    if len(offs) < need or len(counts) < need:
+        raise CorruptImage(f"{where}TIFF with {len(offs)} strips or tiles, not {need}")
+    chunks = []
+    for off, n in zip(offs[:need], counts[:need]):
+        if off < 0 or n < 0 or off + n > len(buf):
+            raise CorruptImage(f"{where}truncated TIFF image data")
+        chunks.append(buf[off:off + n])
+    return tiled, cw, ch, chunks
+
+
+def _tiff_samples(t: _Tiff, buf: bytes, key: Optional[str], whole_tiles: bool = False
+                  ) -> np.ndarray:
+    """The stored samples [H, W, spp] (uint16, or uint8 for JPEG, its
+    YCbCr converted to RGB under Photometric 6) as libtiff decodes them;
+    ``whole_tiles``: every tile whole, past the image's right and bottom
+    edges, as libtiff's tile buffers hold them (JPEG: the image only)."""
+    where = _where(key)
+    if t.width <= 0 or t.height <= 0 or t.width * t.height > 1 << 30:   # cv2's pixel cap
+        raise CorruptImage(f"{where}TIFF of size {t.width}x{t.height}")
+    if len(set(t.bps)) != 1:
+        raise CorruptImage(f"{where}TIFF with bits per sample {t.bps}")
+    bps = t.bps[0]
+    tiled, cw, ch, chunks = _tiff_chunks(t, buf, key)
+    c = t.compression
+    # libtiff reverses the bits of FillOrder 2 data before every codec but JPEG's
+    if t.fillorder == 2 and c != _TIFF_JPEG:
+        chunks = [d.translate(_BIT_REVERSED) for d in chunks]
+    if c == _TIFF_JPEG:
+        return _tiff_jpeg(t, chunks, tiled, cw, ch, key)
+    planes = t.spp if t.planar == 2 else 1
+    rb = (cw * t.spp // planes * bps + 7) // 8
+    across = -(-t.width // cw)
+    method = c
+    if c in _TIFF_DEFLATE or c == _TIFF_LZMA:   # inflated here, to their decoded size
+        out = []
+        for k, d in enumerate(chunks):
+            y0 = k % (len(chunks) // planes) // across * ch
+            want = rb * (ch if tiled else min(ch, t.height - y0))
+            try:
+                if c == _TIFF_LZMA:
+                    raw = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(d, want)
+                else:
+                    raw = zlib.decompressobj().decompress(d, want)
+            except (zlib.error, lzma.LZMAError) as err:
+                raise CorruptImage(f"{where}broken TIFF data stream: {err}") from None
+            out.append(raw)
+        chunks, method = out, _TIFF_NONE
+    data = b"".join(chunks)
+    offs = np.cumsum([0] + [len(d) for d in chunks[:-1]]).astype(np.int64)
+    lens = np.array([len(d) for d in chunks], np.int64)
+    ow, oh = (across * cw, -(-t.height // ch) * ch) if tiled and whole_tiles else \
+        (t.width, t.height)
+    samples = np.empty((oh, ow, t.spp), np.uint16)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    _raise(_tiff_lib().tf_decode(data, offs.ctypes.data, lens.ctypes.data, len(chunks), method,
+                                 t.width, t.height, t.spp, bps, t.planar, int(tiled), cw, ch,
+                                 int(t.order == ">"), t.predictor, ow, oh, samples.ctypes.data,
+                                 err, _ERRLEN), err, key)
+    return samples
+
+
+_BIT_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
+
+
+def _tiff_jpeg(t: _Tiff, chunks, tiled: bool, cw: int, ch: int,
+               key: Optional[str]) -> np.ndarray:
+    """JPEG chunks as libtiff reads them: each with the JPEGTables of tag
+    347 before its own segments, converted from YCbCr to RGB under
+    Photometric 6 (JPEGCOLORMODE_RGB), its components as stored else."""
+    where = _where(key)
+    if t.bps[0] != 8:
+        raise CorruptImage(f"{where}JPEG TIFF at {t.bps[0]} bits")
+    tables = t.tags.get(347, (b"",))[0]
+    planes = t.spp if t.planar == 2 else 1
+    per = t.spp // planes
+    ycc = int(t.photometric == 6 and t.planar != 2)
+    lib = _lib()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    out = np.zeros((t.height, t.width, t.spp), np.uint8)
+    across, per_plane = -(-t.width // cw), len(chunks) // planes
+    for k, d in enumerate(chunks):
+        p, idx = divmod(k, per_plane)
+        x0, y0 = idx % across * cw, idx // across * ch
+        rows = ch if tiled else min(ch, t.height - y0)
+        if len(tables) >= 4 and d[:2] == b"\xff\xd8":
+            d = tables[:-2] + d[2:]
+        h, w, nc = _jpeg_shape(d, key)
+        if nc != per or (w, h) != (cw, rows):
+            raise CorruptImage(f"{where}JPEG TIFF chunk of {w}x{h}x{nc}, not "
+                               f"{cw}x{rows}x{per}")
+        px = np.empty((h, w, nc), np.uint8)
+        _raise(lib.ic_jpeg_samples(d, len(d), ycc, px.ctypes.data, err, _ERRLEN), err, key)
+        vis_w, vis_h = min(cw, t.width - x0), min(rows, t.height - y0)
+        out[y0:y0 + vis_h, x0:x0 + vis_w, p * per:(p + 1) * per] = px[:vis_h, :vis_w]
+    return out
+
+
+# Pillow 12.1's TIFF modes (TiffImagePlugin.OPEN_INFO): (byte order,
+# photometric, sample format, fill order, bits, extra samples) -> mode,
+# for the forms the port decodes; None for the ones Pillow reads and the
+# port does not.
+def _pillow_tiff_modes() -> dict:
+    modes = {}
+    for o in "<>":
+        for fill in (1, 2):
+            for photo in (0, 1):
+                for b in (1, 2, 4, 8):
+                    modes[(o, photo, (1,), fill, (b,), ())] = "1" if b == 1 else "L"
+            for b in (1, 2, 4, 8):
+                modes[(o, 3, (1,), fill, (b,), ())] = "P"
+        modes[(o, 2, (1,), 2, (8, 8, 8), ())] = "RGB"
+        modes[(o, 1, (2,), 1, (8,), ())] = None
+        modes[(o, 1, (1,), 1, (8, 8), (2,))] = "LA"
+        for extra, mode in (((), "RGB"), ((0,), "RGBX"), ((1,), "RGBa"), ((2,), "RGBA")):
+            bits = (8,) * (3 + len(extra))
+            modes[(o, 2, (1,), 1, bits, extra)] = mode
+            modes[(o, 2, (1,), 1, (16,) * len(bits), extra)] = mode
+            if extra:
+                modes[(o, 2, (1,), 1, bits + (8,), extra + (0,))] = mode
+                modes[(o, 2, (1,), 1, bits + (8, 8), extra + (0, 0))] = mode
+        modes[(o, 2, (1,), 1, (8,) * 4, ())] = "RGBA"
+        modes[(o, 2, (1,), 1, (16,) * 4, ())] = "RGBA"
+        modes[(o, 2, (1,), 1, (8,) * 4, (999,))] = "RGBA"
+        modes[(o, 3, (1,), 1, (8, 8), (0,))] = "PX"
+        modes[(o, 3, (1,), 1, (8, 8), (2,))] = "PA"
+        modes[(o, 5, (1,), 1, (8,) * 4, ())] = "CMYK"
+        modes[(o, 5, (1,), 1, (8,) * 5, (0,))] = "CMYK"
+        modes[(o, 5, (1,), 1, (8,) * 6, (0, 0))] = "CMYK"
+        modes[(o, 5, (1,), 1, (16,) * 4, ())] = "CMYK"
+        modes[(o, 6, (1,), 1, (8,), ())] = "L"
+        modes[(o, 6, (1,), 1, (8, 8, 8), ())] = "RGB"
+        modes[(o, 8, (1,), 1, (8, 8, 8), ())] = None
+        for sf in (2, 3):
+            for b in (16, 32):
+                modes[(o, 1, (sf,), 1, (b,), ())] = None
+            modes[(o, 0, (sf,), 1, (32,), ())] = None
+    modes[("<", 1, (1,), 1, (12,), ())] = None
+    modes[("<", 0, (1,), 1, (16,), ())] = "I;16"
+    modes[("<", 1, (1,), 1, (16,), ())] = "I;16"
+    modes[(">", 1, (1,), 1, (16,), ())] = "I;16"
+    modes[("<", 1, (1,), 2, (16,), ())] = "I;16"
+    modes[("<", 1, (1,), 1, (32,), ())] = None
+    return modes
+
+
+_PILLOW_TIFF = _pillow_tiff_modes()
+
+
+def _tiff_rgba(buf: bytes, key: Optional[str]) -> np.ndarray:
+    """Pillow's ``Image.open(b).convert("RGBA")`` of a TIFF: its mode from
+    the fields (OPEN_INFO; a combination it lacks fails to open), the
+    samples as libtiff (or, uncompressed, Pillow's own unpackers) give
+    them, the Orientation applied (``exif_transpose`` on load)."""
+    where = _where(key)
+    t = _tiff(buf, key, pillow=True)
+    if 0xBC01 in t.tags:
+        raise CorruptImage(f"{where}Windows Media Photo in a TIFF")
+    if t.compression not in _TIFF_DECODED and t.compression not in _TIFF_COMPRESSION or \
+            t.compression == 50001:   # Pillow's libtiff has no WebP codec
+        raise CorruptImage(f"{where}TIFF compression {t.compression} is not read by Pillow")
+    if len(t.bps) != t.spp or t.spp > 6:
+        raise CorruptImage(f"{where}TIFF with {t.spp} samples and bits {t.bps}")
+    photo = 6 if t.compression == 6 else t.photometric
+    mode_key = (t.order, photo, t.sample_format, t.fillorder, t.bps, t.extra)
+    if mode_key not in _PILLOW_TIFF:
+        raise CorruptImage(f"{where}TIFF of a mode Pillow does not read {mode_key[1:]}")
+    if photo == 6 and t.compression == _TIFF_NONE:
+        raise CorruptImage(f"{where}uncompressed YCbCr TIFF is not read by Pillow")
+    form = _tiff_scope(t)
+    mode = _PILLOW_TIFF[mode_key]
+    if form is not None or mode is None:
+        raise _unsupported(f"TIFF ({form or 'photometric %d, bits %s' % (photo, t.bps)})", key)
+    bps = t.bps[0]
+    raw = t.compression == _TIFF_NONE    # Pillow's own unpackers, not libtiff
+    planar = t.planar == 2 and t.spp > 1
+    misread = None
+    if raw and t.fillorder == 2 and (photo, bps) in ((0, 8), (3, 1), (3, 2), (3, 4)):
+        misread = "FillOrder 2"
+    if raw and t.planar == 2:   # one raw mode letter a plane
+        if t.spp == 1 and (photo, bps) not in ((1, 1), (1, 8), (3, 8)):
+            misread = "planar"
+        elif t.spp > 1 and (bps != 8 or t.fillorder != 1 or mode not in ("RGB", "RGBA", "CMYK")
+                            or t.extra not in ((), (2,), (999,))):
+            misread = "planar"
+    if planar and mode == "PX" and not raw and 324 in t.tags:
+        misread = "planar"   # the "R" unpacker writes four-byte pixels into a P image
+    if misread:   # Pillow raises ValueError (no unpacker) or misreads the planes
+        raise _unsupported(f"TIFF ({'uncompressed ' if raw else ''}{misread}, photometric "
+                           f"{photo}, bits {t.bps}, extra samples {t.extra})", key)
+    bands = {"LA": 2, "PA": 2, "PX": 1, "RGB": 3, "RGBX": 3, "CMYK": 4}.get(mode, 4)
+    if planar and not raw and bands != t.spp and 324 not in t.tags:
+        raise CorruptImage(f"{where}planar TIFF of {t.spp} samples in Pillow's {bands}-band mode")
+    s = _tiff_samples(t, buf, key)
+    rgba = np.empty(s.shape[:2] + (4,), np.uint8)
+    rgba[:, :, 3] = 255
+    if planar and not raw:
+        # libtiff's planes go one to a band byte ("R", "G", "B", "A" unpackers)
+        top = np.zeros(s.shape[:2] + (4,), np.uint8)
+        top[:, :, :bands] = (s >> 8 if bps == 16 else s)[:, :, :bands]
+        if mode in ("LA", "PA"):
+            top[:, :, 1:] = 0
+            s = top.astype(np.uint16)[:, :, [0, 3]]
+        else:
+            s = top.astype(np.uint16)
+        if mode == "RGBA" and (t.extra or (0,))[0] in (0, 1):
+            mode = "RGBa"   # TiffDecode.c's shuffle of associated alpha planes
+        bps = 8
+    if mode in ("1", "L"):
+        v = s[:, :, 0].astype(np.int32)
+        if t.photometric == 0:
+            v = (1 << bps) - 1 - v
+        v = v * (255 // ((1 << bps) - 1))
+        rgba[:, :, :3] = v[:, :, None]
+    elif mode == "I;16":
+        rgba[:, :, :3] = np.minimum(s[:, :, :1], 255)
+    elif mode == "LA":
+        rgba[:, :, :3] = s[:, :, :1]
+        rgba[:, :, 3] = s[:, :, 1]
+    elif mode in ("P", "PX", "PA"):
+        cmap = np.asarray(t.tags.get(320, ()), np.int64) // 256
+        n = len(cmap) // 3
+        table = np.zeros((256, 3), np.uint8)
+        table[:n] = cmap[:3 * n].reshape(3, n).T
+        rgba[:, :, :3] = table[np.minimum(s[:, :, 0], 255)]
+        if mode == "PA":
+            rgba[:, :, 3] = s[:, :, 1]
+    else:
+        top = (s >> 8 if bps == 16 else s).astype(np.uint8)
+        if mode == "CMYK":
+            k = 255 - top[:, :, 3:4].astype(np.int32)
+            tmp = top[:, :, :3].astype(np.int32) * k + 128
+            rgba[:, :, :3] = np.clip(k - (((tmp >> 8) + tmp) >> 8), 0, 255)
+        else:
+            rgba[:, :, :3] = top[:, :, :3]
+            if mode in ("RGBA", "RGBa"):
+                rgba[:, :, 3] = top[:, :, 3]
+            if mode == "RGBa":
+                rgba = _unpremultiply(rgba)
+    return _orient(rgba, t.orientation) if 1 < t.orientation <= 8 else rgba
+
+
+def _unpremultiply(rgba: np.ndarray) -> np.ndarray:
+    """Pillow's "RGBa" unpacker: colour * 255 / alpha, clipped; alpha 0 is
+    all zero."""
+    a = rgba[:, :, 3:4].astype(np.int32)
+    c = rgba[:, :, :3].astype(np.int32)
+    out = rgba.copy()
+    out[:, :, :3] = np.where(a == 255, c, np.clip(c * 255 // np.maximum(a, 1), 0, 255))
+    out[(a == 0)[:, :, 0]] = 0
+    return out
+
+
 # -------------------------------------------------------------- Pillow's view
 def _check_size(size: Tuple[int, int]) -> Tuple[int, int]:
     w, h = (int(v) for v in size)
@@ -879,7 +1333,7 @@ def _jpeg_shape(buf: bytes, key: Optional[str]) -> Tuple[int, int, int]:
 
 def decode(buf: bytes, size: Optional[Tuple[int, int]] = None,
            key: Optional[str] = None) -> np.ndarray:
-    """RGBA uint8 ``[H, W, 4]`` of a PNG, JPEG, GIF, BMP or WebP as Pillow's
+    """RGBA uint8 ``[H, W, 4]`` of a PNG, JPEG, GIF, BMP, WebP or TIFF as Pillow's
     ``Image.open(b).convert("RGBA")`` gives it, resized to ``size = (W,
     H)`` (Pillow's bicubic) unless ``size`` is None; ``key`` names the crop
     in errors."""
@@ -915,6 +1369,9 @@ def decode(buf: bytes, size: Optional[Tuple[int, int]] = None,
         rgba = _webp_rgba(webp, key)
         if not webp.pil_alpha:   # Pillow's "RGB" mode
             rgba[:, :, 3] = 255
+        return rgba if size is None else resize(rgba, size)
+    if fmt == "tiff" or fmt.startswith(("TIFF (", "BigTIFF (")):
+        rgba = _tiff_rgba(buf, key)
         return rgba if size is None else resize(rgba, size)
     raise _unreadable(fmt, "Pillow", key)
 
@@ -1007,7 +1464,7 @@ def _cv_jpeg(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
     h, w, nc = _jpeg_shape(buf, key)
     px = np.empty((h, w, nc), np.uint8)
     err = ctypes.create_string_buffer(_ERRLEN)
-    _raise(_lib().ic_jpeg_samples(buf, len(buf), px.ctypes.data, err, _ERRLEN), err, key)
+    _raise(_lib().ic_jpeg_samples(buf, len(buf), -1, px.ctypes.data, err, _ERRLEN), err, key)
     if nc == 1:
         out = px[:, :, 0] if flags == IMREAD_UNCHANGED else _gray3(px[:, :, 0])
     elif nc == 3:
@@ -1071,11 +1528,174 @@ def _cv_webp(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
     return _orient(np.ascontiguousarray(bgra[:, :, :3]), _exif_orientation(webp.exif))
 
 
+def _tiff_extra(t: _Tiff) -> Tuple[int, ...]:
+    """libtiff's ExtraSamples: the field, or (0,) * n where the samples
+    outnumber the photometric's colour channels."""
+    colour = {0: 1, 1: 1, 3: 1, 4: 1, 2: 3, 6: 3, 8: 3, 5: 4}.get(t.photometric, 0)
+    if t.extra or not colour or t.spp <= colour:
+        return t.extra
+    return (0,) * (t.spp - colour)
+
+
+def _rgba_image(t: _Tiff, s: np.ndarray) -> np.ndarray:
+    """libtiff's TIFFRGBAImage (tif_getimage.c) of the samples: RGBA uint8
+    as ``TIFFReadRGBAStrip`` / ``TIFFReadRGBATile`` give cv2, alpha
+    premultiplied where it is unassociated."""
+    bps, photo = t.bps[0], t.photometric
+    extra = _tiff_extra(t)
+    alpha = 0
+    if extra:
+        alpha = extra[0] if extra[0] in (1, 2) else (1 if extra[0] == 0 and t.spp > 3 else 0)
+    separate = t.planar == 2 and t.spp > 1
+    h, w = s.shape[:2]
+    rgba = np.full((h, w, 4), 255, np.uint8)
+    if photo in (0, 1) and not separate:
+        v = s[:, :, 0].astype(np.int32)
+        if bps == 16:
+            v, rng = v >> 8, 255
+        else:
+            rng = (1 << bps) - 1
+        v = ((rng - v) if photo == 0 else v) * 255 // rng
+        rgba[:, :, :3] = v[:, :, None]
+        if alpha and t.spp == 2 and bps == 8:
+            rgba[:, :, 3] = s[:, :, 1]
+        return rgba
+    if photo == 3:
+        cmap = np.asarray(t.tags.get(320, ()), np.int64)
+        n = 1 << bps
+        if len(cmap) < 3 * n:
+            raise CorruptImage("TIFF colormap too short")
+        cmap = cmap[:3 * n].reshape(3, n).T
+        if (cmap >= 256).any():   # else libtiff takes it for an 8-bit map
+            cmap = cmap >> 8
+        rgba[:, :, :3] = cmap[s[:, :, 0]]
+        return rgba
+    top = s.astype(np.int64)
+    if bps == 16:   # Bitdepth16To8
+        top = (top * 255 + 32767) // 65535
+    if photo == 5:
+        k = 255 - top[:, :, 3:4]
+        rgba[:, :, :3] = k * (255 - top[:, :, :3]) // 255
+        return rgba
+    if separate and photo in (0, 1):   # the gray plane for red, green and blue
+        top = np.concatenate([top[:, :, :1]] * 3 + [top[:, :, 1:]], axis=2)
+    rgba[:, :, :3] = top[:, :, :3]
+    if alpha:
+        a = top[:, :, 3 if top.shape[2] > 3 else 1]
+        rgba[:, :, 3] = a
+        if alpha == 2:   # UaToAa
+            rgba[:, :, :3] = (top[:, :, :3] * a[:, :, None] + 127) // 255
+    return rgba
+
+
+def _cv_gray(rgba: np.ndarray) -> np.ndarray:
+    """OpenCV's icvCvt_BGRA2Gray_8u_C4C1R on libtiff's RGBA."""
+    c = rgba.astype(np.int32)
+    return ((c[:, :, 0] * 4899 + c[:, :, 1] * 9617 + c[:, :, 2] * 1868 + 8192) >> 14).astype(
+        np.uint8)
+
+
+def _skewed_tiles(t: _Tiff, whole: np.ndarray) -> np.ndarray:
+    """The samples libtiff's gray and palette put routines (putgreytile,
+    putagreytile, put16bitbwtile, put8bitcmaptile) read from tiles cut by
+    the image's right edge: they step ``fromskew`` bytes, not pixels, past
+    each row, so a tile of 16-bit samples or of more than one sample a
+    pixel is read askew."""
+    cw, ch = int(t.tags[322][0]), int(t.tags[323][0])
+    bps, spp = t.bps[0], t.spp
+    out = whole[:t.height, :t.width].copy()
+    x0 = (t.width - 1) // cw * cw
+    npix, skew = t.width - x0, cw - (t.width - x0)
+    if skew == 0:
+        return out
+    step = spp * bps // 8
+    r = np.arange(ch)[:, None]
+    at = r * (npix * step + skew) + np.arange(npix)[None, :] * step
+    for y0 in range(0, t.height, ch):
+        tile = whole[y0:y0 + ch, x0:x0 + cw]
+        stream = (tile.astype("<u2").view(np.uint8) if bps == 16 else
+                  tile.astype(np.uint8)).reshape(-1)
+        nrow = min(ch, t.height - y0)
+        if bps == 16:   # *wp >> 8 of a little-endian word at a byte offset
+            out[y0:y0 + nrow, x0:, 0] = stream[at[:nrow] + 1].astype(np.uint16) << 8
+        else:
+            out[y0:y0 + nrow, x0:, 0] = stream[at[:nrow]]
+            if spp > 1:
+                out[y0:y0 + nrow, x0:, 1] = stream[at[:nrow] + 1]
+    return out
+
+
+def _cv_tiff(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
+    """OpenCV's TIFF decoder: its channels and depth from the fields, the
+    pixels through libtiff's RGBA image for 8-bit output (every
+    ``IMREAD_COLOR`` read), the stored 16-bit samples otherwise; the
+    Orientation applied under both flags."""
+    where = _where(key)
+    t = _tiff(buf, key, pillow=False)
+    photo, spp, bps = t.photometric, t.spp, t.bps[0]
+    if t.compression in (_TIFF_LZMA, 50000, 50001):   # cv2's libtiff has none of these codecs
+        raise CorruptImage(f"{where}TIFF compression {t.compression} is not read by cv2")
+    deep = bps > 8 and flags == IMREAD_UNCHANGED and spp != 2
+    if spp > 4 or bps not in (1, 4, 8, 10, 12, 14, 16, 32, 64) or (bps == 4 and photo != 3) or \
+            (photo == 5 and bps != 8) or \
+            (not deep and (bps > 16 or max(t.sample_format) == 3 or bps in (10, 12, 14))):
+        raise CorruptImage(f"{where}TIFF of {spp} samples at {bps} bits is not read by cv2 "
+                           f"({'IMREAD_UNCHANGED' if deep else 'through its RGBA image'})")
+    form = _tiff_scope(t)
+    if form is not None:
+        raise _unsupported(f"TIFF ({form})", key)
+    if not deep and (photo not in (0, 1, 2, 3, 5, 6) or
+                     photo in (2, 6) and spp - len(t.extra) < 3 or photo == 5 and spp < 4):
+        raise CorruptImage(f"{where}TIFF of photometric {photo} with {spp} samples is not read "
+                           f"by libtiff's RGBA image")
+    if bps == 1:
+        channels = 1
+    elif photo == 3 and bps != 16:
+        channels = 3
+    else:
+        channels = 1 if photo in (0, 1, 3) else spp
+    tiled = 324 in t.tags
+    if deep and t.planar == 2 and spp > 1:   # cv2 reads the planes as chunky samples
+        raise _unsupported("planar TIFF of 16-bit samples under cv2's IMREAD_UNCHANGED", key)
+    if not deep and t.planar == 2 and spp > 1 and photo == 3:   # PickSeparateCase has none
+        raise CorruptImage(f"{where}planar palette TIFF is not read by cv2")
+    if not deep and tiled and t.compression == _TIFF_NONE:
+        per = spp if t.planar != 2 else 1
+        if (int(t.tags[322][0]) * int(t.tags[323][0]) * per * bps // 8) % 1024:
+            raise CorruptImage(f"{where}uncompressed TIFF tiles cv2 does not read")
+    skew = not deep and tiled and photo in (0, 1, 3) and t.planar != 2 and \
+        (spp > 1 or bps == 16) and t.compression != _TIFF_JPEG
+    s = _tiff_samples(t, buf, key, whole_tiles=skew)
+    if skew:
+        s = _skewed_tiles(t, s)
+    if deep:
+        out = s[:, :, :channels] if channels > 1 else s[:, :, 0]
+        if channels >= 3:
+            out = np.concatenate([out[:, :, 2::-1], out[:, :, 3:]], axis=2)
+    else:
+        rgba = _rgba_image(t, s)
+        if flags == IMREAD_COLOR or channels == 3:
+            out = rgba[:, :, 2::-1]
+        elif channels == 4:
+            out = rgba[:, :, [2, 1, 0, 3]]
+        else:
+            out = _cv_gray(rgba)
+    out, o = np.ascontiguousarray(out), t.orientation
+    if not deep and tiled and o in (2, 3, 6, 7):
+        # TIFFReadRGBATile mirrors each tile's visible part; cv2 turns the rest
+        cw, ch = int(t.tags[322][0]), int(t.tags[323][0])
+        for x0 in range(0, t.width, cw):
+            out[:, x0:x0 + cw] = out[:, x0:x0 + cw][:, ::-1]
+        o = {2: 1, 3: 4, 6: 7, 7: 6}[o]
+    return _orient(out, o) if 1 < o <= 8 else out
+
+
 def imdecode(buf: bytes, flags: int = IMREAD_COLOR, key: Optional[str] = None) -> np.ndarray:
     """``cv2.imdecode(buf, flags)`` for ``IMREAD_COLOR`` (BGR [H, W, 3]
     uint8: EXIF orientation applied, alpha dropped, palette and gray
     expanded, 16 bits to their high byte) and ``IMREAD_UNCHANGED`` (the
-    stored channels as cv2 gives them, uint16 for 16-bit PNG, unrotated).
+    stored channels as cv2 gives them, uint16 for 16-bit PNG and TIFF,
+    unrotated but for TIFF).
     Bytes no decoder reads raise ``CorruptImage`` (where cv2 gives None)."""
     if flags not in (IMREAD_COLOR, IMREAD_UNCHANGED):
         raise ValueError(f"imdecode flags IMREAD_COLOR or IMREAD_UNCHANGED, not {flags}")
@@ -1091,21 +1711,29 @@ def imdecode(buf: bytes, flags: int = IMREAD_COLOR, key: Optional[str] = None) -
         return _cv_bmp(buf, flags, key)
     if fmt == "webp":
         return _cv_webp(buf, flags, key)
+    if fmt == "tiff" or fmt.startswith(("TIFF (", "BigTIFF (")):
+        return _cv_tiff(buf, flags, key)
     raise _unreadable(fmt, "cv2", key)
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
     """``cv2.imread(path, flags)``: None where the file is missing or
-    unreadable, as cv2 gives; a form the port does not decode raises."""
+    unreadable, as cv2 gives; a form the port does not decode raises.  A
+    TIFF whose Orientation (5-8) turns it into another shape is None too:
+    cv2's ``imdecode`` turns it, its ``imread`` fails to."""
     try:
         with open(path, "rb") as f:
             buf = f.read()
     except OSError:
         return None
     try:
-        return imdecode(buf, flags, key=path)
+        img = imdecode(buf, flags, key=path)
     except CorruptImage:
         return None
+    if img.shape[0] != img.shape[1] and buf[:4] in _TIFF_MAGIC and \
+            _tiff(buf, path, pillow=False).orientation in (5, 6, 7, 8):
+        return None
+    return img
 
 
 # ------------------------------------------------------------------ helpers

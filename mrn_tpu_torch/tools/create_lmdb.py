@@ -4,13 +4,14 @@
 Converts image+label ground-truth lists into train/test LMDB pairs with the
 reference's layout and policies:
 - keys image-%09d / label-%09d (1-based) + num-samples;
-- image validity check: the port's decoder (``data.image``, Pillow's
-  view) in place of ``cv2.imdecode``: bytes it cannot read are rejected, a
-  valid file of a form it does not decode (TIFF, JPEG 2000, AVIF, PNM,
-  TGA, ICO, ...; arithmetic, lossless, 12-bit or YCCK JPEG) raises (it
-  would raise in training too); PNG of any depth, plain or interlaced,
-  baseline and progressive JPEG of any sampling, CMYK JPEG, GIF, BMP and
-  WebP (lossy, lossless, alpha, animated) pass;
+- image validity check: the port's cv2 view (``data.image.imdecode``), as
+  JAX's ``cv2.imdecode``: bytes cv2 cannot read are rejected (a cut-off
+  file; TIFF in LZMA or ZSTD, 2- or 4-bit gray), a valid file of a form
+  the port does not decode (JPEG 2000, AVIF, PNM, TGA, ICO, ...; CCITT or
+  float TIFF; arithmetic, lossless, 12-bit or YCCK JPEG) raises (it would
+  raise in training too).  The RLE, BITFIELDS and core-header BMPs and the
+  GIFs without a colour table that cv2 reads and the port's cv2 view does
+  not model are judged by Pillow's view (``data.image.decode``);
 - 9:1 shuffled train/test split via a reshuffled 10-slot assignment
   (is_test, create_lmdb_dataset.py:13-14, 90-149);
 - per-language character lexicon emitted as dict.txt next to the train LMDB
@@ -49,7 +50,10 @@ def check_image_valid(image_bin: bytes) -> bool:
     if image_bin is None:
         return False
     try:
-        img = image_codec.decode(image_bin)
+        try:
+            img = image_codec.imdecode(image_bin, image_codec.IMREAD_COLOR)
+        except image_codec.UnsupportedImage:
+            img = image_codec.decode(image_bin)
     except image_codec.CorruptImage:
         return False
     return img.shape[0] * img.shape[1] != 0

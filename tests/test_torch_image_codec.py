@@ -249,7 +249,8 @@ def _set_interlace(png: bytes) -> bytes:
 def test_unsupported_forms_raise_naming_the_form():
     """The forms the codec now decodes give Pillow's arrays (the numpy
     reference, which models the first forms only, still raises on them);
-    TIFF and a JPEG form no library here writes raise in both."""
+    ZSTD-compressed TIFF and a JPEG form no library here writes raise in
+    both."""
     rng = np.random.default_rng(10)
     rgb = PIL.Image.fromarray(_crop(rng, 30, 60, 3))
     gray16 = PIL.Image.fromarray(_crop(rng, 30, 60, 1)[:, :, 0].astype(np.uint16) * 257)
@@ -261,6 +262,7 @@ def test_unsupported_forms_raise_naming_the_form():
         "GIF": _encode(rgb, "GIF"),
         "BMP": _encode(rgb, "BMP"),
         "WebP": _encode(rgb, "WEBP"),
+        "TIFF": _encode(rgb, "TIFF", compression="tiff_lzw"),
     }
     for form, data in decoded.items():
         np.testing.assert_array_equal(image.decode(data), _pil_rgba(data), err_msg=form)
@@ -268,11 +270,12 @@ def test_unsupported_forms_raise_naming_the_form():
             image_ref.decode(data, key="root/image-000000007")
     jpeg = bytearray(_encode(rgb, "JPEG"))
     jpeg[jpeg.index(b"\xff\xc0") + 1] = 0xC9     # SOF9: arithmetic coding
-    raising = {"TIFF": _encode(rgb, "TIFF"), "arithmetic-coded JPEG": bytes(jpeg)}
+    raising = {r"TIFF \(ZSTD\)": _encode(rgb, "TIFF", compression="zstd"),
+               "arithmetic-coded JPEG": bytes(jpeg)}
     for form, data in raising.items():
         for decoder in (image.decode, image_ref.decode):
             with pytest.raises(image.UnsupportedImage, match=form):
                 decoder(data, key="root/image-000000007")
     with pytest.raises(image.UnsupportedImage, match="root/image-000000007"):
-        image.decode(raising["TIFF"], key="root/image-000000007")
+        image.decode(raising[r"TIFF \(ZSTD\)"], key="root/image-000000007")
     assert not issubclass(image.UnsupportedImage, OSError)

@@ -11,6 +11,7 @@ every colour type, GIF and BMP; the forms still not decoded raise
 
 import importlib.util
 import io
+import re
 import struct
 from pathlib import Path
 
@@ -425,11 +426,11 @@ def _unencodable():
             "YCCK JPEG": _ycck()}
 
 
-@pytest.mark.parametrize("form", ["TIFF", "WebP", "arithmetic-coded JPEG", "lossless JPEG",
-                                  "12-bit JPEG", "YCCK JPEG"])
+@pytest.mark.parametrize("form", ["TIFF", "WebP", "TIFF (ZSTD)", "arithmetic-coded JPEG",
+                                  "lossless JPEG", "12-bit JPEG", "YCCK JPEG"])
 def test_forms_not_decoded_raise_naming_the_form(form):
-    if form == "WebP":   # decoded now (data/csrc/webpcodec.cpp): both views as the libraries
-        data = _pil_save(PIL.Image.fromarray(_scene(16, 16)), "WEBP")
+    if form in ("WebP", "TIFF"):   # decoded now (data/csrc/webpcodec.cpp, tiffcodec.cpp)
+        data = _pil_save(PIL.Image.fromarray(_scene(16, 16)), form.upper())
         np.testing.assert_array_equal(image.decode(data, key="root/image-000000007"),
                                       _pil_view(data))
         for flags in (image.IMREAD_COLOR, image.IMREAD_UNCHANGED):
@@ -438,12 +439,17 @@ def test_forms_not_decoded_raise_naming_the_form(form):
             assert got.dtype == ref.dtype and got.shape == ref.shape
             np.testing.assert_array_equal(got, ref)
         return
-    if form == "TIFF":
-        data = _pil_save(PIL.Image.fromarray(_scene(16, 16)), form.upper())
-        _pil_view(data)       # Pillow reads it
+    calls = (image.decode, image.imdecode)
+    if form == "TIFF (ZSTD)":
+        data = _pil_save(PIL.Image.fromarray(_scene(16, 16)), "TIFF", compression="zstd")
+        _pil_view(data)       # Pillow reads it; cv2's libtiff has no ZSTD codec
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+        with pytest.raises(image.CorruptImage):
+            image.imdecode(data)
+        form, calls = re.escape(form), (image.decode,)
     else:
         data = _unencodable()[form]
-    for call in (image.decode, image.imdecode):
+    for call in calls:
         with pytest.raises(image.UnsupportedImage, match=form):
             call(data, key="root/image-000000007")
     with pytest.raises(image.UnsupportedImage, match="root/image-000000007"):

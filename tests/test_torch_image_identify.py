@@ -75,7 +75,7 @@ def _writers():
         "SPIDER": (lambda: _pil("SPIDER", floats()), "SPIDER"),
         "TGA": (lambda: _pil("TGA", rgb), "TGA"),
         "TGA gray RLE": (lambda: _pil("TGA", gray, compression="tga_rle"), "TGA"),
-        "TIFF": (lambda: _pil("TIFF", rgb), "TIFF"),
+        "TIFF": (lambda: _pil("TIFF", rgb), "tiff"),
         "WebP": (lambda: _pil("WEBP", rgb), "webp"),
         "XBM": (lambda: _pil("XBM", bits()), "XBM"),
         "AVIF": (lambda: _pil("AVIF", rgb), "AVIF"),
@@ -91,7 +91,7 @@ def _writers():
                              (".pgm", GRAY, "PGM"), (".ppm", bgr, "PPM"), (".pam", bgr, "PAM"),
                              (".pfm", bgr.astype(np.float32) / 255, "color PFM"),
                              (".pfm", GRAY.astype(np.float32) / 255, "PFM"),
-                             (".sr", bgr, "Sun raster"), (".tiff", bgr, "TIFF"),
+                             (".sr", bgr, "Sun raster"), (".tiff", bgr, "tiff"),
                              (".hdr", bgr.astype(np.float32) / 255, "Radiance HDR"),
                              (".gif", bgr, "gif")):
         files[f"cv2 {ext} {array.ndim}d {array.dtype}"] = (
@@ -189,8 +189,9 @@ def test_random_and_cut_off_bytes_stay_corrupt(tmp_path):
 
 def test_cut_off_file_of_a_form_not_decoded_raises_unsupported():
     """Pillow fails on it (JAX's dummy crop); the port names the form and
-    stops, as for the whole file."""
-    data = _written("Pillow TIFF")[:300]
+    stops, as for the whole file.  (A cut-off TIFF, decoded now, is
+    ``CorruptImage`` and a dummy crop: ``tests/test_torch_tiff.py``.)"""
+    data = _written("Pillow JPEG 2000")[:300]
     assert _pillow_reads(data) is None
-    with pytest.raises(image.UnsupportedImage, match="TIFF"):
+    with pytest.raises(image.UnsupportedImage, match="JPEG 2000"):
         image.decode(data)

@@ -184,8 +184,8 @@ def test_unsupported_crop_raises_where_jax_decodes(tmp_path):
     """Crops in every form the port decodes beyond baseline JPEG and 8-bit
     PNG (progressive, 4:1:1, 4:4:0, CMYK, EXIF JPEG; 16-bit and interlaced
     PNG; GIF; BMP) give JAX's ``LmdbDataset`` items and ``ResizeNormalize``
-    tensors bitwise, and so does WebP; TIFF, which JAX decodes, still
-    raises."""
+    tensors bitwise, and so do WebP and TIFF; a ZSTD-compressed TIFF,
+    which JAX decodes, still raises."""
     opt, jopt = _opts()
     _odd_lmdb(str(tmp_path / "odd"), jpeg_progressive=True)
     names = sorted(n for n in os.listdir(os.path.join(FORMS, "crops")) if n != "labels.txt")
@@ -206,21 +206,22 @@ def test_unsupported_crop_raises_where_jax_decodes(tmp_path):
             assert _normed(ResizeNormalize((IMG_W, IMG_H))(g)[None]).tobytes() == \
                 to_jax(r)[None].astype(np.float32).tobytes()
     assert len(dataset.LmdbDataset(str(tmp_path / "forms"), opt)) == len(names) == 19
-    for form in ("TIFF", "WebP"):
+    for form in ("TIFF", "WebP", "ZSTD"):
         w = lmdb_store.LmdbWriter(str(tmp_path / form))
         w.put(b"num-samples", b"1")
-        w.put(b"image-000000001", _pil_bytes(form.upper()))
+        w.put(b"image-000000001", _pil_bytes("TIFF", compression="zstd") if form == "ZSTD"
+              else _pil_bytes(form.upper()))
         w.put(b"label-000000001", b"ab")
         w.commit()
         ref = jax_dataset.LmdbDataset(str(tmp_path / form), jopt)[0]
         assert ref[1] == "ab"
-        if form == "WebP":
+        if form != "ZSTD":
             got = dataset.LmdbDataset(str(tmp_path / form), opt)[0]
             assert got[1] == "ab"
             assert _normed(ResizeNormalize((IMG_W, IMG_H))(got[0])[None]).tobytes() == \
                 to_jax(ref[0])[None].astype(np.float32).tobytes()
             continue
-        with pytest.raises(image.UnsupportedImage, match=f"{form} images.*"):
+        with pytest.raises(image.UnsupportedImage, match=r"TIFF \(ZSTD\)"):
             dataset.LmdbDataset(str(tmp_path / form), opt)[0]
 
 
