@@ -133,9 +133,11 @@
    ``tests/fixtures/torch_webp/`` (WebP scenes under ``.jpg`` / ``.png``
    names, WebP word crops: lossy, lossless, alpha, animated, two named
    ``.jpg``) and on ``tests/fixtures/torch_tiff/`` (TIFF and BigTIFF
-   scenes under ``.jpg`` / ``.png`` names, a word crop in every TIFF form
-   the codec decodes, two named ``.jpg``), rows 4 and 1 counted; prints the
-   one-thread decode + resize crops/s of each form and the phase's seconds;
+   scenes under ``.jpg`` / ``.png`` names, a 1728-pixel G4 fax page among
+   them, a word crop in every TIFF form the codec decodes, two named
+   ``.jpg``), rows 4 and 1 counted; prints the one-thread decode + resize
+   crops/s of each form Pillow reads, the ms of each view of the fax page
+   and the phase's seconds;
 9e'. training-time augmentation on that tree (``AUG_*``): (a) the C++
    augment library (``data/csrc/augment.cpp``, built here with g++) on the
    committed fixtures of Pillow's, OpenCV's and the JAX package's outputs
@@ -607,6 +609,8 @@ WEBP_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_webp")
 TIFF_DIR = os.path.join(ROOT, "tests", "fixtures", "torch_tiff")
 FORMS_TREES = (("forms", FORMS_DIR), ("webp", WEBP_DIR), ("tiff", TIFF_DIR))
 FORMS_DECODE_REPEAT = 50
+# the TIFF tree's G4 fax page (1728 x 1100), each view timed FORMS_PAGE_REPEAT times
+FORMS_PAGE, FORMS_PAGE_REPEAT = "t6_g4_page.png", 10
 FORMS_SETS = 3
 # the augmentation phase: train_cli with Aug over the LMDB phase's tree, cut
 # to AUG_ITERS step-0 iterations a task (validated every AUG_VAL); host
@@ -2907,7 +2911,7 @@ def check_forms_fixtures(fixture_dir=FORMS_DIR):
                                        "from the committed one")
             views += len(got)
             if sub == "crops":
-                forms[name.split("_", 1)[1]] = data
+                forms[name.split("_", 1)[1]] = (data, name)
     print(f"  (a) the g++ codec reproduces all {views} committed views of the "
           f"{len(os.listdir(os.path.join(fixture_dir, 'imgs')))} scenes and {len(forms)} word "
           f"crops bitwise (Pillow's RGBA; cv2's IMREAD_COLOR and IMREAD_UNCHANGED)")
@@ -2935,13 +2939,31 @@ def forms_tree(root, cfg, final, fixture_dir):
     expected, forms = check_forms_fixtures(fixture_dir)
     rates = {}
     for form, data in forms.items():
+        if f"crops/{data[1]}:pil" not in expected.files:
+            continue   # Pillow does not read it: JAX's dummy crop
+        data = data[0]
         t0 = time.perf_counter()
         for _ in range(FORMS_DECODE_REPEAT):
             image_codec.decode(data, (256, 32))
         rates[form] = FORMS_DECODE_REPEAT / (time.perf_counter() - t0)
     print("  host decode + resize to 32x256, one thread, crops/s by form: "
           + ", ".join(f"{f.rsplit('.', 1)[0]} ({f.rsplit('.', 1)[1]}) {r:.0f}"
-                      for f, r in rates.items()))
+                      for f, r in rates.items())
+          + f"; {len(forms) - len(rates)} forms Pillow does not read")
+    page = os.path.join(fixture_dir, "imgs", FORMS_PAGE)
+    if os.path.exists(page):
+        with open(page, "rb") as f:
+            data = f.read()
+        ms = {}
+        for which, view in (("Pillow's view", image_codec.decode),
+                            ("cv2's IMREAD_COLOR", lambda b: image_codec.imdecode(
+                                b, image_codec.IMREAD_COLOR))):
+            t0 = time.perf_counter()
+            for _ in range(FORMS_PAGE_REPEAT):
+                shape = view(data).shape
+            ms[which] = 1e3 * (time.perf_counter() - t0) / FORMS_PAGE_REPEAT
+        print(f"  the {shape[1]}x{shape[0]} G4 fax page ({len(data)} bytes), one thread: "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items()))
     # ---- (b) the port's crop_by_word against the JAX tool's committed output
     crops = os.path.join(root, "crops")
     t0 = time.perf_counter()

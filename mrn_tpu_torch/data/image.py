@@ -45,24 +45,31 @@ The forms decoded:
 - TIFF and BigTIFF (``csrc/tiffcodec.cpp``, as libtiff 4.7 runs it; the
   IFD here): IFD 0 only; strips or tiles, planar or chunky, FillOrder 2;
   none, PackBits, LZW (libtiff's codes and the old LSB-first ones),
-  Deflate and LZMA (inflated here with ``zlib`` / ``lzma``) and JPEG (the
-  JPEG decoder above, tag 347's tables merged in, YCbCr converted within
-  each chunk), the horizontal predictor; 1-16-bit gray, RGB at 8 and 16
-  bits, palette, gray + alpha, CMYK, YCbCr JPEG, associated and
-  unassociated alpha.  Pillow's view takes its mode from Pillow's table
-  (a combination it lacks fails, as Pillow's open), unpremultiplies
-  associated alpha, clips 16-bit gray and applies the Orientation; cv2's
-  goes through libtiff's RGBA image (unassociated alpha premultiplied,
-  16 bits through its table, the askew reads of cut tiles by its gray and
-  palette routines) for 8-bit output and reads 16-bit samples as stored
-  under ``IMREAD_UNCHANGED``, the Orientation applied under both flags.
+  CCITT RLE, RLEW, G3 (1-D and 2-D) and G4 (tif_fax3.c's decoder, its
+  leniency included), Deflate and LZMA (inflated here with ``zlib`` /
+  ``lzma``), ZSTD (``csrc/zstdcodec.cpp``) and JPEG (the JPEG decoder
+  above, tag 347's tables merged in, YCbCr converted within each chunk),
+  the horizontal and floating-point predictors; 1-64-bit unsigned,
+  signed and float samples, gray, RGB, palette, gray + alpha, CMYK,
+  YCbCr (JPEG or subsampled blocks), CIELab, associated and unassociated
+  alpha.  Pillow's view takes its mode from Pillow's table (a combination
+  it lacks fails, as Pillow's open), unpremultiplies associated alpha,
+  clips 16-bit gray and its I and F modes, converts its LAB mode as
+  LittleCMS does (within one step a channel), reads uncompressed YCbCr
+  raw and applies the Orientation; cv2's goes through libtiff's RGBA
+  image (unassociated alpha premultiplied, 16 bits through its table,
+  TIFFYCbCrToRGB, the CIELab routines, the askew reads of cut tiles by
+  its gray, palette and 4 x 4 YCbCr routines) for 8-bit output and reads
+  deeper samples as stored under ``IMREAD_UNCHANGED`` (int8 to float64,
+  10-14 bits shifted to 16), the Orientation applied under both flags;
+  cv2's libtiff has no LZMA or ZSTD codec.
 
 Every other format Pillow 12.1 or cv2 5.0 identifies is named
 (``image_format``) and raises ``UnsupportedImage`` in the view of a
 library that reads it (ROADMAP.md §1 item 3): JPEG 2000, AVIF, the PNM
 family, TGA, ICO, ..., the TIFF forms not decoded (named as "TIFF
-(ZSTD)": CCITT, ZSTD, old-style JPEG, SampleFormat 2 / 3, 12- and 32-bit
-samples, CIELab, LogLuv, YCbCr without JPEG) and arithmetic-coded,
+(ThunderScan)": old-style JPEG, SGILog / LogLuv, ThunderScan, WebP) and
+arithmetic-coded,
 lossless, hierarchical, 12-bit and YCCK JPEG.  Bytes that no decoder can
 read (truncated, bad markers, bad zlib, LZW, Huffman or VP8 data, a
 format neither library of the view reads) raise ``CorruptImage``, an
@@ -70,7 +77,8 @@ format neither library of the view reads) raise ``CorruptImage``, an
 crop.
 
 Each call goes into a host library (``csrc/imagecodec.cpp``, and
-``csrc/webpcodec.cpp`` for WebP, ``csrc/tiffcodec.cpp`` for TIFF; built
+``csrc/webpcodec.cpp`` for WebP, ``csrc/tiffcodec.cpp`` and
+``csrc/zstdcodec.cpp`` for TIFF; built
 with ``g++`` at first use into ``build/mrn_tpu_torch/``); ``resize(rgba,
 size)`` is Pillow's bicubic resize (through premultiplied RGBa), a crop
 already at ``size`` returned as it is; ``to_rgba(array)`` is
@@ -83,6 +91,7 @@ writes a gray, RGB or RGBA PNG (colour type 0, 2 or 6, as given).
 from __future__ import annotations
 
 import ctypes
+import functools
 import lzma
 import re
 import struct
@@ -318,7 +327,7 @@ def _weak_format(buf: bytes) -> Optional[str]:
 def image_format(buf: bytes) -> str:
     """"png", "jpeg", "gif", "bmp", "webp", "tiff" (the forms decoded
     here), the name of another format Pillow or cv2 identifies (a TIFF form
-    not decoded as "TIFF (ZSTD)"), or "unknown"."""
+    not decoded as "TIFF (ThunderScan)"), or "unknown"."""
     if buf.startswith(PNG_MAGIC):
         return "png"
     if buf[:3] == b"\xff\xd8\xff":
@@ -885,9 +894,14 @@ def _webp_rgba(w: _WebP, key: Optional[str]) -> np.ndarray:
 
 # -------------------------------------------------------------------- TIFF
 TIFF_SOURCE = SOURCE.with_name("tiffcodec.cpp")
-_TIFF_NONE, _TIFF_JPEG, _TIFF_LZMA, _TIFF_DEFLATE = 1, 7, 34925, (8, 32946)
-# none, LZW, JPEG, Deflate, PackBits, Deflate (old code), LZMA
-_TIFF_DECODED = frozenset({1, 5, 7, 8, 32773, 32946, 34925})
+ZSTD_SOURCE = SOURCE.with_name("zstdcodec.cpp")
+_TIFF_NONE, _TIFF_JPEG, _TIFF_LZMA, _TIFF_DEFLATE, _TIFF_ZSTD = 1, 7, 34925, (8, 32946), 50000
+# none, CCITT RLE, G3, G4, LZW, JPEG, Deflate, CCITT RLEW, PackBits, Deflate (old
+# code), LZMA, ZSTD
+_TIFF_DECODED = frozenset({1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946, 34925, 50000})
+_TIFF_FAX = frozenset({2, 3, 4, 32771})
+# the codecs libtiff runs the Predictor field with (TIFFPredictorInit)
+_TIFF_PREDICTED = frozenset({5, 8, 32946, 34925, 50000})
 # the compressions Pillow 12.1 names (TiffImagePlugin.COMPRESSION_INFO)
 _TIFF_COMPRESSION = {2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4", 6: "old-style JPEG",
                      32771: "CCITT RLEW", 32809: "ThunderScan", 34676: "SGILog",
@@ -902,12 +916,22 @@ _TIFF_NUMERIC = frozenset((256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279
 _TIFF_INTEGER = frozenset((1, 3, 4, 6, 8, 9, 13, 16, 17, 18))
 
 
+def _zstd_lib() -> ctypes.CDLL:
+    lib = _host_build.load("zstdcodec", ZSTD_SOURCE)
+    if not getattr(lib, "_typed", False):
+        lib.zs_decode.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p,
+                                  ctypes.c_size_t, ctypes.c_char_p, ctypes.c_int]
+        lib.zs_decode.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
 def _tiff_lib() -> ctypes.CDLL:
     lib = _host_build.load("tiffcodec", TIFF_SOURCE)
     if not getattr(lib, "_typed", False):
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.tf_decode.argtypes = [ctypes.c_char_p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i,
-                                  i, p, ctypes.c_char_p, i]
+        lib.tf_decode.argtypes = [ctypes.c_char_p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
+                                  i, i, i, i, i, i, i, i, p, ctypes.c_char_p, i]
         lib.tf_decode.restype = i
         lib._typed = True
     return lib
@@ -929,6 +953,7 @@ class _Tiff(NamedTuple):
     extra: Tuple[int, ...]
     sample_format: Tuple[int, ...]
     orientation: int
+    ifd_bytes: int = 0       # the header, IFD 0 and its out-of-line values
 
 
 def _tiff(buf: bytes, key: Optional[str], pillow: bool) -> _Tiff:
@@ -964,10 +989,13 @@ def _tiff(buf: bytes, key: Optional[str], pillow: bool) -> _Tiff:
     if at + csize + n * entry > len(buf):
         raise CorruptImage(f"{where}truncated TIFF IFD")
     tags = {}
+    ifd_bytes = (16 + 8 + 20 * n + 8) if big else (8 + 2 + 12 * n + 4)
     for k in range(n):
         pos = at + csize + k * entry
         tag, typ = struct.unpack_from(e + "HH", buf, pos)
         count = struct.unpack_from(e + ("Q" if big else "I"), buf, pos + 4)[0]
+        if typ in _TIFF_TYPES and _TIFF_TYPES[typ][0] * count > inline:
+            ifd_bytes += _TIFF_TYPES[typ][0] * count
         if typ not in _TIFF_TYPES or tag in tags:
             continue
         if tag in _TIFF_NUMERIC and typ not in _TIFF_INTEGER:
@@ -985,6 +1013,10 @@ def _tiff(buf: bytes, key: Optional[str], pillow: bool) -> _Tiff:
             tags[tag] = (data,)
         elif tag == 347:
             tags[tag] = (bytes(data),)
+        elif typ in (5, 10):   # libtiff's float of a rational: num / den in float, 0 / 0 as 0
+            v = np.array(struct.unpack(e + code * count, data), np.float32).reshape(-1, 2)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                tags[tag] = tuple(np.where(v[:, 1] == 0, np.float32(0), v[:, 0] / v[:, 1]))
         else:
             tags[tag] = struct.unpack(e + code * count, data)
     one = lambda t, d: (tags.get(t) or (d,))[0]   # noqa: E731
@@ -1006,42 +1038,36 @@ def _tiff(buf: bytes, key: Optional[str], pillow: bool) -> _Tiff:
                             min(tags[322][0], tags[323][0]) > 0):
         raise CorruptImage(f"{where}TIFF tiles without their size")
     sf = tuple(int(v) for v in tags.get(339, (1,)))
-    if len(sf) > 1 and max(sf) == min(sf) == 1:
+    # libtiff reads SampleFormat as one value, or one a sample all alike, and
+    # refuses the directory otherwise: cv2's view, and Pillow's where
+    # libtiff decodes (every compression but none)
+    if not (len(sf) == 1 or len(sf) >= spp > 0 and len(set(sf[:spp])) == 1) and \
+            (not pillow or compression != _TIFF_NONE):
+        raise CorruptImage(f"{where}TIFF with SampleFormat {sf} for {spp} samples")
+    if not pillow:
+        sf = sf[:1]
+    elif not sf:   # Pillow drops an empty field
+        sf = (1,)
+    elif len(sf) > 1 and max(sf) == min(sf) == 1:
         sf = (1,)
     return _Tiff(e, big, tags, width, height, spp, bps, compression, photometric,
                  int(one(284, 1)), int(one(266, 1)), int(one(317, 1)),
-                 tuple(int(v) for v in tags.get(338, ())), sf, int(one(274, 1)))
+                 tuple(int(v) for v in tags.get(338, ())), sf, int(one(274, 1)), ifd_bytes)
 
 
 def _tiff_scope(t: _Tiff) -> Optional[str]:
     """The form of a TIFF the port does not decode, or None."""
     c = t.compression
-    if c in _TIFF_COMPRESSION:
-        return _TIFF_COMPRESSION[c]
     if c not in _TIFF_DECODED:
-        return f"compression {c}"
-    if any(v != 1 for v in t.sample_format):
-        return f"SampleFormat {max(t.sample_format)}"
-    if t.predictor == 3:
-        return "floating-point predictor"
-    if any(b > 16 for b in t.bps):
-        return f"{max(t.bps)}-bit samples"
-    if t.photometric in (8, 9, 10):
-        return "CIELab"
+        return _TIFF_COMPRESSION.get(c, f"compression {c}")
     if t.photometric in (32844, 32845):
         return "LogLuv"
-    if t.photometric == 6 and c != _TIFF_JPEG:
-        return "YCbCr without JPEG"
-    if t.photometric == 3 and max(t.bps) > 8:
-        return f"{max(t.bps)}-bit palette"
-    if any(b not in (1, 2, 4, 8, 16) for b in t.bps):
-        return f"{max(t.bps)}-bit samples"
     return None
 
 
 def _tiff_name(buf: bytes) -> str:
     """image_format of a TIFF: "tiff" where the port decodes it (or cannot
-    read its IFD), else the form, as "TIFF (ZSTD)"."""
+    read its IFD), else the form, as "TIFF (ThunderScan)"."""
     try:
         t = _tiff(buf, None, pillow=False)
     except CorruptImage:
@@ -1051,7 +1077,8 @@ def _tiff_name(buf: bytes) -> str:
 
 
 def _tiff_chunks(t: _Tiff, buf: bytes, key: Optional[str]):
-    """(tiled, chunk width, chunk height, [chunk bytes as stored])."""
+    """(tiled, chunk width, chunk height, [chunk bytes as stored], [their
+    offsets in the file])."""
     where = _where(key)
     tiled = 324 in t.tags
     if tiled:   # _tiff saw a tile size
@@ -1063,6 +1090,18 @@ def _tiff_chunks(t: _Tiff, buf: bytes, key: Optional[str]):
         offs, counts = t.tags.get(273, ()), t.tags.get(279, ())
     across = -(-t.width // cw)
     need = across * -(-t.height // ch) * (t.spp if t.planar == 2 else 1)
+    if need == 1 and not tiled and len(offs) and offs[0] and len(counts):
+        # libtiff's estimate of a bogus count (ByteCountLooksBad,
+        # EstimateStripByteCounts): 0 for any codec; uncompressed, past the
+        # file or short of the image (Pillow's raw reader reads on too)
+        hs, vs = _tiff_subsampling(t)   # TIFFScanlineSize64: YCbCr by blocks
+        full = ((-(-t.width // hs) * (hs * vs + 2 if hs * vs > 1 else t.spp) * t.bps[0] + 7)
+                // 8 // vs * t.height)
+        if counts[0] == 0 and t.compression != _TIFF_NONE:
+            counts = (min(max(len(buf) - t.ifd_bytes, 0), max(len(buf) - offs[0], 0)),)
+        elif t.compression == _TIFF_NONE and (counts[0] == 0 or counts[0] < full or
+                                              counts[0] > len(buf) - offs[0]):
+            counts = (full,)
     if len(offs) < need or len(counts) < need:
         raise CorruptImage(f"{where}TIFF with {len(offs)} strips or tiles, not {need}")
     chunks = []
@@ -1070,22 +1109,29 @@ def _tiff_chunks(t: _Tiff, buf: bytes, key: Optional[str]):
         if off < 0 or n < 0 or off + n > len(buf):
             raise CorruptImage(f"{where}truncated TIFF image data")
         chunks.append(buf[off:off + n])
-    return tiled, cw, ch, chunks
+    return tiled, cw, ch, chunks, [int(v) for v in offs[:need]]
 
 
-def _tiff_samples(t: _Tiff, buf: bytes, key: Optional[str], whole_tiles: bool = False
-                  ) -> np.ndarray:
-    """The stored samples [H, W, spp] (uint16, or uint8 for JPEG, its
-    YCbCr converted to RGB under Photometric 6) as libtiff decodes them;
-    ``whole_tiles``: every tile whole, past the image's right and bottom
-    edges, as libtiff's tile buffers hold them (JPEG: the image only)."""
+def _tiff_samples(t: _Tiff, buf: bytes, key: Optional[str], whole_tiles: bool = False,
+                  cv2_read: bool = False) -> np.ndarray:
+    """The stored samples [H, W, spp] (uint16 up to 16 bits, uint32 up to
+    32, uint64 above; uint8 for JPEG, its YCbCr converted to RGB under
+    Photometric 6) as libtiff decodes them; ``whole_tiles``: every tile
+    whole, past the image's right and bottom edges, as libtiff's tile
+    buffers hold them (JPEG: the image only).  ``cv2_read``: as cv2 drives
+    libtiff: a CCITT chunk whose data ends early keeps its rows decoded so
+    far and zeros after them (``TIFFReadRGBAStrip`` goes on where Pillow's
+    read fails), and chunks are read into libtiff's own buffers (Pillow
+    maps the file, so RLEW's word alignment counts from the file's
+    offsets)."""
     where = _where(key)
     if t.width <= 0 or t.height <= 0 or t.width * t.height > 1 << 30:   # cv2's pixel cap
         raise CorruptImage(f"{where}TIFF of size {t.width}x{t.height}")
     if len(set(t.bps)) != 1:
         raise CorruptImage(f"{where}TIFF with bits per sample {t.bps}")
+    predictor = _tiff_predictor(t, key)
     bps = t.bps[0]
-    tiled, cw, ch, chunks = _tiff_chunks(t, buf, key)
+    tiled, cw, ch, chunks, starts = _tiff_chunks(t, buf, key)
     c = t.compression
     # libtiff reverses the bits of FillOrder 2 data before every codec but JPEG's
     if t.fillorder == 2 and c != _TIFF_JPEG:
@@ -1093,16 +1139,26 @@ def _tiff_samples(t: _Tiff, buf: bytes, key: Optional[str], whole_tiles: bool = 
     if c == _TIFF_JPEG:
         return _tiff_jpeg(t, chunks, tiled, cw, ch, key)
     planes = t.spp if t.planar == 2 else 1
+    hs, vs = _tiff_subsampling(t)
     rb = (cw * t.spp // planes * bps + 7) // 8
+    if hs * vs > 1:   # rows of blocks: hs x vs Y samples, Cb, Cr
+        rb, ch_rows = -(-cw // hs) * (hs * vs + 2), lambda rows: -(-rows // vs)
+    else:
+        ch_rows = lambda rows: rows   # noqa: E731
     across = -(-t.width // cw)
     method = c
-    if c in _TIFF_DEFLATE or c == _TIFF_LZMA:   # inflated here, to their decoded size
+    if c in _TIFF_DEFLATE or c in (_TIFF_LZMA, _TIFF_ZSTD):   # inflated first, to their size
         out = []
         for k, d in enumerate(chunks):
             y0 = k % (len(chunks) // planes) // across * ch
-            want = rb * (ch if tiled else min(ch, t.height - y0))
+            want = rb * ch_rows(ch if tiled else min(ch, t.height - y0))
             try:
-                if c == _TIFF_LZMA:
+                if c == _TIFF_ZSTD:
+                    raw = ctypes.create_string_buffer(want)
+                    err = ctypes.create_string_buffer(_ERRLEN)
+                    _raise(_zstd_lib().zs_decode(d, len(d), raw, want, err, _ERRLEN), err, key)
+                    raw = raw.raw
+                elif c == _TIFF_LZMA:
                     raw = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(d, want)
                 else:
                     raw = zlib.decompressobj().decompress(d, want)
@@ -1113,15 +1169,60 @@ def _tiff_samples(t: _Tiff, buf: bytes, key: Optional[str], whole_tiles: bool = 
     data = b"".join(chunks)
     offs = np.cumsum([0] + [len(d) for d in chunks[:-1]]).astype(np.int64)
     lens = np.array([len(d) for d in chunks], np.int64)
+    at = np.array(starts, np.int64)
+    one = lambda tag, d: (t.tags.get(tag) or (d,))[0]   # noqa: E731
     ow, oh = (across * cw, -(-t.height // ch) * ch) if tiled and whole_tiles else \
         (t.width, t.height)
-    samples = np.empty((oh, ow, t.spp), np.uint16)
+    samples = np.empty((oh, ow, t.spp), np.uint16 if bps <= 16 else
+                       np.uint32 if bps <= 32 else np.uint64)
     err = ctypes.create_string_buffer(_ERRLEN)
-    _raise(_tiff_lib().tf_decode(data, offs.ctypes.data, lens.ctypes.data, len(chunks), method,
-                                 t.width, t.height, t.spp, bps, t.planar, int(tiled), cw, ch,
-                                 int(t.order == ">"), t.predictor, ow, oh, samples.ctypes.data,
-                                 err, _ERRLEN), err, key)
+    _raise(_tiff_lib().tf_decode(data, offs.ctypes.data, lens.ctypes.data,
+                                 None if cv2_read else at.ctypes.data, len(chunks), method,
+                                 int(one(292, 0)), int(cv2_read), t.width,
+                                 t.height, t.spp, bps, t.planar, int(tiled), cw, ch,
+                                 int(t.order == ">"), predictor, hs, vs, ow, oh,
+                                 samples.itemsize,
+                                 samples.ctypes.data, err, _ERRLEN), err, key)
     return samples
+
+
+def _ycbcr_sampling(t: _Tiff) -> Tuple[int, int]:
+    """YCbCrSubsampling (hs, vs): libtiff's default 2 x 2 where missing."""
+    hs, vs = (tuple(int(v) for v in t.tags.get(530, ())) + (2, 2))[:2]
+    return hs, vs
+
+
+def _tiff_subsampling(t: _Tiff) -> Tuple[int, int]:
+    """(hs, vs) of chunky 3-sample YCbCr not in JPEG, else (1, 1)."""
+    if t.photometric != 6 or t.compression == _TIFF_JPEG or t.planar == 2 or t.spp != 3:
+        return 1, 1
+    return _ycbcr_sampling(t)
+
+
+def _ycbcr_samples(t: _Tiff, buf: bytes, key: Optional[str]) -> np.ndarray:
+    """The Y, Cb, Cr of every pixel of YCbCr not in JPEG, where libtiff's
+    RGBA image reads it: 8 bits, 3 samples, a subsampling it has a routine
+    for (chunky; planar only 1 x 1)."""
+    hs, vs = _ycbcr_sampling(t)
+    if t.bps[0] != 8 or t.spp != 3 or (hs, vs) not in _YCBCR_ROUTINES or \
+            t.planar == 2 and (hs, vs) != (1, 1):
+        raise CorruptImage(f"{_where(key)}YCbCr TIFF of {t.spp} samples at {t.bps[0]} bits, "
+                           f"subsampling {hs} x {vs}, has no libtiff RGBA routine")
+    return _tiff_samples(t, buf, key)
+
+
+# the subsamplings tif_getimage.c has a YCbCr routine for
+_YCBCR_ROUTINES = frozenset({(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)})
+
+
+def _tiff_predictor(t: _Tiff, key: Optional[str]) -> int:
+    """The predictor libtiff runs: the field where the codec takes one
+    (else 1); one tif_predict.c refuses raises."""
+    p = t.predictor if t.compression in _TIFF_PREDICTED else 1
+    bps, sf = t.bps[0], t.sample_format[0]
+    if p == 2 and bps not in (8, 16, 32, 64) or p == 3 and (sf != 3 or bps not in (16, 24, 32, 64)):
+        raise CorruptImage(f"{_where(key)}TIFF predictor {p} at {bps} bits of sample format {sf}")
+    return p
 
 
 _BIT_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
@@ -1161,9 +1262,7 @@ def _tiff_jpeg(t: _Tiff, chunks, tiled: bool, cw: int, ch: int,
 
 
 # Pillow 12.1's TIFF modes (TiffImagePlugin.OPEN_INFO): (byte order,
-# photometric, sample format, fill order, bits, extra samples) -> mode,
-# for the forms the port decodes; None for the ones Pillow reads and the
-# port does not.
+# photometric, sample format, fill order, bits, extra samples) -> mode.
 def _pillow_tiff_modes() -> dict:
     modes = {}
     for o in "<>":
@@ -1174,7 +1273,7 @@ def _pillow_tiff_modes() -> dict:
             for b in (1, 2, 4, 8):
                 modes[(o, 3, (1,), fill, (b,), ())] = "P"
         modes[(o, 2, (1,), 2, (8, 8, 8), ())] = "RGB"
-        modes[(o, 1, (2,), 1, (8,), ())] = None
+        modes[(o, 1, (2,), 1, (8,), ())] = "L"
         modes[(o, 1, (1,), 1, (8, 8), (2,))] = "LA"
         for extra, mode in (((), "RGB"), ((0,), "RGBX"), ((1,), "RGBa"), ((2,), "RGBA")):
             bits = (8,) * (3 + len(extra))
@@ -1194,17 +1293,17 @@ def _pillow_tiff_modes() -> dict:
         modes[(o, 5, (1,), 1, (16,) * 4, ())] = "CMYK"
         modes[(o, 6, (1,), 1, (8,), ())] = "L"
         modes[(o, 6, (1,), 1, (8, 8, 8), ())] = "RGB"
-        modes[(o, 8, (1,), 1, (8, 8, 8), ())] = None
-        for sf in (2, 3):
-            for b in (16, 32):
-                modes[(o, 1, (sf,), 1, (b,), ())] = None
-            modes[(o, 0, (sf,), 1, (32,), ())] = None
-    modes[("<", 1, (1,), 1, (12,), ())] = None
+        modes[(o, 8, (1,), 1, (8, 8, 8), ())] = "LAB"
+        modes[(o, 1, (2,), 1, (16,), ())] = "I"      # I;16S, I;16BS
+        modes[(o, 1, (2,), 1, (32,), ())] = "I"      # I;32S, I;32BS
+        modes[(o, 0, (3,), 1, (32,), ())] = "F"      # F;32F, F;32BF
+        modes[(o, 1, (3,), 1, (32,), ())] = "F"
+    modes[("<", 1, (1,), 1, (12,), ())] = "I;16"    # I;12
     modes[("<", 0, (1,), 1, (16,), ())] = "I;16"
     modes[("<", 1, (1,), 1, (16,), ())] = "I;16"
     modes[(">", 1, (1,), 1, (16,), ())] = "I;16"
     modes[("<", 1, (1,), 2, (16,), ())] = "I;16"
-    modes[("<", 1, (1,), 1, (32,), ())] = None
+    modes[("<", 1, (1,), 1, (32,), ())] = "I"       # I;32N
     return modes
 
 
@@ -1229,12 +1328,19 @@ def _tiff_rgba(buf: bytes, key: Optional[str]) -> np.ndarray:
     mode_key = (t.order, photo, t.sample_format, t.fillorder, t.bps, t.extra)
     if mode_key not in _PILLOW_TIFF:
         raise CorruptImage(f"{where}TIFF of a mode Pillow does not read {mode_key[1:]}")
-    if photo == 6 and t.compression == _TIFF_NONE:
-        raise CorruptImage(f"{where}uncompressed YCbCr TIFF is not read by Pillow")
     form = _tiff_scope(t)
     mode = _PILLOW_TIFF[mode_key]
-    if form is not None or mode is None:
-        raise _unsupported(f"TIFF ({form or 'photometric %d, bits %s' % (photo, t.bps)})", key)
+    if photo == 6 and t.compression not in (_TIFF_JPEG, _TIFF_NONE) and t.spp != 3:
+        raise CorruptImage(f"{where}YCbCr TIFF of {t.spp} samples has no libtiff RGBA routine")
+    if photo == 6 and t.compression != _TIFF_JPEG and t.spp == 3 and form is None:
+        if t.compression == _TIFF_NONE:
+            rgba = _pillow_raw_ycbcr(t, buf, key)
+        else:   # Pillow's decoder reads it through libtiff's RGBA image
+            rgba = _rgba_image(t, _ycbcr_samples(t, buf, key))
+            rgba[:, :, 3] = 255
+        return _orient(rgba, t.orientation) if 1 < t.orientation <= 8 else rgba
+    if form is not None:
+        raise _unsupported(f"TIFF ({form})", key)
     bps = t.bps[0]
     raw = t.compression == _TIFF_NONE    # Pillow's own unpackers, not libtiff
     planar = t.planar == 2 and t.spp > 1
@@ -1242,17 +1348,20 @@ def _tiff_rgba(buf: bytes, key: Optional[str]) -> np.ndarray:
     if raw and t.fillorder == 2 and (photo, bps) in ((0, 8), (3, 1), (3, 2), (3, 4)):
         misread = "FillOrder 2"
     if raw and t.planar == 2:   # one raw mode letter a plane
-        if t.spp == 1 and (photo, bps) not in ((1, 1), (1, 8), (3, 8)):
+        # Pillow unpacks the plane with the rawmode's first letter ("I" of "I;16S")
+        if t.spp == 1 and (photo, bps) not in ((1, 1), (1, 8), (3, 8)) and \
+                not (bps == 32 and t.order == "<"):
             misread = "planar"
-        elif t.spp > 1 and (bps != 8 or t.fillorder != 1 or mode not in ("RGB", "RGBA", "CMYK")
-                            or t.extra not in ((), (2,), (999,))):
+        elif t.spp > 1 and (bps != 8 or t.fillorder != 1 or
+                            mode not in ("RGB", "RGBA", "CMYK", "LAB") or
+                            t.extra not in ((), (2,), (999,))):
             misread = "planar"
     if planar and mode == "PX" and not raw and 324 in t.tags:
         misread = "planar"   # the "R" unpacker writes four-byte pixels into a P image
     if misread:   # Pillow raises ValueError (no unpacker) or misreads the planes
         raise _unsupported(f"TIFF ({'uncompressed ' if raw else ''}{misread}, photometric "
                            f"{photo}, bits {t.bps}, extra samples {t.extra})", key)
-    bands = {"LA": 2, "PA": 2, "PX": 1, "RGB": 3, "RGBX": 3, "CMYK": 4}.get(mode, 4)
+    bands = {"LA": 2, "PA": 2, "PX": 1, "RGB": 3, "RGBX": 3, "CMYK": 4, "LAB": 3}.get(mode, 4)
     if planar and not raw and bands != t.spp and 324 not in t.tags:
         raise CorruptImage(f"{where}planar TIFF of {t.spp} samples in Pillow's {bands}-band mode")
     s = _tiff_samples(t, buf, key)
@@ -1278,6 +1387,20 @@ def _tiff_rgba(buf: bytes, key: Optional[str]) -> np.ndarray:
         rgba[:, :, :3] = v[:, :, None]
     elif mode == "I;16":
         rgba[:, :, :3] = np.minimum(s[:, :, :1], 255)
+    elif mode == "LAB":
+        if planar:   # each plane unpacked as "L": a and b not offset, the fourth byte 0
+            rgba[:, :, :3] = _pillow_lab_rgb(s[:, :, :3] ^ np.array([0, 128, 128], s.dtype))
+            rgba[:, :, 3] = 0
+        else:
+            rgba[:, :, :3] = _pillow_lab_rgb(s)
+    elif mode in ("I", "F"):
+        n = bps // 8
+        stored = s[:, :, 0].astype(f"<u{n}")
+        if t.order == ">" and not raw:   # libtiff's native words through "I;16BS", "F;32BF", ...
+            stored = stored.byteswap()
+        v = stored.view(f"<{'f' if mode == 'F' else 'i'}{n}")
+        # Pillow's i2rgb clips; its F conversion truncates, NaN to 0
+        rgba[:, :, :3] = np.where(v >= 255, 255, np.where(v > 0, v, 0)).astype(np.uint8)[:, :, None]
     elif mode == "LA":
         rgba[:, :, :3] = s[:, :, :1]
         rgba[:, :, 3] = s[:, :, 1]
@@ -1302,6 +1425,27 @@ def _tiff_rgba(buf: bytes, key: Optional[str]) -> np.ndarray:
             if mode == "RGBa":
                 rgba = _unpremultiply(rgba)
     return _orient(rgba, t.orientation) if 1 < t.orientation <= 8 else rgba
+
+
+def _pillow_raw_ycbcr(t: _Tiff, buf: bytes, key: Optional[str]) -> np.ndarray:
+    """Pillow's raw decoder on uncompressed YCbCr: each strip's bytes from
+    its offset on read as "RGBX", four a pixel, whatever the samples and
+    their subsampling (it fails where the file ends first)."""
+    where = _where(key)
+    if 324 in t.tags or t.planar == 2:
+        raise _unsupported("TIFF (uncompressed tiled or planar YCbCr, which Pillow misreads)", key)
+    rps = int((t.tags.get(278) or (2 ** 32 - 1,))[0]) or t.height
+    rps = min(max(rps, 1), t.height)
+    offs = t.tags.get(273, ())
+    rgba = np.empty((t.height, t.width, 4), np.uint8)
+    for k, y0 in enumerate(range(0, t.height, rps)):
+        rows = min(rps, t.height - y0)
+        need = 4 * t.width * rows
+        if k >= len(offs) or offs[k] < 0 or offs[k] + need > len(buf):
+            raise CorruptImage(f"{where}image file is truncated (uncompressed YCbCr TIFF)")
+        rgba[y0:y0 + rows] = np.frombuffer(buf, np.uint8, need, offs[k]).reshape(rows, t.width, 4)
+    rgba[:, :, 3] = 255
+    return rgba
 
 
 def _unpremultiply(rgba: np.ndarray) -> np.ndarray:
@@ -1577,6 +1721,12 @@ def _rgba_image(t: _Tiff, s: np.ndarray) -> np.ndarray:
         k = 255 - top[:, :, 3:4]
         rgba[:, :, :3] = k * (255 - top[:, :, :3]) // 255
         return rgba
+    if photo == 6 and t.compression != _TIFF_JPEG:
+        rgba[:, :, :3] = _ycbcr_rgb(t, s)
+        return rgba
+    if photo == 8:
+        rgba[:, :, :3] = _cielab_rgb(t, s)
+        return rgba
     if separate and photo in (0, 1):   # the gray plane for red, green and blue
         top = np.concatenate([top[:, :, :1]] * 3 + [top[:, :, 1:]], axis=2)
     rgba[:, :, :3] = top[:, :, :3]
@@ -1586,6 +1736,229 @@ def _rgba_image(t: _Tiff, s: np.ndarray) -> np.ndarray:
         if alpha == 2:   # UaToAa
             rgba[:, :, :3] = (top[:, :, :3] * a[:, :, None] + 127) // 255
     return rgba
+
+
+def _tiff_float_field(t: _Tiff, tag: int, default: Tuple[float, ...]) -> np.ndarray:
+    """A float field (RATIONAL or FLOAT) as libtiff's floats, or its default."""
+    v = t.tags.get(tag, ())
+    if len(v) < len(default) or not all(isinstance(x, (float, np.floating)) for x in v):
+        v = default
+    return np.array(v[:len(default) or len(v)], np.float32)
+
+
+def _ycbcr_rgb(t: _Tiff, s: np.ndarray) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGB of 8-bit Y, Cb, Cr samples [H, W, 3]: its
+    tables (TIFFYCbCrToRGBInit) from YCbCrCoefficients and
+    ReferenceBlackWhite, in the same float and fixed-point steps."""
+    f32 = np.float32
+    luma = _tiff_float_field(t, 529, (0.299, 0.587, 0.114))
+    ref = _tiff_float_field(t, 532, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0))
+    if np.isnan(luma).any() or luma[1] == 0 or not np.isfinite(ref).all():
+        raise CorruptImage("TIFF with invalid YCbCrCoefficients or ReferenceBlackWhite")
+
+    def fix(x):   # FIX(CLAMP(x, 0, 2)): float x * 65536, + 0.5 in double, truncated
+        x = f32(0) if not x >= 0 else min(x, f32(2))
+        return int(float(x * f32(65536)) + 0.5)
+
+    def code2v(c, rb, rw, cr):   # Code2V, then CLAMPw to +-4096 and (int32_t)
+        span = f32(rw - rb)
+        v = (c - np.int32(np.trunc(rb))).astype(f32) * f32(cr) / (span if span != 0 else f32(1))
+        return np.trunc(np.where(~(v >= -4096), -4096, np.minimum(v, 4096))).astype(np.int64)
+
+    lr, lg, lb = luma
+    f1, f3 = f32(2) - f32(2) * lr, f32(2) - f32(2) * lb
+    d1, d2, d3, d4 = fix(f1), -fix(f32(lr * f1) / lg), fix(f3), -fix(f32(lb * f3) / lg)
+    x = np.arange(-128, 128, dtype=np.int64)
+    cr = code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127)
+    cb = code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127)
+    cr_r, cb_b = (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + 32768
+    y_tab = code2v(x + 128, ref[0], ref[1], 255)
+    yy, b, r = y_tab[s[:, :, 0]], s[:, :, 1], s[:, :, 2]
+    rgb = np.stack([yy + cr_r[r], yy + ((cb_g[b] + cr_g[r]) >> 16), yy + cb_b[b]], axis=2)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _cielab_rgb(t: _Tiff, s: np.ndarray) -> np.ndarray:
+    """libtiff's CIELab RGBA routines (putcontig8bitCIELab8 / 16):
+    TIFFCIELab16ToXYZ against the WhitePoint (D50 by default), then
+    TIFFXYZToRGB's sRGB display table, in libtiff's float steps."""
+    f32 = np.float32
+    wp = _tiff_float_field(t, 318, ())
+    if len(wp) < 2:
+        tot = f32(96.4250) + f32(100.0) + f32(82.4680)
+        wp = np.array([f32(96.4250) / tot, f32(100.0) / tot], f32)
+    if wp[1] == 0:
+        raise CorruptImage("TIFF with an invalid WhitePoint")
+    x0 = wp[0] / wp[1] * f32(100)
+    z0 = (f32(1) - wp[0] - wp[1]) / wp[1] * f32(100)
+    y0 = f32(100)
+    if t.bps[0] == 8:   # TIFFCIELabToXYZ: the 8-bit samples scaled to 16 bits
+        l16 = s[:, :, 0].astype(np.int64) * 257
+        a16 = s[:, :, 1].astype(np.uint8).view(np.int8).astype(np.int64) * 256
+        b16 = s[:, :, 2].astype(np.uint8).view(np.int8).astype(np.int64) * 256
+    else:
+        l16 = s[:, :, 0].astype(np.int64)
+        a16 = s[:, :, 1].astype(np.uint16).view(np.int16).astype(np.int64)
+        b16 = s[:, :, 2].astype(np.uint16).view(np.int16).astype(np.int64)
+    lum = l16.astype(f32) * f32(100) / f32(65535)
+    small = lum < f32(8.856)
+    yy = np.where(small, (lum * y0) / f32(903.292), f32(0))
+    cby = np.where(small, f32(7.787) * (yy / y0) + f32(16) / f32(116), (lum + f32(16)) / f32(116))
+    yy = np.where(small, yy, y0 * cby * cby * cby)
+    channels = []
+    for v, scale, white, sign in ((a16, 500, x0, 1), (b16, 200, z0, -1)):
+        q = v.astype(f32) / f32(256) / f32(scale)
+        tmp = q + cby if sign > 0 else cby - q
+        channels.append(np.where(tmp < f32(0.2069), white * (tmp - f32(0.13793)) / f32(7.787),
+                                 white * tmp * tmp * tmp))
+    xx, zz = channels
+    table = _cielab_table()
+    rgb = np.empty(s.shape[:2] + (3,), np.uint8)
+    step = (f32(100) - f32(1)) / f32(1500)
+    for i, row in enumerate(_SRGB_DISPLAY):
+        lumc = (row[0] * xx + row[1] * yy + row[2] * zz).astype(f32)
+        lumc = np.minimum(np.maximum(lumc, f32(1)), f32(100))
+        idx = np.minimum(((lumc - f32(1)) / step).astype(np.int64), 1500)
+        rgb[:, :, i] = np.minimum(np.floor(table[idx].astype(np.float64) + 0.5), 255)
+    return rgb
+
+
+# TIFFDisplay display_sRGB's XYZ -> luminance matrix
+_SRGB_DISPLAY = np.array([[3.2410, -1.5374, -0.4986], [-0.9692, 1.8760, 0.0416],
+                          [0.0556, -0.2040, 1.0570]], np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _cielab_table() -> np.ndarray:
+    """TIFFCIELabToRGBInit's Yr2r: 255 * (i / 1500) ** (1 / 2.4) in float."""
+    i = np.arange(1501, dtype=np.float64)
+    return np.float32(255) * np.power(i / 1500, 1.0 / 2.4).astype(np.float32)
+
+
+def _mat3_inverse(a):
+    """LittleCMS's _cmsMAT3inverse, in its order of double operations."""
+    c0 = a[1][1] * a[2][2] - a[1][2] * a[2][1]
+    c1 = -a[1][0] * a[2][2] + a[1][2] * a[2][0]
+    c2 = a[1][0] * a[2][1] - a[1][1] * a[2][0]
+    det = a[0][0] * c0 + a[0][1] * c1 + a[0][2] * c2
+    return [[c0 / det, (a[0][2] * a[2][1] - a[0][1] * a[2][2]) / det,
+             (a[0][1] * a[1][2] - a[0][2] * a[1][1]) / det],
+            [c1 / det, (a[0][0] * a[2][2] - a[0][2] * a[2][0]) / det,
+             (a[0][2] * a[1][0] - a[0][0] * a[1][2]) / det],
+            [c2 / det, (a[0][1] * a[2][0] - a[0][0] * a[2][1]) / det,
+             (a[0][0] * a[1][1] - a[0][1] * a[1][0]) / det]]
+
+
+def _mat3_product(a, b):
+    return [[a[i][0] * b[0][j] + a[i][1] * b[1][j] + a[i][2] * b[2][j] for j in range(3)]
+            for i in range(3)]
+
+
+def _mat3_apply(a, v):
+    return [a[i][0] * v[0] + a[i][1] * v[1] + a[i][2] * v[2] for i in range(3)]
+
+
+_LCMS_D50 = (0.9642, 1.0, 0.8249)
+
+
+def _srgb_colorants():
+    """cmsCreate_sRGBProfile's colorant matrix (RGB -> XYZ D50), in double:
+    _cmsBuildRGB2XYZtransferMatrix on D65 and the Rec. 709 primaries, then
+    Bradford to D50 (_cmsAdaptationMatrix)."""
+    xn, yn = 0.3127, 0.3290
+    prim = ((0.64, 0.33), (0.30, 0.60), (0.15, 0.06))
+    p = [[prim[0][0], prim[1][0], prim[2][0]], [prim[0][1], prim[1][1], prim[2][1]],
+         [1 - prim[0][0] - prim[0][1], 1 - prim[1][0] - prim[1][1], 1 - prim[2][0] - prim[2][1]]]
+    coef = _mat3_apply(_mat3_inverse(p), [xn / yn, 1.0, (1.0 - xn - yn) / yn])
+    rgb = [[coef[j] * p[i][j] for j in range(3)] for i in range(3)]
+    rgb[2] = [coef[j] * (1.0 - prim[j][0] - prim[j][1]) for j in range(3)]
+    bradford = [[0.8951, 0.2664, -0.1614], [-0.7502, 1.7135, 0.0367], [0.0389, -0.0685, 1.0296]]
+    src = _mat3_apply(bradford, [(xn / yn) * 1.0, 1.0, ((1 - xn - yn) / yn) * 1.0])
+    dst = _mat3_apply(bradford, list(_LCMS_D50))
+    cone = [[dst[0] / src[0], 0.0, 0.0], [0.0, dst[1] / src[1], 0.0],
+            [0.0, 0.0, dst[2] / src[2]]]
+    adapt = _mat3_product(_mat3_inverse(bradford), _mat3_product(cone, bradford))
+    return _mat3_product(adapt, rgb)
+
+
+def _lcms_word(v: np.ndarray) -> np.ndarray:
+    """_cmsQuickSaturateWord: v + 0.5 clamped to 0..65535, floored after
+    rounding to 2^-16 (its magic-number floor)."""
+    d = v + 0.5
+    magic = 68719476736.0 * 1.5
+    fl = np.floor(((d - 32767.0) + magic) - magic) + 32767
+    return np.where(d <= 0, 0, np.where(d >= 65535.0, 65535, fl)).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _lcms_lab_grid() -> np.ndarray:
+    """LittleCMS's 33-point grid of Lab (D50) -> sRGB at 16 bits, flat
+    ([33, 33, 33, 3] in L, a, b order), as its transform samples the
+    pipeline (XFormSampler16): each node's 16-bit Lab to float, Lab -> XYZ
+    (cmsLab2XYZ in double, out as float over 1.99997), the inverse of the
+    sRGB colorants (double products summed, out as float), the sRGB curve
+    inverted (parametric type -4 in double, out as float), then to 16
+    bits."""
+    f32, f64 = np.float32, np.float64
+    node = _lcms_word(np.arange(33, dtype=f64) * 65535.0 / 32)
+    lab = [(v.astype(f64) / 65535.0).astype(f32).astype(f64)
+           for v in np.meshgrid(node, node, node, indexing="ij")]
+    y = (lab[0] * 100.0 + 16.0) / 116.0
+    x, z = y + 0.002 * (lab[1] * 255.0 - 128.0), y - 0.005 * (lab[2] * 255.0 - 128.0)
+
+    def f_1(t):   # cmsLab2XYZ's inverse of f
+        return np.where(t <= 24.0 / 116.0, (108.0 / 841.0) * (t - 16.0 / 116.0), t * t * t)
+
+    max_xyz = 1.0 + 32767.0 / 32768.0
+    xyz = [(f_1(t) * w / max_xyz).astype(f32).astype(f64) for t, w in zip((x, y, z), _LCMS_D50)]
+    inverse = [[v * max_xyz for v in row] for row in _mat3_inverse(_srgb_colorants())]
+    g, a, b, c, d = 2.4, 1.0 / 1.055, 0.055 / 1.055, 1.0 / 12.92, 0.04045
+    disc = (a * d + b) ** g
+    out = []
+    for row in inverse:
+        v = (xyz[0] * row[0] + xyz[1] * row[1] + xyz[2] * row[2]).astype(f32).astype(f64)
+        curve = np.where(v >= disc, (np.power(np.maximum(v, disc), 1.0 / g) - b) / a, v / c)
+        out.append(_lcms_word(curve.astype(f32).astype(f64) * 65535.0))
+    return np.stack(out, -1).reshape(-1)
+
+
+def _pillow_lab_rgb(s: np.ndarray) -> np.ndarray:
+    """Pillow's ``convert`` of its LAB mode (the TIFF's signed a and b) to
+    RGB, which goes through LittleCMS 2 (ImageCms, a Lab identity profile
+    to sRGB): its 33-point grid of the conversion at 16 bits, tetrahedral
+    interpolation in its fixed point (TetrahedralInterp16), 16 bits to 8."""
+    lut = _lcms_lab_grid()
+    h, w = s.shape[:2]
+    inp = np.stack([s[:, :, 0].astype(np.int64), s[:, :, 1].astype(np.int64) ^ 128,
+                    s[:, :, 2].astype(np.int64) ^ 128], -1).reshape(-1, 3) * 257
+    fixed = inp * 32 + (inp * 32 + 0x7FFF) // 0xFFFF      # _cmsToFixedDomain
+    opta = np.array([33 * 33 * 3, 33 * 3, 3])
+    base = ((fixed >> 16) * opta).sum(1)
+    r = fixed & 0xFFFF
+    step = np.where(inp == 0xFFFF, 0, opta)
+    rx, ry, rz = r[:, 0], r[:, 1], r[:, 2]
+    sx, sy, sz = step[:, 0], step[:, 1], step[:, 2]
+    at = lambda off: lut[(base + off)[:, None] + np.arange(3)]   # noqa: E731
+    c0 = at(0)
+    out = np.zeros_like(c0)
+    # TetrahedralInterp16's six tetrahedra: each its corners and the
+    # differences that weigh rx, ry and rz
+    for cond, (o1, o2, o3), order in (
+            ((rx >= ry) & (ry >= rz), (sx, sx + sy, sx + sy + sz), "xyz"),
+            ((rx >= ry) & (ry < rz) & (rz >= rx), (sx + sz, sx + sy + sz, sz), "zxy"),
+            ((rx >= ry) & (ry < rz) & (rz < rx), (sx, sx + sy + sz, sx + sz), "xzy"),
+            ((rx < ry) & (rx >= rz), (sx + sy, sy, sx + sy + sz), "yxz"),
+            ((rx < ry) & (rx < rz) & (ry >= rz), (sx + sy + sz, sy, sy + sz), "yzx"),
+            ((rx < ry) & (rx < rz) & (ry < rz), (sx + sy + sz, sy + sz, sz), "zyx")):
+        c1, c2, c3 = at(o1), at(o2), at(o3)
+        k1, k2, k3 = {"xyz": (c1 - c0, c2 - c1, c3 - c2), "zxy": (c1 - c3, c2 - c1, c3 - c0),
+                      "xzy": (c1 - c0, c2 - c3, c3 - c1), "yxz": (c1 - c2, c2 - c0, c3 - c1),
+                      "yzx": (c1 - c3, c2 - c0, c3 - c2), "zyx": (c1 - c2, c2 - c3, c3 - c0)}[order]
+        rest = k1 * rx[:, None] + k2 * ry[:, None] + k3 * rz[:, None] + 0x8001
+        out = np.where(cond[:, None], (c0 + ((rest + (rest >> 16)) >> 16)) & 0xFFFF, out)
+    return ((out * 65281 + 8388608) >> 24).astype(np.uint8).reshape(h, w, 3)
+
 
 
 def _cv_gray(rgba: np.ndarray) -> np.ndarray:
@@ -1628,24 +2001,29 @@ def _skewed_tiles(t: _Tiff, whole: np.ndarray) -> np.ndarray:
 def _cv_tiff(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
     """OpenCV's TIFF decoder: its channels and depth from the fields, the
     pixels through libtiff's RGBA image for 8-bit output (every
-    ``IMREAD_COLOR`` read), the stored 16-bit samples otherwise; the
+    ``IMREAD_COLOR`` read, CIELab and YCbCr too), the stored samples of
+    10-64 bits otherwise (signed and float as cv2's depths); the
     Orientation applied under both flags."""
     where = _where(key)
     t = _tiff(buf, key, pillow=False)
     photo, spp, bps = t.photometric, t.spp, t.bps[0]
-    if t.compression in (_TIFF_LZMA, 50000, 50001):   # cv2's libtiff has none of these codecs
+    if t.compression in (6, _TIFF_LZMA, 50000, 50001):   # cv2's libtiff has none of these codecs
         raise CorruptImage(f"{where}TIFF compression {t.compression} is not read by cv2")
-    deep = bps > 8 and flags == IMREAD_UNCHANGED and spp != 2
+    sf = t.sample_format[0]
+    # CIELab's 16 bits come through libtiff's RGBA image under either flag
+    deep = bps > 8 and flags == IMREAD_UNCHANGED and spp != 2 and photo != 8
     if spp > 4 or bps not in (1, 4, 8, 10, 12, 14, 16, 32, 64) or (bps == 4 and photo != 3) or \
-            (photo == 5 and bps != 8) or \
-            (not deep and (bps > 16 or max(t.sample_format) == 3 or bps in (10, 12, 14))):
+            (photo == 5 and bps != 8) or (photo == 3 and bps > 8) or (photo == 6 and deep) or \
+            (sf == 3 and bps not in (32, 64)) or \
+            (not deep and (bps > 16 or sf == 3 or bps in (10, 12, 14))):
         raise CorruptImage(f"{where}TIFF of {spp} samples at {bps} bits is not read by cv2 "
                            f"({'IMREAD_UNCHANGED' if deep else 'through its RGBA image'})")
     form = _tiff_scope(t)
     if form is not None:
         raise _unsupported(f"TIFF ({form})", key)
-    if not deep and (photo not in (0, 1, 2, 3, 5, 6) or
-                     photo in (2, 6) and spp - len(t.extra) < 3 or photo == 5 and spp < 4):
+    if not deep and (photo not in (0, 1, 2, 3, 5, 6, 8) or
+                     photo in (2, 6) and spp - len(t.extra) < 3 or photo == 5 and spp < 4 or
+                     photo == 8 and (spp != 3 or t.planar == 2)):
         raise CorruptImage(f"{where}TIFF of photometric {photo} with {spp} samples is not read "
                            f"by libtiff's RGBA image")
     if bps == 1:
@@ -1655,6 +2033,7 @@ def _cv_tiff(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
     else:
         channels = 1 if photo in (0, 1, 3) else spp
     tiled = 324 in t.tags
+    _tiff_predictor(t, key)
     if deep and t.planar == 2 and spp > 1:   # cv2 reads the planes as chunky samples
         raise _unsupported("planar TIFF of 16-bit samples under cv2's IMREAD_UNCHANGED", key)
     if not deep and t.planar == 2 and spp > 1 and photo == 3:   # PickSeparateCase has none
@@ -1663,12 +2042,20 @@ def _cv_tiff(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
         per = spp if t.planar != 2 else 1
         if (int(t.tags[322][0]) * int(t.tags[323][0]) * per * bps // 8) % 1024:
             raise CorruptImage(f"{where}uncompressed TIFF tiles cv2 does not read")
-    skew = not deep and tiled and photo in (0, 1, 3) and t.planar != 2 and \
+    skew = not deep and tiled and photo in (0, 1, 3) and (t.planar != 2 or spp == 1) and \
         (spp > 1 or bps == 16) and t.compression != _TIFF_JPEG
-    s = _tiff_samples(t, buf, key, whole_tiles=skew)
+    if photo == 6 and t.compression != _TIFF_JPEG and not deep:
+        s = _ycbcr_samples(t, buf, key)
+    else:
+        s = _tiff_samples(t, buf, key, whole_tiles=skew, cv2_read=True)
     if skew:
         s = _skewed_tiles(t, s)
-    if deep:
+    if deep:   # the stored words as cv2's depth for them; 10-14 bits shifted to 16
+        n = 2 if bps <= 16 else bps // 8
+        s = s.astype(f"<u{n}")
+        if bps < 16:
+            s = s << (16 - bps)
+        s = s.view(f"<{'uif'[sf - 1] if sf in (1, 2, 3) else 'u'}{n}")
         out = s[:, :, :channels] if channels > 1 else s[:, :, 0]
         if channels >= 3:
             out = np.concatenate([out[:, :, 2::-1], out[:, :, 3:]], axis=2)
@@ -1680,6 +2067,8 @@ def _cv_tiff(buf: bytes, flags: int, key: Optional[str]) -> np.ndarray:
             out = rgba[:, :, [2, 1, 0, 3]]
         else:
             out = _cv_gray(rgba)
+        if flags == IMREAD_UNCHANGED and sf == 2:   # cv2's signed 8-bit depth
+            out = out.view(np.int8)
     out, o = np.ascontiguousarray(out), t.orientation
     if not deep and tiled and o in (2, 3, 6, 7):
         # TIFFReadRGBATile mirrors each tile's visible part; cv2 turns the rest

@@ -6,10 +6,10 @@ reference's layout and policies:
 - keys image-%09d / label-%09d (1-based) + num-samples;
 - image validity check: the port's cv2 view (``data.image.imdecode``), as
   JAX's ``cv2.imdecode``: bytes cv2 cannot read are rejected (a cut-off
-  file; TIFF in LZMA or ZSTD, 2- or 4-bit gray), a valid file of a form
-  the port does not decode (JPEG 2000, AVIF, PNM, TGA, ICO, ...; CCITT or
-  float TIFF; arithmetic, lossless, 12-bit or YCCK JPEG) raises (it would
-  raise in training too).  The RLE, BITFIELDS and core-header BMPs and the
+  file; TIFF in LZMA or ZSTD, 2- or 4-bit gray, 12-, 32- or 64-bit samples),
+  a valid file of a form the port does not decode (JPEG 2000, AVIF, PNM,
+  TGA, ICO, ...; arithmetic, lossless, 12-bit or YCCK JPEG) raises (it
+  would raise in training too).  The RLE, BITFIELDS and core-header BMPs and the
   GIFs without a colour table that cv2 reads and the port's cv2 view does
   not model are judged by Pillow's view (``data.image.decode``);
 - 9:1 shuffled train/test split via a reshuffled 10-slot assignment

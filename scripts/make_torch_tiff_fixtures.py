@@ -9,26 +9,32 @@ crops in the TIFF forms, with what Pillow, cv2 and the JAX package's
   Orientation 3 (shown upright by both libraries; cv2's ``imread`` fails
   on an Orientation of 5-8 that changes the shape, so the tools cannot
   read such a scene), a big-endian planar PackBits BigTIFF (which Pillow
-  cannot read); and one under ``.tif``, which both tools pass over.
+  cannot read), a 1728-pixel G4 fax page of eight words; and one under
+  ``.tif``, which both tools pass over.
 - ``crops/``: a word crop in every form the port decodes: each
-  compression, strips and tiles, planar 2, FillOrder 2, both byte orders,
-  BigTIFF, 1-16 bits, palette, CMYK, YCbCr JPEG, associated and
-  unassociated alpha, Orientation 6, two pages; two crops named ``.jpg``
-  (what ``RawDataset`` lists).  ``labels.txt`` (``name word``).
+  compression (CCITT RLE, RLEW, G3 1-D and 2-D, G4 and ZSTD among them),
+  strips and tiles, planar 2, FillOrder 2, both byte orders, BigTIFF, 1-64
+  bits, signed and float samples, both predictors, palette, CMYK, YCbCr
+  in JPEG and without it, CIELab, associated and unassociated alpha,
+  Orientation 6, two pages; two crops named ``.jpg`` (what
+  ``RawDataset`` lists).  ``labels.txt`` (``name word``).
 - ``expected.npz``: the SHA-1 digests of Pillow's view and cv2's two
   views of every file (none for a view whose library does not read it:
   Pillow on the big-endian BigTIFF, cv2 on LZMA and 2- / 4-bit gray), and
   the JAX ``crop_by_word`` run on the tree (``make_torch_forms_fixtures``'
   ``digest`` and ``jax_crops``), and the word crops the JAX
-  ``create_lmdb`` keeps (``jax:kept``: not LZMA or 2- / 4-bit gray, which
-  cv2 does not read).
+  ``create_lmdb`` keeps (``jax:kept``: those cv2 reads in gray, so not
+  LZMA, ZSTD, 2- / 4-bit gray or the samples cv2 reads only under
+  ``IMREAD_UNCHANGED``).
 
     python3 scripts/make_torch_tiff_fixtures.py
 
 Neither library writes tiles, planar 2, FillOrder 2 or old-style LZW, so
 ``write_tiff`` here does (the TIFF 6.0 layouts: strips or tiles, PackBits,
 LZW in both bit orders, Deflate, LZMA and JPEG with its tables in tag 347,
-the horizontal predictor, classic or BigTIFF in either byte order).  Needs
+the horizontal predictor, classic or BigTIFF in either byte order; and
+CCITT, ZSTD, subsampled YCbCr, signed and float samples, the
+floating-point predictor).  Needs
 Pillow, cv2 and the JAX package's tools, so it runs where the tests run.
 ``tests/test_torch_tiff_fixtures.py`` holds the committed files to what
 this script writes; ``chip_smoke.py`` holds the port's codec,
@@ -66,6 +72,11 @@ SEED = 2222
 # compression codes
 NONE, LZW, JPEG, DEFLATE, PACKBITS, ADOBE_DEFLATE, LZMA, ZSTD = 1, 5, 7, 32946, 32773, 8, 34925, \
     50000
+CCITT_RLE, CCITT_G3, CCITT_G4, CCITT_RLEW = 2, 3, 4, 32771
+OLD_JPEG, THUNDERSCAN = 6, 32809   # forms the port refuses, for its tests
+# Pillow's names of libtiff's fax encoders
+_PIL_FAX = {CCITT_RLE: "tiff_ccitt", CCITT_G3: "group3", CCITT_G4: "group4",
+            CCITT_RLEW: "tiff_raw_16"}
 # field types: BYTE, ASCII, SHORT, LONG, RATIONAL, SBYTE, UNDEFINED, SSHORT, SLONG,
 # FLOAT, DOUBLE, IFD, LONG8
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 11: "f",
@@ -155,7 +166,27 @@ def lzw(data: bytes, compat: bool = False) -> bytes:
     return bytes(out)
 
 
-def compress(data: bytes, compression: int, compat: bool = False) -> bytes:
+def fax(bits: np.ndarray, compression: int, t4options: int = 0) -> bytes:
+    """A CCITT stream (RLE, RLEW, G3 under ``t4options``, G4) of a bilevel
+    chunk [h, w] (1: the bits of a black run), libtiff's encoder through
+    Pillow's writer, its one strip taken out."""
+    im = PIL.Image.fromarray(np.asarray(bits).astype(bool))
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", compression=_PIL_FAX[compression], strip_size=1 << 30,
+            tiffinfo={292: t4options} if compression == CCITT_G3 else {})
+    back = PIL.Image.open(buf)
+    (off,), (n,) = back.tag_v2[273], back.tag_v2[279]
+    return buf.getvalue()[off:off + n]
+
+
+def zstd(data: bytes, level: int = 3, checksum: bool = False) -> bytes:
+    """A ZSTD frame of ``data`` (the ``zstandard`` package; the tests' only
+    use of it)."""
+    import zstandard
+    return zstandard.ZstdCompressor(level=level, write_checksum=checksum).compress(data)
+
+
+def compress(data: bytes, compression: int, compat: bool = False, zstd_level: int = 3) -> bytes:
     if compression == NONE:
         return data
     if compression == PACKBITS:
@@ -166,6 +197,8 @@ def compress(data: bytes, compression: int, compat: bool = False) -> bytes:
         return zlib.compress(data, 6)
     if compression == LZMA:
         return lzma.compress(data, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
+    if compression == ZSTD:
+        return zstd(data, zstd_level)
     raise ValueError(f"no writer for compression {compression}")
 
 
@@ -174,25 +207,67 @@ _REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 # ------------------------------------------------------------------ layout
 def pack_rows(s: np.ndarray, bps: int, order: str) -> bytes:
-    """Rows of samples [h, w, c] at ``bps`` bits, each row padded to a
-    byte; 16-bit samples in the file's byte order."""
+    """Rows of samples [h, w, c] (their bit patterns: signed and float
+    samples as ``as_bits`` gives them) at ``bps`` bits, each row padded to
+    a byte; samples of whole bytes in the file's byte order, others MSB
+    first."""
     h, w, c = s.shape
-    if bps == 16:
-        return s.astype(order + "u2").tobytes()
     if bps == 8:
         return s.astype(np.uint8).tobytes()
-    flat = s.reshape(h, w * c).astype(np.uint8)
-    bits = np.unpackbits(flat[:, :, None], axis=2)[:, :, 8 - bps:].reshape(h, -1)
+    if bps % 8 == 0:
+        n = bps // 8
+        le = s.astype(np.uint64).astype("<u8").view(np.uint8).reshape(h, w, c, 8)[..., :n]
+        return np.ascontiguousarray(le if order == "<" else le[..., ::-1]).tobytes()
+    v = s.reshape(h, w * c).astype(np.uint64)
+    shifts = np.arange(bps - 1, -1, -1, dtype=np.uint64)
+    bits = ((v[:, :, None] >> shifts) & np.uint64(1)).astype(np.uint8).reshape(h, -1)
     return np.packbits(bits, axis=1).tobytes()
+
+
+def as_bits(values: np.ndarray, bps: int, sample_format: int) -> np.ndarray:
+    """The stored bit patterns (uint64) of signed (``sample_format`` 2) or
+    IEEE float (3) values at ``bps`` bits; unsigned values as they are."""
+    v = np.asarray(values)
+    if sample_format == 3:
+        with np.errstate(over="ignore"):   # out of range: +-inf, as stored
+            f = v.astype({16: "<f2", 32: "<f4", 64: "<f8"}[bps])
+        return f.view({16: "<u2", 32: "<u4", 64: "<u8"}[bps]).astype(np.uint64)
+    mask = (1 << bps) - 1
+    return np.array([int(x) & mask for x in v.reshape(-1)], np.uint64).reshape(v.shape)
+
+
+def ycbcr_blocks(s: np.ndarray, hs: int, vs: int) -> bytes:
+    """8-bit YCbCr samples [h, w, 3] of a chunk in TIFF's subsampled
+    layout: for each block of ``hs`` x ``vs`` pixels (the chunk padded by
+    its edge pixels), its Y samples row by row, then the Cb and Cr of its
+    top-left pixel."""
+    h, w, _ = s.shape
+    bh, bw = -(-h // vs), -(-w // hs)
+    pad = np.pad(s, ((0, bh * vs - h), (0, bw * hs - w), (0, 0)), mode="edge").astype(np.uint8)
+    y = pad[:, :, 0].reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(bh, bw, vs * hs)
+    cbcr = pad[::vs, ::hs, 1:]
+    return np.concatenate([y, cbcr], axis=2).tobytes()
 
 
 def predict(s: np.ndarray, bps: int) -> np.ndarray:
     """The horizontal predictor on samples [h, w, c]: each sample less the
     same sample of the pixel to its left, modulo 2**bps."""
-    s = s.astype(np.int64)
+    s = s.astype(np.uint64)
     d = s.copy()
     d[:, 1:] -= s[:, :-1]
-    return d & ((1 << bps) - 1)
+    return d & np.uint64((1 << bps) - 1) if bps < 64 else d
+
+
+def float_predict(s: np.ndarray, bps: int) -> bytes:
+    """The floating-point predictor (predictor 3) on samples [h, w, c]:
+    each row's bytes gathered into planes, the most significant first,
+    then each byte less the byte ``c`` before it."""
+    h, w, c = s.shape
+    n = bps // 8
+    be = s.astype(np.uint64).astype(">u8").view(np.uint8).reshape(h, w * c, 8)[:, :, 8 - n:]
+    planes = np.ascontiguousarray(be.transpose(0, 2, 1)).reshape(h, -1).astype(np.int64)
+    planes[:, c:] -= planes[:, :-c].copy()
+    return (planes & 255).astype(np.uint8).tobytes()
 
 
 def jpeg_stream(s: np.ndarray, quality: int = 80, subsampling: int = 0) -> bytes:
@@ -235,7 +310,9 @@ def write_tiff(samples: np.ndarray, photometric: int, bps: int = 8, *,
                colormap: Optional[np.ndarray] = None, bigtiff: bool = False,
                order: str = "<", compat: bool = False, quality: int = 80,
                subsampling: Tuple[int, int] = (1, 1), tags: Optional[dict] = None,
-               reverse_compressed: Optional[bool] = None, pages: int = 1) -> bytes:
+               reverse_compressed: Optional[bool] = None, pages: int = 1,
+               sample_format: int = 1, t4options: Optional[int] = None,
+               zstd_level: int = 3) -> bytes:
     """A TIFF of ``samples`` [h, w, c] (values as stored: indices, 16-bit
     values) in strips of ``rows`` rows (default all) or ``tile = (tw, th)``
     tiles (edge tiles padded with zeros), chunky or planar, with FillOrder
@@ -243,7 +320,11 @@ def write_tiff(samples: np.ndarray, photometric: int, bps: int = 8, *,
     overrides which chunks are reversed).  JPEG chunks are Pillow's JPEG of
     the chunk with its DQT / DHT moved into tag 347 (``subsampling`` 2x2
     for YCbCr 4:2:0).  ``tags`` adds or replaces fields (tag: (type,
-    values)), or drops them (tag: None); ``pages`` > 1 chains copies of the IFD."""
+    values)), or drops them (tag: None); ``pages`` > 1 chains copies of the IFD.
+    Samples of ``sample_format`` 2 or 3 are given as their bit patterns
+    (``as_bits``); CCITT chunks are libtiff's encoding of each chunk
+    (``fax``; G3 under ``t4options``, written to tag 292 unless None);
+    ZSTD chunks are frames at ``zstd_level``."""
     s = np.asarray(samples)
     if s.ndim == 2:
         s = s[:, :, None]
@@ -271,10 +352,20 @@ def write_tiff(samples: np.ndarray, photometric: int, bps: int = 8, *,
             if compression == JPEG:
                 jpeg_tables, data = split_jpeg_tables(jpeg_stream(
                     part, quality, {(2, 2): 2, (2, 1): 1}.get(tuple(subsampling), 0)))
+            elif compression == OLD_JPEG:   # the whole JPEG, JPEGInterchangeFormat at it
+                data = jpeg_stream(part, quality)
+            elif compression == THUNDERSCAN:   # every 4-bit sample a raw code (0b11)
+                data = bytes(0xC0 | int(v) for v in part.reshape(-1))
+            elif compression in _PIL_FAX:
+                data = fax(part[:, :, 0], compression, t4options or 0)
+            elif photometric == 6 and tuple(subsampling) != (1, 1) and planar == 1:
+                data = compress(ycbcr_blocks(part, *subsampling), compression, compat, zstd_level)
+            elif predictor == 3:
+                data = compress(float_predict(part, bps), compression, compat, zstd_level)
             else:
                 if predictor == 2:
                     part = predict(part, bps)
-                data = compress(pack_rows(part, bps, e), compression, compat)
+                data = compress(pack_rows(part, bps, e), compression, compat, zstd_level)
             reverse = fillorder == 2 if reverse_compressed is None else reverse_compressed
             if reverse:
                 data = data.translate(_REVERSED)
@@ -288,12 +379,16 @@ def write_tiff(samples: np.ndarray, photometric: int, bps: int = 8, *,
         fields[317] = (3, [predictor])
     if extra:
         fields[338] = (3, list(extra))
+    if sample_format != 1:
+        fields[339] = (3, [sample_format] * c)
+    if compression == CCITT_G3 and t4options is not None:
+        fields[292] = (4, [t4options])
     if colormap is not None:
         fields[320] = (3, [int(v) for v in np.asarray(colormap).T.reshape(-1)])
     if compression == JPEG:
         fields[347] = (7, list(jpeg_tables))
-        if photometric == 6:
-            fields[530] = (3, list(subsampling))
+    if photometric == 6:
+        fields[530] = (3, list(subsampling))
     long_type = 16 if bigtiff else 4
     if tile is not None:
         fields[322] = (3, [tile[0]])
@@ -313,6 +408,8 @@ def write_tiff(samples: np.ndarray, photometric: int, bps: int = 8, *,
         offsets.append(data_at)
         data_at += len(d) + (len(d) & 1)
     fields[offsets_tag] = (long_type, offsets)
+    if compression == OLD_JPEG:
+        fields[513], fields[514] = (4, [offsets[0]]), (4, [len(chunks[0])])
     body = b"".join(d + b"\0" * (len(d) & 1) for d in chunks)
     ifds, at = [], data_at
     for page in range(pages):
@@ -394,7 +491,27 @@ def scenes(rng) -> Dict[str, bytes]:
                                             bigtiff=True, order=">", rows=32), gt)
     img, gt = forms._scene(rng, 80, 110)      # a .tif name: both tools pass it over
     put("t5_skipped.tif", write_tiff(img, 2, compression=LZW), gt)
+    black, gt = fax_page(np.random.default_rng(SEED + 1))   # the other files as they were
+    put("t6_g4_page.png", write_tiff(black, 0, 1, compression=CCITT_G4), gt)
     return files
+
+
+def fax_page(rng, h: int = 1100, w: int = 1728) -> Tuple[np.ndarray, str]:
+    """A bilevel page of a fax's width [h, w, 1] (1: black) with eight
+    words, their rendered strokes thresholded, and its gt text."""
+    page = np.zeros((h, w), np.uint8)
+    lines = []
+    for k in range(8):
+        word = forms._word(rng, 3, 6)
+        wh = int(rng.integers(32, 56))
+        ww = wh * len(word) + int(rng.integers(0, 20))
+        y = 40 + k * (h - 100) // 8
+        x = int(rng.integers(60, w - ww - 60))
+        gray = forms._render(rng, word, wh, ww).mean(axis=2)
+        page[y:y + wh, x:x + ww] = gray < 100
+        lines.append(f"{x},{y},{x + ww},{y},{x + ww},{y + wh},{x},{y + wh},"
+                     f"{forms.LANGUAGE},{word}")
+    return page[:, :, None], "\n".join(lines) + "\n"
 
 
 def crops(rng) -> Tuple[Dict[str, bytes], str]:
@@ -487,7 +604,86 @@ def crops(rng) -> Tuple[Dict[str, bytes], str]:
     word, rgb = next_word()
     put("d25_jpeg_named.jpg", write_tiff(rgb, 6, compression=JPEG, subsampling=(2, 2),
                                          rows=16), word)
+    # the forms libtiff's fax codecs, other sample formats and its own
+    # colour conversions bring
+    word, rgb = next_word()
+    put("d26_ccitt_rle.tif", pil_tiff(_bilevel(rgb), compression="tiff_ccitt"), word)
+    word, rgb = next_word()
+    put("d27_ccitt_rlew.tif", write_tiff(_black(rgb), 0, 1, compression=CCITT_RLEW, rows=4),
+        word)
+    word, rgb = next_word()
+    put("d28_g3_1d.tif", pil_tiff(_bilevel(rgb), compression="group3"), word)
+    word, rgb = next_word()
+    put("d29_g3_2d_fill_order2.tif", write_tiff(_black(rgb), 0, 1, compression=CCITT_G3,
+                                                t4options=5, fillorder=2, rows=8), word)
+    word, rgb = next_word()
+    put("d30_g4_tiles_min_is_white.tif", write_tiff(_black(rgb), 0, 1, compression=CCITT_G4,
+                                                    tile=(32, 16)), word)
+    word, rgb = next_word()
+    put("d31_g4.tif", pil_tiff(_bilevel(rgb), compression="group4"), word)
+    word, rgb = next_word()
+    gray = rgb.mean(axis=2, keepdims=True)
+    put("d32_int16_signed.tif", write_tiff(as_bits(gray.astype(np.int64) * 3 - 200, 16, 2), 1,
+                                           16, sample_format=2, compression=LZW), word)
+    word, rgb = next_word()
+    gray = rgb.mean(axis=2, keepdims=True)
+    put("d33_int32_predictor.tif", write_tiff(as_bits(gray.astype(np.int64) - 20, 32, 2), 1, 32,
+                                              sample_format=2, compression=ADOBE_DEFLATE,
+                                              predictor=2, rows=8), word)
+    word, rgb = next_word()
+    gray = rgb.mean(axis=2, keepdims=True) * 1.25 - 30   # past 0 and 255 at both ends
+    put("d34_float32_predictor3.tif", write_tiff(as_bits(gray, 32, 3), 1, 32, sample_format=3,
+                                                 compression=ADOBE_DEFLATE, predictor=3), word)
+    word, rgb = next_word()
+    put("d35_float64_big_endian.tif", write_tiff(as_bits(rgb.mean(axis=2, keepdims=True), 64,
+                                                         3), 1, 64, sample_format=3,
+                                                 compression=LZW, order=">", rows=9), word)
+    word, rgb = next_word()
+    put("d36_gray12.tif", write_tiff(rgb[:, :, :1].astype(np.int64) * 16 + 7, 1, 12,
+                                     compression=PACKBITS), word)
+    word, rgb = next_word()
+    put("d37_ycbcr422_lzw.tif", write_tiff(_ycbcr(rgb), 6, subsampling=(2, 1),
+                                           compression=LZW), word)
+    word, rgb = next_word()        # Pillow's raw reader fails on it
+    put("d38_ycbcr420_none.tif", write_tiff(_ycbcr(rgb), 6, subsampling=(2, 2), rows=8), word)
+    word, rgb = next_word()
+    put("d39_ycbcr_tiles.tif", write_tiff(_ycbcr(rgb), 6, subsampling=(4, 4), tile=(32, 16),
+                                          compression=ADOBE_DEFLATE), word)
+    word, rgb = next_word()        # (Pillow's LAB writer stamps its ICC profile with the time)
+    put("d40_cielab.tif", write_tiff(_lab(rgb), 8, compression=LZW, rows=10), word)
+    word, rgb = next_word()
+    put("d41_cielab16_tiles.tif", write_tiff(_lab(rgb) * 257, 8, 16, tile=(32, 16),
+                                             compression=LZW, order=">"), word)
+    word, rgb = next_word()
+    put("d42_zstd.tif", pil_tiff(PIL.Image.fromarray(rgb), compression="zstd"), word)
+    word, rgb = next_word()
+    put("d43_zstd_float_predictor3.tif", write_tiff(
+        as_bits(rgb.mean(axis=2, keepdims=True), 32, 3), 1, 32, sample_format=3,
+        compression=ZSTD, predictor=3, zstd_level=19), word)
     return files, "\n".join(labels) + "\n"
+
+
+def _black(rgb: np.ndarray) -> np.ndarray:
+    """A word crop's dark strokes [h, w, 1] (1: black)."""
+    return (rgb.mean(axis=2, keepdims=True) < 100).astype(np.uint8)
+
+
+def _bilevel(rgb: np.ndarray) -> PIL.Image.Image:
+    """A word crop as Pillow's mode "1" (black strokes on white)."""
+    return PIL.Image.fromarray(_black(rgb)[:, :, 0] == 0)
+
+
+def _lab(rgb: np.ndarray) -> np.ndarray:
+    """Pillow's Lab samples of an RGB crop as CIELab TIFF stores them (a
+    and b signed)."""
+    lab = np.asarray(PIL.Image.fromarray(rgb).convert("LAB")).astype(np.int64)
+    lab[:, :, 1:] ^= 128
+    return lab
+
+
+def _ycbcr(rgb: np.ndarray) -> np.ndarray:
+    """Pillow's YCbCr samples of an RGB crop."""
+    return np.asarray(PIL.Image.fromarray(rgb).convert("YCbCr"))
 
 
 def expected_views(files: Dict[str, bytes]) -> Dict[str, str]:

@@ -246,10 +246,23 @@ def _set_interlace(png: bytes) -> bytes:
     return png[:16] + bytes(ihdr) + crc + png[33:]
 
 
+def _thunderscan_tiff(h=6, w=10):
+    """A 4-bit gray ThunderScan TIFF (every sample a raw code), which Pillow
+    reads and the port names and refuses."""
+    data = bytes(0xC0 | v % 16 for v in range(h * w))
+    tags = [(256, 3, w), (257, 3, h), (258, 3, 4), (259, 3, 32809), (262, 3, 1), (273, 4, 8),
+            (277, 3, 1), (278, 3, h), (279, 4, len(data))]
+    pad = b"\0" * (len(data) % 2)
+    return (b"II" + struct.pack("<HI", 42, 8 + len(data) + len(pad)) + data + pad +
+            struct.pack("<H", len(tags)) +
+            b"".join(struct.pack("<HHII" if ty == 4 else "<HHIHH", tag, ty, 1, *(
+                (v,) if ty == 4 else (v, 0))) for tag, ty, v in tags) + b"\0" * 4)
+
+
 def test_unsupported_forms_raise_naming_the_form():
     """The forms the codec now decodes give Pillow's arrays (the numpy
     reference, which models the first forms only, still raises on them);
-    ZSTD-compressed TIFF and a JPEG form no library here writes raise in
+    ThunderScan TIFF and a JPEG form no library here writes raise in
     both."""
     rng = np.random.default_rng(10)
     rgb = PIL.Image.fromarray(_crop(rng, 30, 60, 3))
@@ -263,6 +276,7 @@ def test_unsupported_forms_raise_naming_the_form():
         "BMP": _encode(rgb, "BMP"),
         "WebP": _encode(rgb, "WEBP"),
         "TIFF": _encode(rgb, "TIFF", compression="tiff_lzw"),
+        "ZSTD TIFF": _encode(rgb, "TIFF", compression="zstd"),
     }
     for form, data in decoded.items():
         np.testing.assert_array_equal(image.decode(data), _pil_rgba(data), err_msg=form)
@@ -270,12 +284,12 @@ def test_unsupported_forms_raise_naming_the_form():
             image_ref.decode(data, key="root/image-000000007")
     jpeg = bytearray(_encode(rgb, "JPEG"))
     jpeg[jpeg.index(b"\xff\xc0") + 1] = 0xC9     # SOF9: arithmetic coding
-    raising = {r"TIFF \(ZSTD\)": _encode(rgb, "TIFF", compression="zstd"),
+    raising = {r"TIFF \(ThunderScan\)": _thunderscan_tiff(),
                "arithmetic-coded JPEG": bytes(jpeg)}
     for form, data in raising.items():
         for decoder in (image.decode, image_ref.decode):
             with pytest.raises(image.UnsupportedImage, match=form):
                 decoder(data, key="root/image-000000007")
     with pytest.raises(image.UnsupportedImage, match="root/image-000000007"):
-        image.decode(raising[r"TIFF \(ZSTD\)"], key="root/image-000000007")
+        image.decode(raising[r"TIFF \(ThunderScan\)"], key="root/image-000000007")
     assert not issubclass(image.UnsupportedImage, OSError)

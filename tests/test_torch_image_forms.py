@@ -11,7 +11,6 @@ every colour type, GIF and BMP; the forms still not decoded raise
 
 import importlib.util
 import io
-import re
 import struct
 from pathlib import Path
 
@@ -440,13 +439,14 @@ def test_forms_not_decoded_raise_naming_the_form(form):
             np.testing.assert_array_equal(got, ref)
         return
     calls = (image.decode, image.imdecode)
-    if form == "TIFF (ZSTD)":
+    if form == "TIFF (ZSTD)":   # decoded now in Pillow's view; cv2's libtiff has no ZSTD codec
         data = _pil_save(PIL.Image.fromarray(_scene(16, 16)), "TIFF", compression="zstd")
-        _pil_view(data)       # Pillow reads it; cv2's libtiff has no ZSTD codec
+        np.testing.assert_array_equal(image.decode(data, key="root/image-000000007"),
+                                      _pil_view(data))
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
         with pytest.raises(image.CorruptImage):
             image.imdecode(data)
-        form, calls = re.escape(form), (image.decode,)
+        return
     else:
         data = _unencodable()[form]
     for call in calls:

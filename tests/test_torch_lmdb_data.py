@@ -14,6 +14,7 @@
 import io
 import os
 import random
+import struct
 
 import numpy as np
 import PIL.Image
@@ -180,12 +181,25 @@ def _pil_bytes(fmt, **kw):
     return buf.getvalue()
 
 
+def _thunderscan_tiff(h=6, w=10):
+    """A 4-bit gray ThunderScan TIFF (every sample a raw code), which Pillow
+    reads and the port names and refuses."""
+    data = bytes(0xC0 | v % 16 for v in range(h * w))
+    tags = [(256, 3, w), (257, 3, h), (258, 3, 4), (259, 3, 32809), (262, 3, 1), (273, 4, 8),
+            (277, 3, 1), (278, 3, h), (279, 4, len(data))]
+    pad = b"\0" * (len(data) % 2)
+    return (b"II" + struct.pack("<HI", 42, 8 + len(data) + len(pad)) + data + pad +
+            struct.pack("<H", len(tags)) +
+            b"".join(struct.pack("<HHII" if ty == 4 else "<HHIHH", tag, ty, 1, *(
+                (v,) if ty == 4 else (v, 0))) for tag, ty, v in tags) + b"\0" * 4)
+
+
 def test_unsupported_crop_raises_where_jax_decodes(tmp_path):
     """Crops in every form the port decodes beyond baseline JPEG and 8-bit
     PNG (progressive, 4:1:1, 4:4:0, CMYK, EXIF JPEG; 16-bit and interlaced
     PNG; GIF; BMP) give JAX's ``LmdbDataset`` items and ``ResizeNormalize``
-    tensors bitwise, and so do WebP and TIFF; a ZSTD-compressed TIFF,
-    which JAX decodes, still raises."""
+    tensors bitwise, and so do WebP, TIFF and ZSTD TIFF; a ThunderScan
+    TIFF, which JAX decodes, still raises."""
     opt, jopt = _opts()
     _odd_lmdb(str(tmp_path / "odd"), jpeg_progressive=True)
     names = sorted(n for n in os.listdir(os.path.join(FORMS, "crops")) if n != "labels.txt")
@@ -206,22 +220,23 @@ def test_unsupported_crop_raises_where_jax_decodes(tmp_path):
             assert _normed(ResizeNormalize((IMG_W, IMG_H))(g)[None]).tobytes() == \
                 to_jax(r)[None].astype(np.float32).tobytes()
     assert len(dataset.LmdbDataset(str(tmp_path / "forms"), opt)) == len(names) == 19
-    for form in ("TIFF", "WebP", "ZSTD"):
+    for form in ("TIFF", "WebP", "ZSTD", "ThunderScan"):
         w = lmdb_store.LmdbWriter(str(tmp_path / form))
         w.put(b"num-samples", b"1")
-        w.put(b"image-000000001", _pil_bytes("TIFF", compression="zstd") if form == "ZSTD"
-              else _pil_bytes(form.upper()))
+        w.put(b"image-000000001", {"ZSTD": lambda: _pil_bytes("TIFF", compression="zstd"),
+                                   "ThunderScan": _thunderscan_tiff}.get(
+                                       form, lambda: _pil_bytes(form.upper()))())
         w.put(b"label-000000001", b"ab")
         w.commit()
         ref = jax_dataset.LmdbDataset(str(tmp_path / form), jopt)[0]
         assert ref[1] == "ab"
-        if form != "ZSTD":
+        if form != "ThunderScan":
             got = dataset.LmdbDataset(str(tmp_path / form), opt)[0]
             assert got[1] == "ab"
             assert _normed(ResizeNormalize((IMG_W, IMG_H))(got[0])[None]).tobytes() == \
                 to_jax(ref[0])[None].astype(np.float32).tobytes()
             continue
-        with pytest.raises(image.UnsupportedImage, match=r"TIFF \(ZSTD\)"):
+        with pytest.raises(image.UnsupportedImage, match=r"TIFF \(ThunderScan\)"):
             dataset.LmdbDataset(str(tmp_path / form), opt)[0]
 
 

@@ -17,9 +17,12 @@ bit for bit, on files written here from seeded numpy:
   ``IMREAD_UNCHANGED``, the Orientation under both flags, the uncompressed
   tiles it cannot read and the tiles libtiff's gray and palette put
   routines read askew;
-- the forms not decoded raise ``UnsupportedImage`` naming them (ZSTD,
-  CCITT, SampleFormat 2 / 3, 12-bit, CIELab, YCbCr without JPEG, ...),
-  cut-off files ``CorruptImage`` and JAX's dummy crop;
+- the forms not decoded raise ``UnsupportedImage`` naming them (old-style
+  JPEG, ThunderScan), cut-off files ``CorruptImage`` and JAX's dummy
+  crop; the files of the forms once refused (CCITT, ZSTD, signed and
+  float samples, 12 bits, CIELab, YCbCr without JPEG) decode as the
+  libraries do (``test_torch_tiff_ccitt.py``, ``test_torch_tiff_samples.py``
+  and ``test_torch_zstd.py`` hold those forms in full);
 - ``LmdbDataset`` over TIFF crops gives JAX's items and ``ResizeNormalize``
   tensors bytewise.
 
@@ -422,6 +425,14 @@ def _pil_tiff(mode, **kw):
 
 
 NOT_DECODED = {
+    "old-style JPEG": lambda: tx.write_tiff(
+        np.random.default_rng(12).integers(0, 256, (13, 21, 3)), 6, compression=tx.OLD_JPEG),
+    "ThunderScan": lambda: tx.write_tiff(np.arange(35).reshape(5, 7) % 16, 1, 4,
+                                         compression=tx.THUNDERSCAN),
+}
+# the forms this list held before the port decoded them, each now held to
+# both libraries on the same file
+DECODED_NOW = {
     "ZSTD": lambda: _pil_tiff("RGB", compression="zstd"),
     "CCITT G4": lambda: _pil_tiff("1", compression="group4"),
     "CCITT G3": lambda: _pil_tiff("1", compression="group3"),
@@ -435,11 +446,22 @@ NOT_DECODED = {
 }
 
 
+@pytest.mark.parametrize("form", sorted(DECODED_NOW))
+def test_forms_decoded_now(form):
+    """The forms the port once refused, on the same files: both views
+    give the libraries' arrays, or raise where they fail."""
+    data = DECODED_NOW[form]()
+    assert image.image_format(data) == "tiff"
+    # cv2 reads 32-bit and 12-bit samples only under IMREAD_UNCHANGED, no ZSTD
+    assert _check(data) == {"ZSTD": 1, "SampleFormat 2": 2, "SampleFormat 3": 2,
+                            "12-bit samples": 2}.get(form, 3)
+
+
 @pytest.mark.parametrize("form", sorted(NOT_DECODED))
 def test_forms_not_decoded_raise_naming_them(form):
     """Where a library reads the form, its view raises UnsupportedImage
-    naming it; where it does not (cv2 on ZSTD, 32-bit or 12-bit through its
-    RGBA image), CorruptImage, as cv2 gives None."""
+    naming it; where it does not (cv2 on old-style JPEG and ThunderScan),
+    CorruptImage, as cv2 gives None."""
     data = NOT_DECODED[form]()
     assert image.image_format(data) == f"TIFF ({form})"
     assert isinstance(_pillow(data), np.ndarray)
@@ -459,7 +481,12 @@ def test_image_format_names_tiff():
     assert image.image_format(_write(rng, FORMS["rgb8"], 3, 4)) == "tiff"
     assert image.image_format(_write(rng, FORMS["rgb8"], 3, 4, bigtiff=True)) == "tiff"
     assert image.image_format(_write(rng, FORMS["rgb8"], 3, 4, bigtiff=True,
-                                     tags={259: (3, [50000])})) == "BigTIFF (ZSTD)"
+                                     tags={259: (3, [32809])})) == "BigTIFF (ThunderScan)"
+    for code, name in ((6, "old-style JPEG"), (34676, "SGILog"), (50001, "WebP")):
+        assert image.image_format(_write(rng, FORMS["rgb8"], 3, 4, tags={259: (3, [code])})) == \
+            f"TIFF ({name})"
+    assert image.image_format(_write(rng, FORMS["rgb8"], 3, 4, tags={262: (3, [32845])})) == \
+        "TIFF (LogLuv)"
     assert image.image_format(b"II*\x00\xff\xff\xff\x7f") == "tiff"   # decode raises
 
 
